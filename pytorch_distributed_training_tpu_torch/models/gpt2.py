@@ -1,0 +1,206 @@
+"""GPT-2: the counterpart of the JAX package's ``models/gpt2.py``.
+
+Decoder-only transformer (Radford et al. 2019): learned position
+embeddings, pre-LN blocks, tanh-approximated GELU MLP, LM head tied to the
+token embedding.  The parameter layout follows flax's so that
+``models/convert.py`` maps a JAX param tree onto this module one to one;
+LayerNorm uses flax's epsilon, 1e-6.
+
+Dense blocks only: the MoE variant (``num_experts > 0``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils.device import resolve_device
+from .layers import SelfAttention, new_kv_cache
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    max_seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_dim: int = 768
+    mlp_ratio: int = 4
+    dropout_rate: float = 0.0
+    tie_embeddings: bool = True
+    num_experts: int = 0
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.hidden_dim
+        self.ln1 = nn.LayerNorm(d, eps=LN_EPS, **kw)
+        self.attn = SelfAttention(d, cfg.num_heads, causal=True, **kw)
+        self.ln2 = nn.LayerNorm(d, eps=LN_EPS, **kw)
+        self.mlp_up = nn.Linear(d, d * cfg.mlp_ratio, **kw)
+        self.mlp_down = nn.Linear(d * cfg.mlp_ratio, d, **kw)
+        self.dropout = nn.Dropout(cfg.dropout_rate)
+
+    def forward(self, x, *, cache=None, positions=None, attn_mask=None):
+        y = self.attn(
+            self.ln1(x), cache=cache, positions=positions, attn_mask=attn_mask
+        )
+        x = x + self.dropout(y)
+        y = self.mlp_down(F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh"))
+        return x + self.dropout(y)
+
+
+class GPT2(nn.Module):
+    """Decoder-only LM: (B, L) int tokens → (B, L, vocab) f32 logits.
+
+    Without a cache the forward is the full causal sequence.  With
+    ``cache`` (a list of per-layer (k, v) pairs from ``new_cache``) and
+    ``positions`` (B,) int32, row b's tokens sit at positions
+    ``positions[b]..`` and their K/V are written into its cache row (slot
+    mode, see ``models/layers.py``).  Rows at or past ``max_seq_len`` are
+    idle: their position-embedding gather is clipped and their output is
+    garbage the caller discards.
+    """
+
+    def __init__(self, cfg: GPT2Config, *, device=None, dtype=None):
+        super().__init__()
+        if cfg.num_experts > 0:
+            raise NotImplementedError(
+                "GPT-2 MoE (num_experts > 0) is not yet ported"
+            )
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_dim, **kw))
+        self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.hidden_dim, **kw))
+        self.dropout = nn.Dropout(cfg.dropout_rate)
+        self.blocks = nn.ModuleList(
+            Block(cfg, **kw) for _ in range(cfg.num_layers)
+        )
+        self.ln_final = nn.LayerNorm(cfg.hidden_dim, eps=LN_EPS, **kw)
+        self.lm_head = (
+            None if cfg.tie_embeddings
+            else nn.Linear(cfg.hidden_dim, cfg.vocab_size, bias=False, **kw)
+        )
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Fresh weights drawn from ``generator``, with the JAX package's
+        init rules: wte ~ N(0, 0.02), wpe ~ N(0, 0.01), dense kernels
+        lecun-normal (truncated at 2 sigma), biases zero, LayerNorm 1/0.
+        The draws differ from ``jax.random``'s; parity tests convert the
+        JAX weights instead (``models/convert.py``)."""
+        self.wte.normal_(0.0, 0.02, generator=generator)
+        self.wpe.normal_(0.0, 0.01, generator=generator)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                fan_in = m.weight.shape[1]
+                # flax lecun_normal: truncated normal on [-2, 2] rescaled to
+                # unit variance (0.87962566 is that truncation's stddev).
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(
+                    m.weight, 0.0, std, -2 * std, 2 * std, generator=generator
+                )
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+    def new_cache(self, batch: int, length: int):
+        """Zeroed per-layer KV caches for ``batch`` rows of ``length``
+        positions, in this model's dtype and on its device."""
+        if not 1 <= length <= self.cfg.max_seq_len:
+            raise ValueError(
+                f"cache length {length} outside 1..{self.cfg.max_seq_len} "
+                "(the model's position table bounds the cache)"
+            )
+        cfg = self.cfg
+        return [
+            new_kv_cache(
+                batch, cfg.num_heads, length, cfg.hidden_dim // cfg.num_heads,
+                dtype=self.wte.dtype, device=self.wte.device,
+            )
+            for _ in range(cfg.num_layers)
+        ]
+
+    def forward(self, tokens, *, cache=None, positions=None, attn_mask=None,
+                return_hidden: bool = False):
+        """``return_hidden=True`` skips the LM head and returns the final
+        hidden states (B, L, D) in the model dtype (``head`` applies it)."""
+        cfg = self.cfg
+        b, l = tokens.shape
+        if cache is None:
+            if positions is not None:
+                raise ValueError("positions need a KV cache")
+            pos = self.wpe[:l][None]
+        else:
+            if positions is None:
+                raise ValueError("a KV cache needs positions")
+            cols = positions[:, None].long() + torch.arange(l, device=tokens.device)
+            pos = self.wpe[cols.clamp(0, cfg.max_seq_len - 1)]
+        x = self.dropout(self.wte[tokens] + pos)
+        for i, block in enumerate(self.blocks):
+            x = block(
+                x, cache=None if cache is None else cache[i],
+                positions=positions, attn_mask=attn_mask,
+            )
+        x = self.ln_final(x)
+        if return_hidden:
+            return x
+        return self.head(x)
+
+    def head(self, x):
+        """LM head over final hidden states: logits computed in the model
+        dtype, returned as f32."""
+        if self.lm_head is None:
+            logits = x @ self.wte.t()
+        else:
+            logits = self.lm_head(x)
+        return logits.float()
+
+
+def _make(defaults: dict, cfg_overrides, device, dtype, seed) -> GPT2:
+    cfg = GPT2Config(**{**defaults, **(cfg_overrides or {})})
+    model = GPT2(cfg, device=resolve_device(device))
+    if model.wte.device.type != "meta":
+        gen = torch.Generator(device=model.wte.device).manual_seed(seed)
+        model.init_weights(gen)
+    return model.to(dtype) if dtype is not None else model
+
+
+def gpt2_124m(cfg_overrides: dict | None = None, *, device=None, dtype=None,
+              seed: int = 0) -> GPT2:
+    """GPT-2 small: 12 layers, 768 hidden, 12 heads, 50257 vocab (124M
+    params).  Weights are drawn in f32 from ``seed`` and then cast to
+    ``dtype``.  ``device`` defaults to CUDA (``utils.device``);
+    ``device="meta"`` builds shapes only."""
+    return _make({}, cfg_overrides, device, dtype, seed)
+
+
+def gpt2_medium(cfg_overrides: dict | None = None, *, device=None, dtype=None,
+                seed: int = 0) -> GPT2:
+    """GPT-2 medium: 24 layers, 1024 hidden, 16 heads (355M params)."""
+    return _make({"num_layers": 24, "hidden_dim": 1024, "num_heads": 16},
+                 cfg_overrides, device, dtype, seed)
+
+
+def gpt2_large(cfg_overrides: dict | None = None, *, device=None, dtype=None,
+               seed: int = 0) -> GPT2:
+    """GPT-2 large: 36 layers, 1280 hidden, 20 heads (774M params)."""
+    return _make({"num_layers": 36, "hidden_dim": 1280, "num_heads": 20},
+                 cfg_overrides, device, dtype, seed)
+
+
+def gpt2_xl(cfg_overrides: dict | None = None, *, device=None, dtype=None,
+            seed: int = 0) -> GPT2:
+    """GPT-2 XL: 48 layers, 1600 hidden, 25 heads (1.56B params)."""
+    return _make({"num_layers": 48, "hidden_dim": 1600, "num_heads": 25},
+                 cfg_overrides, device, dtype, seed)

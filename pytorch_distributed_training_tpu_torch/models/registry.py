@@ -1,0 +1,37 @@
+"""Model registry: the same names as the JAX package's
+``models/registry.py``.  The GPT-2 entries are ported; the others raise."""
+
+from __future__ import annotations
+
+from .gpt2 import gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl
+
+_LM_FACTORIES = {
+    "gpt2": gpt2_124m,
+    "gpt2_medium": gpt2_medium,
+    "gpt2_large": gpt2_large,
+    "gpt2_xl": gpt2_xl,
+}
+_NOT_YET_PORTED = {
+    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "vit_s16", "vit_b16", "vit_l16", "gpt2_moe",
+}
+MODEL_NAMES = sorted({*_LM_FACTORIES, *_NOT_YET_PORTED})
+
+
+def model_kind(name: str) -> str:
+    """"lm" for the language models, "image_classifier" for the rest."""
+    if name not in MODEL_NAMES:
+        raise ValueError(f"Unknown model {name!r}; available: {MODEL_NAMES}")
+    return "lm" if name.startswith("gpt2") else "image_classifier"
+
+
+def create_model(name: str, *, dtype=None, device=None, seed: int = 0,
+                 cfg_overrides: dict | None = None):
+    """Build a model by registry name, weights drawn from ``seed``.
+    ``device`` defaults to CUDA (``utils.device``)."""
+    model_kind(name)
+    if name in _NOT_YET_PORTED:
+        raise NotImplementedError(f"model {name!r} is not yet ported")
+    return _LM_FACTORIES[name](
+        cfg_overrides, device=device, dtype=dtype, seed=seed
+    )

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Where a serving run of the PyTorch port spends its time, on one GPU.
+
+    python3 -m pytorch_distributed_training_tpu_torch.tools.serve_profile \
+        [--spec] [--rows 25]
+
+Runs the port's ``--serve`` CLI (GPT-2 124M, bf16, 8 slots, 16 burst
+requests of 2..256 prompt tokens and up to 64 new tokens — the
+chip_smoke.py trace) once to warm up, then once more under
+``torch.profiler``, and prints:
+
+- the wall time of the profiled run and the device-busy share (the union
+  of kernel intervals on the device timeline over that wall time);
+- the operators with the most device time, and those with the most host
+  time (``key_averages()``);
+- one JSON line with the totals.
+
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+ARGV = ["--serve", "--model", "gpt2", "--precision", "bf16", "--seed", "0",
+        "--seq-len", "512", "--serve-requests", "16", "--serve-slots", "8",
+        "--serve-max-new", "64", "--serve-rate", "0"]
+
+
+def busy_seconds(events) -> float:
+    """Union of the device-kernel intervals (overlaps counted once)."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in events
+        if e.device_type.name == "CUDA"
+    )
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    return busy_us / 1e6
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--spec", action="store_true",
+                    help="Profile the speculative (k = 4) run instead.")
+    ap.add_argument("--rows", type=int, default=25)
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("serve_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+
+    argv = ARGV + (["--serve-spec", "--serve-spec-k", "4"] if args.spec else [])
+    cli(argv)  # warm-up: CUDA context, cuBLAS, kernel build and load
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = cli(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    avg = prof.key_averages()
+    print(avg.table(sort_by="self_cuda_time_total", row_limit=args.rows))
+    print(avg.table(sort_by="self_cpu_time_total", row_limit=args.rows))
+    busy_s = busy_seconds(prof.events())
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "spec": args.spec,
+        "wall_s": wall_s, "device_busy_s": busy_s,
+        "device_busy_share": busy_s / wall_s,
+        "decode_ticks": res["engine"]["decode_ticks"],
+        "goodput_tok_per_s": res["summary"]["goodput_tok_per_s"],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""The PyTorch port stands alone: it imports neither JAX, flax nor the JAX
+package, and its entry points refuse to run on the host unless asked."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "pytorch_distributed_training_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "pytorch_distributed_training_tpu")
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_file_imports_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = {
+        str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
+        for f in files
+    }
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_port_imports_with_jax_blocked():
+    """Import the serving entry points in a fresh interpreter where
+    importing jax, flax or the JAX package fails."""
+    blocked = ", ".join(repr(m) for m in FORBIDDEN)
+    code = (
+        "import sys\n"
+        f"for m in ({blocked},):\n"
+        "    sys.modules[m] = None\n"
+        "import pytorch_distributed_training_tpu_torch.cli.main\n"
+        "import pytorch_distributed_training_tpu_torch.serve.engine\n"
+        "import pytorch_distributed_training_tpu_torch.models.generate\n"
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        f"({blocked},) and sys.modules[m] is not None]\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from pytorch_distributed_training_tpu_torch.models import (
+        GPT2, GPT2Config, create_model, generate,
+    )
+    from pytorch_distributed_training_tpu_torch.serve import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = GPT2(GPT2Config(num_layers=1, hidden_dim=16, num_heads=2,
+                            vocab_size=32, max_seq_len=16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, num_slots=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(model, [[1, 2]], max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("gpt2")
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        ServingEngine(model, num_slots=2, device="cuda")
