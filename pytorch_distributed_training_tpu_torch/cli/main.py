@@ -5,9 +5,10 @@ summary line.
     python -m pytorch_distributed_training_tpu_torch.cli.main --serve \\
         --model gpt2 --precision bf16 --serve-slots 8 --serve-requests 16
 
-runs on CUDA; add ``--use-cpu`` to run on the host.  Training and
-checkpoint restore are not ported yet, so the server runs fresh-init
-weights drawn from ``--seed``.
+runs on CUDA; add ``--use-cpu`` to run on the host, and ``--serve-paged
+[--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool.
+Training and checkpoint restore are not ported yet, so the server runs
+fresh-init weights drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -75,6 +76,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Per-request generation budget cap.")
     p.add_argument("--serve-prefill-chunk", type=int, default=16,
                    help="Prompt tokens written per prefill tick.")
+    p.add_argument("--serve-paged", action="store_true",
+                   help="Paged KV cache: fixed-size blocks and per-slot "
+                        "block tables instead of contiguous rows; shared "
+                        "prompt prefixes skip prefill via the block cache.")
+    p.add_argument("--serve-block-size", type=int, default=16,
+                   help="KV positions per block (--serve-paged); also the "
+                        "prefix-cache sharing granularity.")
+    p.add_argument("--serve-num-blocks", type=int, default=0,
+                   help="Blocks in the pool (--serve-paged); 0 sizes it "
+                        "like the contiguous pool (slots x ceil(max_len / "
+                        "block_size)).")
+    p.add_argument("--serve-kv-dtype", default="bf16",
+                   choices=("bf16", "int8", "int4"),
+                   help="KV storage (--serve-paged): bf16 keeps the model's "
+                        "dtype; int8/int4 quantize the blocks with a bf16 "
+                        "scale per position and head.")
+    p.add_argument("--serve-kv-host-mb", type=float, default=0.0,
+                   help="Host-RAM KV tier in MB (--serve-paged): evicted "
+                        "prefix blocks spill there and are restored on a "
+                        "hit; 0 = no host tier.")
     p.add_argument("--serve-spec", action="store_true",
                    help="Speculative decoding with the prompt-lookup drafter.")
     p.add_argument("--serve-spec-k", type=int, default=4,
@@ -86,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
               n_requests, rate, num_slots, max_new, prefill_chunk, spec_k=0,
-              spec_ngram=4, device=None) -> dict:
+              spec_ngram=4, device=None, paged=False, block_size=16,
+              num_blocks=0, kv_dtype="bf16", kv_host_mb=0.0) -> dict:
     """Serve ``model`` over the synthetic trace and print the summary.
 
     Returns ``{"summary", "engine", "tokens"}``: the SLO summary, the
@@ -99,6 +121,14 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
     from ..utils import metrics as metrics_lib
     from ..utils.device import resolve_device
 
+    if kv_host_mb and not paged:
+        raise SystemExit(
+            "--serve-kv-host-mb spills paged blocks — add --serve-paged"
+        )
+    if kv_dtype != "bf16" and not paged:
+        raise SystemExit(
+            "--serve-kv-dtype quantizes paged blocks — add --serve-paged"
+        )
     device = resolve_device(device)
     policy = make_policy(precision)
     # Serving casts every parameter (LayerNorm and embeddings included) to
@@ -121,6 +151,8 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         prefill_chunk=prefill_chunk, temperature=0.0, seed=seed,
         spec_k=spec_k, spec_ngram=spec_ngram, device=device,
         stream_cb=lambda rid, tok: tokens.setdefault(rid, []).append(tok),
+        paged=paged, block_size=block_size, num_blocks=num_blocks or None,
+        kv_dtype=kv_dtype, kv_host_mb=kv_host_mb or None,
     )
     rng = np.random.default_rng(seed)
     p_hi = max(min(seq_len, max_len - max_new) // 2, 2)
@@ -146,10 +178,18 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
     scheduler = ContinuousScheduler(
         engine, max_queue=n_requests, request_logger=req_log,
     )
+    layout = (
+        f"paged ({engine.pool.num_blocks} blocks x {block_size})" if paged
+        else "contiguous"
+    )
+    if kv_dtype != "bf16":
+        layout += f", kv={kv_dtype}"
+    if kv_host_mb:
+        layout += f" + {kv_host_mb:g} MB host KV tier"
     spec_note = f", spec k={spec_k} ngram={spec_ngram}" if spec_k else ""
     print(
         f"serving started: {n_requests} requests, {num_slots} slots "
-        f"(contiguous), rate={rate or 'burst'} req/s, "
+        f"({layout}), rate={rate or 'burst'} req/s, "
         f"prefill_chunk={prefill_chunk}{spec_note}"
     )
     # Every tick reads its sampled tokens back to the host, so the trace
@@ -161,7 +201,7 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         queue_depth_samples=scheduler.queue_depth_samples,
         rejected=scheduler.rejected,
         active_slot_samples=scheduler.active_slot_samples,
-        engine_stats=engine.stats() if spec_k else None,
+        engine_stats=engine.stats() if (paged or spec_k) else None,
     )
     if spec_k and summary.get("spec"):
         sp = summary["spec"]
@@ -170,6 +210,25 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
             f"({sp['accepted_tokens']}/{sp['drafted_tokens']} drafted), "
             f"tokens_per_tick={sp['tokens_per_decode_tick']}"
         )
+    if paged:
+        st = engine.stats()
+        hit_rate = (
+            st["prefix_hit_tokens"] / st["prefix_lookup_tokens"]
+            if st["prefix_lookup_tokens"] else 0.0
+        )
+        print(
+            f"paged pool: prefix_hit_rate={hit_rate:.3f} "
+            f"blocks_evicted={st['blocks_evicted']} "
+            f"prefill_tokens={st['prefill_tokens_computed']}/"
+            f"{st['prefill_tokens_offered']}"
+        )
+        if kv_host_mb:
+            print(
+                f"host KV tier: spilled={st.get('blocks_spilled', 0)} "
+                f"restored={st.get('blocks_restored', 0)} "
+                f"dropped={st.get('host_dropped_blocks', 0)} "
+                f"resident={st.get('host_blocks', 0)} blocks"
+            )
     metrics_lib.MetricsLogger(None).log({"mode": "serve", **{
         k: v for k, v in summary.items() if not isinstance(v, dict)
     }})
@@ -199,6 +258,9 @@ def main(argv: list[str] | None = None):
         spec_k=args.serve_spec_k if args.serve_spec else 0,
         spec_ngram=args.serve_spec_ngram,
         device="cpu" if args.use_cpu else None,
+        paged=args.serve_paged, block_size=args.serve_block_size,
+        num_blocks=args.serve_num_blocks, kv_dtype=args.serve_kv_dtype,
+        kv_host_mb=args.serve_kv_host_mb,
     )
 
 

@@ -5,12 +5,15 @@ from .generate import eos_cut_length, filter_logits, generate, sample_logits
 from .gpt2 import (
     GPT2, Block, GPT2Config, gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl,
 )
-from .layers import MAX_FUSED_DECODE_CHUNK, SelfAttention, new_kv_cache
+from .layers import (
+    MAX_FUSED_DECODE_CHUNK, SelfAttention, new_kv_blocks, new_kv_cache,
+)
 from .registry import MODEL_NAMES, create_model, model_kind
 
 __all__ = [
     "GPT2", "Block", "GPT2Config", "SelfAttention", "MAX_FUSED_DECODE_CHUNK",
-    "new_kv_cache", "gpt2_124m", "gpt2_medium", "gpt2_large", "gpt2_xl",
+    "new_kv_cache", "new_kv_blocks", "gpt2_124m", "gpt2_medium",
+    "gpt2_large", "gpt2_xl",
     "gpt2_params_from_jax", "generate", "sample_logits", "filter_logits",
     "eos_cut_length", "create_model", "model_kind", "MODEL_NAMES",
 ]

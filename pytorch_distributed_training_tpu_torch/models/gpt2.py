@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
-from .layers import SelfAttention, new_kv_cache
+from .layers import SelfAttention, new_kv_blocks, new_kv_cache
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -49,9 +49,11 @@ class Block(nn.Module):
         self.mlp_down = nn.Linear(d * cfg.mlp_ratio, d, **kw)
         self.dropout = nn.Dropout(cfg.dropout_rate)
 
-    def forward(self, x, *, cache=None, positions=None, attn_mask=None):
+    def forward(self, x, *, cache=None, positions=None, attn_mask=None,
+                block_table=None):
         y = self.attn(
-            self.ln1(x), cache=cache, positions=positions, attn_mask=attn_mask
+            self.ln1(x), cache=cache, positions=positions,
+            attn_mask=attn_mask, block_table=block_table,
         )
         x = x + self.dropout(y)
         y = self.mlp_down(F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh"))
@@ -65,9 +67,11 @@ class GPT2(nn.Module):
     ``cache`` (a list of per-layer (k, v) pairs from ``new_cache``) and
     ``positions`` (B,) int32, row b's tokens sit at positions
     ``positions[b]..`` and their K/V are written into its cache row (slot
-    mode, see ``models/layers.py``).  Rows at or past ``max_seq_len`` are
-    idle: their position-embedding gather is clipped and their output is
-    garbage the caller discards.
+    mode, see ``models/layers.py``).  With ``block_table`` (B, nb) int32
+    as well, ``cache`` is the paged pool from ``new_block_cache`` and row
+    b's positions route through its table row.  Rows at or past
+    ``max_seq_len`` are idle: their position-embedding gather is clipped
+    and their output is garbage the caller discards.
     """
 
     def __init__(self, cfg: GPT2Config, *, device=None, dtype=None):
@@ -131,15 +135,36 @@ class GPT2(nn.Module):
             for _ in range(cfg.num_layers)
         ]
 
+    def new_block_cache(self, num_blocks: int, block_size: int,
+                        kv_quant: str | None = None):
+        """Zeroed per-layer paged pools of ``num_blocks`` blocks of
+        ``block_size`` positions (plus each layer's scratch block), in this
+        model's dtype and on its device; ``kv_quant`` "int8"/"int4"
+        stores the quantized payload and bf16 scales instead."""
+        if num_blocks < 1 or block_size < 1:
+            raise ValueError(
+                f"num_blocks ({num_blocks}) and block_size ({block_size}) "
+                "must be >= 1"
+            )
+        cfg = self.cfg
+        return [
+            new_kv_blocks(
+                num_blocks, cfg.num_heads, block_size,
+                cfg.hidden_dim // cfg.num_heads, dtype=self.wte.dtype,
+                device=self.wte.device, kv_quant=kv_quant,
+            )
+            for _ in range(cfg.num_layers)
+        ]
+
     def forward(self, tokens, *, cache=None, positions=None, attn_mask=None,
-                return_hidden: bool = False):
+                block_table=None, return_hidden: bool = False):
         """``return_hidden=True`` skips the LM head and returns the final
         hidden states (B, L, D) in the model dtype (``head`` applies it)."""
         cfg = self.cfg
         b, l = tokens.shape
         if cache is None:
-            if positions is not None:
-                raise ValueError("positions need a KV cache")
+            if positions is not None or block_table is not None:
+                raise ValueError("positions and block_table need a KV cache")
             pos = self.wpe[:l][None]
         else:
             if positions is None:
@@ -151,6 +176,7 @@ class GPT2(nn.Module):
             x = block(
                 x, cache=None if cache is None else cache[i],
                 positions=positions, attn_mask=attn_mask,
+                block_table=block_table,
             )
         x = self.ln_final(x)
         if return_hidden:

@@ -1,7 +1,7 @@
-"""Transformer self-attention with the contiguous KV-cache decode mode.
+"""Transformer self-attention with the KV-cache decode modes.
 
 Counterpart of the JAX package's ``models/layers.py::SelfAttention``,
-limited to what the serving slice runs:
+limited to what the serving slices run:
 
 - the causal full-sequence forward (``cache=None``);
 - slot mode: per-row start ``positions`` (B,), a chunk of C tokens per row
@@ -18,8 +18,18 @@ verify chunk's tail near the end of the cache — and that no read covers.
 That is the counterpart of the JAX scatter's ``mode="drop"`` without a
 data-dependent shape (and so without a device sync).
 
-The paged cache, quantized KV, and the tensor- and sequence-parallel
-paths are not ported yet.
+With a ``block_table`` (B, nb) int32 the cache is the PAGED block pool
+(``new_block_cache``, driven by ``serve/kv_pool.py``): (k, v) of shape
+(num_blocks + 1, H, block_size, Dh), or (k, v, k_scale, v_scale) for a
+quantized pool (int8 payload, or int4 nibbles as uint8 at Dh / 2, plus a
+bf16 scale per (block, head, position)).  Logical position p of row b
+lives in block ``block_table[b, p // block_size]`` at offset
+``p % block_size``; a table entry equal to num_blocks is the unallocated
+sentinel.  Block num_blocks is the scratch block: every write through a
+sentinel entry or past the table span lands there, and no read reaches
+it, because reads go through the table clamped to the real blocks.
+
+The tensor- and sequence-parallel paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,14 +37,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..comm.compress import quantize_kv
 from ..ops.attention import dot_product_attention
 from ..ops.decode_attention import decode_attention, decode_attention_multi
+from ..ops.paged_attention import (
+    MAX_FUSED_PREFILL_CHUNK, paged_decode_attention,
+    paged_decode_attention_multi, paged_prefill_attention, paged_window,
+)
 
-# Widest chunk the fused multi-query decode kernel takes (the speculative
-# verify step's k+1 tokens per slot); wider chunks (prefill) take the
-# plain ragged path, as in the JAX package.  Which side of this line is
-# faster on the H100 has not been measured yet.
+# Widest chunk the fused multi-query decode kernels take (the speculative
+# verify step's k+1 tokens per slot).  On the contiguous cache wider
+# chunks (prefill) take the plain ragged path; on the paged pool chunks up
+# to MAX_FUSED_PREFILL_CHUNK take the paged kernel, as in the JAX package.
+# Which side of these lines is faster on the H100 has not been measured.
 MAX_FUSED_DECODE_CHUNK = 8
+# Stored payload dtype of each quantized KV storage kind.
+KV_QUANT_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
 
 
 def new_kv_cache(batch: int, num_heads: int, length: int, head_dim: int, *,
@@ -44,6 +62,40 @@ def new_kv_cache(batch: int, num_heads: int, length: int, head_dim: int, *,
     shape = (batch, num_heads, length + 1, head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def new_kv_blocks(num_blocks: int, num_heads: int, block_size: int,
+                  head_dim: int, *, dtype, device, kv_quant=None) -> tuple:
+    """One layer's zeroed paged pool: ``num_blocks`` blocks plus the
+    scratch block that takes dropped writes.  (k, v) in ``dtype``, or
+    with ``kv_quant`` "int8"/"int4" the stored payload plus bf16 scales
+    (k, v, k_scale, v_scale)."""
+    shape = (num_blocks + 1, num_heads, block_size, head_dim)
+    if kv_quant is None:
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    if kv_quant not in KV_QUANT_DTYPES:
+        raise ValueError(f"kv_quant {kv_quant!r} not in (None, 'int8', 'int4')")
+    if kv_quant == "int4":
+        if head_dim % 2:
+            raise ValueError(
+                f"int4 KV packing needs an even head_dim, got {head_dim}"
+            )
+        shape = shape[:-1] + (head_dim // 2,)
+    stored = KV_QUANT_DTYPES[kv_quant]
+    return (torch.zeros(shape, dtype=stored, device=device),
+            torch.zeros(shape, dtype=stored, device=device),
+            torch.zeros(shape[:3], dtype=torch.bfloat16, device=device),
+            torch.zeros(shape[:3], dtype=torch.bfloat16, device=device))
+
+
+def cache_quant(cache) -> str | None:
+    """The storage kind of one layer's cache: None (native) or the
+    quantized kind its payload dtype stands for."""
+    for name, dtype in KV_QUANT_DTYPES.items():
+        if cache[0].dtype == dtype:
+            return name
+    return None
 
 
 class SelfAttention(nn.Module):
@@ -63,12 +115,14 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(hidden_dim, 3 * hidden_dim, **kw)
         self.proj = nn.Linear(hidden_dim, hidden_dim, **kw)
 
-    def forward(self, x, *, cache=None, positions=None, attn_mask=None):
+    def forward(self, x, *, cache=None, positions=None, attn_mask=None,
+                block_table=None):
         """``cache``: (k, v) from ``new_kv_cache``, updated in place, with
-        ``positions`` (B,) int32 the chunk start of each row.
-        ``attn_mask`` (B, C, L) bool is the validity the caller computes
-        once per tick; only the ragged path (chunks wider than the fused
-        kernel) reads it."""
+        ``positions`` (B,) int32 the chunk start of each row; with
+        ``block_table`` (B, nb) int32, the paged pool from
+        ``new_kv_blocks`` instead.  ``attn_mask`` (B, C, L) bool is the
+        validity the caller computes once per tick; only the ragged path
+        (chunks wider than the fused kernels) reads it."""
         b, l, d = x.shape
         h = self.num_heads
         # Columns split as (3, H, Dh): q is columns 0..d-1, as in the JAX
@@ -81,7 +135,17 @@ class SelfAttention(nn.Module):
         else:
             if positions is None:
                 raise ValueError("a KV cache needs positions")
-            out = _slot_attend(q, k, v, positions, cache, attn_mask)
+            if block_table is not None:
+                out = _paged_attend(q, k, v, positions, block_table, cache,
+                                    attn_mask)
+            elif cache_quant(cache) is not None:
+                raise ValueError(
+                    "quantized KV lives in the paged block pool: the "
+                    "contiguous slot cache has no per-block scales (pass "
+                    "block_table)"
+                )
+            else:
+                out = _slot_attend(q, k, v, positions, cache, attn_mask)
         return self.proj(out.reshape(b, l, d))
 
 
@@ -106,6 +170,58 @@ def _slot_attend(q, k, v, positions, cache, attn_mask):
     if c <= MAX_FUSED_DECODE_CHUNK:
         return decode_attention_multi(q, ck, cv, positions)
     return _ragged_attend(q, ck, cv, cols, attn_mask)
+
+
+def _paged_attend(q, k, v, positions, block_table, cache, attn_mask):
+    """Block-table cache write at ``positions[b] + j``, then attention
+    over each row's prefix through the table.
+
+    A column whose table entry is the sentinel, or past the table span,
+    writes to the scratch block; it is never clamped onto the row's last
+    real block, where it would overwrite live K/V.  A quantized pool
+    encodes the chunk here (``quantize_kv``) and stores the scales beside
+    the payload.  Dispatch: C = 1 → ``paged_decode_attention``; C <= 8 →
+    ``paged_decode_attention_multi``; C <= MAX_FUSED_PREFILL_CHUNK →
+    ``paged_prefill_attention``; wider chunks gather the window through
+    the table (dequantized when quantized) for the ragged path."""
+    quant = cache_quant(cache)
+    ck, cv = cache[0], cache[1]
+    b, c, h, dh = q.shape
+    num_blocks, bs = ck.shape[0] - 1, ck.shape[2]
+    nb = block_table.shape[1]
+    cols = positions[:, None].long() + torch.arange(c, device=q.device)
+    tbl_idx = cols // bs
+    rows = torch.arange(b, device=q.device)[:, None]
+    blk = torch.where(
+        tbl_idx < nb, block_table[rows, tbl_idx.clamp(max=nb - 1)].long(),
+        num_blocks,
+    )
+    off = cols % bs
+    qkw = {}
+    if quant is not None:
+        k, k_sc = quantize_kv(k, quant)          # (B, C, H, Dh'), (B, C, H)
+        v, v_sc = quantize_kv(v, quant)
+        cache[2][blk, :, off] = k_sc
+        cache[3][blk, :, off] = v_sc
+        qkw = dict(k_scale=cache[2], v_scale=cache[3], quant=quant)
+    # Indexing (blk, :, off) selects (B, C, H, Dh') — the chunk's layout.
+    ck[blk, :, off] = k
+    cv[blk, :, off] = v
+    safe_table = block_table.clamp(max=num_blocks - 1)
+    if c == 1:
+        return paged_decode_attention(
+            q[:, 0], ck, cv, safe_table, positions, **qkw
+        )[:, None]
+    if c <= MAX_FUSED_DECODE_CHUNK:
+        return paged_decode_attention_multi(
+            q, ck, cv, safe_table, positions, **qkw
+        )
+    if c <= MAX_FUSED_PREFILL_CHUNK:
+        return paged_prefill_attention(
+            q, ck, cv, safe_table, positions, **qkw
+        )
+    kk, vv = paged_window(ck, cv, safe_table, **qkw)
+    return _ragged_attend(q, kk, vv, cols, attn_mask)
 
 
 def _ragged_attend(q, ck, cv, cols, attn_mask):

@@ -1,6 +1,7 @@
-"""Continuous-batching decode engine over the contiguous slot pool: the
-counterpart of the JAX package's ``serve/engine.py`` (contiguous cache,
-one engine with both roles, no tensor parallelism, native-dtype KV).
+"""Continuous-batching decode engine: the counterpart of the JAX package's
+``serve/engine.py`` (one engine with both roles, no tensor parallelism),
+over the contiguous slot pool or, with ``paged=True``, the paged block
+pool with prefix caching, an optional host-RAM tier and int8/int4 KV.
 
 Three steps cover the serving loop, each one forward over the whole slot
 array so shapes never change:
@@ -19,8 +20,10 @@ The JAX package compiles these as three AOT programs that donate the
 cache; here they are eager methods that write the cache tensors in place,
 which is the same contract: one cache, never copied per tick.  Idle rows
 ride along at the sentinel position (their writes land in the cache's
-scratch row, their outputs are discarded), so admission and retirement
-are host bookkeeping only.
+scratch row or block, their outputs are discarded), so admission and
+retirement are host bookkeeping only.  The paged pool's block table goes
+to the device once per tick, after the host has allocated the blocks the
+tick writes and before the forward.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..comm.compress import KV_DTYPES
 from ..models.generate import eos_cut_length, filter_logits, sample_logits
 from ..utils.device import resolve_device
 from .draft import NgramIndex, PromptLookupDrafter
-from .kv_pool import KVCachePool
+from .kv_pool import KVCachePool, PagedKVCachePool
+from .kv_store import HostKVStore
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +77,15 @@ class _Slot:
 class ServingEngine:
     """``model``: a ``models.gpt2.GPT2``, moved to ``device`` (CUDA unless
     ``device="cpu"``).  Sampling draws from a ``torch.Generator`` seeded
-    with ``seed``."""
+    with ``seed``.
+
+    ``paged=True`` swaps the contiguous per-slot cache for the block pool
+    (``PagedKVCachePool``): admission is bounded by the global pool, and
+    shared prompt prefixes skip their prefill chunks through the pool's
+    hash-addressed block cache.  ``num_blocks`` defaults to the contiguous
+    pool's byte equivalent (``num_slots * ceil(max_len / block_size)``);
+    ``kv_dtype`` "int8"/"int4" quantizes the blocks, and ``kv_host_mb``
+    adds a host-RAM tier that evicted prefix blocks spill to."""
 
     # After F consecutive fully-rejected drafts a slot sits out 2**F ticks
     # (F capped here) before drafting again.
@@ -93,11 +106,30 @@ class ServingEngine:
         spec_k: int = 0,
         spec_ngram: int = 4,
         device=None,
+        paged: bool = False,
+        block_size: int = 16,
+        num_blocks: int | None = None,
+        prefix_cache: bool = True,
+        kv_dtype: str = "bf16",
+        kv_host_mb: float | None = None,
     ):
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}"
+            )
+        if kv_dtype != "bf16" and not paged:
+            raise ValueError(
+                "quantized KV storage lives in the paged block pool — "
+                "pass paged=True with kv_dtype int8/int4"
+            )
+        if kv_host_mb is not None and not paged:
+            raise ValueError(
+                "the host KV tier spills paged blocks — pass paged=True"
+            )
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.eos_token_id = eos_token_id
@@ -110,10 +142,24 @@ class ServingEngine:
             min_ngram=min(max(2, spec_ngram - 1), spec_ngram),
             index=NgramIndex(spec_ngram),
         ) if spec_k > 0 else None
-        self.pool = KVCachePool(
-            self.model, num_slots=num_slots,
-            max_len=max_len or model.cfg.max_seq_len,
-        )
+        cap = max_len or model.cfg.max_seq_len
+        self.paged = paged
+        if paged:
+            self.pool = PagedKVCachePool(
+                self.model, num_slots=num_slots,
+                num_blocks=num_blocks or num_slots * (-(-cap // block_size)),
+                block_size=block_size, max_len=cap,
+                prefix_cache=prefix_cache,
+                kv_quant=None if kv_dtype == "bf16" else kv_dtype,
+                host_store=(
+                    None if kv_host_mb is None
+                    else HostKVStore(int(kv_host_mb * 2**20))
+                ),
+            )
+        else:
+            self.pool = KVCachePool(
+                self.model, num_slots=num_slots, max_len=cap,
+            )
         self.max_len = self.pool.max_len
         self.num_slots = num_slots
         self._slots: list[_Slot | None] = [None] * num_slots
@@ -138,15 +184,21 @@ class ServingEngine:
     def _forward(self, tokens: np.ndarray, positions: np.ndarray):
         """Final hidden states (S, width, D) for one tick; the cache is
         written in place.  The slot-mode validity mask is built once here
-        for every layer."""
+        for every layer.  The paged block table is copied to the device
+        here, synchronously: the host rewrites it on the next tick."""
         pos = self._dev(positions)
         cols = pos[:, None].long() + torch.arange(
             tokens.shape[1], device=self.device
         )
         mask = self._mask_cols[None, None, :] <= cols[:, :, None]
+        table = (
+            torch.tensor(self.pool.block_tables, device=self.device)
+            if self.paged else None
+        )
         return self.model(
             self._dev(tokens.astype(np.int64)), cache=self.pool.cache,
-            positions=pos, attn_mask=mask, return_hidden=True,
+            positions=pos, attn_mask=mask, block_table=table,
+            return_hidden=True,
         )
 
     @torch.no_grad()
@@ -232,13 +284,34 @@ class ServingEngine:
         return self.pool.num_active > 0
 
     def validate_request(self, prompt_len: int, max_new: int) -> None:
-        """Raise for a request that could never be admitted (queueing it
-        would block the scheduler's queue head forever)."""
+        """Raise for a request that could never be admitted: over the
+        logical position bound, or (paged) a zero-hit worst-case span
+        larger than the whole block pool.  Queueing it would block the
+        scheduler's queue head forever."""
         if prompt_len + max_new > self.max_len:
             raise ValueError(
                 f"prompt ({prompt_len}) + max_new ({max_new}) exceeds the "
                 f"cache length ({self.max_len})"
             )
+        if self.paged and not self.pool.fits(prompt_len, max_new):
+            raise ValueError(
+                f"prompt ({prompt_len}) + max_new ({max_new}) spans more "
+                f"blocks than the whole pool ({self.pool.num_blocks} x "
+                f"{self.pool.block_size}) — the request can never be "
+                "admitted"
+            )
+
+    def can_admit(self, prompt, max_new: int) -> bool:
+        """Whether ``start`` would succeed now: a free slot, plus (paged)
+        enough unreserved blocks for the request's worst-case span net of
+        its prefix-cache hits.  The scheduler's admission predicate."""
+        if not self.has_free_slot:
+            return False
+        if self.paged:
+            return self.pool.admissible_for(
+                np.asarray(prompt, np.int32).reshape(-1), int(max_new)
+            )
+        return True
 
     def start(self, request_id, prompt, max_new: int) -> int:
         """Admit a request into a free slot; returns the slot index."""
@@ -248,7 +321,10 @@ class ServingEngine:
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
         self.validate_request(prompt.size, int(max_new))
-        slot = self.pool.allocate()
+        if self.paged:
+            slot, cached = self.pool.allocate(prompt, int(max_new))
+        else:
+            slot, cached = self.pool.allocate(), 0
         if slot is None:
             raise RuntimeError("no free slot (check has_free_slot first)")
         self.prefill_tokens_offered += int(prompt.size)
@@ -256,6 +332,7 @@ class ServingEngine:
             self.drafter.observe_prompt(prompt)
         self._slots[slot] = _Slot(
             request_id=request_id, prompt=prompt, max_new=int(max_new),
+            consumed=cached,
         )
         return slot
 
@@ -318,6 +395,8 @@ class ServingEngine:
             positions[i] = self.pool.lengths[i]
             last_idx[i] = n - 1
             took[i] = n
+            if self.paged:
+                self.pool.ensure_length(i, int(self.pool.lengths[i]) + n)
         tok = self._prefill(tokens, positions, last_idx)
         events: list[Event] = []
         for i, sl in batch:
@@ -339,6 +418,8 @@ class ServingEngine:
         for i, sl in batch:
             tokens[i] = sl.pending
             positions[i] = self.pool.lengths[i]
+            if self.paged:
+                self.pool.ensure_length(i, int(self.pool.lengths[i]) + 1)
         tok = self._decode(tokens, positions)
         events: list[Event] = []
         self.decode_ticks += 1
@@ -358,7 +439,8 @@ class ServingEngine:
 
         Rejected writes need no rollback: lengths advance only by the
         emitted count, so they sit past every slot's valid length where
-        the ragged mask never reads."""
+        the ragged mask never reads.  The paged pool also frees the blocks
+        that only rejected writes touched (``rewind``)."""
         batch = self._live("decode")
         if not batch:
             return []
@@ -386,6 +468,11 @@ class ServingEngine:
                 self.spec_drafted_tokens += n
         if not dlen.any():
             return self.decode_step()
+        if self.paged:
+            for i, _ in batch:
+                self.pool.ensure_length(
+                    i, int(self.pool.lengths[i]) + int(dlen[i]) + 1
+                )
         out, accepted = self._verify(tokens, positions, dlen)
         events: list[Event] = []
         self.decode_ticks += 1
@@ -406,6 +493,8 @@ class ServingEngine:
             # drafts; the last emitted token is the next input.
             self.pool.advance(i, int(emit.size))
             self.decode_tokens += int(emit.size)
+            if self.paged:
+                self.pool.rewind(i)
             for t in emit:
                 events.extend(self._emit(i, sl, int(t)))
                 if self._slots[i] is None:  # retired (EOS / budget)
@@ -419,7 +508,9 @@ class ServingEngine:
         return self.prefill_step() + decode()
 
     def stats(self) -> dict:
-        """Host-side accounting: prefill work and decode/spec counters."""
+        """Host-side accounting: prefill work computed vs offered (the
+        prefix-cache saving), decode/spec counters, and the paged pool's
+        block/hit/eviction counters when paged."""
         out = {
             "slots_active": self.pool.num_active,
             "prefill_tokens_computed": self.prefill_tokens_computed,
@@ -431,4 +522,6 @@ class ServingEngine:
         if self.spec_k > 0:
             out["spec_drafted_tokens"] = self.spec_drafted_tokens
             out["spec_accepted_tokens"] = self.spec_accepted_tokens
+        if self.paged:
+            out.update(self.pool.stats())
         return out

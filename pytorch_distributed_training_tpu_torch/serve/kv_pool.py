@@ -1,10 +1,10 @@
-"""Contiguous KV-cache slot pool: the counterpart of the JAX package's
-``serve/kv_pool.py::KVCachePool``.
+"""KV-cache pools: the contiguous slot pool and the paged block pool, the
+counterparts of the JAX package's ``serve/kv_pool.py``.
 
-One decode cache per layer, (num_slots, H, max_len + 1, Dh) on the device
-(``models/layers.py::new_kv_cache``; the extra position is the scratch
-row for dropped writes), slot = batch row.  The correctness contract with
-slot-mode attention:
+``KVCachePool``: one decode cache per layer, (num_slots, H, max_len + 1,
+Dh) on the device (``models/layers.py::new_kv_cache``; the extra position
+is the scratch row for dropped writes), slot = batch row.  The
+correctness contract with slot-mode attention:
 
 - a slot's valid cache content is exactly positions ``0..lengths[s]-1``;
   everything past that is stale bytes from earlier tenants,
@@ -13,14 +13,42 @@ slot-mode attention:
 - an idle slot's write position is the ``sentinel`` (= ``max_len``), whose
   writes land in the scratch row: idle rows change no live position.
 
-Slot state lives in host mirrors (lengths, active flags, free list), so
-the engine never reads the device to schedule.  The paged pool and the
-row handoff of the disaggregated tier are not ported yet.
+The paged layout is two classes, as in the JAX package:
+
+- :class:`BlockPool` owns the physical blocks: the per-layer device
+  tensors (``models/layers.py::new_kv_blocks``: num_blocks + 1 blocks, the
+  last one the scratch block that takes dropped writes), the free list and
+  refcounts, the hash-chained prefix registry with parent/child links,
+  LRU eviction of refcount-0 cached blocks, and the optional host-RAM
+  spill tier (``serve/kv_store.py::HostKVStore``).  Without a host tier
+  an evicted hash becomes unresolvable and every registered descendant is
+  unregistered in cascade; with one, the block's bytes spill to host RAM
+  and a later chain hit restores them bit for bit.
+- :class:`PagedKVCachePool` is a slot view over it: per-slot block tables,
+  lengths, admission reservations and prefix caching (full prompt blocks
+  are content-addressed by a chained hash, registered once fully written,
+  refcount-shared on later hits, and the last one copied on write when a
+  whole prompt is covered).
+
+Slot state lives in host mirrors (lengths, tables, free lists), so the
+engine never reads the device to schedule; the block table goes to the
+device once per tick.  Block edits outside a forward (copy on write, host
+restore) write the pool tensors in place, on the current stream; a spill
+copies one block to the host (a device sync, on eviction's slow path).
+Release never zeroes a block: stale bytes are masked, as in the
+contiguous pool.  Sharing one BlockPool across several views, the slot
+export of the disaggregated tier and the tensor-parallel placement are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import math
+from collections import OrderedDict
+from typing import Any
+
 import numpy as np
+import torch
 
 
 class KVCachePool:
@@ -92,3 +120,681 @@ class KVCachePool:
         self.active[:] = False
         self.lengths[:] = 0
         self._free = list(range(self.num_slots - 1, -1, -1))
+
+
+def hash_prompt_blocks(prompt: np.ndarray, block_size: int) -> list:
+    """Chained content hashes for every full block of ``prompt``: entry i
+    keys tokens ``0..(i+1)*block_size``, so identical block contents at
+    different prefixes never alias.  The prefix-cache address function
+    shared by lookup, registration and restore."""
+    out, h = [], None
+    for i in range(prompt.size // block_size):
+        h = hash((h, bytes(prompt[i * block_size:(i + 1) * block_size])))
+        out.append(h)
+    return out
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A copy of ``t`` as host numpy (bf16 kept bit for bit as int16)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.to("cpu", copy=True).numpy()
+
+
+class BlockPool:
+    """The physical KV block substrate of the paged pool.
+
+    ``model`` is a ``models.gpt2.GPT2``; the blocks take its dtype and
+    device, or the quantized layout of ``kv_quant`` ("int8"/"int4").
+    Conservation invariant, audited by :meth:`check_invariants`:
+    ``free + referenced + evictable == num_blocks`` and refcounts equal
+    table references.
+    """
+
+    def __init__(self, model, *, num_blocks: int, block_size: int,
+                 kv_quant: str | None = None, host_store=None):
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.host = host_store
+        self.cache = model.new_block_cache(num_blocks, block_size, kv_quant)
+        # Exact bytes of ONE real block across every layer's KV tensors
+        # (payload plus any scales): the unit of the host-tier ledger.
+        self.block_bytes = sum(
+            math.prod(t.shape[1:]) * t.element_size()
+            for layer in self.cache for t in layer
+        )
+        self._free_blocks = list(range(num_blocks - 1, -1, -1))
+        self.refcount = np.zeros((num_blocks,), np.int32)
+        # hash -> block id for registered (immutable, fully written) blocks
+        self._hash_to_block: dict = {}
+        self._block_hash: dict[int, Any] = {}
+        # refcount-0 registered blocks in LRU order (oldest first)
+        self._evictable: OrderedDict[int, None] = OrderedDict()
+        # Chain topology for every hash resolvable in either tier: parent
+        # (None = chain root) and the reverse child sets.
+        self._hash_parent: dict = {}
+        self._hash_children: dict = {}
+        # Worst-case blocks still owed to live slots across every view.
+        self.outstanding_total = 0
+        self._views: list = []
+        self.blocks_evicted = 0
+        self.cow_copies = 0
+        self.blocks_spilled = 0
+        self.blocks_restored = 0
+        self.chain_unregistered = 0
+
+    # ------------------------------------------------------------------ #
+    # block bytes
+    # ------------------------------------------------------------------ #
+
+    def read_device_block(self, bid: int) -> list[np.ndarray]:
+        """One block's K/V bytes as host numpy, layer by layer (the spill
+        extraction: a device sync per call)."""
+        return [_to_host(t[bid]) for layer in self.cache for t in layer]
+
+    def write_device_block(self, bid: int, arrays: list[np.ndarray]) -> None:
+        """Write host bytes back into block ``bid`` in place (the restore)."""
+        it = iter(arrays)
+        for layer in self.cache:
+            for t in layer:
+                t[bid].copy_(torch.from_numpy(next(it)).view(t.dtype))
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Device-side copy of one block across every layer, in place (the
+        copy on write)."""
+        for layer in self.cache:
+            for t in layer:
+                t[dst].copy_(t[src])
+
+    # ------------------------------------------------------------------ #
+    # hash-chain registry (both tiers)
+    # ------------------------------------------------------------------ #
+
+    def resolvable(self, h) -> bool:
+        """Whether ``h``'s bytes can be produced without recompute: live
+        in the device registry or restorable from the host tier."""
+        return h in self._hash_to_block or (
+            self.host is not None and self.host.has(h)
+        )
+
+    def device_block(self, h) -> int | None:
+        return self._hash_to_block.get(h)
+
+    def host_has(self, h) -> bool:
+        return self.host is not None and self.host.has(h)
+
+    def register(self, h, bid: int, parent=None) -> bool:
+        """Register a fully written block under its chained hash.  A hash
+        whose parent is no longer resolvable is refused; a device
+        registration supersedes any host copy of the same hash."""
+        if h in self._hash_to_block or bid in self._block_hash:
+            return False
+        if parent is not None and not self.resolvable(parent):
+            return False
+        self._hash_to_block[h] = bid
+        self._block_hash[bid] = h
+        if self.host is not None:
+            self.host.drop(h)
+        self._link(h, parent)
+        return True
+
+    def _link(self, h, parent) -> None:
+        self._hash_parent[h] = parent
+        if parent is not None:
+            self._hash_children.setdefault(parent, set()).add(h)
+
+    def _unlink(self, h) -> None:
+        parent = self._hash_parent.pop(h, None)
+        if parent is not None:
+            kids = self._hash_children.get(parent)
+            if kids is not None:
+                kids.discard(h)
+                if not kids:
+                    del self._hash_children[parent]
+
+    def _kill_hash(self, h) -> None:
+        """Forget ``h`` everywhere and cascade to its descendants: a child
+        whose parent block is gone can never be part of a chain hit."""
+        bid = self._hash_to_block.pop(h, None)
+        if bid is not None:
+            del self._block_hash[bid]
+            self.chain_unregistered += 1
+            if self.refcount[bid] == 0 and bid in self._evictable:
+                del self._evictable[bid]
+                self._free_blocks.append(bid)
+        if self.host is not None and self.host.drop(h):
+            self.chain_unregistered += 1
+        self._unlink(h)
+        for child in list(self._hash_children.pop(h, ())):
+            self._kill_hash(child)
+
+    def _hash_unresolvable(self, h) -> None:
+        """``h`` just left its last tier: cascade-kill its descendants."""
+        if self.resolvable(h):
+            return
+        self._unlink(h)
+        for child in list(self._hash_children.pop(h, ())):
+            self._kill_hash(child)
+
+    # ------------------------------------------------------------------ #
+    # block lifecycle
+    # ------------------------------------------------------------------ #
+
+    def take_block(self) -> int:
+        """One block off the free list, evicting the LRU cached block when
+        the list is dry (the admission reservation guarantees one).  With
+        a host tier the evicted block's bytes spill there first; without
+        one, or when the store refuses, the evicted hash and its
+        registered descendants are unregistered in cascade."""
+        if self._free_blocks:
+            return self._free_blocks.pop()
+        if not self._evictable:
+            raise RuntimeError(
+                "block pool exhausted with nothing evictable — admission "
+                "reservation violated"
+            )
+        bid, _ = self._evictable.popitem(last=False)
+        h = self._block_hash.pop(bid)
+        del self._hash_to_block[h]
+        self.blocks_evicted += 1
+        stored = False
+        if self.host is not None:
+            parent = self._hash_parent.get(h)
+            if parent is None or self.resolvable(parent):
+                stored, dropped = self.host.put(h, self.read_device_block(bid))
+                if stored:
+                    self.blocks_spilled += 1
+                for d in dropped:
+                    self._hash_unresolvable(d)
+        if not stored:
+            self._hash_unresolvable(h)
+        return bid
+
+    def release_block(self, bid: int) -> None:
+        self.refcount[bid] -= 1
+        if self.refcount[bid] < 0:
+            raise AssertionError(f"block {bid} refcount underflow")
+        if self.refcount[bid] == 0:
+            if bid in self._block_hash:
+                self._evictable[bid] = None  # newest recency
+            else:
+                self._free_blocks.append(bid)
+
+    def claim_registered(self, bid: int) -> None:
+        """Refcount++ on a registered block, pinning it out of the
+        evictable set while referenced."""
+        if self.refcount[bid] == 0:
+            self._evictable.pop(bid, None)
+        self.refcount[bid] += 1
+
+    def restore_block(self, h, parent) -> int | None:
+        """Restore ``h`` from the host tier into a fresh device block
+        (claimed at refcount 1, re-registered), or None when the host copy
+        is gone.  ``h`` stays in the store across ``take_block``, whose
+        spill checks that an evicted block's parent is still resolvable;
+        that spill may itself drop ``h``, so the pop is checked."""
+        if self.host is None or not self.host.has(h):
+            return None
+        bid = self.take_block()
+        arrays = self.host.pop(h)
+        if arrays is None:
+            self._free_blocks.append(bid)
+            return None
+        self.write_device_block(bid, arrays)
+        self.refcount[bid] = 1
+        self._hash_to_block[h] = bid
+        self._block_hash[bid] = h
+        self._link(h, parent)
+        self.blocks_restored += 1
+        return bid
+
+    def attach_view(self, view) -> None:
+        self._views.append(view)
+
+    # ------------------------------------------------------------------ #
+    # accounting
+    # ------------------------------------------------------------------ #
+
+    @property
+    def blocks_in_use(self) -> int:
+        return int((self.refcount > 0).sum())
+
+    @property
+    def blocks_free(self) -> int:
+        return len(self._free_blocks)
+
+    @property
+    def blocks_cached(self) -> int:
+        """Registered refcount-0 blocks (evictable, serving future hits)."""
+        return len(self._evictable)
+
+    def stats(self) -> dict:
+        out = {
+            "blocks_in_use": self.blocks_in_use,
+            "blocks_free": self.blocks_free,
+            "blocks_cached": self.blocks_cached,
+            "block_occupancy": (
+                (self.blocks_in_use + self.blocks_cached) / self.num_blocks
+            ),
+            "blocks_evicted": self.blocks_evicted,
+            "cow_copies": self.cow_copies,
+        }
+        if self.host is not None:
+            out.update({
+                "blocks_spilled": self.blocks_spilled,
+                "blocks_restored": self.blocks_restored,
+                "chain_unregistered": self.chain_unregistered,
+                "kv_block_bytes": self.block_bytes,
+                **self.host.stats(),
+            })
+        elif self.chain_unregistered:
+            out["chain_unregistered"] = self.chain_unregistered
+        return out
+
+    def check_invariants(self) -> None:
+        """Conservation + refcount + chain audit (test hook) across every
+        attached view: each block is exactly one of free / referenced /
+        evictable, refcounts equal table references, and every resolvable
+        hash's parent is resolvable."""
+        refs = np.zeros((self.num_blocks,), np.int64)
+        for view in self._views:
+            tables = view.block_tables
+            live = tables[tables != self.num_blocks]
+            np.add.at(refs, live, 1)
+        if not np.array_equal(refs, self.refcount):
+            raise AssertionError(
+                f"refcount drift: tables say {refs.tolist()}, "
+                f"pool says {self.refcount.tolist()}"
+            )
+        free = set(self._free_blocks)
+        evict = set(self._evictable)
+        used = {b for b in range(self.num_blocks) if self.refcount[b] > 0}
+        if free & evict or free & used or evict & used:
+            raise AssertionError("block state overlap")
+        if len(free) + len(evict) + len(used) != self.num_blocks:
+            raise AssertionError(
+                f"block conservation broken: {len(free)} free + "
+                f"{len(evict)} evictable + {len(used)} used != "
+                f"{self.num_blocks}"
+            )
+        for h, bid in self._hash_to_block.items():
+            if self._block_hash.get(bid) != h:
+                raise AssertionError("hash map / reverse map drift")
+        view_out = sum(int(v._outstanding.sum()) for v in self._views)
+        if view_out != self.outstanding_total:
+            raise AssertionError(
+                f"outstanding drift: views {view_out} != total "
+                f"{self.outstanding_total}"
+            )
+        hashes = set(self._hash_to_block)
+        if self.host is not None:
+            self.host.check_accounting()
+            host_hashes = set(self.host._entries)
+            if hashes & host_hashes:
+                raise AssertionError(
+                    "hash resolvable in both tiers — device registration "
+                    "must supersede the host copy"
+                )
+            hashes |= host_hashes
+        for h in hashes:
+            parent = self._hash_parent.get(h)
+            if parent is not None and not self.resolvable(parent):
+                raise AssertionError(
+                    f"chain invariant broken: hash {h} resolvable but its "
+                    "parent is not"
+                )
+
+    def reset(self) -> None:
+        self.refcount[:] = 0
+        self._hash_to_block.clear()
+        self._block_hash.clear()
+        self._evictable.clear()
+        self._hash_parent.clear()
+        self._hash_children.clear()
+        self._free_blocks = list(range(self.num_blocks - 1, -1, -1))
+        self.outstanding_total = 0
+        self.blocks_evicted = 0
+        self.cow_copies = 0
+        self.blocks_spilled = 0
+        self.blocks_restored = 0
+        self.chain_unregistered = 0
+        if self.host is not None:
+            self.host.reset()
+
+
+class PagedKVCachePool:
+    """Slot view over a :class:`BlockPool` of its own: per-slot block
+    tables and prefix caching.
+
+    ``max_len`` bounds the logical length of one request (the model's
+    position table is the hard ceiling); the memory bound is the global
+    ``num_blocks * block_size``.  ``blocks_per_slot``, the table width, is
+    ``ceil(max_len / block_size)``.  A table entry equal to
+    ``num_blocks`` is the unallocated sentinel.
+
+    Admission is deadlock-free by reservation: ``allocate`` records each
+    slot's worst-case outstanding block need on the BlockPool, and
+    ``admissible_for`` refuses requests whose fresh-block need exceeds
+    ``free + evictable`` minus the total outstanding, so every live
+    request can always finish.
+    """
+
+    def __init__(self, model, *, num_slots: int, num_blocks: int,
+                 block_size: int, max_len: int | None = None,
+                 prefix_cache: bool = True, kv_quant: str | None = None,
+                 host_store=None):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        cap = max_len if max_len is not None else model.cfg.max_seq_len
+        if cap < 1 or cap > model.cfg.max_seq_len:
+            raise ValueError(
+                f"max_len {cap} outside 1..{model.cfg.max_seq_len} "
+                "(the model's position table bounds logical length)"
+            )
+        self.blocks = BlockPool(
+            model, num_blocks=num_blocks, block_size=block_size,
+            kv_quant=kv_quant, host_store=host_store,
+        )
+        self.blocks.attach_view(self)
+        self.num_slots = num_slots
+        self.max_len = cap
+        self.blocks_per_slot = -(-cap // block_size)
+        self.prefix_cache_enabled = prefix_cache
+        self.lengths = np.zeros((num_slots,), np.int32)
+        self.active = np.zeros((num_slots,), bool)
+        self._free_slots = list(range(num_slots - 1, -1, -1))
+        self.block_tables = np.full(
+            (num_slots, self.blocks_per_slot), num_blocks, np.int32
+        )
+        # Per slot: worst-case blocks still to allocate, and the full
+        # prompt blocks awaiting registration once fully written.
+        self._outstanding = np.zeros((num_slots,), np.int64)
+        self._pending_reg: list[list] = [[] for _ in range(num_slots)]
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+
+    @property
+    def cache(self):
+        return self.blocks.cache
+
+    @property
+    def num_blocks(self) -> int:
+        return self.blocks.num_blocks
+
+    @property
+    def block_size(self) -> int:
+        return self.blocks.block_size
+
+    @property
+    def sentinel(self) -> int:
+        """Idle-slot position sentinel (>= max_len; an idle slot's table
+        row is all block sentinels, so any position writes to scratch)."""
+        return self.max_len
+
+    @property
+    def mask_len(self) -> int:
+        """Length of the gathered attention read window: the table span."""
+        return self.blocks_per_slot * self.blocks.block_size
+
+    @property
+    def num_active(self) -> int:
+        return int(self.active.sum())
+
+    # ------------------------------------------------------------------ #
+    # chain resolution
+    # ------------------------------------------------------------------ #
+
+    def _blocks_span(self, tokens: int) -> int:
+        return -(-tokens // self.blocks.block_size)
+
+    def _resolve_run(self, prompt: np.ndarray) -> tuple[list, list]:
+        """(all full-block hashes, leading resolvable run) of a prompt;
+        run entries are ``(k, h, bid | None)``, None for host-tier entries
+        (restored at allocation)."""
+        hashes = hash_prompt_blocks(prompt, self.blocks.block_size)
+        run: list = []
+        if self.prefix_cache_enabled:
+            for k, h in enumerate(hashes):
+                bid = self.blocks.device_block(h)
+                if bid is not None:
+                    run.append((k, h, bid))
+                elif self.blocks.host_has(h):
+                    run.append((k, h, None))
+                else:
+                    break
+        return hashes, run
+
+    def _admission_plan(self, prompt: np.ndarray,
+                        max_new: int) -> tuple[bool, list, list]:
+        """(admissible, hashes, run) from one hashing pass.  Device hits
+        reduce the fresh-block need, host hits do not (a restore takes a
+        device block too), and a device hit in the evictable set is not
+        also counted as available."""
+        hashes, run = self._resolve_run(prompt)
+        cow = bool(run) and len(run) * self.blocks.block_size >= prompt.size
+        span = self._blocks_span(int(prompt.size) + int(max_new) - 1)
+        device_hits = [bid for _, _, bid in run if bid is not None]
+        needed = span - len(device_hits) + (1 if cow else 0)
+        evictable_hits = sum(
+            1 for bid in device_hits if bid in self.blocks._evictable
+        )
+        avail = (
+            len(self.blocks._free_blocks) + len(self.blocks._evictable)
+            - evictable_hits - self.blocks.outstanding_total
+        )
+        return needed <= avail, hashes, run
+
+    def fits(self, prompt_len: int, max_new: int) -> bool:
+        """Whether a request could ever be admitted: within the position
+        bound, and its zero-hit worst-case span within the whole pool."""
+        if prompt_len + max_new > self.max_len:
+            return False
+        return (
+            self._blocks_span(prompt_len + max_new - 1)
+            <= self.blocks.num_blocks
+        )
+
+    def lookup(self, prompt: np.ndarray) -> int:
+        """Cached tokens a prompt would hit across both tiers, without
+        claiming; at least one prompt token is always recomputed (the
+        logits source)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        _, run = self._resolve_run(prompt)
+        return min(len(run) * self.blocks.block_size, int(prompt.size) - 1)
+
+    def admissible_for(self, prompt: np.ndarray, max_new: int) -> bool:
+        """Whether a request can be admitted now under the global block
+        budget (a free slot, and its worst-case fresh-block need within
+        the unreserved free + evictable blocks)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if not self._free_slots or prompt.size + max_new > self.max_len:
+            return False
+        return self._admission_plan(prompt, max_new)[0]
+
+    # ------------------------------------------------------------------ #
+    # slot lifecycle
+    # ------------------------------------------------------------------ #
+
+    def allocate(self, prompt: np.ndarray, max_new: int) -> tuple[int, int]:
+        """Claim a slot for ``prompt``: take prefix-cache hits (refcount++
+        on device hits, host-tier entries restored into fresh blocks, the
+        last block copied on write when the whole prompt is covered),
+        reserve the worst-case fresh-block need, and return
+        ``(slot, cached_tokens)``: the engine skips prefill for the first
+        ``cached_tokens`` positions.  Raises RuntimeError when not
+        ``admissible_for``."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if not self._free_slots or prompt.size + max_new > self.max_len:
+            raise RuntimeError(
+                "request not admissible (no free slot or over the "
+                "position bound)"
+            )
+        ok, hashes, run = self._admission_plan(prompt, max_new)
+        if not ok:
+            raise RuntimeError(
+                "request not admissible (insufficient blocks for the "
+                "worst-case span)"
+            )
+        slot = self._free_slots.pop()
+        self.active[slot] = True
+        self.prefix_lookup_tokens += int(prompt.size)
+        # Claim every device hit first: a claimed block cannot be evicted
+        # by the restores below.
+        for _, _, bid in run:
+            if bid is not None:
+                self.blocks.claim_registered(bid)
+        # Restore host-tier entries in chain order; a restore's own spill
+        # can drop a later entry of this chain, which truncates the run
+        # there (device hits past the break are released again).
+        hit_ids: list[int] = []
+        broken = False
+        for k, h, bid in run:
+            if broken:
+                if bid is not None:
+                    self.blocks.release_block(bid)
+                continue
+            if bid is None:
+                parent = hashes[k - 1] if k else None
+                bid = self.blocks.restore_block(h, parent)
+                if bid is None:
+                    broken = True
+                    continue
+            hit_ids.append(bid)
+        bs = self.blocks.block_size
+        cow = bool(hit_ids) and len(hit_ids) * bs >= prompt.size
+        cached = len(hit_ids) * bs
+        self.block_tables[slot, :len(hit_ids)] = hit_ids
+        if cow:
+            # Whole prompt covered: copy the last shared block so the final
+            # token (recomputed for its logits) writes a private copy.
+            shared = hit_ids[-1]
+            copy = self.blocks.take_block()
+            self.blocks.copy_block(shared, copy)
+            self.block_tables[slot, len(hit_ids) - 1] = copy
+            self.blocks.refcount[copy] = 1
+            self.blocks.release_block(shared)
+            self.blocks.cow_copies += 1
+            cached -= 1
+        self.prefix_hit_tokens += cached
+        self.lengths[slot] = cached
+        span = self._blocks_span(prompt.size + max_new - 1)
+        filled = int((self.block_tables[slot] != self.blocks.num_blocks).sum())
+        self._outstanding[slot] = span - filled
+        self.blocks.outstanding_total += span - filled
+        # Full prompt blocks this slot computes itself: registered once
+        # fully written (advance), each linked to its chain parent.
+        self._pending_reg[slot] = [
+            (k, h, hashes[k - 1] if k else None)
+            for k, h in enumerate(hashes)
+            if (k + 1) * bs > cached
+        ]
+        return slot, cached
+
+    def ensure_length(self, slot: int, new_len: int) -> None:
+        """Allocate table entries so positions ``0..new_len-1`` are
+        writable: called by the engine before each forward for the
+        positions it will write."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not allocated")
+        if new_len > self.max_len:
+            raise ValueError(
+                f"slot {slot} overflow: {new_len} > {self.max_len}"
+            )
+        for k in range(self._blocks_span(new_len)):
+            if self.block_tables[slot, k] == self.blocks.num_blocks:
+                bid = self.blocks.take_block()
+                self.block_tables[slot, k] = bid
+                self.blocks.refcount[bid] = 1
+                self._outstanding[slot] -= 1
+                self.blocks.outstanding_total -= 1
+
+    def advance(self, slot: int, n: int) -> None:
+        """Record ``n`` tokens written; registers any prompt block whose
+        K/V just became fully written (the prefix-cache publication)."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not allocated")
+        old = int(self.lengths[slot])
+        if old + n > self.max_len:
+            raise ValueError(
+                f"slot {slot} overflow: {old} + {n} > {self.max_len}"
+            )
+        self.lengths[slot] = old + n
+        if not self.prefix_cache_enabled:
+            return
+        pend = self._pending_reg[slot]
+        bs = self.blocks.block_size
+        while pend and self.lengths[slot] >= (pend[0][0] + 1) * bs:
+            k, h, parent = pend.pop(0)
+            self.blocks.register(h, int(self.block_tables[slot, k]), parent)
+
+    def rewind(self, slot: int, new_len: int | None = None) -> int:
+        """Free the blocks past ``new_len`` (default: the slot's length)
+        that only rejected speculative writes touched, restoring the
+        slot's reservation; returns the number freed.  A shared or
+        registered block there is a loud error: rollback must never touch
+        a refcounted prefix."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not allocated")
+        new_len = int(self.lengths[slot]) if new_len is None else int(new_len)
+        if new_len < int(self.lengths[slot]):
+            raise ValueError(
+                f"slot {slot}: cannot rewind below the claimed length "
+                f"({new_len} < {int(self.lengths[slot])})"
+            )
+        freed = 0
+        for k in range(self._blocks_span(new_len), self.blocks_per_slot):
+            bid = int(self.block_tables[slot, k])
+            if bid == self.blocks.num_blocks:
+                continue
+            if self.blocks.refcount[bid] != 1 or bid in self.blocks._block_hash:
+                raise AssertionError(
+                    f"rewind would free shared/registered block {bid} "
+                    f"(refcount {int(self.blocks.refcount[bid])})"
+                )
+            self.blocks.refcount[bid] = 0
+            self.blocks._free_blocks.append(bid)
+            self.block_tables[slot, k] = self.blocks.num_blocks
+            self._outstanding[slot] += 1
+            self.blocks.outstanding_total += 1
+            freed += 1
+        return freed
+
+    def release(self, slot: int) -> None:
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not allocated")
+        for bid in self.block_tables[slot]:
+            if bid != self.blocks.num_blocks:
+                self.blocks.release_block(int(bid))
+        self.block_tables[slot] = self.blocks.num_blocks
+        self.active[slot] = False
+        self.lengths[slot] = 0
+        self.blocks.outstanding_total -= int(self._outstanding[slot])
+        self._outstanding[slot] = 0
+        self._pending_reg[slot] = []
+        self._free_slots.append(slot)
+
+    def check_invariants(self) -> None:
+        """Conservation + refcount + chain audit (test hook)."""
+        self.blocks.check_invariants()
+
+    def stats(self) -> dict:
+        return {
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_lookup_tokens": self.prefix_lookup_tokens,
+            **self.blocks.stats(),
+        }
+
+    def reset(self) -> None:
+        """Drop all slots, the prefix cache and the counters (bookkeeping
+        only; block bytes stay stale-but-masked, as on release)."""
+        for slot in range(self.num_slots):
+            if self.active[slot]:
+                self.release(slot)
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self._free_slots = list(range(self.num_slots - 1, -1, -1))
+        self.blocks.reset()

@@ -6,7 +6,9 @@ ported yet).
 - FIFO queue with bounded-queue backpressure (``submit`` refuses past
   ``max_queue``), round-robin across tenants, FIFO within one;
 - every tick: shed queued requests past their deadline, cancel in-flight
-  ones past it, admit into free slots, step the engine once;
+  ones past it, admit while ``engine.can_admit`` (a free slot, and for the
+  paged pool enough unreserved blocks net of prefix hits; a candidate too
+  big for now waits at the head), step the engine once;
 - per-request arrival/admission/first-token/finish timestamps, finalized
   into TTFT/TPOT records (serve/metrics.py) and optionally logged as JSONL.
 
@@ -137,8 +139,10 @@ class ContinuousScheduler:
             deadline = self.records[rid].get("deadline")
             if deadline is not None and deadline <= now:
                 cancel_events.append(self.engine.cancel(rid))
-        while self.queue and self.engine.has_free_slot:
+        while self.queue:
             r = self._admit_candidate()
+            if not self.engine.can_admit(r.prompt, r.max_new_tokens):
+                break
             if r is self.queue[0]:
                 self.queue.popleft()
             else:

@@ -2,12 +2,12 @@
 """Where a serving run of the PyTorch port spends its time, on one GPU.
 
     python3 -m pytorch_distributed_training_tpu_torch.tools.serve_profile \
-        [--spec] [--rows 25]
+        [--paged] [--spec] [--rows 25]
 
 Runs the port's ``--serve`` CLI (GPT-2 124M, bf16, 8 slots, 16 burst
 requests of 2..256 prompt tokens and up to 64 new tokens — the
-chip_smoke.py trace) once to warm up, then once more under
-``torch.profiler``, and prints:
+chip_smoke.py trace; ``--paged`` serves it from the paged KV pool) once
+to warm up, then once more under ``torch.profiler``, and prints:
 
 - the wall time of the profiled run and the device-busy share (the union
   of kernel intervals on the device timeline over that wall time);
@@ -56,6 +56,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spec", action="store_true",
                     help="Profile the speculative (k = 4) run instead.")
+    ap.add_argument("--paged", action="store_true",
+                    help="Serve from the paged KV pool (--serve-paged).")
     ap.add_argument("--rows", type=int, default=25)
     args = ap.parse_args()
     import torch
@@ -68,6 +70,7 @@ def main() -> int:
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
 
     argv = ARGV + (["--serve-spec", "--serve-spec-k", "4"] if args.spec else [])
+    argv += ["--serve-paged"] if args.paged else []
     cli(argv)  # warm-up: CUDA context, cuBLAS, kernel build and load
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -81,6 +84,7 @@ def main() -> int:
     busy_s = busy_seconds(prof.events())
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "spec": args.spec,
+        "paged": args.paged,
         "wall_s": wall_s, "device_busy_s": busy_s,
         "device_busy_share": busy_s / wall_s,
         "decode_ticks": res["engine"]["decode_ticks"],

@@ -47,6 +47,9 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.cli.main\n"
         "import pytorch_distributed_training_tpu_torch.serve.engine\n"
         "import pytorch_distributed_training_tpu_torch.models.generate\n"
+        "import pytorch_distributed_training_tpu_torch.serve.kv_pool\n"
+        "import pytorch_distributed_training_tpu_torch.serve.kv_store\n"
+        "import pytorch_distributed_training_tpu_torch.ops.paged_attention\n"
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"({blocked},) and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"
