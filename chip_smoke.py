@@ -4,20 +4,27 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from the sources in this checkout (nvcc,
-one process per source, into build/torch_kernels/), holds each kernel
-against its plain PyTorch version at the serving shapes and times both,
-then drives the port's main paths — the ``--serve`` CLI serving GPT-2
-124M (bf16, fresh weights from the seed) over the contiguous cache with
-and without speculative decoding, and over the paged pool plainly, with
-speculative decoding and with int8 KV — and checks that every request
-completed and that the attention kernels carried every decode, verify and
-prefill tick they should.  A scripted engine run at full width serves
-shared-prefix traffic through the prefix cache.  Lockstep ``generate``
-runs at full width too, and a small f32 model's slot-mode logits on the
-card, contiguous and paged, are checked against the same model on the
-host.
+one process per source, all at once, into build/torch_kernels/), holds
+each kernel against its plain PyTorch version and times both, then drives
+the port's main paths:
 
-Each phase prints one line; any failed check ends the run with a
+- serving: the ``--serve`` CLI serving GPT-2 124M (bf16, fresh weights
+  from the seed) over the contiguous cache with and without speculative
+  decoding, and over the paged pool plainly, with speculative decoding and
+  with int8 KV, checking that every request completed and that the
+  attention kernels carried every decode, verify and prefill tick; a
+  scripted engine run at full width serves shared-prefix traffic through
+  the prefix cache; lockstep ``generate`` runs at full width; a small f32
+  model's slot-mode logits on the card are checked against the host;
+- training: the CLI trains GPT-2 at full width (124M at 1024 and 512
+  positions with gradient accumulation, XL widths at 1024, 2048
+  positions, and the main run again with remat and chunked CE), each run
+  routed to the flash kernels that port one TPU tiling, with the flash
+  launch counts checked exactly and no attention outside the kernels; a
+  small f32 model trains three steps on the card and on the host from the
+  same weights and must agree.
+
+Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
 (JSON), the card's name and power limit, and the result object.  Without
 a CUDA device, or without the port package beside this script, it exits
@@ -36,6 +43,15 @@ import time
 
 SOURCE = "pytorch_distributed_training_tpu_torch/csrc/decode_attention.cu"
 PAGED_SOURCE = "pytorch_distributed_training_tpu_torch/csrc/paged_attention.cu"
+FLASH_SOURCE = "pytorch_distributed_training_tpu_torch/csrc/flash_attention.cu"
+PALLAS = "pytorch_distributed_training_tpu/ops/pallas_attention.py"
+# Rows #1-#8: the TPU flash kernels (def line) by row number.
+FLASH_ROWS = {
+    1: ("_flash_fwd_single", 224), 2: ("_flash_fwd_single_nlhd", 302),
+    3: ("_flash_bwd_nlhd", 380), 4: ("_flash_fwd_grouped", 594),
+    5: ("_flash_bwd_grouped", 633), 6: ("_flash_fwd", 712),
+    7: ("_flash_bwd_single", 918), 8: ("_flash_bwd", 949),
+}
 TPU_KERNELS = {
     "decode_attention":
         "pytorch_distributed_training_tpu/ops/pallas_attention.py:1221",
@@ -60,6 +76,15 @@ LAYERS = 12
 # 64-entry table per row (1024 positions), 512 physical blocks.
 BS, NB, NBLOCKS = 16, 64, 512
 VOCAB = 50257
+# The flash kernels' timed shapes (bf16, causal, head dim 64) and the TPU
+# tiling each routes to in the JAX package's flash_attention
+# (tests/test_torch_flash_attention.py pins the routing with its helpers).
+FLASH_SHAPES = {
+    "A": {"batch": 16, "seq": 512, "heads": 12, "fwd": 2, "bwd": 3},
+    "B": {"batch": 8, "seq": 1024, "heads": 12, "fwd": 4, "bwd": 5},
+    "C": {"batch": 2, "seq": 1024, "heads": 25, "fwd": 1, "bwd": 7},
+    "D": {"batch": 2, "seq": 2048, "heads": 12, "fwd": 6, "bwd": 8},
+}
 SERVE_ARGV = ["--serve", "--model", "gpt2", "--precision", "bf16",
               "--seq-len", "512", "--serve-requests", "16",
               "--serve-slots", "8", "--serve-max-new", "64",
@@ -526,6 +551,333 @@ def parity_phase(torch, seed: int) -> None:
           + " (atol 1e-3)", flush=True)
 
 
+def flash_bound_ms(batch: int, q_len: int, k_len: int, heads: int,
+                   causal: bool, bandwidth: float) -> dict:
+    """Least time of the forward and of the backward on these shapes
+    (bf16): the live (query, key) pairs of the mask times 2 products of
+    2 flops per head dim for the forward, 5 for the backward, against the
+    bytes each must move once (forward: q, k, v, out and the f32 LSE;
+    backward: q, k, v, dO, LSE and delta read, dq, dk and dv written)."""
+    dh = 64
+    if causal:
+        off = k_len - q_len
+        pairs = sum(max(0, min(k_len, i + off + 1)) for i in range(q_len))
+    else:
+        pairs = q_len * k_len
+    pairs *= batch * heads
+    act = batch * heads * dh * 2          # bytes per position of one tensor
+    row = batch * heads * q_len * 4       # one f32 (B, H, Lq) tensor
+    out = {}
+    for part, n_products, nbytes in (
+        ("fwd", 2, act * (2 * q_len + 2 * k_len) + row),
+        ("bwd", 5, act * (3 * q_len + 4 * k_len) + 2 * row),
+    ):
+        t_ops = n_products * 2 * pairs * dh / PEAK_OPS["torch.bfloat16"]
+        t_bytes = nbytes / bandwidth
+        out[part] = (max(t_ops, t_bytes) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _flash_inputs(torch, batch, q_len, k_len, heads, dtype, gen):
+    """q, k, v as the model hands them over: strided (B, L, H, 64) views of
+    one fused projection (separate q and fused k/v when the lengths
+    differ), and a seeded dO."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    if q_len == k_len:
+        q, k, v = rnd(batch, q_len, 3, heads, 64).unbind(2)
+    else:
+        q = rnd(batch, q_len, heads, 64)
+        k, v = rnd(batch, k_len, 2, heads, 64).unbind(2)
+    return q, k, v, rnd(batch, q_len, heads, 64)
+
+
+def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
+    """The flash forward (out, LSE) and backward (dq, dk, dv from a seeded
+    dO) against their plain versions on the card, at the four training
+    shapes A-D in bf16 (timed) and at shape B in f32, a causal cross
+    length (q 256, k 1024) and the non-causal L 197.  Tolerances: f32 out
+    and LSE atol 2e-5, grads 2e-4 (the JAX tests' own); bf16 out, LSE and
+    grads 2e-2 + 2e-2 |ref|: both sides round the same f32 p and ds to
+    bf16 except where their f32 sums differ in the last bit across a
+    rounding boundary (one bf16 ulp, 2^-8 relative, on a few terms of a
+    sum), plus the final rounding of each result (half an ulp)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    scale = 64 ** -0.5
+    cases = [(name, s["batch"], s["seq"], s["seq"], s["heads"], True,
+              torch.bfloat16) for name, s in FLASH_SHAPES.items()]
+    b = FLASH_SHAPES["B"]
+    cases += [("B f32", b["batch"], b["seq"], b["seq"], b["heads"], True,
+               torch.float32),
+              ("cross-length", 2, 256, 1024, 12, True, torch.float32),
+              ("cross-length", 2, 256, 1024, 12, True, torch.bfloat16),
+              ("L197 non-causal", 4, 197, 197, 12, False, torch.float32),
+              ("L197 non-causal", 4, 197, 197, 12, False, torch.bfloat16)]
+    rows = {}
+    for label, batch, q_len, k_len, heads, causal, dtype in cases:
+        q, k, v, do = _flash_inputs(torch, batch, q_len, k_len, heads, dtype,
+                                    gen)
+        kw = dict(causal=causal, scale=scale)
+
+        def fwd(q=q, k=k, v=v, kw=kw):
+            return fa.flash_fwd(q, k, v, **kw)
+
+        out, lse = fwd()
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+        def bwd(q=q, k=k, v=v, do=do, lse=lse, delta=delta, kw=kw):
+            return (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                    *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+        grads = bwd()
+        ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+        ref_grads = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, causal,
+                                       scale)
+        torch.cuda.synchronize()
+        lowp = dtype is torch.bfloat16
+        errs = {}
+        for name, got, ref in (("out", out, ref_out), ("lse", lse, ref_lse),
+                               *zip(("dq", "dk", "dv"), grads, ref_grads)):
+            atol = 2e-2 if lowp else (2e-5 if name in ("out", "lse") else 2e-4)
+            rtol = 2e-2 if lowp else 0.0
+            err = (got.float() - ref.float()).abs()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"flash {label} {name} finite")
+            check(bool((err <= atol + rtol * ref.float().abs()).all()),
+                  f"flash {label} {dtype} {name} within atol {atol} rtol "
+                  f"{rtol} (max err {err.max().item():.3g})")
+            errs[name] = err.max().item()
+        line = (f"kernel flash {label} ({batch}x{q_len}x{k_len}, H {heads}, "
+                f"{'causal' if causal else 'non-causal'}, {str(dtype)[6:]}): "
+                "max_abs_err " + ", ".join(f"{n} {e:.3g}"
+                                          for n, e in errs.items()))
+        if label in FLASH_SHAPES:
+            shape = FLASH_SHAPES[label]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa_q, sdpa_k, sdpa_v = (x.detach().requires_grad_()
+                                      for x in (qt, kt, vt))
+            sdpa_out = F.scaled_dot_product_attention(
+                sdpa_q, sdpa_k, sdpa_v, is_causal=True)
+            do_t = do.transpose(1, 2)
+            timed = {
+                "fwd": (fwd, lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True)),
+                "bwd": (bwd, lambda: fa.flash_bwd_plain(
+                            q, k, v, do, lse, delta, causal, scale),
+                        lambda: torch.autograd.grad(
+                            sdpa_out, (sdpa_q, sdpa_k, sdpa_v), do_t,
+                            retain_graph=True)),
+            }
+            bounds = flash_bound_ms(batch, q_len, k_len, heads, causal,
+                                    bandwidth)
+            for part, (kernel, plain, library) in timed.items():
+                ms, plain_ms, library_ms = (time_ms(torch, f)
+                                            for f in (kernel, plain, library))
+                bms, by = bounds[part]
+                num = shape[part]
+                fn_name, def_line = FLASH_ROWS[num]
+                rows[num] = dict(
+                    name=fn_name, route="cuda", source=FLASH_SOURCE,
+                    replaces=f"{PALLAS}:{def_line}", launches=0,
+                    max_abs_err=(errs["out"] if part == "fwd"
+                                 else max(errs["dq"], errs["dk"], errs["dv"])),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=library_ms, shape=label,
+                    kernels=("flash_fwd_kernel" if part == "fwd" else
+                             "flash_bwd_dq_kernel + flash_bwd_dkv_kernel"),
+                )
+                line += (f"; #{num} {part} {ms * 1e3:.1f} us, plain "
+                         f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f}"
+                         f" us, bound {bms * 1e3:.2f} us ({by})")
+            del sdpa_out
+        print(line, flush=True)
+    return rows
+
+
+def _count_calls(module, names, counts):
+    """Wrap ``module.<name>`` so each call adds one to ``counts[name]``;
+    returns the originals for restoring."""
+    originals = {}
+    for name in names:
+        fn = getattr(module, name)
+        originals[name] = fn
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(module, name, counted)
+    return originals
+
+
+TRAIN_COMMON = ["--dataset", "synthetic-tokens", "--precision", "bf16",
+                "--num-workers", "0"]
+T1_RECIPE = ["--model", "gpt2", "--seq-len", "1024", "--batch-size", "16",
+             "--accum-steps", "2", "--optimizer", "adamw", "--learning-rate",
+             "6e-4", "--weight-decay", "0.1", "--grad-clip", "1.0",
+             "--lr-schedule", "warmup-cosine", "--warmup-steps", "2",
+             "--total-steps", "8"]
+# (label, argv, layers, microbatches, steps, remat, flash rows)
+TRAIN_RUNS = [
+    ("T2", ["--model", "gpt2", "--seq-len", "512", "--batch-size", "16",
+            "--accum-steps", "2", "--steps-per-epoch", "2"],
+     12, 2, 2, False, (2, 3)),
+    ("T3", ["--model", "gpt2_xl", "--model-overrides", "num_layers=2",
+            "--seq-len", "1024", "--batch-size", "4", "--steps-per-epoch",
+            "2"], 2, 1, 2, False, (1, 7)),
+    ("T4", ["--model", "gpt2", "--model-overrides",
+            "num_layers=2,max_seq_len=2048", "--seq-len", "2048",
+            "--batch-size", "4", "--steps-per-epoch", "2"],
+     2, 1, 2, False, (6, 8)),
+    ("T1", T1_RECIPE + ["--steps-per-epoch", "8"], 12, 2, 8, False, (4, 5)),
+    ("T5", T1_RECIPE + ["--steps-per-epoch", "2", "--remat", "--ce-chunk",
+                        "256"], 12, 2, 2, True, (4, 5)),
+]
+
+
+def training_phase(torch, fa, seed: int) -> dict:
+    """The CLI trains on the card (bf16, synthetic tokens, full width).
+    T2 warms the process up and routes to #2/#3 (L 512), T3 to #1/#7 (XL
+    widths, 25 heads), T4 to #6/#8 (L 2048), T1 is the main path (#4/#5,
+    GPT-2 124M at L 1024, the published recipe's optimizer), T5 is T1 with
+    remat and chunked CE.  In every run the forward kernel launches once
+    per layer per microbatch per step (twice under remat), the dq and
+    dk/dv kernels once each, and the plain flash versions and the plain
+    attention path not at all.  Returns the launches by row."""
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.ops import attention as attn
+
+    entries = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plain = {"flash_fwd_plain": 0, "_bwd_tiles": 0, "flash_bwd_plain": 0}
+    xla = {"_xla_attention": 0, "_xla_attention_remat": 0}
+    saved = (_count_calls(fa, list(plain), plain),
+             _count_calls(attn, list(xla), xla))
+    launches = {}
+    try:
+        for label, argv, layers, micro, steps, remat, row_nums in TRAIN_RUNS:
+            for e in entries:
+                e.launches = 0
+            for c in (plain, xla):
+                for k in c:
+                    c[k] = 0
+            trainer = cli(argv + TRAIN_COMMON + ["--seed", str(seed)])
+            n_fwd, n_dq, n_dkv = (e.launches for e in entries)
+            losses = trainer.last_epoch_losses
+            summary = trainer.history[-1]
+            want = layers * micro * steps
+            check(trainer.state.step == steps, f"{label}: {steps} steps")
+            check(all(x == x and abs(x) != float("inf") for x in losses),
+                  f"{label}: logged losses finite ({losses})")
+            check(n_fwd == want * (2 if remat else 1) and n_dq == want
+                  and n_dkv == want,
+                  f"{label}: flash launches fwd {n_fwd} dq {n_dq} dkv "
+                  f"{n_dkv}, expected {want} each (fwd x2 under remat)")
+            check(not any(plain.values()) and not any(xla.values()),
+                  f"{label}: attention outside the kernels {plain} {xla}")
+            fwd_row, bwd_row = row_nums
+            launches[fwd_row] = launches.get(fwd_row, 0) + n_fwd
+            launches[bwd_row] = launches.get(bwd_row, 0) + n_dq + n_dkv
+            line = (f"train {label} (#{fwd_row}/#{bwd_row}): {steps} steps, "
+                    f"losses {[round(x, 4) for x in losses]}, "
+                    f"{summary['examples_per_sec']:.2f} examples/s, "
+                    f"launches fwd {n_fwd} dq {n_dq} dkv {n_dkv}")
+            if label == "T1":
+                check(10.0 <= losses[0] <= 12.0,
+                      f"T1 first loss {losses[0]} near ln 50257 = 10.8")
+                model = trainer.state.model
+                cfg = model.cfg
+                n_params = sum(p.numel() for p in model.parameters())
+                seq = 1024
+                flops_per_token = (6 * n_params
+                                   + 12 * cfg.num_layers * seq * cfg.hidden_dim)
+                tok_s = summary["examples_per_sec"] * seq
+                line += (f"; {tok_s:.0f} tokens/s, step "
+                         f"{summary['elapsed_s'] / steps * 1e3:.1f} ms, MFU "
+                         f"{flops_per_token * tok_s / 989e12 * 100:.2f} % "
+                         f"({n_params} params, {flops_per_token:.4g} "
+                         "flop/token, 989 TF/s)")
+            print(line, flush=True)
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        for module, originals in zip((fa, attn), saved):
+            for name, fn in originals.items():
+                setattr(module, name, fn)
+    return launches
+
+
+def train_parity_phase(torch, fa, seed: int) -> None:
+    """Three f32 training steps of a small GPT-2 (2 layers, hidden 128, 2
+    heads of 64, vocab 512, seq 256, batch 4, accumulation 2, adam) on the
+    card (flash kernels) and on the host (plain attention) from the same
+    weights: per-step losses within 1e-4 and every weight within 1e-4,
+    except the key third of each qkv bias, whose gradient is zero in exact
+    arithmetic (softmax ignores a per-query constant), so that Adam turns
+    both sides' rounding noise into steps of up to lr: it is held to
+    2 x steps x lr."""
+    import copy
+
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.models import gpt2_124m
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr, steps = 1e-3, 3
+    cfg = dict(num_layers=2, hidden_dim=128, num_heads=2, vocab_size=512,
+               max_seq_len=256)
+    host_model = gpt2_124m(cfg, device="cpu", seed=seed)
+    card_model = copy.deepcopy(host_model).to("cuda")
+    rng = np.random.default_rng(seed)
+    batches = [rng.integers(0, 512, (4, 256)).astype(np.int32)
+               for _ in range(steps)]
+    policy = make_policy("f32")
+    results = {}
+    fa.flash_fwd.launches = 0
+    for where, model in (("host", host_model), ("card", card_model)):
+        state = create_train_state(
+            model, build_optimizer("adam", lr, weight_decay=1e-3),
+            policy=policy)
+        step = make_train_step(kind="lm", policy=policy, num_microbatches=2)
+        losses = []
+        for b in batches:
+            state, m = step(state, {"tokens": torch.from_numpy(b).to(
+                model.wte.device)})
+            losses.append(float(m["loss"]))
+        results[where] = (losses, {k: v.detach().cpu()
+                                   for k, v in state.params.items()})
+    check(fa.flash_fwd.launches == 2 * 2 * steps,
+          f"parity: the card ran the flash kernels ({fa.flash_fwd.launches})")
+    (hl, hp), (cl, cp) = results["host"], results["card"]
+    loss_err = max(abs(a - b) for a, b in zip(hl, cl))
+    worst, worst_kbias = 0.0, 0.0
+    for name, ref in hp.items():
+        diff = (cp[name] - ref).abs()
+        if name.endswith("attn.qkv.bias"):
+            d = ref.shape[0] // 3
+            worst_kbias = max(worst_kbias, diff[d:2 * d].max().item())
+            diff = torch.cat([diff[:d], diff[2 * d:]])
+        worst = max(worst, diff.max().item())
+    check(loss_err <= 1e-4, f"parity: losses {cl} vs host {hl}")
+    check(worst <= 1e-4, f"parity: max weight difference {worst:.3g}")
+    check(worst_kbias <= 2 * steps * lr,
+          f"parity: key bias difference {worst_kbias:.3g}")
+    print(f"train parity: small f32 GPT-2, 3 steps card vs host: losses "
+          f"{[round(x, 6) for x in cl]}, max loss diff {loss_err:.3g} "
+          f"(1e-4), max weight diff {worst:.3g} (1e-4), key-bias diff "
+          f"{worst_kbias:.3g} (bound {2 * steps * lr:g})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -539,7 +891,8 @@ def main() -> int:
     sys.path.insert(0, repo)
     try:
         from pytorch_distributed_training_tpu_torch.ops import (
-            _build, decode_attention as da, paged_attention as pa,
+            _build, decode_attention as da, flash_attention as fa,
+            paged_attention as pa,
         )
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})",
@@ -564,18 +917,23 @@ def main() -> int:
         print(f"ptxas {src}: {len(regs)} kernels; {' | '.join(regs)}; "
               f"{' | '.join(sorted(spills))}", flush=True)
 
+    flash = flash_kernel_phase(torch, fa, args.seed, bandwidth)
     kernels = kernel_phase(torch, da, args.seed, bandwidth)
     kernels.update(paged_kernel_phase(torch, pa, args.seed, bandwidth))
     parity_phase(torch, args.seed)
+    train_parity_phase(torch, fa, args.seed)
     _, launches = serving_phase(torch, da, args.seed)
     launches.update(paged_serving_phase(torch, da, pa, args.seed))
     for kname, n in launches.items():
         kernels[kname]["launches"] = n
     prefix_phase(torch, args.seed)
     generate_phase(torch, da, args.seed)
+    for num, n in training_phase(torch, fa, args.seed).items():
+        flash[num]["launches"] = n
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
+    rows = [flash[num] for num in sorted(flash)] + list(kernels.values())
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -5,19 +5,22 @@ twin at the same path there, and the tests in ``tests/test_torch_*.py``
 hold each against it on converted weights.  This package imports
 ``torch`` and numpy only — never ``jax``, ``flax`` or the JAX package.
 
-Ported so far (the serving slice):
+Ported so far (serving, paged serving, LM training):
 
-- ``models``  GPT-2 (dense) with the contiguous KV-cache decode modes, the
-  flax → torch weight bridge (``models.convert``), and lockstep
-  ``generate``.
-- ``ops``     plain causal attention and the two decode-attention kernels
-  (``ops.decode_attention``), hand-written CUDA for Hopper in
-  ``csrc/decode_attention.cu``, built by nvcc at first use.
-- ``serve``   the contiguous slot pool, prompt-lookup drafter,
+- ``models``  GPT-2 (dense) with the contiguous and paged KV-cache decode
+  modes, dropout and remat for training, the flax <-> torch weight bridge
+  (``models.convert``), and lockstep ``generate``.
+- ``ops``     attention dispatch (``ops.attention``), the decode, paged and
+  flash-attention kernels (``ops.decode_attention``,
+  ``ops.paged_attention``, ``ops.flash_attention``: hand-written CUDA for
+  Hopper in ``csrc/``, built by nvcc at first use), the losses.
+- ``serve``   the slot and paged pools, prompt-lookup drafter,
   continuous-batching engine (with speculative verify), scheduler and SLO
   metrics.
-- ``train``   the precision policy (dtype map only).
-- ``cli``     the ``--serve`` subset of the reference CLI.
+- ``train``   precision policy, optax-style optimizers, state, train and
+  eval steps, the epoch loop; ``parallel`` gradient accumulation; ``data``
+  the LM datasets and the loader.
+- ``cli``     LM training and the ``--serve`` subset of the reference CLI.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"`` / ``--use-cpu``); without CUDA and without that request

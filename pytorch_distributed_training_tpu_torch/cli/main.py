@@ -1,14 +1,17 @@
-"""Command line of the port: the ``--serve`` subset of the JAX package's
-``cli/main.py``, same flag names and defaults, same synthetic trace and
-summary line.
+"""Command line of the port: the LM-training and ``--serve`` subsets of the
+JAX package's ``cli/main.py``, same flag names and defaults, same printed
+milestones and summary lines.
 
-    python -m pytorch_distributed_training_tpu_torch.cli.main --serve \\
-        --model gpt2 --precision bf16 --serve-slots 8 --serve-requests 16
+    python -m pytorch_distributed_training_tpu_torch.cli.main \\
+        --model gpt2 --dataset synthetic-tokens --precision bf16 \\
+        --batch-size 16 --accum-steps 2 --optimizer adamw
 
-runs on CUDA; add ``--use-cpu`` to run on the host, and ``--serve-paged
-[--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool.
-Training and checkpoint restore are not ported yet, so the server runs
-fresh-init weights drawn from ``--seed``.
+trains on CUDA (``--use-cpu`` runs on the host); ``--serve`` serves instead
+(add ``--serve-paged [--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for
+the paged KV pool).  Checkpoints are not ported yet, so the server runs
+fresh-init weights drawn from ``--seed``.  Not ported yet: data, tensor,
+pipeline and sequence parallelism, the image models and datasets,
+``--device-cache``, checkpoint and resume, telemetry and resilience.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ def _parse_overrides(text: str | None) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pytorch_distributed_training_tpu_torch.cli.main",
-        description="Continuous-batching GPT-2 serving on CUDA (PyTorch port).",
+        description="GPT-2 training and continuous-batching serving on CUDA "
+                    "(PyTorch port).",
     )
     p.add_argument("--use-cpu", action="store_true",
                    help="Run on the host instead of the CUDA device.")
@@ -62,10 +66,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-len", type=int, default=1024,
                    help="LM sequence length (bounds the synthetic prompts).")
     p.add_argument("--metrics-jsonl", default=None,
-                   help="Append one record per finished request here.")
+                   help="Append per-epoch metrics (training) or one record "
+                        "per finished request (--serve) here.")
+    # --- training (the JAX CLI's flags and defaults) ---
+    p.add_argument("--dataset", default="cifar10",
+                   help="synthetic-tokens|token-file:<path> (the image "
+                        "datasets are not ported yet).")
+    p.add_argument("--batch-size", type=int, default=32,
+                   help="Global batch size.")
+    p.add_argument("--num-workers", type=int, default=2,
+                   help="Accepted; batches are fetched in-process.")
+    p.add_argument("--learning-rate", type=float, default=0.1)
+    p.add_argument("--weight-decay", type=float, default=0.001)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="Cap steps per epoch (smoke runs).")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="Gradient-accumulation microbatches per step.")
+    p.add_argument("--optimizer", default="adam",
+                   help="adam (coupled L2, torch Adam(weight_decay=) "
+                        "semantics) | adamw (decoupled) | sgd (momentum, "
+                        "coupled L2).")
+    p.add_argument("--momentum", type=float, default=0.9,
+                   help="SGD momentum (--optimizer sgd only).")
+    p.add_argument("--grad-clip", type=float, default=None,
+                   help="Global-norm gradient clipping before the optimizer.")
+    p.add_argument("--label-smoothing", type=float, default=0.0,
+                   help="CE label smoothing.")
+    p.add_argument("--lr-schedule", default="constant",
+                   help="constant|cosine|warmup-cosine")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="Linear warmup steps (warmup-cosine schedule).")
+    p.add_argument("--total-steps", type=int, default=None,
+                   help="Decay horizon for cosine schedules (defaults to "
+                        "epochs x steps per epoch).")
+    p.add_argument("--ce-chunk", type=int, default=None,
+                   help="LM loss: head matmul + softmax-CE in sequence "
+                        "chunks of this size instead of the full (batch, "
+                        "seq, vocab) logits.")
+    p.add_argument("--remat", action="store_true",
+                   help="Rematerialize transformer blocks in the backward.")
+    p.add_argument("--eval", dest="do_eval", action="store_true",
+                   help="Evaluate on a held-out split after each epoch.")
+    p.add_argument("--eval-steps", type=int, default=None,
+                   help="Cap eval batches per pass (smoke runs).")
     p.add_argument("--serve", action="store_true",
                    help="Serve the model on a synthetic mixed-length "
-                        "request trace (the only mode ported so far).")
+                        "request trace instead of training.")
     p.add_argument("--serve-requests", type=int, default=16)
     p.add_argument("--serve-rate", type=float, default=0.0,
                    help="Offered load in requests/sec, Poisson arrivals "
@@ -235,20 +282,193 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
     return {"summary": summary, "engine": engine.stats(), "tokens": tokens}
 
 
+def build_schedule(lr_schedule: str, learning_rate: float, *,
+                   total_steps: int, warmup_steps: int = 0):
+    """The learning rate: a float, or a host function of the step count
+    (the JAX CLI's optax schedules)."""
+    from ..train import optim
+
+    if lr_schedule == "constant":
+        return learning_rate
+    if lr_schedule == "cosine":
+        return optim.cosine_decay_schedule(learning_rate, total_steps)
+    if lr_schedule == "warmup-cosine":
+        warmup = max(warmup_steps, 1)
+        return optim.warmup_cosine_decay_schedule(
+            0.0, learning_rate, warmup_steps=warmup,
+            decay_steps=max(total_steps, warmup + 1),
+        )
+    raise SystemExit(f"unknown lr schedule {lr_schedule!r}")
+
+
+def build_optimizer(name: str, lr, *, weight_decay: float,
+                    momentum: float = 0.9, grad_clip: float | None = None):
+    """The JAX CLI's optimizer block with optax's semantics
+    (``train/optim.py``): ``adam`` is coupled L2 (decay added to the
+    gradient before the moments, torch ``Adam(weight_decay=)``), ``adamw``
+    decoupled, ``sgd`` coupled L2 then momentum ``buf = m*buf + g``;
+    ``grad_clip`` clips by global norm before all of it."""
+    from ..train import optim
+
+    if name == "adam":
+        tx = optim.chain(optim.add_decayed_weights(weight_decay),
+                         optim.scale_by_adam(),
+                         optim.scale_by_learning_rate(lr))
+    elif name == "adamw":
+        tx = optim.adamw(lr, weight_decay=weight_decay)
+    elif name == "sgd":
+        tx = optim.chain(optim.add_decayed_weights(weight_decay),
+                         optim.sgd(lr, momentum=momentum))
+    else:
+        raise SystemExit(f"unknown optimizer {name!r}")
+    if grad_clip is not None:
+        tx = optim.chain(optim.clip_by_global_norm(grad_clip), tx)
+    return tx
+
+
+_IMAGE_DATASETS = ("cifar10", "synthetic-images", "shapes")
+
+
+def _datasets(dataset: str, *, seq_len: int, vocab: int, do_eval: bool):
+    """(kind, train set, eval set or None) for ``--dataset``."""
+    from ..data import Subset, SyntheticTokens, TokenFile
+
+    if dataset in _IMAGE_DATASETS or dataset.startswith(
+            ("imagefolder:", "packed-images:")):
+        return "image_classifier", None, None
+    if dataset == "synthetic-tokens":
+        # Token range follows the model's embedding table.
+        ds = SyntheticTokens(seq_len=seq_len, vocab_size=vocab)
+        eval_ds = (SyntheticTokens(n=512, seq_len=seq_len, vocab_size=vocab,
+                                   seed=1) if do_eval else None)
+        return "lm", ds, eval_ds
+    if dataset.startswith("token-file:"):
+        import os
+
+        path = dataset.split(":", 1)[1]
+        full = TokenFile(path, seq_len=seq_len)
+        if not do_eval:
+            return "lm", full, None
+        # A sibling val.bin if present, else the last 5% of windows.
+        val_path = os.path.join(os.path.dirname(path), "val.bin")
+        if os.path.exists(val_path) and \
+                os.path.abspath(val_path) != os.path.abspath(path):
+            return "lm", full, TokenFile(val_path, seq_len=seq_len)
+        n_eval = max(len(full) // 20, 1)
+        return ("lm", Subset(full, 0, len(full) - n_eval),
+                Subset(full, len(full) - n_eval, len(full)))
+    raise SystemExit(f"unknown dataset {dataset!r}")
+
+
+def run_train(args, overrides: dict, device=None):
+    """Train ``args.model`` on ``args.dataset``; prints the JAX CLI's
+    milestones and one summary line per epoch.  Returns the Trainer."""
+    import itertools
+
+    from ..data import DataLoader, DataLoaderConfig
+    from ..models import create_model, model_kind
+    from ..train import (
+        Trainer, TrainerConfig, create_train_state, make_eval_step,
+        make_policy, make_train_step,
+    )
+    from ..utils import metrics as metrics_lib
+    from ..utils.device import resolve_device
+
+    if args.remat:
+        overrides["remat"] = True
+    vocab = int(overrides.get("vocab_size", 50257))
+    kind, ds, eval_ds = _datasets(args.dataset, seq_len=args.seq_len,
+                                  vocab=vocab, do_eval=args.do_eval)
+    m_kind = model_kind(args.model)
+    if m_kind != kind:
+        raise SystemExit(
+            f"--model {args.model} is a {m_kind!r} model but --dataset "
+            f"{args.dataset} provides {kind!r} batches; pick a matching pair "
+            "(e.g. gpt2 with synthetic-tokens, resnet50 with "
+            "cifar10/synthetic-images)"
+        )
+    if args.ce_chunk is not None and kind != "lm":
+        raise SystemExit("--ce-chunk applies to LM models (--model gpt2*)")
+    if ds is None:
+        raise SystemExit(f"--dataset {args.dataset}: the image datasets and "
+                         "models are not yet ported")
+    device = resolve_device(device)
+    print(f"process 0/1 | backend={device.type} | devices=1")
+    loader = DataLoader(ds, DataLoaderConfig(
+        batch_size=args.batch_size, num_workers=args.num_workers,
+        seed=args.seed,
+    ))
+    policy = make_policy(args.precision)
+    net = create_model(args.model, dtype=policy.param_dtype, device=device,
+                       seed=args.seed, cfg_overrides=overrides)
+    total_steps = args.total_steps
+    if total_steps is None:
+        per_epoch = args.steps_per_epoch if args.steps_per_epoch is not None \
+            else max(len(ds) // args.batch_size, 1)
+        total_steps = max(args.epochs * per_epoch, 1)
+    lr = build_schedule(args.lr_schedule, args.learning_rate,
+                        total_steps=total_steps,
+                        warmup_steps=args.warmup_steps)
+    tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay,
+                         momentum=args.momentum, grad_clip=args.grad_clip)
+    state = create_train_state(net, tx, policy=policy)
+    step_fn = make_train_step(
+        kind=kind, policy=policy, num_microbatches=args.accum_steps,
+        seed=args.seed + 1, label_smoothing=args.label_smoothing,
+        lm_loss_chunk=args.ce_chunk,
+    )
+    trainer = Trainer(state, step_fn, device, TrainerConfig())
+    logger = metrics_lib.MetricsLogger(args.metrics_jsonl)
+    eval_loader = eval_step = None
+    if eval_ds is not None:
+        eval_bs = min(args.batch_size, len(eval_ds))
+        eval_loader = DataLoader(eval_ds, DataLoaderConfig(
+            batch_size=eval_bs, num_workers=0, shuffle=False))
+        # LM eval always chunks the CE: the eval batch is not split by
+        # --accum-steps, so its full logits could outgrow a config whose
+        # train step fits.
+        eval_step = make_eval_step(kind=kind, policy=policy,
+                                   lm_loss_chunk=args.ce_chunk or 256)
+
+    print("training started")
+    t0 = time.perf_counter()
+    for epoch in range(args.epochs):
+        loader.set_epoch(epoch)
+        batches = iter(loader)
+        if args.steps_per_epoch is not None:
+            batches = itertools.islice(batches, args.steps_per_epoch)
+        logger.log(trainer.run_epoch(batches, epoch=epoch))
+        if eval_loader is not None:
+            from ..data.loader import to_device
+
+            batches = iter(eval_loader)
+            if args.eval_steps is not None:
+                batches = itertools.islice(batches, args.eval_steps)
+            losses = [eval_step(trainer.state, to_device(b, device))["loss"]
+                      for b in batches]
+            if losses:
+                logger.log({"epoch": epoch, "eval_loss":
+                            float(sum(float(x) for x in losses) / len(losses))})
+    elapsed = time.perf_counter() - t0
+    print("training finished")
+    print(f"elapsed time: {elapsed:.2f}s")
+    return trainer
+
+
 def main(argv: list[str] | None = None):
     args = build_parser().parse_args(argv)
-    if not args.serve:
-        raise SystemExit(
-            "only --serve is ported so far (training is a later slice)"
-        )
     from ..models import model_kind
 
-    if model_kind(args.model) != "lm":
-        raise SystemExit("--serve requires a transformer LM (--model gpt2*)")
     try:
         overrides = _parse_overrides(args.model_overrides)
+        model_kind(args.model)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    if not args.serve:
+        return run_train(args, overrides,
+                         device="cpu" if args.use_cpu else None)
+    if model_kind(args.model) != "lm":
+        raise SystemExit("--serve requires a transformer LM (--model gpt2*)")
     return run_serve(
         model=args.model, overrides=overrides, precision=args.precision,
         seed=args.seed, seq_len=args.seq_len,

@@ -1,6 +1,6 @@
 """Models of the port: GPT-2 (dense), its JAX weight bridge, generation."""
 
-from .convert import gpt2_params_from_jax
+from .convert import gpt2_params_from_jax, gpt2_params_to_jax
 from .generate import eos_cut_length, filter_logits, generate, sample_logits
 from .gpt2 import (
     GPT2, Block, GPT2Config, gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl,
@@ -14,6 +14,7 @@ __all__ = [
     "GPT2", "Block", "GPT2Config", "SelfAttention", "MAX_FUSED_DECODE_CHUNK",
     "new_kv_cache", "new_kv_blocks", "gpt2_124m", "gpt2_medium",
     "gpt2_large", "gpt2_xl",
-    "gpt2_params_from_jax", "generate", "sample_logits", "filter_logits",
+    "gpt2_params_from_jax", "gpt2_params_to_jax", "generate",
+    "sample_logits", "filter_logits",
     "eos_cut_length", "create_model", "model_kind", "MODEL_NAMES",
 ]

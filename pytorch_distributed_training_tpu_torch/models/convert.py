@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's GPT-2 param tree → this port's
-``state_dict``.
+"""Weight bridge between the JAX package's GPT-2 param tree and this
+port's ``state_dict``, both ways.
 
 The tree is nested mappings of arrays (numpy, or anything ``np.asarray``
 takes), as ``GPT2.init(...)["params"]`` returns it.  What changes on the
@@ -12,8 +12,10 @@ way:
 - ``wte`` doubles as the LM head when embeddings are tied, so there is no
   ``lm_head`` entry then.
 
-No training or downloading is involved: tests build the JAX params from
-its own init and compare the two models on the same inputs.
+No downloading is involved: tests build the JAX params from its own
+init, compare the two models on the same inputs, and map the port's
+parameters back (``gpt2_params_to_jax``) to compare weights after the
+same training steps leaf by leaf.
 """
 
 from __future__ import annotations
@@ -61,3 +63,40 @@ def gpt2_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     if "lm_head" in tree:
         _dense(tree["lm_head"], "lm_head", out)
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def gpt2_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``gpt2_params_from_jax``: ``GPT2.state_dict()`` (or
+    a name → tensor mapping of the same keys) as the flax GPT-2 param
+    tree of f32 numpy arrays."""
+    def dense(prefix):
+        out = {"kernel": _np(params[f"{prefix}.weight"]).T.copy()}
+        if f"{prefix}.bias" in params:
+            out["bias"] = _np(params[f"{prefix}.bias"])
+        return out
+
+    def layer_norm(prefix):
+        return {"scale": _np(params[f"{prefix}.weight"]),
+                "bias": _np(params[f"{prefix}.bias"])}
+
+    tree = {"wte": _np(params["wte"]), "wpe": _np(params["wpe"])}
+    layer = 0
+    while f"blocks.{layer}.ln1.weight" in params:
+        p = f"blocks.{layer}"
+        tree[f"block_{layer}"] = {
+            "ln1": layer_norm(f"{p}.ln1"),
+            "attn": {"qkv": dense(f"{p}.attn.qkv"),
+                     "proj": dense(f"{p}.attn.proj")},
+            "ln2": layer_norm(f"{p}.ln2"),
+            "mlp_up": dense(f"{p}.mlp_up"),
+            "mlp_down": dense(f"{p}.mlp_down"),
+        }
+        layer += 1
+    tree["ln_final"] = layer_norm("ln_final")
+    if "lm_head.weight" in params:
+        tree["lm_head"] = dense("lm_head")
+    return tree

@@ -6,7 +6,10 @@ token embedding.  The parameter layout follows flax's so that
 ``models/convert.py`` maps a JAX param tree onto this module one to one;
 LayerNorm uses flax's epsilon, 1e-6.
 
-Dense blocks only: the MoE variant (``num_experts > 0``) is not ported yet.
+Training: dropout draws its masks from an explicit generator that the
+train step hands down (never from the global RNG), and ``remat`` runs
+each block under ``torch.utils.checkpoint``.  Dense blocks only: the MoE
+variant (``num_experts > 0``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.device import resolve_device
 from .layers import SelfAttention, new_kv_blocks, new_kv_cache
@@ -35,6 +39,27 @@ class GPT2Config:
     dropout_rate: float = 0.0
     tie_embeddings: bool = True
     num_experts: int = 0
+    # Rematerialize each block in the backward (JAX ``nn.remat``): only the
+    # block inputs are saved; the forward reruns inside the backward.
+    remat: bool = False
+
+
+def dropout(x, rate: float, generator: torch.Generator | None):
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate
+    and scale it by 1 / (1 - rate), masks drawn from ``generator``.  With
+    no generator (evaluation) or rate 0 it returns ``x``."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def _site_generator(seed, device):
+    """The generator one dropout site draws from, or None (no dropout)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 class Block(nn.Module):
@@ -47,17 +72,30 @@ class Block(nn.Module):
         self.ln2 = nn.LayerNorm(d, eps=LN_EPS, **kw)
         self.mlp_up = nn.Linear(d, d * cfg.mlp_ratio, **kw)
         self.mlp_down = nn.Linear(d * cfg.mlp_ratio, d, **kw)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
+        self.dropout_rate = cfg.dropout_rate
 
     def forward(self, x, *, cache=None, positions=None, attn_mask=None,
-                block_table=None):
+                block_table=None, dropout_seed=None):
+        """``dropout_seed`` (training with dropout): the block's two masks
+        come from one generator seeded with it, so a rematerialized
+        forward draws the same masks again."""
+        gen = _site_generator(dropout_seed, x.device)
         y = self.attn(
             self.ln1(x), cache=cache, positions=positions,
             attn_mask=attn_mask, block_table=block_table,
         )
-        x = x + self.dropout(y)
+        x = x + dropout(y, self.dropout_rate, gen)
         y = self.mlp_down(F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh"))
-        return x + self.dropout(y)
+        return x + dropout(y, self.dropout_rate, gen)
+
+
+def _block_call(block, params, x, dropout_seed):
+    """One block as a function of its parameters: under remat the
+    backward's recompute then runs on the tensors the forward ran on (the
+    step's compute-dtype copies), not on the module's own parameters."""
+    return torch.func.functional_call(
+        block, params, (x,), {"dropout_seed": dropout_seed}
+    )
 
 
 class GPT2(nn.Module):
@@ -84,7 +122,6 @@ class GPT2(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_dim, **kw))
         self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.hidden_dim, **kw))
-        self.dropout = nn.Dropout(cfg.dropout_rate)
         self.blocks = nn.ModuleList(
             Block(cfg, **kw) for _ in range(cfg.num_layers)
         )
@@ -157,11 +194,30 @@ class GPT2(nn.Module):
         ]
 
     def forward(self, tokens, *, cache=None, positions=None, attn_mask=None,
-                block_table=None, return_hidden: bool = False):
+                block_table=None, return_hidden: bool = False,
+                generator: torch.Generator | None = None):
         """``return_hidden=True`` skips the LM head and returns the final
-        hidden states (B, L, D) in the model dtype (``head`` applies it)."""
+        hidden states (B, L, D) in the model dtype (``head`` applies it).
+
+        In training mode with ``dropout_rate > 0``, ``generator`` (a CPU
+        ``torch.Generator``) is required: every dropout site draws its own
+        seed from it on the host, so no draw waits for the device.  With
+        ``cfg.remat``, training runs each block under
+        ``torch.utils.checkpoint`` (non-reentrant)."""
         cfg = self.cfg
         b, l = tokens.shape
+        drop = self.training and cfg.dropout_rate > 0.0 and cache is None
+        if drop and generator is None:
+            raise ValueError(
+                "dropout_rate > 0 in training needs an explicit generator "
+                "(the train step hands one down)"
+            )
+        seeds = (
+            torch.randint(2**62, (cfg.num_layers + 1,), generator=generator)
+            .tolist() if drop else [None] * (cfg.num_layers + 1)
+        )
+        remat = (cfg.remat and self.training and cache is None
+                 and torch.is_grad_enabled())
         if cache is None:
             if positions is not None or block_table is not None:
                 raise ValueError("positions and block_table need a KV cache")
@@ -171,12 +227,18 @@ class GPT2(nn.Module):
                 raise ValueError("a KV cache needs positions")
             cols = positions[:, None].long() + torch.arange(l, device=tokens.device)
             pos = self.wpe[cols.clamp(0, cfg.max_seq_len - 1)]
-        x = self.dropout(self.wte[tokens] + pos)
+        x = dropout(self.wte[tokens] + pos, cfg.dropout_rate,
+                    _site_generator(seeds[0], tokens.device))
         for i, block in enumerate(self.blocks):
+            if remat:
+                x = checkpoint(_block_call, block,
+                               dict(block.named_parameters()), x,
+                               seeds[i + 1], use_reentrant=False)
+                continue
             x = block(
                 x, cache=None if cache is None else cache[i],
                 positions=positions, attn_mask=attn_mask,
-                block_table=block_table,
+                block_table=block_table, dropout_seed=seeds[i + 1],
             )
         x = self.ln_final(x)
         if return_hidden:

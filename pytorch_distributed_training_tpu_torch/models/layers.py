@@ -1,9 +1,12 @@
 """Transformer self-attention with the KV-cache decode modes.
 
 Counterpart of the JAX package's ``models/layers.py::SelfAttention``,
-limited to what the serving slices run:
+limited to what the serving and training slices run:
 
-- the causal full-sequence forward (``cache=None``);
+- the causal full-sequence forward (``cache=None``), through
+  ``ops.attention.dot_product_attention``'s auto dispatch: the flash
+  kernels on the card at ``q_len >= 256``, the plain path below and on
+  the host;
 - slot mode: per-row start ``positions`` (B,), a chunk of C tokens per row
   written at ``positions[b]..positions[b]+C-1``, each query attending its
   own row's prefix.  ``serve/engine.py`` drives it with ragged positions;

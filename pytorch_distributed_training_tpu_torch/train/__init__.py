@@ -1,5 +1,12 @@
-"""Training-side pieces the serving slice needs: the precision policy."""
+"""Training layer of the port: precision policy, optimizer
+transformations, state, the train/eval steps and the epoch loop."""
 
 from .policy import Policy, make_policy
+from .state import TrainState, create_train_state
+from .step import make_eval_step, make_train_step
+from .trainer import Trainer, TrainerConfig
 
-__all__ = ["Policy", "make_policy"]
+__all__ = [
+    "Policy", "make_policy", "TrainState", "create_train_state",
+    "make_train_step", "make_eval_step", "Trainer", "TrainerConfig",
+]

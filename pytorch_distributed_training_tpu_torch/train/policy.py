@@ -1,8 +1,12 @@
 """Mixed-precision policy: the dtype map of the JAX package's
 ``train/policy.py``.
 
-Master parameters keep ``param_dtype``; matmuls run in ``compute_dtype``.
-bf16 shares f32's exponent range, so no loss scaling is needed.
+Master parameters keep ``param_dtype``; the model runs in
+``compute_dtype``.  bf16 shares f32's exponent range, so no loss scaling
+is needed.  This is not ``torch.autocast``: as in the JAX step, EVERY
+float parameter (embeddings and LayerNorm included) is cast to the
+compute dtype, and the cast stays in the autograd graph, so the gradient
+that reaches a master parameter is the compute-dtype gradient cast back.
 """
 
 from __future__ import annotations
@@ -18,6 +22,18 @@ class Policy:
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+
+    def cast_to_compute(self, params: dict) -> dict:
+        """Cast float tensors to the compute dtype (others untouched)."""
+        return _cast(params, self.compute_dtype)
+
+    def cast_to_param(self, params: dict) -> dict:
+        return _cast(params, self.param_dtype)
+
+
+def _cast(params: dict, dtype: torch.dtype) -> dict:
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in params.items()}
 
 
 def make_policy(name: str) -> Policy:

@@ -1,0 +1,52 @@
+"""TrainState: the training state of the JAX package's ``train/state.py``
+— step, parameters, optimizer state — with ``apply_gradients``.
+
+No mesh and no sharding yet (data parallel is a later slice).  The
+parameters are the model's own master tensors; ``apply_gradients``
+updates them and the optimizer state in place (one copy of each, where
+JAX returns new arrays) and returns the state with the step advanced.
+The step is a host integer: nothing reads it back from the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from .optim import Transform
+from .policy import Policy
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: dict            # name -> master parameter (a leaf tensor)
+    opt_state: Any
+    model: nn.Module        # the module the parameters belong to
+    tx: Transform
+
+    def apply_gradients(self, grads: dict) -> "TrainState":
+        names = list(self.params)
+        params = [self.params[n] for n in names]
+        updates, opt_state = self.tx.update(
+            [grads[n] for n in names], self.opt_state, params
+        )
+        with torch.no_grad():
+            torch._foreach_add_(params, updates)
+        return dataclasses.replace(self, step=self.step + 1,
+                                   opt_state=opt_state)
+
+
+def create_train_state(model: nn.Module, tx: Transform, *,
+                       policy: Policy | None = None) -> TrainState:
+    """Cast ``model`` to the policy's parameter dtype and wrap its
+    parameters with a fresh optimizer state."""
+    policy = policy or Policy()
+    model.to(policy.param_dtype)
+    params = dict(model.named_parameters())
+    return TrainState(step=0, params=params,
+                      opt_state=tx.init(list(params.values())),
+                      model=model, tx=tx)

@@ -15,7 +15,11 @@ paged kernels (#11 ``paged_decode_attention``, #12 behind
 ``paged_decode_attention_multi`` / ``paged_prefill_attention``) likewise,
 through a shuffled block table, in every storage kind (f32, bf16, and
 int8/int4 with bf16 q at atol/rtol 2e-2), and the small GPT-2 over the
-paged and int8 paged pools.
+paged and int8 paged pools.  The flash kernels (forward, dq and dk/dv
+passes) against their plain versions at the training shapes A-D of
+``chip_smoke.py``, f32 (out atol 2e-5, grads 2e-4) and bf16 (atol/rtol
+2e-2: the rounding of p and ds to bf16), with their launch counts, an
+autograd pass through ``flash_attention`` and the wrapper's refusals.
 """
 
 import pytest
@@ -24,6 +28,7 @@ import torch
 from pytorch_distributed_training_tpu_torch.comm.compress import quantize_kv
 from pytorch_distributed_training_tpu_torch.models import gpt2_124m
 from pytorch_distributed_training_tpu_torch.ops import decode_attention as da
+from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
 from pytorch_distributed_training_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -186,3 +191,65 @@ def test_small_gpt2_paged_logits_match_host(dev, kv_quant):
                        block_table=table.to(dev))
             torch.testing.assert_close(out.cpu()[:2], ref[:2], atol=1e-3,
                                        rtol=0)
+
+
+# The training shapes A-D of chip_smoke.py: (batch, length, heads).
+FLASH_SHAPES = {"A": (16, 512, 12), "B": (8, 1024, 12), "C": (2, 1024, 25),
+                "D": (2, 2048, 12)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernels_match_plain(dev, shape, dtype):
+    b, length, h = FLASH_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = torch.randn(b, length, 3, h, DH, generator=gen,
+                          device=dev).to(dtype).unbind(2)
+    do = torch.randn(b, length, h, DH, generator=gen, device=dev).to(dtype)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True, DH ** -0.5)
+    refs = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, True, DH ** -0.5)
+    torch.cuda.synchronize()
+    f32 = dtype is torch.float32
+    tol = dict(atol=2e-5, rtol=0) if f32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), ref_out.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, **tol)
+    gtol = dict(atol=2e-4, rtol=0) if f32 else tol
+    for got, ref in zip((dq, dk, dv), refs):
+        torch.testing.assert_close(got.float(), ref.float(), **gtol)
+
+
+def test_flash_autograd_cross_length(dev):
+    """The autograd Function on the card: causal q 256 over k 1024, f32,
+    against autograd through the plain path on the host."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 256, 4, DH, generator=gen)
+    k = torch.randn(2, 1024, 4, DH, generator=gen)
+    v = torch.randn(2, 1024, 4, DH, generator=gen)
+    host = [t.clone().requires_grad_() for t in (q, k, v)]
+    card = [t.to(dev).requires_grad_() for t in (q, k, v)]
+    outs = [fa.flash_attention(*ts, causal=True) for ts in (host, card)]
+    grads = [torch.autograd.grad((o ** 2).sum(), ts)
+             for o, ts in zip(outs, (host, card))]
+    torch.testing.assert_close(outs[1].cpu(), outs[0], atol=2e-5, rtol=0)
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=0)
+
+
+def test_flash_refuses_what_it_cannot_take(dev):
+    q = torch.randn(1, 128, 2, DH, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q[..., :32], q[..., :32], q[..., :32])
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        t = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+        fa.flash_fwd(t, t, t)

@@ -37,8 +37,8 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 
 def test_port_imports_with_jax_blocked():
-    """Import the serving entry points in a fresh interpreter where
-    importing jax, flax or the JAX package fails."""
+    """Import the serving and training entry points in a fresh interpreter
+    where importing jax, flax or the JAX package fails."""
     blocked = ", ".join(repr(m) for m in FORBIDDEN)
     code = (
         "import sys\n"
@@ -50,6 +50,15 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.serve.kv_pool\n"
         "import pytorch_distributed_training_tpu_torch.serve.kv_store\n"
         "import pytorch_distributed_training_tpu_torch.ops.paged_attention\n"
+        "import pytorch_distributed_training_tpu_torch.ops.flash_attention\n"
+        "import pytorch_distributed_training_tpu_torch.ops.losses\n"
+        "import pytorch_distributed_training_tpu_torch.train.step\n"
+        "import pytorch_distributed_training_tpu_torch.train.state\n"
+        "import pytorch_distributed_training_tpu_torch.train.trainer\n"
+        "import pytorch_distributed_training_tpu_torch.parallel.grad_accum\n"
+        "import pytorch_distributed_training_tpu_torch.data.loader\n"
+        "import pytorch_distributed_training_tpu_torch.data.datasets\n"
+        "import pytorch_distributed_training_tpu_torch.tools.train_profile\n"
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"({blocked},) and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"
