@@ -603,7 +603,10 @@ def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
     grads 2e-2 + 2e-2 |ref|: both sides round the same f32 p and ds to
     bf16 except where their f32 sums differ in the last bit across a
     rounding boundary (one bf16 ulp, 2^-8 relative, on a few terms of a
-    sum), plus the final rounding of each result (half an ulp)."""
+    sum), plus the final rounding of each result (half an ulp).
+    ``library_ms``: SDPA's forward, and for the backward the aten
+    flash-attention backward op on a saved forward (device time only).
+    Ends with the forward's crossover against the plain attention path."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -658,20 +661,15 @@ def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
         if label in FLASH_SHAPES:
             shape = FLASH_SHAPES[label]
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            sdpa_q, sdpa_k, sdpa_v = (x.detach().requires_grad_()
-                                      for x in (qt, kt, vt))
-            sdpa_out = F.scaled_dot_product_attention(
-                sdpa_q, sdpa_k, sdpa_v, is_causal=True)
             do_t = do.transpose(1, 2)
+            sdpa_bwd = _sdpa_flash_backward(torch, qt, kt, vt, do_t, scale)
             timed = {
                 "fwd": (fwd, lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, is_causal=True)),
                 "bwd": (bwd, lambda: fa.flash_bwd_plain(
                             q, k, v, do, lse, delta, causal, scale),
-                        lambda: torch.autograd.grad(
-                            sdpa_out, (sdpa_q, sdpa_k, sdpa_v), do_t,
-                            retain_graph=True)),
+                        sdpa_bwd),
             }
             bounds = flash_bound_ms(batch, q_len, k_len, heads, causal,
                                     bandwidth)
@@ -694,9 +692,50 @@ def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
                 line += (f"; #{num} {part} {ms * 1e3:.1f} us, plain "
                          f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f}"
                          f" us, bound {bms * 1e3:.2f} us ({by})")
-            del sdpa_out
+            del sdpa_bwd
         print(line, flush=True)
+    flash_crossover(torch, fa, gen)
     return rows
+
+
+def flash_crossover(torch, fa, gen) -> None:
+    """The flash forward against the plain path that ``ops/attention.py``
+    takes below its flash threshold (``_xla_attention``), at causal
+    L 128, 256 and 512 (bf16, 12 heads, 8192 tokens a call: T1's
+    microbatch).  Measured only; the dispatch rule is not changed here."""
+    from pytorch_distributed_training_tpu_torch.ops import attention as attn
+
+    parts = []
+    with torch.no_grad():
+        for length in (128, 256, 512):
+            q, k, v, _ = _flash_inputs(torch, 8192 // length, length, length,
+                                       12, torch.bfloat16, gen)
+            flash_ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v,
+                                                           causal=True))
+            plain_ms = time_ms(torch, lambda: attn._xla_attention(
+                q, k, v, causal=True))
+            parts.append(f"L {length} flash {flash_ms * 1e3:.1f} us, plain "
+                         f"{plain_ms * 1e3:.1f} us ({plain_ms / flash_ms:.2f}x)")
+    print("flash crossover (forward, bf16 causal, H 12, 8192 tokens a "
+          "call): " + "; ".join(parts), flush=True)
+
+
+def _sdpa_flash_backward(torch, qt, kt, vt, do_t, scale):
+    """SDPA's backward as one device call: the aten flash-attention
+    backward op on a saved forward of the same (B, H, L, D) inputs
+    (causal), with no autograd work on the host between the timer's
+    events.  Returns the call."""
+    aten = torch.ops.aten
+    (out, lse, cum_q, cum_k, max_q, max_k, seed, offset,
+     _) = aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True, False, scale=scale)
+
+    def call():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do_t, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0,
+            True, seed, offset, scale=scale)
+
+    return call
 
 
 def _count_calls(module, names, counts):

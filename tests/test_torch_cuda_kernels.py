@@ -17,9 +17,12 @@ through a shuffled block table, in every storage kind (f32, bf16, and
 int8/int4 with bf16 q at atol/rtol 2e-2), and the small GPT-2 over the
 paged and int8 paged pools.  The flash kernels (forward, dq and dk/dv
 passes) against their plain versions at the training shapes A-D of
-``chip_smoke.py``, f32 (out atol 2e-5, grads 2e-4) and bf16 (atol/rtol
-2e-2: the rounding of p and ds to bf16), with their launch counts, an
-autograd pass through ``flash_attention`` and the wrapper's refusals.
+``chip_smoke.py`` and at the edges of their tiling (ragged lengths, causal
+q_len > k_len with rows that see no key: out exactly 0), on strided views
+of one fused projection, f32 (out atol 2e-5, grads 2e-4) and bf16
+(atol/rtol 2e-2: the rounding of p and ds to bf16), with their launch
+counts, a bit-identical backward on repeat, an autograd pass through
+``flash_attention`` and the wrapper's refusals.
 """
 
 import pytest
@@ -193,37 +196,84 @@ def test_small_gpt2_paged_logits_match_host(dev, kv_quant):
                                        rtol=0)
 
 
-# The training shapes A-D of chip_smoke.py: (batch, length, heads).
-FLASH_SHAPES = {"A": (16, 512, 12), "B": (8, 1024, 12), "C": (2, 1024, 25),
-                "D": (2, 2048, 12)}
+# Flash cases: (batch, q_len, k_len, heads, causal).  The training shapes
+# A-D of chip_smoke.py, then the edges of the kernels' tiling: ragged
+# lengths (causal L 1000, non-causal L 197, causal q 100 over k 1000) and a
+# causal q_len > k_len whose first rows see no key.
+FLASH_SHAPES = {"A": (16, 512, 512, 12, True), "B": (8, 1024, 1024, 12, True),
+                "C": (2, 1024, 1024, 25, True), "D": (2, 2048, 2048, 12, True),
+                "L1000": (2, 1000, 1000, 4, True),
+                "L197 non-causal": (4, 197, 197, 4, False),
+                "q100 k1000": (2, 100, 1000, 4, True),
+                "q300 k100": (2, 300, 100, 4, True)}
+
+
+def _flash_inputs(dev, b, q_len, k_len, h, dtype, seed=4):
+    """q, k, v as the model hands them over: strided views cut from one
+    fused (B, L, 3, H, 64) projection (q apart and k/v from one (B, Lk, 2,
+    H, 64) tensor when the lengths differ), and a seeded dO."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    if q_len == k_len:
+        q, k, v = rnd(b, q_len, 3, h, DH).unbind(2)
+    else:
+        q = rnd(b, q_len, h, DH)
+        k, v = rnd(b, k_len, 2, h, DH).unbind(2)
+    return q, k, v, rnd(b, q_len, h, DH)
+
+
+def _flash_all(q, k, v, do, causal):
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    return out, lse, delta, (dq, dk, dv)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
 def test_flash_kernels_match_plain(dev, shape, dtype):
-    b, length, h = FLASH_SHAPES[shape]
-    gen = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = torch.randn(b, length, 3, h, DH, generator=gen,
-                          device=dev).to(dtype).unbind(2)
-    do = torch.randn(b, length, h, DH, generator=gen, device=dev).to(dtype)
+    b, q_len, k_len, h, causal = FLASH_SHAPES[shape]
+    q, k, v, do = _flash_inputs(dev, b, q_len, k_len, h, dtype)
+    assert q_len != k_len or q.stride(1) == 3 * h * DH  # fused views
     before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
               fa.flash_bwd_dkv.launches)
-    out, lse = fa.flash_fwd(q, k, v, causal=True)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    out, lse, delta, grads = _flash_all(q, k, v, do, causal)
     assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
             fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
-    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True, DH ** -0.5)
-    refs = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, True, DH ** -0.5)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, DH ** -0.5)
+    refs = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, causal,
+                              DH ** -0.5)
     torch.cuda.synchronize()
     f32 = dtype is torch.float32
     tol = dict(atol=2e-5, rtol=0) if f32 else dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(out.float(), ref_out.float(), **tol)
     torch.testing.assert_close(lse, ref_lse, **tol)
     gtol = dict(atol=2e-4, rtol=0) if f32 else tol
-    for got, ref in zip((dq, dk, dv), refs):
+    for got, ref in zip(grads, refs):
+        assert bool(torch.isfinite(got.float()).all())
         torch.testing.assert_close(got.float(), ref.float(), **gtol)
+    if causal and q_len > k_len:   # rows with no live key: out exactly 0
+        dead = q_len - k_len
+        assert bool((out[:, :dead] == 0).all())
+        assert bool((lse[:, :, :dead] == fa._NEG_INF).all())
+        assert bool((grads[0][:, :dead] == 0).all())
+
+
+@pytest.mark.parametrize("shape", ["B", "q300 k100"])
+def test_flash_backward_is_deterministic(dev, shape):
+    """The split backward has no atomics: a second run gives the same
+    bits for dq, dk and dv (and the forward for out and LSE)."""
+    b, q_len, k_len, h, causal = FLASH_SHAPES[shape]
+    q, k, v, do = _flash_inputs(dev, b, q_len, k_len, h, torch.bfloat16)
+    first = _flash_all(q, k, v, do, causal)
+    second = _flash_all(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    for a, c in zip(first[:2] + first[3], second[:2] + second[3]):
+        assert torch.equal(a, c)
 
 
 def test_flash_autograd_cross_length(dev):

@@ -166,6 +166,24 @@ def test_causal_cross_length():
            None, q, k, v, True)
 
 
+@pytest.mark.parametrize("q_len,k_len", [(256, 128), (200, 72)])
+def test_causal_rows_without_live_keys(q_len, k_len):
+    """Causal q_len > k_len: the first q_len - k_len rows see no key.  The
+    plain versions give out 0, lse -1e30 and finite gradients there, and
+    agree with the Pallas path (whose l == 0 guard covers those rows)."""
+    q, k, v = _inputs(1, q_len, k_len, 2, seed=9)
+    _check(lambda a, b, c: pa.flash_attention(a, b, c, causal=True,
+                                              interpret=True),
+           None, q, k, v, True)
+    out, lse, grads = _port(q, k, v, True, torch.float32)
+    dead = q_len - k_len
+    assert torch.equal(out[:, :dead].detach(), torch.zeros_like(out[:, :dead]))
+    assert bool((lse[:, :, :dead] == fa._NEG_INF).all())
+    assert bool(torch.isfinite(lse[:, :, dead:]).all())
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert torch.equal(grads[0][:, :dead], torch.zeros_like(grads[0][:, :dead]))
+
+
 def test_padded_non_causal_197():
     q, k, v = _inputs(2, 197, 197, 2, seed=6)
     _check(lambda a, b, c: pa.flash_attention(a, b, c, causal=False,
