@@ -36,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -96,6 +97,32 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel of a ``-Xptxas -v`` report: its template
+    arguments, registers, barriers and shared memory, and its spills."""
+    storage = {"0": "f32", "1": "bf16", "2": "int8", "3": "int4"}
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    lines, name, spill = [], None, ""
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = m.group(1), ""
+            k = re.search(r"(paged_attention_kernel)ILi(\d)E(f|13__nv_bfloat16)"
+                          r"Li(\d+)E", name)
+            c = re.search(r"(paged_combine_kernel)I(f|13__nv_bfloat16)E", name)
+            if k:
+                name = (f"{k.group(1)}<{storage[k.group(2)]}, q "
+                        f"{dtype[k.group(3)]}, Dh <= {k.group(4)}>")
+            elif c:
+                name = f"{c.group(1)}<{dtype[c.group(2)]}>"
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name:
+            lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {spill}")
+            name = None
+    return lines
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -131,6 +158,21 @@ def time_ms(torch, fn, reps: int = 50) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Host time of one call in us: ``reps`` calls enqueued back to back
+    with no sync between them (the device queue stays short of full, so
+    the host never waits), over ``reps``: what a serving tick pays per
+    layer on the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def bound_ms(index, c: int, dtype, bandwidth: float) -> tuple[float, str]:
@@ -201,6 +243,10 @@ def kernel_phase(torch, da, seed: int, bandwidth: float) -> dict:
                 line += (f"; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f}"
                          f" us, sdpa {library_ms * 1e3:.1f} us, bound "
                          f"{bms * 1e3:.2f} us ({by})")
+                if c == 1:
+                    q0 = q[:, 0]
+                    line += (", host {:.1f} us a call".format(host_us(
+                        torch, lambda: da.decode_attention(q0, k, v, index))))
             print(line, flush=True)
     return results
 
@@ -276,9 +322,11 @@ def paged_kernel_phase(torch, pa, seed: int, bandwidth: float) -> dict:
     """#11 and #12 against their plain version through a shuffled block
     table with sentinel entries, in every storage kind: f32 (atol 1e-5),
     bf16, int8 and int4 with bf16 q (atol 2e-2 + rtol 2e-2); then bf16
-    and int8 timed at C = 1, 5 and 16.  ``library_ms``: SDPA on the same
-    K/V already gathered into a contiguous cache (gather excluded), bf16
-    only: no PyTorch call reads int8/int4 KV."""
+    and int8 timed at C = 1, 5 and 16, and bf16 at C = 64 (a full prefill
+    chunk), each with its ratio to SDPA and to its bound (int8: to bf16 at
+    the same C).  ``library_ms``: SDPA on the same K/V already gathered
+    into a contiguous cache (gather excluded), bf16 only: no PyTorch call
+    reads int8/int4 KV."""
     import torch.nn.functional as F
 
     from pytorch_distributed_training_tpu_torch.comm.compress import (
@@ -333,7 +381,8 @@ def paged_kernel_phase(torch, pa, seed: int, bandwidth: float) -> dict:
                       f"{rtol} (max err {err.max().item():.3g})")
             line = (f"kernel {name} C={c} {storage}: max_abs_err "
                     f"{err.max().item():.3g} (atol {atol}, rtol {rtol})")
-            if storage in ("bf16", "int8") and c in (1, 5, 16):
+            if (storage in ("bf16", "int8") and c in (1, 5, 16)
+                    or (storage, c) == ("bf16", 64)):
                 ms = time_ms(torch, kernel)
                 plain_ms = time_ms(torch, plain)
                 library_ms = None
@@ -363,11 +412,23 @@ def paged_kernel_phase(torch, pa, seed: int, bandwidth: float) -> dict:
                     row.update({k: variant[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
-                lib = ("null" if library_ms is None
-                       else f"{library_ms * 1e3:.1f} us (gather excluded)")
+                if library_ms is None:
+                    bf16_ms = next(v["ms"] for v in row["variants"]
+                                   if v["storage"] == "bf16" and v["chunk"] == c)
+                    ratio = f"{ms / bf16_ms:.2f}x bf16 at C={c}"
+                    lib = "null"
+                else:
+                    ratio = f"{ms / library_ms:.2f}x sdpa"
+                    lib = f"{library_ms * 1e3:.1f} us (gather excluded)"
                 line += (f"; kernel {ms * 1e3:.1f} us, plain "
                          f"{plain_ms * 1e3:.1f} us, sdpa {lib}, bound "
-                         f"{bms * 1e3:.2f} us ({by})")
+                         f"{bms * 1e3:.2f} us ({by}); {ratio}, "
+                         f"{ms / bms:.1f}x bound")
+                if c == 1:
+                    q0 = q[:, 0]
+                    line += (", host {:.1f} us a call".format(host_us(
+                        torch, lambda: pa.paged_decode_attention(
+                            q0, kb, vb, table, index, **kw))))
             print(line, flush=True)
     return results
 
@@ -955,6 +1016,9 @@ def main() -> int:
         spills = {ln.strip() for ln in rep.splitlines() if "spill" in ln}
         print(f"ptxas {src}: {len(regs)} kernels; {' | '.join(regs)}; "
               f"{' | '.join(sorted(spills))}", flush=True)
+        if src == os.path.basename(PAGED_SOURCE):
+            for ln in ptxas_lines(rep):
+                print(f"ptxas {ln}", flush=True)
 
     flash = flash_kernel_phase(torch, fa, args.seed, bandwidth)
     kernels = kernel_phase(torch, da, args.seed, bandwidth)

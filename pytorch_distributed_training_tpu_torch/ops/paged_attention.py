@@ -23,7 +23,9 @@ payload as the blocks and bf16 ``k_scale``/``v_scale`` of shape
 
 Each entry takes the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors, and nothing else: there is no fallback from one
-to the other.  Each counts its kernel launches in ``.launches``.
+to the other.  Each counts its calls that reach the card in ``.launches``:
+one a call, which is two device kernels (``paged_split``: a partition
+kernel, then a combine kernel).
 
 The plain version gathers each row's blocks through the table into a
 (B, H, nb * block_size, Dh) window, dequantizes a quantized window, and
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,10 +52,51 @@ from .decode_attention import (
 # models/layers.py sends wider chunks down the plain gather path.
 MAX_FUSED_PREFILL_CHUNK = 64
 QUANTS = ("int8", "int4")
-# Table entries per row the kernel keeps in shared memory (kMaxTable).
+# Widest block table the kernel takes (kMaxTable).
 MAX_TABLE_WIDTH = 1024
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STORED_DTYPE = {"int8": torch.int8, "int4": torch.uint8}
+# The kernel splits each row's keys into partitions of a multiple of
+# PART_ALIGN keys (kPartAlign), one thread block each, and aims at about
+# BLOCKS_PER_SM blocks a call for each SM of the card.  A partition holds
+# at most MAX_PART_KEYS keys: a long row still spreads over many blocks,
+# and each block's f32 sums stay short.
+PART_ALIGN = 64
+BLOCKS_PER_SM = 4
+MAX_PART_KEYS = 256
+
+
+class PagedSplit(NamedTuple):
+    num_parts: int   # partitions of a row's key span
+    part_keys: int   # keys per partition
+    scratch: int     # f32 partials the combine reads
+
+
+@functools.lru_cache(maxsize=None)
+def paged_split(batch: int, heads: int, table_width: int, block_size: int,
+                chunk: int, head_dim: int, num_sms: int) -> PagedSplit:
+    """How the kernel splits the key span of a call (flash-decoding): from
+    the shapes and the card's SM count alone, never from ``index`` (no
+    device sync).  The span (``table_width * block_size`` keys) is cut into
+    partitions of whole ``PART_ALIGN``-key tiles, as many as bring the
+    grid (partitions x heads x rows) to about ``BLOCKS_PER_SM * num_sms``,
+    and at least as many as keep each within ``MAX_PART_KEYS``.  Each live
+    block writes (m, l, acc) in f32 for its ``chunk`` queries: ``scratch``
+    floats in all."""
+    span = table_width * block_size
+    tiles = -(-span // PART_ALIGN)
+    want = -(-BLOCKS_PER_SM * num_sms // (batch * heads))
+    parts = max(1, min(tiles, want))
+    part_keys = min(-(-tiles // parts) * PART_ALIGN, MAX_PART_KEYS)
+    parts = -(-span // part_keys)
+    return PagedSplit(parts, part_keys,
+                      batch * heads * parts * chunk * (head_dim + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gather_window(blocks: torch.Tensor, block_table: torch.Tensor):
@@ -154,7 +198,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("paged_attention.cu")
     lib.pdt_paged_attention.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
         + [ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     )
     lib.pdt_paged_attention.restype = ctypes.c_int
@@ -170,6 +214,9 @@ def _launch(q, k_blocks, v_blocks, block_table, index, scale, k_scale,
     n_blocks, _, bs, _ = k_blocks.shape
     index = _index_vector(index, b, q.device)
     out = torch.empty((b, c, h, dh), dtype=q.dtype, device=q.device)
+    split = paged_split(b, h, block_table.shape[1], bs, c, dh,
+                        sm_count(q.device))
+    partials = torch.empty(split.scratch, dtype=torch.float32, device=q.device)
     if quant is None:
         storage = _Q_CODES[q.dtype]
         ks_ptr = vs_ptr = None
@@ -183,8 +230,9 @@ def _launch(q, k_blocks, v_blocks, block_table, index, scale, k_scale,
     rc = lib.pdt_paged_attention(
         storage, _Q_CODES[q.dtype], c, q.data_ptr(), k_blocks.data_ptr(),
         v_blocks.data_ptr(), ks_ptr, vs_ptr, block_table.data_ptr(),
-        index.data_ptr(), out.data_ptr(), b, h, dh, bs,
-        block_table.shape[1], n_blocks, float(scale),
+        index.data_ptr(), out.data_ptr(), partials.data_ptr(), b, h, dh, bs,
+        block_table.shape[1], n_blocks, split.num_parts, split.part_keys,
+        float(scale),
         q.stride(0), q.stride(1), q.stride(2),
         k_blocks.stride(0), k_blocks.stride(1), k_blocks.stride(2),
         s_n, s_h, block_table.stride(0),

@@ -13,7 +13,10 @@ to warm up, then once more under ``torch.profiler``, and prints:
   of kernel intervals on the device timeline over that wall time);
 - the operators with the most device time, and those with the most host
   time (``key_averages()``);
-- one JSON line with the totals.
+- one JSON line with the totals, and with ``--paged`` the paged-attention
+  kernels' device time (``paged_attention_kernel`` and
+  ``paged_combine_kernel``) over the run, per wrapper call of
+  ``ops/paged_attention.py`` and per decode tick.
 
 Needs a CUDA device.
 """
@@ -33,11 +36,12 @@ ARGV = ["--serve", "--model", "gpt2", "--precision", "bf16", "--seed", "0",
         "--serve-max-new", "64", "--serve-rate", "0"]
 
 
-def busy_seconds(events) -> float:
-    """Union of the device-kernel intervals (overlaps counted once)."""
+def busy_seconds(events, name: str = "") -> float:
+    """Union of the intervals of the device kernels whose name holds
+    ``name`` (overlaps counted once)."""
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in events
-        if e.device_type.name == "CUDA"
+        if e.device_type.name == "CUDA" and name in e.name
     )
     busy_us, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -68,11 +72,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+    entries = (pa.paged_decode_attention, pa.paged_decode_attention_multi,
+               pa.paged_prefill_attention)
 
     argv = ARGV + (["--serve-spec", "--serve-spec-k", "4"] if args.spec else [])
     argv += ["--serve-paged"] if args.paged else []
     cli(argv)  # warm-up: CUDA context, cuBLAS, kernel build and load
     torch.cuda.synchronize()
+    for e in entries:
+        e.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = cli(argv)
@@ -81,14 +92,23 @@ def main() -> int:
     avg = prof.key_averages()
     print(avg.table(sort_by="self_cuda_time_total", row_limit=args.rows))
     print(avg.table(sort_by="self_cpu_time_total", row_limit=args.rows))
-    busy_s = busy_seconds(prof.events())
+    events = prof.events()
+    busy_s = busy_seconds(events)
+    paged_s = busy_seconds(events, "paged_")
+    calls = sum(e.launches for e in entries)
+    ticks = res["engine"]["decode_ticks"]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "spec": args.spec,
         "paged": args.paged,
         "wall_s": wall_s, "device_busy_s": busy_s,
         "device_busy_share": busy_s / wall_s,
-        "decode_ticks": res["engine"]["decode_ticks"],
+        "decode_ticks": ticks,
         "goodput_tok_per_s": res["summary"]["goodput_tok_per_s"],
+        "paged_kernel_ms": paged_s * 1e3,
+        "paged_calls": calls,
+        "paged_kernel_us_per_call": paged_s * 1e6 / calls if calls else None,
+        "paged_kernel_ms_per_decode_tick": (paged_s * 1e3 / ticks
+                                            if ticks else None),
     }))
     return 0
 

@@ -15,8 +15,11 @@ paged kernels (#11 ``paged_decode_attention``, #12 behind
 ``paged_decode_attention_multi`` / ``paged_prefill_attention``) likewise,
 through a shuffled block table, in every storage kind (f32, bf16, and
 int8/int4 with bf16 q at atol/rtol 2e-2), and the small GPT-2 over the
-paged and int8 paged pools.  The flash kernels (forward, dq and dk/dv
-passes) against their plain versions at the training shapes A-D of
+paged and int8 paged pools; the split of the key span across blocks at
+its edges (visible counts around the partition size, one partition and
+many, block sizes 8, 16, 24, 32, head dims 40, 64, 128, C = 1..64),
+queries with no live key (exactly 0) and a bit-identical repeat.  The
+flash kernels (forward, dq and dk/dv passes) against their plain versions at the training shapes A-D of
 ``chip_smoke.py`` and at the edges of their tiling (ragged lengths, causal
 q_len > k_len with rows that see no key: out exactly 0), on strided views
 of one fused projection, f32 (out atol 2e-5, grads 2e-4) and bf16
@@ -168,6 +171,129 @@ def test_paged_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_decode_attention(q[..., :32], kb[..., :32], vb[..., :32],
                                   table, 3)
+
+
+# The split kernel's edges: (rows, heads, table width, block size, head
+# dim).  One partition and many (width 1024), block sizes that do and do
+# not divide the 64-key stage, head dims 64, 128 and 40 (8 mod 16).
+SPLIT_SHAPES = {
+    "serving": (8, 12, 64, 16, 64),
+    "bs8": (8, 4, 64, 8, 64),
+    "bs24 dh40": (8, 4, 40, 24, 40),
+    "bs32 dh128": (8, 4, 32, 32, 128),
+    "one partition": (8, 12, 4, 16, 64),
+    "width 1024": (8, 2, 1024, 16, 64),
+}
+
+
+def _split_case(dev, shape, storage, c, seed=5):
+    """A pool, table and index around the partition edges of ``shape``:
+    row r's first query sees 1, P - 1, P, P + 1 keys, the full span, the
+    whole span as the idle sentinel, a fresh row's 4 keys (its table tail
+    unallocated), and half the span."""
+    b, h, nb, bs, dh = SPLIT_SHAPES[shape]
+    span = nb * bs
+    part = pa.paged_split(b, h, nb, bs, c, dh, pa.sm_count(dev)).part_keys
+    n_blocks = b * nb
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn(n_blocks + 1, h, bs, dh, generator=gen, device=dev)
+    v = torch.randn(n_blocks + 1, h, bs, dh, generator=gen, device=dev)
+    perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(seed))
+    table = perm.view(b, nb).to(torch.int32)
+    table[5, nb // 2:] = n_blocks
+    table[6, 1:] = n_blocks
+    table = table.clamp(max=n_blocks - 1).to(dev)
+    index = torch.tensor([0, part - 2, part - 1, part, span - 1, span, 3,
+                          span // 2], dtype=torch.int32, device=dev)
+    dtype = torch.float32 if storage == "f32" else torch.bfloat16
+    q = torch.randn(b, c, h, dh, generator=gen, device=dev).to(dtype)
+    if storage in ("int8", "int4"):
+        kq, ks = quantize_kv(k, storage)
+        vq, vs = quantize_kv(v, storage)
+        return q, kq, vq, table, index, dict(k_scale=ks, v_scale=vs,
+                                             quant=storage)
+    return q, k.to(dtype), v.to(dtype), table, index, {}
+
+
+def _paged_call(q, kb, vb, table, index, kw):
+    c = q.shape[1]
+    if c == 1:
+        return pa.paged_decode_attention(q[:, 0], kb, vb, table, index,
+                                         **kw)[:, None]
+    entry = (pa.paged_decode_attention_multi if c <= 8
+             else pa.paged_prefill_attention)
+    return entry(q, kb, vb, table, index, **kw)
+
+
+def _plain_f64(q, kb, vb, table, index):
+    """The plain version's math in float64 (f32 storage).  At width 1024
+    the sentinel row's f32 sums run over 16384 keys and carry errors near
+    1e-5 of their own, so the f32 kernel is held to this exact-rounding
+    reference at f32's atol 1e-5 instead."""
+    kk, vv = pa.paged_window(kb, vb, table)
+    c, dh = q.shape[1], q.shape[-1]
+    s = torch.einsum("bchd,bhld->bhcl", q.double(), kk.double()) * dh ** -0.5
+    cols = torch.arange(kk.shape[2], device=q.device)
+    last = index[:, None].long() + torch.arange(c, device=q.device)[None, :]
+    visible = cols[None, None, :] <= last[:, :, None]
+    s = s.masked_fill(~visible[:, None], -1e30)
+    return torch.einsum("bhcl,bhld->bchd", torch.softmax(s, -1), vv.double())
+
+
+@pytest.mark.parametrize("c", [1, 5, 8, 16, 64])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("shape", sorted(SPLIT_SHAPES))
+def test_paged_split_kernel_matches_plain(dev, shape, storage, c):
+    q, kb, vb, table, index, kw = _split_case(dev, shape, storage, c)
+    entry = (pa.paged_decode_attention if c == 1
+             else pa.paged_decode_attention_multi if c <= 8
+             else pa.paged_prefill_attention)
+    before = entry.launches
+    out = _paged_call(q, kb, vb, table, index, kw)
+    assert entry.launches == before + 1   # one count a call, split or not
+    if storage == "f32" and shape == "width 1024":
+        ref = _plain_f64(q, kb, vb, table, index)
+    else:
+        ref = pa.paged_attention_plain(q, kb, vb, table, index, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = (1e-5, 0.0) if storage == "f32" else (2e-2, 2e-2)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("shape", ["serving", "one partition"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_paged_query_without_a_live_key_is_zero(dev, shape, storage):
+    """Negative indices: queries before position 0 see no key and give
+    exactly 0 (as the TPU kernel does), a whole row of them (row 2) and
+    the first three of row 3; the rest match the plain version."""
+    q, kb, vb, table, index, kw = _split_case(dev, shape, storage, 5)
+    index[2] = -7
+    index[3] = -3
+    out = _paged_call(q, kb, vb, table, index, kw)
+    ref = pa.paged_attention_plain(q, kb, vb, table, index, **kw)
+    torch.cuda.synchronize()
+    keep = torch.ones(out.shape[:2], dtype=torch.bool, device=dev)
+    keep[2] = False
+    keep[3, :3] = False
+    assert bool((out[~keep] == 0).all())
+    atol, rtol = (1e-5, 0.0) if storage == "f32" else (2e-2, 2e-2)
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("storage,c", [("bf16", 1), ("bf16", 16),
+                                       ("bf16", 64), ("int8", 1),
+                                       ("int4", 5)])
+@pytest.mark.parametrize("shape", ["serving", "width 1024"])
+def test_paged_kernel_is_deterministic(dev, shape, storage, c):
+    """The partials merge in a fixed order: a repeated call gives the
+    same bits."""
+    q, kb, vb, table, index, kw = _split_case(dev, shape, storage, c)
+    first = _paged_call(q, kb, vb, table, index, kw)
+    second = _paged_call(q, kb, vb, table, index, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])

@@ -237,3 +237,107 @@ def test_library_path_keyed_by_source_hash():
     assert "paged_attention.cu" in _build.SOURCES
     path = _build.library_path("paged_attention.cu")
     assert path.name.startswith("paged_attention-") and path.suffix == ".so"
+
+
+# The kernel's split of the key span (flash-decoding), on the host: a
+# test-local f32 reference cuts each row's keys into the partitions
+# ``paged_split`` picks, computes each partition's (m, l, acc), and merges
+# them in partition order as the combine kernel does.  Rows: a fresh row,
+# mid-block, past the first partition, deep in the last, the idle
+# sentinel, and a negative index whose first queries see no key.
+SPLIT_BS, SPLIT_NB, SPLIT_BLOCKS = 8, 32, 40
+SPLIT_SPAN = SPLIT_BS * SPLIT_NB
+SPLIT_INDEX = np.asarray([0, 5, 70, 200, SPLIT_SPAN, -3], np.int32)
+H100_SMS = 132
+
+
+def _split_reference(q, k, v, table, index, part_keys, scale):
+    """(B, C, H, Dh) f32: per-partition partials, then the fixed-order
+    merge m = max m_i, l = sum e^(m_i - m) l_i, acc = sum e^(m_i - m)
+    acc_i; a partition without a live key is (-1e30, 0, 0)."""
+    b, c, h, dh = q.shape
+    span = table.shape[1] * k.shape[2]
+    kw = k[table].transpose(0, 2, 1, 3, 4).reshape(b, h, span, dh)
+    vw = v[table].transpose(0, 2, 1, 3, 4).reshape(b, h, span, dh)
+    last = index[:, None].astype(np.int64) + np.arange(c)[None, :]
+    visible = np.arange(span)[None, None, :] <= last[:, :, None]
+    s = np.einsum("bchd,bhkd->bhck", q, kw) * np.float32(scale)
+    neg = np.float32(-1e30)
+    parts = []
+    for p0 in range(0, span, part_keys):
+        cut = slice(p0, p0 + part_keys)
+        live = visible[:, None, :, cut]
+        sp = np.where(live, s[..., cut], neg)
+        m = sp.max(-1)
+        e = np.where(live, np.exp(sp - m[..., None]), np.float32(0))
+        parts.append((m, e.sum(-1), np.einsum("bhck,bhkd->bhcd", e,
+                                              vw[:, :, cut])))
+    m = np.max([p[0] for p in parts], axis=0)
+    l = np.zeros_like(m)
+    acc = np.zeros_like(parts[0][2])
+    for m_i, l_i, acc_i in parts:
+        w = np.exp(m_i - m)
+        l = l + w * l_i
+        acc = acc + w[..., None] * acc_i
+    out = acc / np.where(l == 0, np.float32(1), l)[..., None]
+    return out.transpose(0, 2, 1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("c", [1, 5, 16])
+def test_split_reference_matches_pallas_and_plain(c):
+    rng = np.random.default_rng(40 + c)
+    b, h, dh = len(SPLIT_INDEX), H, 16
+    q = rng.standard_normal((b, c, h, dh)).astype(np.float32)
+    k = rng.standard_normal((SPLIT_BLOCKS, h, SPLIT_BS, dh)).astype(np.float32)
+    v = rng.standard_normal((SPLIT_BLOCKS, h, SPLIT_BS, dh)).astype(np.float32)
+    table = np.stack([rng.permutation(SPLIT_BLOCKS)[:SPLIT_NB]
+                      for _ in range(b)])
+    table[0, 1:] = SPLIT_BLOCKS              # the fresh row's unallocated tail
+    table = np.minimum(table, SPLIT_BLOCKS - 1).astype(np.int32)
+    split = pa.paged_split(b, h, SPLIT_NB, SPLIT_BS, c, dh, H100_SMS)
+    assert split.num_parts == 4 and split.part_keys == 64
+    ref = _split_reference(q, k, v, table, SPLIT_INDEX, split.part_keys,
+                           dh ** -0.5)
+    # Partitions past a row's last visible key hold nothing for it.
+    assert (SPLIT_INDEX[:2] + c - 1 < split.part_keys).all()
+    pallas = np.asarray(_jax_entry(c)(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(table),
+        jnp.asarray(SPLIT_INDEX), interpret=True,
+    ))
+    np.testing.assert_allclose(ref, pallas, atol=1e-5, rtol=0)
+    plain = pa.paged_attention_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(table),
+        torch.from_numpy(SPLIT_INDEX)).numpy()
+    # A query with no live key: 0 from the split and the Pallas kernel;
+    # the gather path's softmax over -1e30 alone averages V instead, so
+    # the plain version is compared on the queries that see a key.
+    dead = SPLIT_INDEX[:, None] + np.arange(c)[None, :] < 0      # (B, C)
+    assert dead.any() and (ref[dead] == 0).all() and (pallas[dead] == 0).all()
+    np.testing.assert_allclose(ref[~dead], plain[~dead], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,sms,want", [
+    ((8, 12, 64, 16), H100_SMS, (6, 192)),     # serving: GPT-2 124M, 8 slots
+    ((8, 12, 64, 16), 66, (4, 256)),           # a card with half the SMs
+    ((8, 12, 1024, 16), H100_SMS, (64, 256)),  # the widest table: capped
+    ((2, 2, 1024, 16), H100_SMS, (128, 128)),  # few rows: a 128-key tile a block
+    ((8, 12, 4, 16), H100_SMS, (1, 64)),       # one partition
+    ((1, 1, 1, 1), H100_SMS, (1, 64)),
+    ((8, 12, 64, 24), H100_SMS, (6, 256)),     # a block size not dividing 64
+])
+def test_paged_split_picks_partitions_from_the_shapes(shape, sms, want):
+    b, h, nb, bs = shape
+    for c, dh in ((1, 64), (16, 64), (64, 40)):
+        split = pa.paged_split(b, h, nb, bs, c, dh, sms)
+        assert (split.num_parts, split.part_keys) == want
+        span = nb * bs
+        assert split.part_keys % pa.PART_ALIGN == 0
+        assert (split.num_parts - 1) * split.part_keys < span
+        assert split.num_parts * split.part_keys >= span
+        assert split.scratch == b * h * split.num_parts * c * (dh + 2)
+        assert split.part_keys <= pa.MAX_PART_KEYS
+        if split.part_keys < pa.MAX_PART_KEYS and (
+                split.num_parts < -(-span // pa.PART_ALIGN)):
+            # Not every tile its own block: the grid comes within a factor
+            # of 2 of the target (whole tiles a partition round it down).
+            assert 2 * b * h * split.num_parts > pa.BLOCKS_PER_SM * sms
