@@ -16,7 +16,10 @@ unmasks the whole row, and the caller discards that row's output.
 
 Each wrapper takes the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors, and nothing else: there is no fallback from one
-to the other.  A wrapper counts its kernel launches in ``.launches``.
+to the other.  A wrapper counts its kernel launches in ``.launches``: one
+a call.  The kernel splits each (row, head)'s visible keys over a cluster
+of ``decode_split(...).cluster`` thread blocks and keeps the softmax exact
+across them in shared memory: one launch, no scratch in device memory.
 
 The plain versions copy the TPU kernels' numerics: the scale is applied
 after an f32 QK^T, masked scores are -1e30, softmax runs in f32, and the
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,8 +40,96 @@ _NEG_INF = -1e30
 MAX_CHUNK = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # A block may use 227 KB of shared memory on Hopper (232,448 bytes).
-_MAX_SMEM = 232_448
-_WARPS = 8  # kWarps of csrc/decode_attention.cu: sizes its shared memory
+MAX_SMEM = 232_448
+# Constants of csrc/decode_attention.cu that size a block's shared memory:
+# keys per share tile (kTile), ring slots (kSlots), queries per tensor-core
+# tile (kQPad), warps a block (kWarps), the portable cluster size
+# (kMaxCluster).  A long share's ring is held to RING_BYTES; the split
+# aims at BLOCKS_PER_SM blocks a call for each SM, as the paged kernel's
+# does.
+TILE = 16
+SLOTS = 8
+QPAD = 8
+WARPS = 4
+MAX_CLUSTER = 8
+RING_BYTES = 96 * 1024
+BLOCKS_PER_SM = 4
+
+
+class DecodeSplit(NamedTuple):
+    cluster: int     # S: thread blocks per (row, head), one cluster
+    share_keys: int  # the most keys one block holds
+    tile_keys: int   # keys per ring slot
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _smem_bytes(share: int, tile: int, chunk: int, head_dim: int,
+                itemsize: int) -> int:
+    """A block's shared memory (make_layout of the kernel): the ring, q,
+    the share's f32 scores, bf16 p (tensor-core path), the partial output
+    and the per-query max and sum."""
+    mma = itemsize == 2
+    off = SLOTS * tile * (_round_up(head_dim * itemsize, 16) + 16)
+    if mma:
+        off += QPAD * (_round_up(head_dim, 16) + 8) * 2
+    else:
+        off += chunk * (head_dim + 4) * 4
+    off = _round_up(off, 16) + chunk * (share + 4) * 4
+    if mma:
+        off += QPAD * (share + 8) * 2
+    return _round_up(off, 16) + chunk * head_dim * 4 + (2 + WARPS) * QPAD * 4
+
+
+def decode_layout(cluster: int, length: int, chunk: int, head_dim: int,
+                  itemsize: int) -> DecodeSplit:
+    """The share and ring of a cluster of ``cluster`` blocks: a share is
+    whole ``TILE``-key tiles of the row; the ring's ``SLOTS`` slots hold
+    the share's K at once where ``RING_BYTES`` allow (V refills the slots
+    K frees), else tiles as large as fit (16 keys at the least, if that is
+    what fits).  A small ring keeps a call's blocks resident at once."""
+    tiles = -(-length // TILE)
+    share = -(-tiles // cluster) * TILE
+    row = _round_up(head_dim * itemsize, 16) + 16
+    cap = max(TILE, RING_BYTES // (SLOTS * row) // TILE * TILE)
+    tile = min(_round_up(-(-share // SLOTS), TILE), cap)
+    smem = _smem_bytes(share, tile, chunk, head_dim, itemsize)
+    if smem > MAX_SMEM:
+        tile = TILE
+        smem = _smem_bytes(share, tile, chunk, head_dim, itemsize)
+    return DecodeSplit(cluster, share, tile, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split(batch: int, heads: int, length: int, chunk: int,
+                 head_dim: int, num_sms: int, itemsize: int) -> DecodeSplit:
+    """How the kernel splits each (row, head)'s keys: from the shapes, the
+    storage width and the card's SM count alone, never from ``index`` (no
+    device sync).  S, a power of two up to ``MAX_CLUSTER``, brings the
+    grid (S x heads x rows) to about ``BLOCKS_PER_SM * num_sms`` blocks
+    without cutting a row finer than one ``TILE`` a block; then, where a
+    share's scores would not fit a block's shared memory, S doubles up to
+    ``MAX_CLUSTER``.  ``smem_bytes`` above ``MAX_SMEM`` means the cache is
+    too long for the kernel."""
+    tiles = -(-length // TILE)
+    want = -(-BLOCKS_PER_SM * num_sms // (batch * heads))
+    s = 1
+    while s < MAX_CLUSTER and s < want and 2 * s <= tiles:
+        s *= 2
+    split = decode_layout(s, length, chunk, head_dim, itemsize)
+    while split.smem_bytes > MAX_SMEM and split.cluster < MAX_CLUSTER:
+        split = decode_layout(2 * split.cluster, length, chunk, head_dim,
+                              itemsize)
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _index_vector(index, batch: int, device) -> torch.Tensor:
@@ -128,41 +220,86 @@ def _check(q, k_cache, v_cache, chunk_dims: int) -> None:
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("decode_attention.cu")
-    lib.pdt_decode_attention.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-        + [ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+    lib.pdt_decode_plan.argtypes = (
+        [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_longlong] * 12
+        + [ctypes.POINTER(ctypes.c_int)] * 2
     )
-    lib.pdt_decode_attention.restype = ctypes.c_int
+    lib.pdt_decode_plan.restype = ctypes.c_void_p
+    lib.pdt_decode_run.argtypes = [ctypes.c_void_p] * 7
+    lib.pdt_decode_run.restype = ctypes.c_int
     lib.pdt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pdt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k_cache, v_cache, index, scale) -> torch.Tensor:
-    """Launch the kernel for q (B, C, H, Dh); returns (B, C, H, Dh)."""
-    b, c, h, dh = q.shape
-    length = k_cache.shape[2]
+_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(dtype, q_shape, q_strides, k_shape, k_strides, v_strides,
+          scale: float, cluster, device) -> int:
+    """The kernel's plan for every launch of one shape, made once: the
+    split (``cluster`` forces S, 1..8, in place of ``decode_split``'s),
+    held against the shared memory a block has and against the kernel's
+    own layout, and a check that such a cluster can be resident.  Returns
+    the library's plan pointer."""
+    b, c, h, dh = q_shape
+    length = k_shape[2]
     if not 1 <= c <= MAX_CHUNK:
         raise ValueError(f"chunk width must be 1..{MAX_CHUNK}, got {c}")
-    smem = 4 * (c * length + _WARPS * c * dh)
-    if smem > _MAX_SMEM:
+    if cluster is None:
+        split = decode_split(b, h, length, c, dh, sm_count(device),
+                             dtype.itemsize)
+    elif 1 <= cluster <= MAX_CLUSTER:
+        split = decode_layout(cluster, length, c, dh, dtype.itemsize)
+    else:
+        raise ValueError(f"cluster must be 1..{MAX_CLUSTER}, got {cluster}")
+    if split.smem_bytes > MAX_SMEM:
         raise ValueError(
-            f"cache length {length} at chunk {c} needs {smem} bytes of "
-            f"shared memory, more than a block has ({_MAX_SMEM})"
+            f"cache length {length} at chunk {c} needs {split.smem_bytes} "
+            f"bytes of shared memory a block, split over {split.cluster} "
+            f"blocks, more than a block has ({MAX_SMEM})"
         )
-    index = _index_vector(index, b, k_cache.device)
-    out = torch.empty((b, c, h, dh), dtype=q.dtype, device=q.device)
     lib = _library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.pdt_decode_attention(
-        _DTYPE_CODES[q.dtype], c, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), index.data_ptr(), out.data_ptr(),
-        b, h, length, dh, float(scale),
-        q.stride(0), q.stride(1), q.stride(2),
-        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        stream,
+    smem, err = ctypes.c_int(), ctypes.c_int()
+    plan = lib.pdt_decode_plan(
+        _DTYPE_CODES[dtype], c, b, h, length, dh, split.cluster,
+        split.share_keys, split.tile_keys, scale, *q_strides[:3],
+        *k_strides[:3], *v_strides[:3], c * h * dh, h * dh, dh,
+        ctypes.byref(smem), ctypes.byref(err),
+    )
+    if not plan:
+        if err.value == _INVALID_CONFIGURATION:
+            raise RuntimeError(
+                f"a cluster of {split.cluster} blocks with "
+                f"{split.smem_bytes} bytes of shared memory each cannot be "
+                "resident on this device"
+            )
+        msg = lib.pdt_cuda_error_string(err.value).decode()
+        raise RuntimeError(f"decode-attention plan failed: {msg} "
+                           f"({err.value})")
+    if smem.value != split.smem_bytes:
+        raise RuntimeError(
+            f"the kernel lays out {smem.value} bytes of shared memory a "
+            f"block where decode_split counts {split.smem_bytes}: "
+            "_smem_bytes and make_layout in csrc/decode_attention.cu differ"
+        )
+    return plan
+
+
+def _launch(q, k_cache, v_cache, index, scale, cluster=None) -> torch.Tensor:
+    """Launch the kernel for q (B, C, H, Dh); returns (B, C, H, Dh).
+    ``cluster`` forces S (1..8) in place of ``decode_split``'s."""
+    plan = _plan(q.dtype, q.shape, q.stride(), k_cache.shape,
+                 k_cache.stride(), v_cache.stride(), float(scale), cluster,
+                 q.device)
+    index = _index_vector(index, q.shape[0], k_cache.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _library()
+    rc = lib.pdt_decode_run(
+        plan, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        index.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         msg = lib.pdt_cuda_error_string(rc).decode()

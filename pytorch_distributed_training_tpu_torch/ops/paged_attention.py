@@ -45,7 +45,7 @@ import torch
 from ..comm.compress import dequantize_kv
 from . import _build
 from .decode_attention import (
-    MAX_CHUNK, _index_vector, decode_attention_multi_plain,
+    MAX_CHUNK, _index_vector, decode_attention_multi_plain, sm_count,
 )
 
 # Widest prefill chunk the fused kernel takes, as in the JAX package;
@@ -91,12 +91,6 @@ def paged_split(batch: int, heads: int, table_width: int, block_size: int,
     parts = -(-span // part_keys)
     return PagedSplit(parts, part_keys,
                       batch * heads * parts * chunk * (head_dim + 2))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gather_window(blocks: torch.Tensor, block_table: torch.Tensor):

@@ -13,10 +13,12 @@ to warm up, then once more under ``torch.profiler``, and prints:
   of kernel intervals on the device timeline over that wall time);
 - the operators with the most device time, and those with the most host
   time (``key_averages()``);
-- one JSON line with the totals, and with ``--paged`` the paged-attention
-  kernels' device time (``paged_attention_kernel`` and
-  ``paged_combine_kernel``) over the run, per wrapper call of
-  ``ops/paged_attention.py`` and per decode tick.
+- one JSON line with the totals and the attention kernels' device time
+  over the run, per wrapper call and per decode tick: the contiguous
+  cache's ``decode_attention_kernel`` (#9/#10, the wrappers of
+  ``ops/decode_attention.py``), or with ``--paged`` the paged kernels
+  (``paged_attention_kernel`` and ``paged_combine_kernel``, the wrappers
+  of ``ops/paged_attention.py``).
 
 Needs a CUDA device.
 """
@@ -73,10 +75,15 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.ops import (
-        paged_attention as pa,
+        decode_attention as da, paged_attention as pa,
     )
-    entries = (pa.paged_decode_attention, pa.paged_decode_attention_multi,
-               pa.paged_prefill_attention)
+    if args.paged:
+        kernel = "paged_"
+        entries = (pa.paged_decode_attention, pa.paged_decode_attention_multi,
+                   pa.paged_prefill_attention)
+    else:
+        kernel = "decode_attention_kernel"
+        entries = (da.decode_attention, da.decode_attention_multi)
 
     argv = ARGV + (["--serve-spec", "--serve-spec-k", "4"] if args.spec else [])
     argv += ["--serve-paged"] if args.paged else []
@@ -94,7 +101,7 @@ def main() -> int:
     print(avg.table(sort_by="self_cpu_time_total", row_limit=args.rows))
     events = prof.events()
     busy_s = busy_seconds(events)
-    paged_s = busy_seconds(events, "paged_")
+    attn_s = busy_seconds(events, kernel)
     calls = sum(e.launches for e in entries)
     ticks = res["engine"]["decode_ticks"]
     print(json.dumps({
@@ -104,11 +111,13 @@ def main() -> int:
         "device_busy_share": busy_s / wall_s,
         "decode_ticks": ticks,
         "goodput_tok_per_s": res["summary"]["goodput_tok_per_s"],
-        "paged_kernel_ms": paged_s * 1e3,
-        "paged_calls": calls,
-        "paged_kernel_us_per_call": paged_s * 1e6 / calls if calls else None,
-        "paged_kernel_ms_per_decode_tick": (paged_s * 1e3 / ticks
-                                            if ticks else None),
+        "attention_kernel": kernel,
+        "attention_kernel_ms": attn_s * 1e3,
+        "attention_calls": calls,
+        "attention_kernel_us_per_call": (attn_s * 1e6 / calls
+                                         if calls else None),
+        "attention_kernel_ms_per_decode_tick": (attn_s * 1e3 / ticks
+                                                if ticks else None),
     }))
     return 0
 
