@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from the sources in this checkout (nvcc,
-one process per source, all at once, into build/torch_kernels/), holds
+one process per source, all at once, into build/torch_kernels/) and the
+native data library (g++, csrc/fastbatch.cpp, into build/fastbatch/), holds
 each kernel against its plain PyTorch version and times both, then drives
 the port's main paths:
 
@@ -22,7 +23,19 @@ the port's main paths:
   routed to the flash kernels that port one TPU tiling, with the flash
   launch counts checked exactly and no attention outside the kernels; a
   small f32 model trains three steps on the card and on the host from the
-  same weights and must agree.
+  same weights and must agree;
+- image classification, which runs none of the kernels (convolutions,
+  pooling and the head are cuDNN/cuBLAS calls, the norms the port's
+  BatchNorm functions): R1 the reference's own run through the CLI
+  (ResNet-18, CIFAR-10-shaped synthetic data, batch 32, adam lr 0.1, f32,
+  100 steps; images/s and step time), then the same command reading a
+  CIFAR-10 archive of random bytes through the native gather (the
+  gathers counted); R2 ResNet-50 at ImageNet width (224 px, 1000
+  classes, bf16, batch 128, sgd, 40 steps; images/s/chip, step time, peak
+  memory, analytic MFU); R3 ResNet-18 on ``shapes``, whose loss must fall
+  below its start and below chance within 150 steps; R4 a shallow f32
+  ResNet trains three steps on the card (TF32 off) and on the host from
+  the same weights and must agree.
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -34,7 +47,9 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import math
 import os
 import re
 import statistics
@@ -1048,6 +1063,303 @@ def train_parity_phase(torch, fa, seed: int) -> None:
           f"{worst_kbias:.3g} (bound {2 * steps * lr:g})", flush=True)
 
 
+def _recording_steps(losses: list):
+    """Wrap the port's ``make_train_step`` so every step's loss (a device
+    tensor: nothing waits for it) goes into ``losses``; returns the
+    original for restoring."""
+    import pytorch_distributed_training_tpu_torch.train as train
+
+    original = train.make_train_step
+
+    def make(**kw):
+        step = original(**kw)
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        return recorded
+
+    train.make_train_step = make
+    return original
+
+
+def resnet_train_flops(torch, model, size: int) -> float:
+    """Model flops of training on one image: 3x the forward's (forward,
+    then backward for inputs and weights), 2 per multiply-add of every
+    convolution (the stem as its 7x7 conv) and the head; norms, ReLU and
+    pooling are not counted."""
+    macs = []
+
+    def hook(module, inputs, out):
+        macs.append(module.weight[0].numel() * out[0].numel())
+
+    kinds = (torch.nn.Conv2d, torch.nn.Linear)
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, kinds) or type(m).__name__ == "SpaceToDepthStem"]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            w = next(model.parameters())
+            model(torch.zeros(1, 3, size, size, device=w.device,
+                              dtype=w.dtype).contiguous(
+                                  memory_format=torch.channels_last))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)
+    return 3 * 2 * float(sum(macs))
+
+
+def write_cifar_archive(root: str, seed: int, per_batch: int = 1000) -> str:
+    """A CIFAR-10 python-version tree of random bytes from ``seed`` (5
+    train batches and the test batch), the layout the reader takes."""
+    import pickle
+
+    import numpy as np
+
+    folder = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        entry = {"data": rng.integers(0, 256, (per_batch, 3072),
+                                      dtype=np.uint8),
+                 "labels": rng.integers(0, 10, per_batch).tolist()}
+        with open(os.path.join(folder, name), "wb") as f:
+            pickle.dump(entry, f)
+    return root
+
+
+def _finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def _warm_epoch_line(trainer, steps: int) -> tuple[float, float]:
+    """(images/s, step ms) of the last epoch: the first epoch carries the
+    cuDNN and allocator warm-up."""
+    s = trainer.history[-1]
+    return s["examples_per_sec"], s["elapsed_s"] / steps * 1e3
+
+
+def image_phase(torch, seed: int, repo: str) -> None:
+    """The image-classifier path through the CLI (no TPU kernel on it:
+    convolutions, pooling and the head are cuDNN/cuBLAS calls, the norms
+    the port's BatchNorm functions).  R1 the reference run, then its
+    batches read from a CIFAR-10 archive by the native gather; R2
+    ResNet-50 at ImageNet width in bf16; R3 learnability on ``shapes``;
+    R4 a shallow f32 ResNet, card against host."""
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.data import native
+
+    # R1: the reference's command (ResNet-18, CIFAR-10-shaped synthetic
+    # data, batch 32, adam lr 0.1, wd 1e-3, f32, the ImageNet stem at 32
+    # px), 2 epochs of 50 steps; the second is timed warm.
+    trainer = cli(["--model", "resnet18", "--dataset", "cifar10",
+                   "--synthetic-data", "--epochs", "2", "--steps-per-epoch",
+                   "50", "--seed", str(seed)])
+    losses = [h["loss"] for h in trainer.history]
+    check(trainer.state.step == 100, "R1: 100 steps")
+    check(_finite(losses) and _finite(trainer.last_epoch_losses),
+          f"R1: losses finite ({losses})")
+    check(next(iter(trainer.state.params.values())).is_cuda, "R1 on the card")
+    img_s, step_ms = _warm_epoch_line(trainer, 50)
+    print(f"image R1 (ResNet-18, CIFAR-10 synthetic, batch 32, adam, f32): "
+          f"100 steps, epoch losses {[round(x, 4) for x in losses]}, "
+          f"accuracy {trainer.history[-1]['accuracy']:.4f}; warm epoch "
+          f"{img_s:.1f} images/s, step {step_ms:.2f} ms; batches from "
+          "SyntheticImages through the 2-process worker pool", flush=True)
+    del trainer
+    archive = write_cifar_archive(
+        os.path.join(repo, "build", "chip_smoke", "cifar10"), seed)
+    native.gather_images_u8.calls = 0
+    trainer = cli(["--model", "resnet18", "--data-dir", archive,
+                   "--steps-per-epoch", "20", "--seed", str(seed)])
+    calls = native.gather_images_u8.calls
+    check(trainer.state.step == 20 and calls == 20,
+          f"R1 archive: 20 steps, native gathers {calls}")
+    check(_finite(trainer.last_epoch_losses), "R1 archive: losses finite")
+    img_s, step_ms = _warm_epoch_line(trainer, 20)
+    print(f"image R1 archive (the same command reading a CIFAR-10 archive "
+          f"of random bytes): 20 steps, native gathers {calls}, losses "
+          f"{[round(x, 4) for x in trainer.last_epoch_losses]}, "
+          f"{img_s:.1f} images/s", flush=True)
+    del trainer
+
+    # R2: ResNet-50 at ImageNet width (224 px, 1000 classes), bf16, batch
+    # 128, sgd with momentum; 2 epochs of 20 steps, the second timed (each
+    # epoch starts its worker pipeline empty).
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = cli(["--model", "resnet50", "--dataset", "synthetic-images",
+                   "--image-size", "224", "--precision", "bf16",
+                   "--batch-size", "128", "--optimizer", "sgd", "--epochs",
+                   "2", "--steps-per-epoch", "20", "--num-workers", "6",
+                   "--seed", str(seed)])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in trainer.history]
+    check(trainer.state.step == 40, "R2: 40 steps")
+    check(_finite(losses) and _finite(trainer.last_epoch_losses),
+          f"R2: losses finite ({losses})")
+    img_s, step_ms = _warm_epoch_line(trainer, 20)
+    flops = resnet_train_flops(torch, trainer.state.model, 224)
+    print(f"image R2 (ResNet-50, 224 px, 1000 classes, bf16, batch 128, "
+          f"sgd): 40 steps, epoch losses {[round(x, 4) for x in losses]}; "
+          f"warm epoch {img_s:.1f} images/s/chip, step {step_ms:.1f} ms, "
+          f"peak memory {peak_gb:.2f} GB, MFU "
+          f"{flops * img_s / 989e12 * 100:.2f} % ({flops / 1e9:.2f} "
+          "GFLOP an image trained, 989 TF/s dense bf16)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # R3: learnability. ResNet-18 on the procedural shapes, sgd lr 0.02
+    # (the CLI's 0.1 first blows the loss up to ~6 and spends the run
+    # recovering), batch 128, 150 steps; every step's loss is recorded.
+    step_losses: list = []
+    original = _recording_steps(step_losses)
+    try:
+        trainer = cli(["--model", "resnet18", "--dataset", "shapes",
+                       "--optimizer", "sgd", "--learning-rate", "0.02",
+                       "--batch-size", "128", "--steps-per-epoch", "150",
+                       "--num-workers", "6", "--seed", str(seed)])
+    finally:
+        import pytorch_distributed_training_tpu_torch.train as train
+        train.make_train_step = original
+    values = [float(x) for x in step_losses]
+    first, last = np.mean(values[:10]), np.mean(values[-10:])
+    check(len(values) == 150 and _finite(values), "R3: 150 finite losses")
+    check(last < first and last < math.log(10),
+          f"R3: mean loss of the last 10 steps {last:.4f} below the first "
+          f"10's {first:.4f} and chance, ln 10")
+    img_s, _ = _warm_epoch_line(trainer, 150)
+    print(f"image R3 (ResNet-18 on shapes, sgd lr 0.02, batch 128): 150 "
+          f"steps, mean "
+          f"loss first 10 {first:.4f}, last 10 {last:.4f}, accuracy at the "
+          f"last log point {trainer.history[-1]['accuracy']:.4f}, "
+          f"{img_s:.1f} images/s", flush=True)
+    del trainer
+    resnet_parity_phase(torch, seed)
+
+
+def maxpool_tie_check(torch, seed: int) -> None:
+    """The stem's 3x3/s2 max pool on post-ReLU input (half zeros, so many
+    windows tie at 0): the gradient must reach the same position of each
+    tied window on the card as on the host (flax's ``max_pool``, whose
+    tie goes to one position, agrees with the host)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(8, 16, 16, 16, generator=gen) - 0.5)
+    x = x.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(8, 16, 8, 8, generator=gen)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        xt = x.to(dev).requires_grad_()
+        y = F.max_pool2d(xt, 3, 2, 1)
+        (g,) = torch.autograd.grad(y, xt, dy.to(dev))
+        grads.append(g.cpu())
+    # Each channel's 3x3 windows (padding below any value, as the pool's).
+    windows = F.unfold(F.pad(x.contiguous(), (1, 1, 1, 1), value=-1.0), 3,
+                       stride=2).view(8, 16, 9, -1)
+    tied = int(((windows == 0).sum(2) > 1).logical_and(
+        windows.amax(2) == 0).sum())
+    same = torch.equal(grads[0], grads[1])
+    check(same, f"R4: max-pool gradient at {tied} tied windows differs "
+          "between card and host")
+    print(f"image R4 max-pool ties: {tied} tied windows of "
+          f"{y.numel()}, gradient positions equal card vs host: {same}",
+          flush=True)
+
+
+def resnet_parity_phase(torch, seed: int) -> None:
+    """R4, TF32 off: the ImageNet stem's pieces on the card against the
+    host (the s2d convolution against the plain 7x7 stride-2 conv, the max
+    pool's tie positions), then a shallow f32 ResNet (BasicBlock, stage
+    sizes (1, 1), 32 px, 10 classes, the fused norms) trains 3 sgd steps
+    of batch 32 in 2 microbatches on the card and on the host from the
+    same weights: losses, weights and running statistics within 1e-4.
+
+    The training model takes the CIFAR stem, without the max pool: a
+    pool's argmax is discontinuous, and a near-tie that the card's
+    rounding tips the other way sends a gradient element elsewhere, which
+    the three steps then amplify."""
+    import copy
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.models import resnet
+    from pytorch_distributed_training_tpu_torch.ops.s2d_stem import s2d_conv
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        maxpool_tie_check(torch, seed)
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.rand(16, 3, 224, 224, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        k = torch.randn(64, 3, 7, 7, generator=gen) * 0.1
+        s2d_card = s2d_conv(x.cuda(), k.cuda()).cpu()
+        err_plain = (s2d_card - F.conv2d(x.cuda(), k.cuda(), stride=2,
+                                         padding=3).cpu()).abs().max().item()
+        err_host = (s2d_card - s2d_conv(x, k)).abs().max().item()
+        check(err_plain <= 1e-5 and err_host <= 1e-5,
+              f"R4: s2d stem on the card {err_plain:.3g} from the 7x7 conv, "
+              f"{err_host:.3g} from the host")
+        print(f"image R4 s2d stem (224 px, f32): card vs the plain 7x7/s2 "
+              f"conv {err_plain:.3g}, vs the host {err_host:.3g} (1e-5)",
+              flush=True)
+        steps = 3
+        host_model = resnet.resnet18(
+            10, {"stage_sizes": (1, 1), "small_stem": True}, device="cpu",
+            seed=seed)
+        card_model = copy.deepcopy(host_model).to("cuda")
+        rng = np.random.default_rng(seed)
+        batches = [(rng.random((32, 32, 32, 3), np.float32),
+                    rng.integers(0, 10, 32).astype(np.int32))
+                   for _ in range(steps)]
+        policy = make_policy("f32")
+        results = {}
+        for where, model in (("host", host_model), ("card", card_model)):
+            dev = next(model.parameters()).device
+            state = create_train_state(
+                model, build_optimizer("sgd", 0.05, weight_decay=1e-3),
+                policy=policy)
+            step = make_train_step(kind="image_classifier", policy=policy,
+                                   num_microbatches=2)
+            losses = []
+            for x, y in batches:
+                state, m = step(state, {
+                    "image": torch.from_numpy(x).to(dev),
+                    "label": torch.from_numpy(y).to(dev)})
+                losses.append(float(m["loss"]))
+            results[where] = (losses, {
+                k: v.detach().cpu() for k, v in
+                {**state.params, **state.batch_stats}.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    (hl, hp), (cl, cp) = results["host"], results["card"]
+    loss_err = max(abs(a - b) for a, b in zip(hl, cl))
+    worst = {k: (cp[k] - v).abs().max().item() for k, v in hp.items()}
+    name = max(worst, key=worst.get)
+    check(loss_err <= 1e-4, f"R4: losses {cl} vs host {hl}")
+    check(worst[name] <= 1e-4,
+          f"R4: max weight/statistic difference {worst[name]:.3g} ({name})")
+    print(f"image R4 (shallow f32 ResNet, CIFAR stem, 3 sgd steps, card vs "
+          f"host, TF32 off): losses {[round(x, 6) for x in cl]}, max loss diff "
+          f"{loss_err:.3g} (1e-4), max weight/statistic diff "
+          f"{worst[name]:.3g} at {name} (1e-4)", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1060,6 +1372,7 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     try:
+        from pytorch_distributed_training_tpu_torch.data import native
         from pytorch_distributed_training_tpu_torch.ops import (
             _build, decode_attention as da, flash_attention as fa,
             paged_attention as pa,
@@ -1076,10 +1389,14 @@ def main() -> int:
     bandwidth = bandwidth_of(name)
 
     t0 = time.monotonic()
-    reports = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_lib = pool.submit(native.build)   # g++, beside the nvccs
+        reports = _build.build()
+        native_path = native_lib.result()
     print(f"build: {time.monotonic() - t0:.1f} s, {len(reports)} "
           f"librar{'y' if len(reports) == 1 else 'ies'} compiled in "
-          "parallel", flush=True)
+          f"parallel, and the native data library "
+          f"{os.path.relpath(native_path, repo)}", flush=True)
     for src, rep in reports.items():
         regs = [ln.split(":", 1)[-1].strip() for ln in rep.splitlines()
                 if "registers" in ln]
@@ -1106,6 +1423,7 @@ def main() -> int:
     generate_phase(torch, da, args.seed)
     for num, n in training_phase(torch, fa, args.seed).items():
         flash[num]["launches"] = n
+    image_phase(torch, args.seed, repo)
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = [flash[num] for num in sorted(flash)] + list(kernels.values())

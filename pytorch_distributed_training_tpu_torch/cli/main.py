@@ -1,16 +1,21 @@
-"""Command line of the port: the LM-training and ``--serve`` subsets of the
-JAX package's ``cli/main.py``, same flag names and defaults, same printed
-milestones and summary lines.
+"""Command line of the port: the image-classifier and LM training and
+``--serve`` subsets of the JAX package's ``cli/main.py``, same flag names
+and defaults, same printed milestones and summary lines.
+
+    python -m pytorch_distributed_training_tpu_torch.cli.main --synthetic-data
+
+runs the reference's own command (ResNet-18 on CIFAR-10-shaped data,
+batch 32, adam, lr 0.1) on CUDA; ``--use-cpu`` runs on the host;
 
     python -m pytorch_distributed_training_tpu_torch.cli.main \\
         --model gpt2 --dataset synthetic-tokens --precision bf16 \\
         --batch-size 16 --accum-steps 2 --optimizer adamw
 
-trains on CUDA (``--use-cpu`` runs on the host); ``--serve`` serves instead
-(add ``--serve-paged [--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for
-the paged KV pool).  Checkpoints are not ported yet, so the server runs
-fresh-init weights drawn from ``--seed``.  Not ported yet: data, tensor,
-pipeline and sequence parallelism, the image models and datasets,
+trains GPT-2; ``--serve`` serves instead (add ``--serve-paged
+[--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool).
+Checkpoints are not ported yet, so the server runs fresh-init weights
+drawn from ``--seed``.  Not ported yet: data, tensor, pipeline and
+sequence parallelism, the ViTs, ``imagefolder:`` and ``packed-images:``,
 ``--device-cache``, checkpoint and resume, telemetry and resilience.
 """
 
@@ -52,12 +57,14 @@ def _parse_overrides(text: str | None) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pytorch_distributed_training_tpu_torch.cli.main",
-        description="GPT-2 training and continuous-batching serving on CUDA "
-                    "(PyTorch port).",
+        description="ResNet and GPT-2 training and continuous-batching "
+                    "serving on CUDA (PyTorch port).",
     )
     p.add_argument("--use-cpu", action="store_true",
                    help="Run on the host instead of the CUDA device.")
-    p.add_argument("--model", default="gpt2", help="gpt2|gpt2_medium|...")
+    p.add_argument("--data-dir", default="./data", help="Dataset root.")
+    p.add_argument("--model", default="resnet18",
+                   help="resnet18|resnet50|gpt2|... (the registry's names)")
     p.add_argument("--model-overrides", default=None,
                    help="Comma-separated config overrides, e.g. "
                         "'num_layers=2,hidden_dim=64,vocab_size=512'.")
@@ -70,12 +77,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "per finished request (--serve) here.")
     # --- training (the JAX CLI's flags and defaults) ---
     p.add_argument("--dataset", default="cifar10",
-                   help="synthetic-tokens|token-file:<path> (the image "
-                        "datasets are not ported yet).")
+                   help="cifar10|shapes|synthetic-images|synthetic-tokens|"
+                        "token-file:<path> (imagefolder: and packed-images: "
+                        "are not ported yet).")
+    p.add_argument("--synthetic-data", action="store_true",
+                   help="Use synthetic data (no dataset files needed).")
+    p.add_argument("--image-size", type=int, default=32,
+                   help="Synthetic image side (224 for ImageNet-like runs).")
     p.add_argument("--batch-size", type=int, default=32,
                    help="Global batch size.")
     p.add_argument("--num-workers", type=int, default=2,
-                   help="Accepted; batches are fetched in-process.")
+                   help="Decode worker processes.")
     p.add_argument("--learning-rate", type=float, default=0.1)
     p.add_argument("--weight-decay", type=float, default=0.001)
     p.add_argument("--epochs", type=int, default=1)
@@ -327,45 +339,81 @@ def build_optimizer(name: str, lr, *, weight_decay: float,
 
 
 _IMAGE_DATASETS = ("cifar10", "synthetic-images", "shapes")
+_NOT_PORTED_DATASETS = ("imagefolder:", "packed-images:")
 
 
-def _datasets(dataset: str, *, seq_len: int, vocab: int, do_eval: bool):
-    """(kind, train set, eval set or None) for ``--dataset``."""
+def _dataset_kind(dataset: str) -> str:
+    """The batches ``--dataset`` provides, before anything is read."""
+    if dataset in _IMAGE_DATASETS or dataset.startswith(_NOT_PORTED_DATASETS):
+        return "image_classifier"
+    if dataset == "synthetic-tokens" or dataset.startswith("token-file:"):
+        return "lm"
+    raise SystemExit(f"unknown dataset {dataset!r}")
+
+
+def _image_datasets(args):
+    """(train set, eval set or None, num_classes): the JAX CLI's image
+    datasets."""
+    from ..data import ShapeImages, SyntheticImages, cifar10
+
+    if args.dataset.startswith(_NOT_PORTED_DATASETS):
+        raise SystemExit(f"--dataset {args.dataset}: ImageNet folders and "
+                         "packed records (data/imagenet.py) are not yet "
+                         "ported")
+    if args.dataset == "cifar10":
+        ds = cifar10(args.data_dir, train=True, synthetic=args.synthetic_data)
+        eval_ds = (cifar10(args.data_dir, train=False,
+                           synthetic=args.synthetic_data)
+                   if args.do_eval else None)
+        return ds, eval_ds, len(ds.classes)
+    if args.dataset == "synthetic-images":
+        ds = SyntheticImages(image_size=args.image_size, num_classes=1000)
+        eval_ds = (SyntheticImages(n=1000, image_size=args.image_size,
+                                   num_classes=1000, seed=1)
+                   if args.do_eval else None)
+        return ds, eval_ds, 1000
+    # The learnable procedural set: train and eval are disjoint draws.
+    ds = ShapeImages(n=50_000, train=True, seed=args.seed)
+    eval_ds = (ShapeImages(n=10_000, train=False, seed=args.seed)
+               if args.do_eval else None)
+    return ds, eval_ds, len(ds.classes)
+
+
+def _lm_datasets(dataset: str, *, seq_len: int, vocab: int, do_eval: bool):
+    """(train set, eval set or None) for an LM ``--dataset``."""
     from ..data import Subset, SyntheticTokens, TokenFile
 
-    if dataset in _IMAGE_DATASETS or dataset.startswith(
-            ("imagefolder:", "packed-images:")):
-        return "image_classifier", None, None
     if dataset == "synthetic-tokens":
         # Token range follows the model's embedding table.
         ds = SyntheticTokens(seq_len=seq_len, vocab_size=vocab)
         eval_ds = (SyntheticTokens(n=512, seq_len=seq_len, vocab_size=vocab,
                                    seed=1) if do_eval else None)
-        return "lm", ds, eval_ds
-    if dataset.startswith("token-file:"):
-        import os
+        return ds, eval_ds
+    import os
 
-        path = dataset.split(":", 1)[1]
-        full = TokenFile(path, seq_len=seq_len)
-        if not do_eval:
-            return "lm", full, None
-        # A sibling val.bin if present, else the last 5% of windows.
-        val_path = os.path.join(os.path.dirname(path), "val.bin")
-        if os.path.exists(val_path) and \
-                os.path.abspath(val_path) != os.path.abspath(path):
-            return "lm", full, TokenFile(val_path, seq_len=seq_len)
-        n_eval = max(len(full) // 20, 1)
-        return ("lm", Subset(full, 0, len(full) - n_eval),
-                Subset(full, len(full) - n_eval, len(full)))
-    raise SystemExit(f"unknown dataset {dataset!r}")
+    path = dataset.split(":", 1)[1]
+    full = TokenFile(path, seq_len=seq_len)
+    if not do_eval:
+        return full, None
+    # A sibling val.bin if present, else the last 5% of windows.
+    val_path = os.path.join(os.path.dirname(path), "val.bin")
+    if os.path.exists(val_path) and \
+            os.path.abspath(val_path) != os.path.abspath(path):
+        return full, TokenFile(val_path, seq_len=seq_len)
+    n_eval = max(len(full) // 20, 1)
+    return (Subset(full, 0, len(full) - n_eval),
+            Subset(full, len(full) - n_eval, len(full)))
 
 
 def run_train(args, overrides: dict, device=None):
     """Train ``args.model`` on ``args.dataset``; prints the JAX CLI's
-    milestones and one summary line per epoch.  Returns the Trainer."""
+    milestones and one summary line per epoch (image classifiers add
+    ``accuracy``, and ``eval_accuracy`` under ``--eval``).  Returns the
+    Trainer."""
     import itertools
 
     from ..data import DataLoader, DataLoaderConfig
+    from ..data.loader import to_device
     from ..models import create_model, model_kind
     from ..train import (
         Trainer, TrainerConfig, create_train_state, make_eval_step,
@@ -374,11 +422,7 @@ def run_train(args, overrides: dict, device=None):
     from ..utils import metrics as metrics_lib
     from ..utils.device import resolve_device
 
-    if args.remat:
-        overrides["remat"] = True
-    vocab = int(overrides.get("vocab_size", 50257))
-    kind, ds, eval_ds = _datasets(args.dataset, seq_len=args.seq_len,
-                                  vocab=vocab, do_eval=args.do_eval)
+    kind = _dataset_kind(args.dataset)
     m_kind = model_kind(args.model)
     if m_kind != kind:
         raise SystemExit(
@@ -389,9 +433,16 @@ def run_train(args, overrides: dict, device=None):
         )
     if args.ce_chunk is not None and kind != "lm":
         raise SystemExit("--ce-chunk applies to LM models (--model gpt2*)")
-    if ds is None:
-        raise SystemExit(f"--dataset {args.dataset}: the image datasets and "
-                         "models are not yet ported")
+    if kind == "lm":
+        if args.remat:
+            overrides["remat"] = True
+        num_classes = None
+        ds, eval_ds = _lm_datasets(
+            args.dataset, seq_len=args.seq_len,
+            vocab=int(overrides.get("vocab_size", 50257)),
+            do_eval=args.do_eval)
+    else:
+        ds, eval_ds, num_classes = _image_datasets(args)
     device = resolve_device(device)
     print(f"process 0/1 | backend={device.type} | devices=1")
     loader = DataLoader(ds, DataLoaderConfig(
@@ -399,7 +450,8 @@ def run_train(args, overrides: dict, device=None):
         seed=args.seed,
     ))
     policy = make_policy(args.precision)
-    net = create_model(args.model, dtype=policy.param_dtype, device=device,
+    net = create_model(args.model, num_classes=num_classes,
+                       dtype=policy.param_dtype, device=device,
                        seed=args.seed, cfg_overrides=overrides)
     total_steps = args.total_steps
     if total_steps is None:
@@ -432,23 +484,30 @@ def run_train(args, overrides: dict, device=None):
 
     print("training started")
     t0 = time.perf_counter()
-    for epoch in range(args.epochs):
-        loader.set_epoch(epoch)
-        batches = iter(loader)
-        if args.steps_per_epoch is not None:
-            batches = itertools.islice(batches, args.steps_per_epoch)
-        logger.log(trainer.run_epoch(batches, epoch=epoch))
-        if eval_loader is not None:
-            from ..data.loader import to_device
-
+    try:
+        for epoch in range(args.epochs):
+            loader.set_epoch(epoch)
+            batches = iter(loader)
+            if args.steps_per_epoch is not None:
+                batches = itertools.islice(batches, args.steps_per_epoch)
+            logger.log(trainer.run_epoch(batches, epoch=epoch))
+            if eval_loader is None:
+                continue
             batches = iter(eval_loader)
             if args.eval_steps is not None:
                 batches = itertools.islice(batches, args.eval_steps)
-            losses = [eval_step(trainer.state, to_device(b, device))["loss"]
-                      for b in batches]
-            if losses:
-                logger.log({"epoch": epoch, "eval_loss":
-                            float(sum(float(x) for x in losses) / len(losses))})
+            totals: dict = {}
+            n_batches = 0
+            for b in batches:
+                for k, v in eval_step(trainer.state,
+                                      to_device(b, device)).items():
+                    totals[k] = totals.get(k, 0.0) + float(v)
+                n_batches += 1
+            if n_batches:
+                logger.log({"epoch": epoch, **{
+                    f"eval_{k}": v / n_batches for k, v in totals.items()}})
+    finally:
+        loader.close()
     elapsed = time.perf_counter() - t0
     print("training finished")
     print(f"elapsed time: {elapsed:.2f}s")
@@ -464,6 +523,11 @@ def main(argv: list[str] | None = None):
         model_kind(args.model)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    if args.remat and args.model.startswith("resnet"):
+        raise SystemExit(
+            "--remat applies to transformer models (gpt2*, vit_*); ResNet's "
+            "fused-BN path already minimizes saved activations"
+        )
     if not args.serve:
         return run_train(args, overrides,
                          device="cpu" if args.use_cpu else None)

@@ -1,11 +1,15 @@
-"""Data pipeline of the port: the LM datasets and the sharded loader with
-pinned-memory prefetch to the device (the image datasets, transforms and
-native gathers are later slices)."""
+"""Data pipeline of the port: the image and LM datasets, the numpy
+transforms, the native batch assembly (``native``), and the sharded loader
+with its worker pool and pinned-memory prefetch to the device."""
 
-from .datasets import Subset, SyntheticTokens, TokenFile
+from .datasets import (
+    CIFAR10, CIFAR10_CLASSES, SHAPE_CLASSES, ShapeImages, Subset,
+    SyntheticImages, SyntheticTokens, TokenFile, cifar10,
+)
 from .loader import DataLoader, DataLoaderConfig, prefetch_to_device
 
 __all__ = [
-    "Subset", "SyntheticTokens", "TokenFile", "DataLoader",
-    "DataLoaderConfig", "prefetch_to_device",
+    "CIFAR10", "CIFAR10_CLASSES", "SHAPE_CLASSES", "ShapeImages", "Subset",
+    "SyntheticImages", "SyntheticTokens", "TokenFile", "cifar10",
+    "DataLoader", "DataLoaderConfig", "prefetch_to_device",
 ]

@@ -4,11 +4,14 @@ package's ``data/loader.py``.
 Each process iterates a disjoint 1/num_shards slice of a seeded global
 permutation (DistributedSampler semantics: equal-length shards by
 wrapping, reshuffled each epoch by folding the epoch into the seed), with
-the JAX loader's exact index logic.  Batches are fetched in-process;
-``num_workers`` is accepted for the CLI's sake (the worker pool comes with
-the image datasets, whose decode needs it).  ``prefetch_to_device`` keeps
-``size`` batches in flight: pinned host memory copied with
-``non_blocking``, so the next batch's copy rides under the current step.
+the JAX loader's exact index logic.  A dataset with a batched
+``get_batch`` (the native gathers) is fetched in-process unless its
+``prefers_get_batch()`` says no; otherwise ``num_workers > 0`` assembles
+batches in a pool of spawned worker processes, at most two per worker in
+flight, in the index order, handing them back through shared memory.
+``prefetch_to_device`` keeps ``size`` batches in flight: pinned host
+memory copied with ``non_blocking``, so the next batch's copy rides under
+the current step.
 """
 
 from __future__ import annotations
@@ -25,6 +28,32 @@ import torch
 def collate(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
     """Stack per-sample dicts into one batch dict."""
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+# The spawn pool pickles the dataset once into each worker at pool creation
+# (initargs), not once per task.
+_WORKER_DATASET: Any = None
+
+
+def _worker_init(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_fetch(indices: list[int], epoch: int) -> dict[str, torch.Tensor]:
+    # The worker's dataset copy never sees the parent's set_epoch: sync it
+    # from the task, so augmentation RNG (seed, epoch, index) advances.
+    if getattr(_WORKER_DATASET, "epoch", epoch) != epoch:
+        _WORKER_DATASET.set_epoch(epoch)
+    batch = collate([_WORKER_DATASET[i] for i in indices])
+    # As tensors, torch's pickling moves the arrays through shared memory;
+    # pickled as arrays, a 224 px batch (77 MB) would cross the pool's
+    # pipe byte by byte and be unpickled under the trainer's GIL.
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _as_arrays(batch: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    return {k: v.numpy() for k, v in batch.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +86,11 @@ class DataLoader:
         return self.config.batch_size // self.num_shards
 
     def set_epoch(self, epoch: int) -> None:
-        """Reshuffle deterministically for ``epoch``."""
+        """Reshuffle deterministically for ``epoch``; forwarded to the
+        dataset, whose per-sample augmentation RNG follows the epoch."""
         self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def _shard_indices(self) -> np.ndarray:
         n = len(self.dataset)
@@ -88,13 +120,53 @@ class DataLoader:
         for start in range(0, limit, bs):
             yield [int(i) for i in idx[start:start + bs]]
 
+    def _pool(self):
+        """The worker pool, created once and reused across epochs.  spawn,
+        not fork: the parent has threads (torch's) by then."""
+        if getattr(self, "_pool_obj", None) is None:
+            import multiprocessing as mp
+
+            self._pool_obj = mp.get_context("spawn").Pool(
+                self.config.num_workers, initializer=_worker_init,
+                initargs=(self.dataset,),
+            )
+        return self._pool_obj
+
+    def close(self) -> None:
+        """Stop the worker processes."""
+        pool = getattr(self, "_pool_obj", None)
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+            self._pool_obj = None
+
+    def __del__(self):
+        self.close()
+
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         get_batch = getattr(self.dataset, "get_batch", None)
-        for batch_idx in self._index_batches():
-            if get_batch is not None:
+        prefers = getattr(self.dataset, "prefers_get_batch", None)
+        if get_batch is not None and (prefers is None or prefers()):
+            for batch_idx in self._index_batches():
                 yield get_batch(batch_idx)
-            else:
+            return
+        if self.config.num_workers <= 0:
+            for batch_idx in self._index_batches():
                 yield collate([self.dataset[i] for i in batch_idx])
+            return
+        # A bounded window of tasks, not Pool.imap: imap's feeder would
+        # queue the whole epoch, which an abandoned iterator (a
+        # --steps-per-epoch cap) would leave decoding behind the pool.
+        pool = self._pool()
+        window = 2 * self.config.num_workers
+        pending: deque = deque()
+        for batch_idx in self._index_batches():
+            pending.append(pool.apply_async(_worker_fetch,
+                                            (batch_idx, self.epoch)))
+            if len(pending) >= window:
+                yield _as_arrays(pending.popleft().get())
+        while pending:
+            yield _as_arrays(pending.popleft().get())
 
 
 def to_device(batch: dict, device) -> dict:

@@ -1,6 +1,10 @@
-"""Models of the port: GPT-2 (dense), its JAX weight bridge, generation."""
+"""Models of the port: GPT-2 (dense), the ResNets, their JAX weight
+bridge, generation."""
 
-from .convert import gpt2_params_from_jax, gpt2_params_to_jax
+from .convert import (
+    gpt2_params_from_jax, gpt2_params_to_jax, resnet_params_from_jax,
+    resnet_params_to_jax,
+)
 from .generate import eos_cut_length, filter_logits, generate, sample_logits
 from .gpt2 import (
     GPT2, Block, GPT2Config, gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl,
@@ -9,6 +13,10 @@ from .layers import (
     MAX_FUSED_DECODE_CHUNK, SelfAttention, new_kv_blocks, new_kv_cache,
 )
 from .registry import MODEL_NAMES, create_model, model_kind
+from .resnet import (
+    BasicBlock, Bottleneck, ResNet, resnet18, resnet34, resnet50, resnet101,
+    resnet152,
+)
 
 __all__ = [
     "GPT2", "Block", "GPT2Config", "SelfAttention", "MAX_FUSED_DECODE_CHUNK",
@@ -17,4 +25,7 @@ __all__ = [
     "gpt2_params_from_jax", "gpt2_params_to_jax", "generate",
     "sample_logits", "filter_logits",
     "eos_cut_length", "create_model", "model_kind", "MODEL_NAMES",
+    "ResNet", "BasicBlock", "Bottleneck", "resnet18", "resnet34",
+    "resnet50", "resnet101", "resnet152", "resnet_params_from_jax",
+    "resnet_params_to_jax",
 ]

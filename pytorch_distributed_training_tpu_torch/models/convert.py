@@ -1,5 +1,5 @@
-"""Weight bridge between the JAX package's GPT-2 param tree and this
-port's ``state_dict``, both ways.
+"""Weight bridge between the JAX package's GPT-2 and ResNet param trees
+and this port's ``state_dict``, both ways.
 
 The tree is nested mappings of arrays (numpy, or anything ``np.asarray``
 takes), as ``GPT2.init(...)["params"]`` returns it.  What changes on the
@@ -10,7 +10,13 @@ way:
 - flax ``LayerNorm`` names its parameters ``scale``/``bias``; torch's are
   ``weight``/``bias`` (both use epsilon 1e-6 here, ``models/gpt2.py``);
 - ``wte`` doubles as the LM head when embeddings are tied, so there is no
-  ``lm_head`` entry then.
+  ``lm_head`` entry then;
+- flax ``Conv`` kernels are HWIO, ``nn.Conv2d`` weights OIHW; the ResNet's
+  BatchNorm ``scale``/``bias`` are parameters of the same names and its
+  ``batch_stats`` ``mean``/``var`` are buffers; flax's auto-names
+  (``BasicBlock_i`` / ``Bottleneck_i``, ``Conv_j``, ``BatchNorm_j``) map to
+  ``blocks.i``, ``convj``, ``bnj``, and ``conv_init``/``bn_init`` live
+  under the port's ``stem``.
 
 No downloading is involved: tests build the JAX params from its own
 init, compare the two models on the same inputs, and map the port's
@@ -20,6 +26,7 @@ same training steps leaf by leaf.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -100,3 +107,76 @@ def gpt2_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
     if "lm_head.weight" in params:
         tree["lm_head"] = dense("lm_head")
     return tree
+
+
+def _resnet_key(path: tuple[str, ...]) -> str:
+    """A flax ResNet leaf path -> the port's ``state_dict`` key."""
+    head, *rest = path
+    leaf = "weight" if rest[-1] == "kernel" else rest[-1]
+    m = re.fullmatch(r"(?:BasicBlock|Bottleneck)_(\d+)", head)
+    if m:
+        inner = re.sub(r"^Conv_(\d+)$", r"conv\1", rest[0])
+        inner = re.sub(r"^BatchNorm_(\d+)$", r"bn\1", inner)
+        return f"blocks.{m.group(1)}.{inner}.{leaf}"
+    if head in ("conv_init", "bn_init"):
+        return f"stem.{head}.{leaf}"
+    return f"{head}.{leaf}"
+
+
+def _from_flax_leaf(x) -> torch.Tensor:
+    t = _t(x)
+    if t.ndim == 4:
+        return t.permute(3, 2, 0, 1).contiguous()   # HWIO -> OIHW
+    if t.ndim == 2:
+        return t.t().contiguous()                   # Dense (in, out)
+    return t
+
+
+def resnet_params_from_jax(params: Mapping,
+                           batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """Map a flax ResNet's ``params`` and ``batch_stats`` trees to the
+    port's ``ResNet.state_dict()`` keys (f32)."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            else:
+                out[_resnet_key(path + (k,))] = _from_flax_leaf(v)
+
+    walk(params, ())
+    walk(batch_stats, ())
+    return out
+
+
+def resnet_params_to_jax(state: Mapping[str, torch.Tensor]
+                         ) -> tuple[dict, dict]:
+    """The inverse of ``resnet_params_from_jax``: a ``ResNet.state_dict()``
+    (or a name -> tensor mapping of its keys) as the flax ``(params,
+    batch_stats)`` trees of f32 numpy arrays.  ``batch_stats`` holds the
+    running statistics the mapping has."""
+    kind = ("Bottleneck" if any(".conv2." in k or ".bn2." in k for k in state)
+            else "BasicBlock")
+    params: dict = {}
+    stats: dict = {}
+    for key, value in state.items():
+        *mods, leaf = key.split(".")
+        if mods[0] == "stem":
+            path = [mods[1]]
+        elif mods[0] == "blocks":
+            inner = re.sub(r"^conv(\d+)$", r"Conv_\1", mods[2])
+            inner = re.sub(r"^bn(\d+)$", r"BatchNorm_\1", inner)
+            path = [f"{kind}_{mods[1]}", inner]
+        else:
+            path = mods
+        x = _np(value)
+        if x.ndim == 4:
+            x = x.transpose(2, 3, 1, 0).copy()      # OIHW -> HWIO
+        elif x.ndim == 2:
+            x = x.T.copy()
+        tree = stats if leaf in ("mean", "var") else params
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree["kernel" if leaf == "weight" else leaf] = x
+    return params, stats

@@ -1,9 +1,11 @@
 """Model registry: the same names as the JAX package's
-``models/registry.py``.  The GPT-2 entries are ported; the others raise."""
+``models/registry.py``.  GPT-2 (dense) and the ResNets are ported; the
+others raise."""
 
 from __future__ import annotations
 
 from .gpt2 import gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl
+from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
 
 _LM_FACTORIES = {
     "gpt2": gpt2_124m,
@@ -11,11 +13,15 @@ _LM_FACTORIES = {
     "gpt2_large": gpt2_large,
     "gpt2_xl": gpt2_xl,
 }
-_NOT_YET_PORTED = {
-    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
-    "vit_s16", "vit_b16", "vit_l16", "gpt2_moe",
+_IMAGE_FACTORIES = {
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnet101": resnet101,
+    "resnet152": resnet152,
 }
-MODEL_NAMES = sorted({*_LM_FACTORIES, *_NOT_YET_PORTED})
+_NOT_YET_PORTED = {"vit_s16", "vit_b16", "vit_l16", "gpt2_moe"}
+MODEL_NAMES = sorted({*_LM_FACTORIES, *_IMAGE_FACTORIES, *_NOT_YET_PORTED})
 
 
 def model_kind(name: str) -> str:
@@ -25,13 +31,21 @@ def model_kind(name: str) -> str:
     return "lm" if name.startswith("gpt2") else "image_classifier"
 
 
-def create_model(name: str, *, dtype=None, device=None, seed: int = 0,
+def create_model(name: str, *, num_classes: int | None = None, dtype=None,
+                 device=None, seed: int = 0,
                  cfg_overrides: dict | None = None):
     """Build a model by registry name, weights drawn from ``seed``.
+    ``num_classes`` sizes a classifier's head (1000 by default; the
+    reference sizes it from the dataset) and is ignored for LMs.
     ``device`` defaults to CUDA (``utils.device``)."""
     model_kind(name)
     if name in _NOT_YET_PORTED:
         raise NotImplementedError(f"model {name!r} is not yet ported")
+    if name in _IMAGE_FACTORIES:
+        return _IMAGE_FACTORIES[name](
+            1000 if num_classes is None else num_classes, cfg_overrides,
+            device=device, dtype=dtype, seed=seed,
+        )
     return _LM_FACTORIES[name](
         cfg_overrides, device=device, dtype=dtype, seed=seed
     )

@@ -26,46 +26,66 @@ def _split_microbatches(batch: dict, num_microbatches: int) -> list[dict]:
             for i in range(num_microbatches)]
 
 
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of nested dicts and tuples (aux values)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def accumulate_gradients(
     loss_fn: Callable[..., Any],
     params: dict,
     batch: dict,
     num_microbatches: int,
     *,
+    has_aux: bool = False,
     pass_microbatch_index: bool = False,
 ):
     """Mean loss and grads of ``loss_fn`` over ``num_microbatches`` splits.
 
-    ``loss_fn(params, microbatch)`` → scalar loss tensor; with
+    ``loss_fn(params, microbatch)`` → scalar loss tensor, or with
+    ``has_aux`` ``(loss, aux)``, aux a nested dict of tensors; with
     ``pass_microbatch_index`` it is called as ``loss_fn(params,
     microbatch, i)`` so per-microbatch randomness differs.  Returns
-    ``(loss, grads)``, grads a dict keyed like ``params``, as
-    ``jax.value_and_grad`` does (the JAX version's ``has_aux`` carries
-    batch statistics and MoE losses, which no ported model sows).
+    ``(loss, grads)`` or ``((loss, aux), grads)``, grads a dict keyed like
+    ``params``, as ``jax.value_and_grad`` does.
 
+    Over several microbatches the loss and every aux value are averaged in
+    f32 (the ResNet step's new BatchNorm statistics: each microbatch's
+    from the same old ones, so their mean is what the step stores).
     Gradients accumulate in f32 whatever the parameter dtype (N bf16 adds
     would lose bits), are scaled by 1/N after the sum and cast like the
-    params.  With one microbatch they are returned as computed.
+    params.  With one microbatch everything is returned as computed.
     """
     names = list(params)
     leaves = [params[n] for n in names]
 
     def call(mb, i):
-        loss = loss_fn(params, mb, i) if pass_microbatch_index \
+        out = loss_fn(params, mb, i) if pass_microbatch_index \
             else loss_fn(params, mb)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        loss, aux = out if has_aux else (out, None)
+        value = (loss.detach(), _tree_map(torch.Tensor.detach, aux)) \
+            if has_aux else loss.detach()
+        return value, torch.autograd.grad(loss, leaves)
 
     if num_microbatches <= 1:
-        loss, grads = call(batch, 0)
-        return loss, dict(zip(names, grads))
+        value, grads = call(batch, 0)
+        return value, dict(zip(names, grads))
 
     acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
     total = None
     for i, mb in enumerate(_split_microbatches(batch, num_microbatches)):
-        loss, grads = call(mb, i)
+        value, grads = call(mb, i)
         for a, g in zip(acc, grads):
             a.add_(g)
-        total = loss.float() if total is None else total + loss.float()
+        value = _tree_map(lambda v: v.float(), value)
+        total = value if total is None else _tree_map(torch.add, total,
+                                                      value)
     inv = 1.0 / num_microbatches
-    return total * inv, {n: (a * inv).to(p.dtype)
-                         for n, a, p in zip(names, acc, leaves)}
+    return (_tree_map(lambda v: v * inv, total),
+            {n: (a * inv).to(p.dtype) for n, a, p in zip(names, acc, leaves)})

@@ -7,6 +7,13 @@ is needed.  This is not ``torch.autocast``: as in the JAX step, EVERY
 float parameter (embeddings and LayerNorm included) is cast to the
 compute dtype, and the cast stays in the autograd graph, so the gradient
 that reaches a master parameter is the compute-dtype gradient cast back.
+
+``f32`` on the card keeps PyTorch's defaults: matmuls in full f32
+(``torch.backends.cuda.matmul.allow_tf32`` is False) and cuDNN
+convolutions in TF32 (``torch.backends.cudnn.allow_tf32`` is True: inputs
+rounded to a 10-bit mantissa, f32 accumulation), as the reference's own
+PyTorch run on a GPU gets them.  A caller that needs f32 convolutions
+turns that switch off (``chip_smoke.py``'s card-against-host check does).
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
 """TrainState: the training state of the JAX package's ``train/state.py``
-— step, parameters, optimizer state — with ``apply_gradients``.
+— step, parameters, optimizer state, BatchNorm running statistics — with
+``apply_gradients``.
 
 No mesh and no sharding yet (data parallel is a later slice).  The
-parameters are the model's own master tensors; ``apply_gradients``
-updates them and the optimizer state in place (one copy of each, where
-JAX returns new arrays) and returns the state with the step advanced.
-The step is a host integer: nothing reads it back from the device.
+parameters are the model's own master tensors and ``batch_stats`` its
+buffers (the ResNets' running ``mean``/``var``, f32 under every policy;
+empty for GPT-2); ``apply_gradients`` updates them and the optimizer
+state in place (one copy of each, where JAX returns new arrays) and
+returns the state with the step advanced.  The step is a host integer:
+nothing reads it back from the device.
 """
 
 from __future__ import annotations
@@ -27,8 +30,12 @@ class TrainState:
     opt_state: Any
     model: nn.Module        # the module the parameters belong to
     tx: Transform
+    batch_stats: dict = dataclasses.field(default_factory=dict)
 
-    def apply_gradients(self, grads: dict) -> "TrainState":
+    def apply_gradients(self, grads: dict,
+                        batch_stats: dict | None = None) -> "TrainState":
+        """One optimizer update; ``batch_stats`` (name -> tensor), when
+        given, becomes the new running statistics."""
         names = list(self.params)
         params = [self.params[n] for n in names]
         updates, opt_state = self.tx.update(
@@ -36,17 +43,22 @@ class TrainState:
         )
         with torch.no_grad():
             torch._foreach_add_(params, updates)
+            for name, value in (batch_stats or {}).items():
+                self.batch_stats[name].copy_(value)
         return dataclasses.replace(self, step=self.step + 1,
                                    opt_state=opt_state)
 
 
 def create_train_state(model: nn.Module, tx: Transform, *,
                        policy: Policy | None = None) -> TrainState:
-    """Cast ``model`` to the policy's parameter dtype and wrap its
-    parameters with a fresh optimizer state."""
+    """Cast ``model``'s parameters to the policy's parameter dtype (its
+    buffers, the running statistics, stay f32) and wrap them with a fresh
+    optimizer state."""
     policy = policy or Policy()
-    model.to(policy.param_dtype)
+    for p in model.parameters():
+        p.data = p.data.to(policy.param_dtype)
     params = dict(model.named_parameters())
     return TrainState(step=0, params=params,
                       opt_state=tx.init(list(params.values())),
-                      model=model, tx=tx)
+                      model=model, tx=tx,
+                      batch_stats=dict(model.named_buffers()))

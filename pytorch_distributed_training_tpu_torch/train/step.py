@@ -1,5 +1,6 @@
 """The train and eval steps: the counterpart of the JAX package's
-``train/step.py`` for language models (``kind="lm"``).
+``train/step.py`` for language models (``kind="lm"``) and image
+classifiers (``kind="image_classifier"``).
 
 One call of the train step runs the microbatches' forward and backward
 passes (``parallel/grad_accum.py``) and the optimizer update.  As in the
@@ -7,11 +8,19 @@ JAX step, every float parameter is cast to the compute dtype inside the
 graph (``Policy.cast_to_compute``) and the model runs on those copies
 through ``torch.func.functional_call``, so the master parameters receive
 their gradients through the cast.  Nothing in the step reads a value back
-to the host: the returned loss is a device tensor.
+to the host: the returned metrics are device tensors.
 
-Not yet ported: ``kind="image_classifier"``, ``grad_fn`` (pipeline
-schedules), ``grad_sync`` (the explicit two-tier sync), ``anomaly_policy``
-and ``state_shardings``; they raise.
+Image batches are ``{"image": (B, H, W, C), "label": (B,)}``, NHWC as the
+loader yields them (f32, or uint8 scaled on the device by
+``prepare_image_input``); the model takes the NCHW view of the same
+memory.  The ResNet's running statistics go into the functional call as
+buffers and its new ones come back in a dict: each microbatch computes
+them from the same old statistics, and the step stores their mean, as
+the JAX step's scan does.  The eval step uses the running statistics.
+
+Not yet ported: ``grad_fn`` (pipeline schedules), ``grad_sync`` (the
+explicit two-tier sync), ``anomaly_policy`` and ``state_shardings``; they
+raise.
 """
 
 from __future__ import annotations
@@ -34,12 +43,38 @@ def _not_ported(**options) -> None:
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "image_classifier":
-        raise NotImplementedError(
-            "kind='image_classifier' is not yet ported (the ResNet/ViT slices)"
-        )
-    if kind != "lm":
+    if kind not in ("lm", "image_classifier"):
         raise ValueError(f"Unknown step kind {kind!r}")
+
+
+def prepare_image_input(x: torch.Tensor, policy: Policy,
+                        normalize: tuple | None) -> torch.Tensor:
+    """Device-side ToTensor(+Normalize) of an NHWC batch, returned as the
+    NCHW view of the same memory (``channels_last``).  uint8 input is
+    scaled by 1/255 in the compute dtype and, with ``normalize = (mean,
+    std)``, normalized per channel; float input passes through (the host
+    pipeline already scaled it)."""
+    if x.dtype == torch.uint8:
+        dt = policy.compute_dtype
+        x = x.to(dt) / torch.tensor(255.0, dtype=dt)
+        if normalize is not None:
+            mean, std = (torch.as_tensor(v, dtype=dt, device=x.device)
+                         for v in normalize)
+            x = (x - mean) / std
+    return x.permute(0, 3, 1, 2)
+
+
+def _image_forward(model, params, batch_stats, image, *, policy,
+                   new_stats: dict | None):
+    """The model on the compute-dtype parameters and the running
+    statistics; in training its new statistics go into ``new_stats``."""
+    tensors = {**policy.cast_to_compute(params), **batch_stats}
+    return torch.func.functional_call(model, tensors, (image,),
+                                      {"new_stats": new_stats})
+
+
+def _accuracy(logits, labels):
+    return (logits.argmax(-1) == labels).float().mean()
 
 
 def _lm_head_matrix(params: dict, policy: Policy) -> torch.Tensor:
@@ -95,17 +130,25 @@ def make_train_step(
     grad_sync: Any = None,
     anomaly_policy: Any = None,
     state_shardings: Any = None,
+    input_normalize: tuple | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
-    """``(state, batch) → (state, metrics)`` for ``batch = {"tokens": (B,
-    L)}``, next-token CE.  ``num_microbatches > 1`` accumulates over that
-    many splits of the batch.  ``seed`` (the JAX step's ``base_rng``)
-    seeds dropout per (seed, step, microbatch); without it a model with
-    dropout raises."""
+    """``(state, batch) → (state, metrics)``.  ``kind="lm"``: ``batch =
+    {"tokens": (B, L)}``, next-token CE, metrics ``{"loss"}``.
+    ``kind="image_classifier"``: ``batch = {"image", "label"}``, CE with
+    ``label_smoothing``, metrics ``{"loss", "accuracy"}``, and the model's
+    running statistics updated; ``input_normalize`` is the per-channel
+    (mean, std) applied to uint8 images on the device.
+    ``num_microbatches > 1`` accumulates over that many splits of the
+    batch.  ``seed`` (the JAX step's ``base_rng``) seeds dropout per
+    (seed, step, microbatch); without it a model with dropout raises."""
     _check_kind(kind)
     _not_ported(grad_fn=grad_fn, grad_sync=grad_sync,
                 anomaly_policy=anomaly_policy,
                 state_shardings=state_shardings)
     policy = policy or Policy()
+    if kind == "image_classifier":
+        return _image_train_step(policy, num_microbatches, input_normalize,
+                                 label_smoothing)
 
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
@@ -128,19 +171,54 @@ def make_train_step(
     return train_step
 
 
+def _image_train_step(policy, num_microbatches, input_normalize,
+                      label_smoothing):
+    def train_step(state: TrainState, batch: dict):
+        model = state.model.train()
+
+        def fn(params, mb):
+            image = prepare_image_input(mb["image"], policy, input_normalize)
+            new_stats: dict = {}
+            logits = _image_forward(model, params, state.batch_stats, image,
+                                    policy=policy, new_stats=new_stats)
+            loss = cross_entropy_loss(logits, mb["label"],
+                                      label_smoothing=label_smoothing)
+            return loss, {"accuracy": _accuracy(logits, mb["label"]),
+                          "batch_stats": new_stats}
+
+        (loss, aux), grads = accumulate_gradients(
+            fn, state.params, batch, num_microbatches, has_aux=True,
+        )
+        new_stats = aux.pop("batch_stats")
+        state = state.apply_gradients(grads, batch_stats=new_stats)
+        return state, {"loss": loss, **aux}
+
+    return train_step
+
+
 def make_eval_step(
     *,
     kind: str = "lm",
     policy: Policy | None = None,
     lm_loss_chunk: int | None = None,
+    input_normalize: tuple | None = None,
 ) -> Callable[[TrainState, dict], dict]:
-    """``(state, batch) → {"loss"}``: no dropout, no gradients."""
+    """``(state, batch) → {"loss"}`` (image classifiers: ``{"loss",
+    "accuracy"}``, on the running statistics): no dropout, no
+    gradients."""
     _check_kind(kind)
     policy = policy or Policy()
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         model = state.model.eval()
+        if kind == "image_classifier":
+            image = prepare_image_input(batch["image"], policy,
+                                        input_normalize)
+            logits = _image_forward(model, state.params, state.batch_stats,
+                                    image, policy=policy, new_stats=None)
+            return {"loss": cross_entropy_loss(logits, batch["label"]),
+                    "accuracy": _accuracy(logits, batch["label"])}
         loss = _lm_loss(model, state.params, batch["tokens"], policy=policy,
                         generator=None, lm_loss_chunk=lm_loss_chunk,
                         label_smoothing=0.0)

@@ -7,7 +7,8 @@ values back from the device only there and once at the end of the epoch
 state chains into the last loss).  Between log points steps are only
 enqueued, never waited for.  The epoch summary has the JAX trainer's keys:
 ``epoch, step, elapsed_s, examples, examples_per_sec,
-rolling_examples_per_sec, loss``.
+rolling_examples_per_sec, loss``, then the step's other metrics as read at
+the last log point (an image classifier's ``accuracy``).
 
 The telemetry emitter, spans, fault injection, recovery, preemption,
 goodput ledger, profile windows and step checkpoints wait for their
@@ -56,6 +57,7 @@ class Trainer:
         timer = StepTimer()
         local_batch = 0
         metrics: dict | None = None
+        last_metrics: dict = {}
         step_idx = -1
         last_logged_step = -1
         t0 = time.perf_counter()
@@ -66,7 +68,8 @@ class Trainer:
             timer.tick()  # dispatch rate, no device sync
             if step_idx % cfg.log_every == 0:
                 # The host waits for the device only here.
-                losses.append(float(metrics["loss"]))
+                last_metrics = {k: float(v) for k, v in metrics.items()}
+                losses.append(last_metrics["loss"])
                 last_logged_step = step_idx
             self._global_step += 1
         if examples:
@@ -83,6 +86,7 @@ class Trainer:
             "examples_per_sec": examples / elapsed if elapsed > 0 else 0.0,
             "rolling_examples_per_sec": timer.examples_per_sec(local_batch),
             "loss": losses[-1] if losses else float("nan"),
+            **{k: v for k, v in last_metrics.items() if k != "loss"},
         }
         self.history.append(summary)
         self.last_epoch_losses = losses

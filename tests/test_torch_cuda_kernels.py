@@ -32,7 +32,10 @@ q_len > k_len with rows that see no key: out exactly 0), on strided views
 of one fused projection, f32 (out atol 2e-5, grads 2e-4) and bf16
 (atol/rtol 2e-2: the rounding of p and ds to bf16), with their launch
 counts, a bit-identical backward on repeat, an autograd pass through
-``flash_attention`` and the wrapper's refusals.
+``flash_attention`` and the wrapper's refusals.  The ResNet path runs no
+kernel of its own, but its output-saving BatchNorm functions are held on
+CUDA tensors against the host and the plain composition, and a shallow
+f32 ResNet trains three steps like the host.
 """
 
 import pytest
@@ -577,3 +580,106 @@ def test_flash_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous last dim"):
         t = q.transpose(-1, -2).contiguous().transpose(-1, -2)
         fa.flash_fwd(t, t, t)
+
+
+# --- the ResNet path's BatchNorm functions on the card ----------------------
+
+@pytest.mark.parametrize("name", ["batch_norm", "bn_relu", "bn_add_relu"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_bn_functions_on_the_card_match_the_host(dev, name, dtype, atol):
+    """The output-saving BatchNorm functions on CUDA tensors: outputs,
+    statistics and grads against the same call on the host (f32 atol
+    1e-5: summation order; bf16 2e-2: a bf16 ulp of outputs near 4), and
+    in f32 against autograd of the plain composition on the card."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.ops import fused_norm as fn
+
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(16, 32, 14, 14, generator=gen) * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    r = torch.randn(16, 32, 14, 14, generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    g = torch.rand(32, generator=gen) + 0.5
+    b = torch.randn(32, generator=gen)
+    dy = torch.randn(16, 32, 14, 14, generator=gen).to(dtype)
+
+    def run(where, plain=False):
+        xt, rt = x.to(where).requires_grad_(), r.to(where).requires_grad_()
+        gt, bt = g.to(where).requires_grad_(), b.to(where).requires_grad_()
+        if plain:
+            m = fn.BatchNorm(32, device=where)
+            stats: dict = {}
+            y = torch.func.functional_call(m, {"scale": gt, "bias": bt},
+                                           (xt, stats))
+            y = {"batch_norm": y, "bn_relu": F.relu(y),
+                 "bn_add_relu": F.relu(y + rt)}[name]
+            mean = stats["mean"] / 0.1
+        elif name == "bn_add_relu":
+            y, mean, _ = fn.bn_add_relu(xt, rt, gt, bt)
+        else:
+            y, mean, _ = getattr(fn, name)(xt, gt, bt)
+        grads = torch.autograd.grad(y, (xt, rt, gt, bt), dy.to(where),
+                                    allow_unused=True)
+        return [t.float().cpu() for t in (y, mean, *grads) if t is not None]
+
+    card, host = run(dev), run("cpu")
+    for a, e in zip(card, host):
+        torch.testing.assert_close(a, e, atol=atol, rtol=atol)
+    if dtype == torch.float32:
+        for a, e in zip(card, run(dev, plain=True)):
+            torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
+
+
+def test_small_resnet_trains_like_the_host(dev):
+    """Three f32 sgd steps of a shallow ResNet (fused norms, the CIFAR
+    stem) on the card with TF32 off and on the host from the same
+    weights: losses, weights and running statistics within 1e-4.  No max
+    pool: its argmax is discontinuous, and a near-tie tipped the other
+    way by the card's rounding is amplified by the steps (``chip_smoke.py``
+    R4 checks the pool's tie positions directly)."""
+    import copy
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.models import resnet
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        host = resnet.resnet18(10, {"stage_sizes": (1, 1),
+                                    "small_stem": True}, device="cpu",
+                               seed=1)
+        models = {"cpu": host, "cuda": copy.deepcopy(host).to(dev)}
+        gen = torch.Generator().manual_seed(1)
+        batches = [(torch.rand(32, 32, 32, 3, generator=gen),
+                    torch.randint(0, 10, (32,), generator=gen))
+                   for _ in range(3)]
+        out = {}
+        for where, model in models.items():
+            policy = make_policy("f32")
+            state = create_train_state(
+                model, build_optimizer("sgd", 0.05, weight_decay=1e-3),
+                policy=policy)
+            step = make_train_step(kind="image_classifier", policy=policy,
+                                   num_microbatches=2)
+            losses = []
+            for x, y in batches:
+                state, m = step(state, {"image": x.to(where),
+                                        "label": y.to(where)})
+                losses.append(float(m["loss"]))
+            out[where] = (losses, {k: v.detach().cpu() for k, v in {
+                **state.params, **state.batch_stats}.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    torch.testing.assert_close(torch.tensor(out["cuda"][0]),
+                               torch.tensor(out["cpu"][0]), atol=1e-4,
+                               rtol=0)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, atol=1e-4, rtol=0,
+                                   msg=k)

@@ -37,8 +37,9 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 
 def test_port_imports_with_jax_blocked():
-    """Import the serving and training entry points in a fresh interpreter
-    where importing jax, flax or the JAX package fails."""
+    """Import the serving and training entry points and the ResNet path's
+    modules in a fresh interpreter where importing jax, flax or the JAX
+    package fails."""
     blocked = ", ".join(repr(m) for m in FORBIDDEN)
     code = (
         "import sys\n"
@@ -59,6 +60,13 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.data.loader\n"
         "import pytorch_distributed_training_tpu_torch.data.datasets\n"
         "import pytorch_distributed_training_tpu_torch.tools.train_profile\n"
+        "import pytorch_distributed_training_tpu_torch.ops.fused_norm\n"
+        "import pytorch_distributed_training_tpu_torch.ops.s2d_stem\n"
+        "import pytorch_distributed_training_tpu_torch.models.resnet\n"
+        "import pytorch_distributed_training_tpu_torch.models.convert\n"
+        "import pytorch_distributed_training_tpu_torch.models.registry\n"
+        "import pytorch_distributed_training_tpu_torch.data.transforms\n"
+        "import pytorch_distributed_training_tpu_torch.data.native\n"
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"({blocked},) and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"

@@ -383,6 +383,8 @@ def test_cli_refuses_quantized_kv_without_paged():
     from pytorch_distributed_training_tpu_torch.cli.main import main
 
     with pytest.raises(SystemExit, match="add --serve-paged"):
-        main(["--serve", "--use-cpu", "--serve-kv-dtype", "int8"])
+        main(["--serve", "--use-cpu", "--model", "gpt2", "--serve-kv-dtype",
+              "int8"])
     with pytest.raises(SystemExit, match="add --serve-paged"):
-        main(["--serve", "--use-cpu", "--serve-kv-host-mb", "4"])
+        main(["--serve", "--use-cpu", "--model", "gpt2", "--serve-kv-host-mb",
+              "4"])

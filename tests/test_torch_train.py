@@ -463,7 +463,8 @@ def test_cli_usage_errors():
     with pytest.raises(SystemExit, match="--ce-chunk applies to LM"):
         cli_main(image + ["--ce-chunk", "8"])
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli_main(image)
+        cli_main(["--use-cpu", "--model", "resnet18", "--dataset",
+                  "imagefolder:/x"])
     with pytest.raises(SystemExit, match="unknown optimizer"):
         cli_main(base + ["--dataset", "synthetic-tokens", "--optimizer",
                          "lamb", "--model-overrides",
