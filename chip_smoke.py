@@ -35,7 +35,15 @@ the port's main paths:
   memory, analytic MFU); R3 ResNet-18 on ``shapes``, whose loss must fall
   below its start and below chance within 150 steps; R4 a shallow f32
   ResNet trains three steps on the card (TF32 off) and on the host from
-  the same weights and must agree.
+  the same weights and must agree;
+- data parallel (the reference's DDP), each leg a ``torch.distributed.run``
+  of the port read back through ``--metrics-jsonl``: D1 R2's command with
+  ``--distributed`` (a one-rank NCCL group: sync-BN and the gradient
+  all-reduce on the path), D2 T1's recipe with ``--distributed`` (2
+  epochs of 8 steps, the flash launches counted in the rank, which runs
+  this script as ``--cli-leg OUT ARGV...``), D3 two ranks on the one card
+  over gloo (a shallow ResNet and a 2-layer GPT-2, f32, TF32 off, 3
+  steps): the ranks bit-identical and within 1e-4 of one process.
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -900,6 +908,14 @@ def _count_calls(module, names, counts):
     return originals
 
 
+R2_ARGV = ["--model", "resnet50", "--dataset", "synthetic-images",
+           "--image-size", "224", "--precision", "bf16", "--batch-size",
+           "128", "--optimizer", "sgd", "--epochs", "2", "--steps-per-epoch",
+           "20", "--num-workers", "6"]
+CLI = "pytorch_distributed_training_tpu_torch.cli.main"
+DP_CHECK = "pytorch_distributed_training_tpu_torch.tools.dp_check"
+
+
 TRAIN_COMMON = ["--dataset", "synthetic-tokens", "--precision", "bf16",
                 "--num-workers", "0"]
 T1_RECIPE = ["--model", "gpt2", "--seq-len", "1024", "--batch-size", "16",
@@ -925,7 +941,7 @@ TRAIN_RUNS = [
 ]
 
 
-def training_phase(torch, fa, seed: int) -> dict:
+def training_phase(torch, fa, seed: int, figures: dict) -> dict:
     """The CLI trains on the card (bf16, synthetic tokens, full width).
     T2 warms the process up and routes to #2/#3 (L 512), T3 to #1/#7 (XL
     widths, 25 heads), T4 to #6/#8 (L 2048), T1 is the main path (#4/#5,
@@ -933,8 +949,10 @@ def training_phase(torch, fa, seed: int) -> dict:
     remat and chunked CE.  In every run the forward kernel launches once
     per layer per microbatch per step (twice under remat), the dq and
     dk/dv kernels once each, and the plain flash versions and the plain
-    attention path not at all.  Returns the launches by row."""
+    attention path not at all.  Returns the launches by row; T1's tokens/s
+    and step ms go into ``figures["T1"]``."""
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.comm import collectives
     from pytorch_distributed_training_tpu_torch.ops import attention as attn
 
     entries = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
@@ -981,6 +999,7 @@ def training_phase(torch, fa, seed: int) -> dict:
                 flops_per_token = (6 * n_params
                                    + 12 * cfg.num_layers * seq * cfg.hidden_dim)
                 tok_s = summary["examples_per_sec"] * seq
+                figures["T1"] = (tok_s, summary["elapsed_s"] / steps * 1e3)
                 line += (f"; {tok_s:.0f} tokens/s, step "
                          f"{summary['elapsed_s'] / steps * 1e3:.1f} ms, MFU "
                          f"{flops_per_token * tok_s / 989e12 * 100:.2f} % "
@@ -1143,13 +1162,14 @@ def _warm_epoch_line(trainer, steps: int) -> tuple[float, float]:
     return s["examples_per_sec"], s["elapsed_s"] / steps * 1e3
 
 
-def image_phase(torch, seed: int, repo: str) -> None:
+def image_phase(torch, seed: int, repo: str, figures: dict) -> None:
     """The image-classifier path through the CLI (no TPU kernel on it:
     convolutions, pooling and the head are cuDNN/cuBLAS calls, the norms
     the port's BatchNorm functions).  R1 the reference run, then its
     batches read from a CIFAR-10 archive by the native gather; R2
     ResNet-50 at ImageNet width in bf16; R3 learnability on ``shapes``;
-    R4 a shallow f32 ResNet, card against host."""
+    R4 a shallow f32 ResNet, card against host.  R2's images/s and step
+    ms go into ``figures["R2"]``."""
     import numpy as np
 
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
@@ -1194,17 +1214,14 @@ def image_phase(torch, seed: int, repo: str) -> None:
     # epoch starts its worker pipeline empty).
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    trainer = cli(["--model", "resnet50", "--dataset", "synthetic-images",
-                   "--image-size", "224", "--precision", "bf16",
-                   "--batch-size", "128", "--optimizer", "sgd", "--epochs",
-                   "2", "--steps-per-epoch", "20", "--num-workers", "6",
-                   "--seed", str(seed)])
+    trainer = cli(R2_ARGV + ["--seed", str(seed)])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in trainer.history]
     check(trainer.state.step == 40, "R2: 40 steps")
     check(_finite(losses) and _finite(trainer.last_epoch_losses),
           f"R2: losses finite ({losses})")
     img_s, step_ms = _warm_epoch_line(trainer, 20)
+    figures["R2"] = (img_s, step_ms)
     flops = resnet_train_flops(torch, trainer.state.model, 224)
     print(f"image R2 (ResNet-50, 224 px, 1000 classes, bf16, batch 128, "
           f"sgd): 40 steps, epoch losses {[round(x, 4) for x in losses]}; "
@@ -1360,10 +1377,236 @@ def resnet_parity_phase(torch, seed: int) -> None:
           f"{worst[name]:.3g} at {name} (1e-4)", flush=True)
 
 
+def torchrun(repo: str, nproc: int, argv: list, timeout: float) -> str:
+    """``python -m torch.distributed.run --standalone`` with ``nproc``
+    ranks, in its own session: on a failure or at the time limit every
+    process it started is killed.  Returns its stdout; a non-zero exit
+    fails the run."""
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), *argv], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None or proc.returncode != 0:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    check(proc.returncode == 0,
+          f"torchrun {' '.join(argv[:3])}: exit {proc.returncode}\n"
+          f"{out[-4000:]}\n{err[-4000:]}")
+    return out
+
+
+def _records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def cli_leg(out: str, argv: list) -> int:
+    """One rank of a CLI leg under torchrun (``--cli-leg OUT ARGV...``):
+    runs the CLI with the flash kernels' launches counted and writes them
+    to OUT with the plain flash and plain attention calls (which must be
+    none) and the calls of the collectives ``psum`` and ``pmean`` (each
+    ``pmean`` makes one ``psum``; the rest are sync-BN's)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.ops import attention as attn
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    entries = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plain = {"flash_fwd_plain": 0, "_bwd_tiles": 0, "flash_bwd_plain": 0}
+    xla = {"_xla_attention": 0, "_xla_attention_remat": 0}
+    _count_calls(fa, list(plain), plain)
+    _count_calls(attn, list(xla), xla)
+    comm = {"psum": 0, "pmean": 0}
+    _count_calls(collectives, list(comm), comm)
+    for e in entries:
+        e.launches = 0
+    trainer = cli(argv)
+    with open(out, "w") as f:
+        json.dump({"fwd": entries[0].launches, "dq": entries[1].launches,
+                   "dkv": entries[2].launches, "plain": plain, "xla": xla,
+                   "comm": comm, "steps": trainer.state.step}, f)
+    return 0
+
+
+def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
+    """Data parallelism (the reference's DDP): each leg is a
+    ``torch.distributed.run`` of the port, read back through
+    ``--metrics-jsonl``.  D1 configs[1]'s model on one card (R2's command
+    with ``--distributed``: a one-rank NCCL group, sync-BN and the
+    gradient all-reduce on the path); D2 configs[3] (T1's recipe with
+    ``--distributed``, 2 x 8 steps, flash #4/#5 launches counted in the
+    rank); D3 two ranks on the one card over gloo (NCCL takes one rank a
+    card), f32 with TF32 off, a shallow ResNet (R4's shape) and a 2-layer
+    GPT-2 with accumulation 2, 3 steps each: the ranks bit-identical, and
+    within 1e-4 of one process on the whole global batch (GPT-2's key
+    bias, whose gradient is zero in exact arithmetic, to Adam's bound).
+    Returns D2's launches by row."""
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+
+    out_dir = os.path.join(repo, "build", "chip_smoke", "dp")
+    os.makedirs(out_dir, exist_ok=True)
+
+    script = os.path.join(repo, "chip_smoke.py")
+    joined = "Process group initialized - WORLD_SIZE: 1, RANK: 0"
+    t0 = time.monotonic()
+    path = os.path.join(out_dir, "d1.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    counts = os.path.join(out_dir, "d1_calls.json")
+    out = torchrun(repo, 1, [script, "--cli-leg", counts, *R2_ARGV,
+                             "--distributed", "--seed", str(seed),
+                             "--metrics-jsonl", path], timeout=240)
+    check(joined in out and "process 0/1 | backend=cuda | devices=1" in out,
+          "D1: the CLI joined a one-rank group on the card")
+    with open(counts) as f:
+        comm = json.load(f)["comm"]
+    recs = _records(path)
+    check(len(recs) == 2 and recs[-1]["step"] == 40
+          and _finite([r["loss"] for r in recs]),
+          f"D1: 2 epochs, 40 steps, finite losses ({recs})")
+    # ResNet-50 has 53 BatchNorms: one all-reduce each way a step.
+    check(comm["pmean"] == 40 and comm["psum"] - comm["pmean"] == 106 * 40,
+          f"D1: one gradient pmean and 106 sync-BN all-reduces a step "
+          f"over 40 steps ({comm})")
+    img_s, step_ms = recs[-1]["examples_per_sec"], \
+        recs[-1]["elapsed_s"] / 20 * 1e3
+    r2_img_s, r2_ms = figures["R2"]
+    print(f"dp D1 (ResNet-50, 224 px, bf16, batch 128, sgd, --distributed, "
+          f"NCCL world 1): warm epoch {img_s:.1f} images/s/chip, step "
+          f"{step_ms:.1f} ms; R2 in this call {r2_img_s:.1f} images/s, "
+          f"{r2_ms:.1f} ms; epoch losses "
+          f"{[round(r['loss'], 4) for r in recs]}; {comm['pmean']} "
+          f"gradient pmeans, {comm['psum'] - comm['pmean']} sync-BN "
+          f"all-reduces; {time.monotonic() - t0:.1f} s", flush=True)
+
+    t0 = time.monotonic()
+    path = os.path.join(out_dir, "d2.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    counts = os.path.join(out_dir, "d2_launches.json")
+    out = torchrun(repo, 1, [script, "--cli-leg", counts, *T1_RECIPE,
+                             *TRAIN_COMMON, "--epochs", "2",
+                             "--steps-per-epoch", "8", "--total-steps", "16",
+                             "--distributed", "--seed", str(seed),
+                             "--metrics-jsonl", path], timeout=240)
+    check(joined in out, "D2: the CLI joined a one-rank group on the card")
+    with open(counts) as f:
+        n = json.load(f)
+    recs = _records(path)
+    want = 12 * 2 * 16
+    check(n["steps"] == 16 and len(recs) == 2
+          and _finite([r["loss"] for r in recs]),
+          f"D2: 16 steps, finite losses ({recs})")
+    check(n["comm"] == {"psum": 16, "pmean": 16},
+          f"D2: one gradient pmean a step and no other all-reduce "
+          f"({n['comm']})")
+    check(n["fwd"] == n["dq"] == n["dkv"] == want,
+          f"D2: flash launches {n}, expected {want} each")
+    check(not any(n["plain"].values()) and not any(n["xla"].values()),
+          f"D2: attention outside the kernels {n}")
+    tok_s = recs[-1]["examples_per_sec"] * 1024
+    step_ms = recs[-1]["elapsed_s"] / 8 * 1e3
+    t1_tok_s, t1_ms = figures["T1"]
+    print(f"dp D2 (GPT-2 124M, L 1024, batch 16 = 2 x 8, adamw, "
+          f"--distributed, NCCL world 1, #4/#5): warm epoch {tok_s:.0f} "
+          f"tokens/s, step {step_ms:.1f} ms; T1 in this call {t1_tok_s:.0f} "
+          f"tokens/s, {t1_ms:.1f} ms; epoch losses "
+          f"{[round(r['loss'], 4) for r in recs]}; launches fwd {n['fwd']} "
+          f"dq {n['dq']} dkv {n['dkv']}; {time.monotonic() - t0:.1f} s",
+          flush=True)
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for model, extra, kw in (
+                ("resnet", ["--batch", "32", "--image-size", "32",
+                            "--small-stem", "--filters", "64"],
+                 dict(batch=32, size=32, small_stem=True, filters=64)),
+                ("gpt2", ["--batch", "8"], dict(batch=8, size=0))):
+            t0 = time.monotonic()
+            out = os.path.join(out_dir, f"d3_{model}")
+            torchrun(repo, 2, ["-m", DP_CHECK, "--model", model, "--device",
+                               "cuda", "--backend", "gloo", "--out", out,
+                               "--seed", str(seed), *extra], timeout=180)
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+                ranks[r]["params"] = dict(np.load(
+                    os.path.join(out, f"rank{r}.npz")))
+            check(ranks[0]["checksums"] == ranks[1]["checksums"]
+                  and ranks[0]["losses"] == ranks[1]["losses"],
+                  f"D3 {model}: the two ranks bit-identical after every step")
+            ref_model = dp_check.build_model(
+                model, torch.device("cuda"), seed=seed,
+                small_stem=kw.get("small_stem", False),
+                filters=kw.get("filters", 8))
+            batches = dp_check.global_batches(model, dp_check.STEPS,
+                                              kw["batch"], kw["size"],
+                                              seed + 1)
+            losses, _, state = dp_check.run_steps(
+                model, ref_model, batches, accum=dp_check.ACCUM,
+                device="cuda")
+            loss_err = max(abs(a - b)
+                           for a, b in zip(losses, ranks[0]["losses"]))
+            ref = {k: v.detach().cpu().numpy() for k, v in
+                   {**state.params, **state.batch_stats}.items()}
+            worst, key_bias = {}, 0.0
+            for k, v in ref.items():
+                d = np.abs(ranks[0]["params"][k] - v)
+                if k.endswith("qkv.bias"):
+                    third = d.shape[0] // 3
+                    key_bias = max(key_bias, float(d[third:2 * third].max()))
+                    d = np.concatenate([d[:third], d[2 * third:]])
+                worst[k] = float(d.max())
+            name = max(worst, key=worst.get)
+            check(loss_err <= 1e-4 and worst[name] <= 1e-4
+                  and key_bias <= 2 * dp_check.STEPS * 3e-4,
+                  f"D3 {model}: 2 ranks vs 1 process: losses {loss_err:.3g}, "
+                  f"weights {worst[name]:.3g} at {name}, key bias "
+                  f"{key_bias:.3g}")
+            print(f"dp D3 {model} (2 ranks on one card over gloo, f32, TF32 "
+                  f"off, accumulation 2, 3 steps): ranks bit-identical; "
+                  f"losses {[round(x, 6) for x in ranks[0]['losses']]}, max "
+                  f"diff to one process {loss_err:.3g} (1e-4); max weight/"
+                  f"statistic diff {worst[name]:.3g} at {name} (1e-4)"
+                  + (f", key bias {key_bias:.3g} (Adam's bound 1.8e-3)"
+                     if model == "gpt2" else "")
+                  + f"; {time.monotonic() - t0:.1f} s", flush=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    return {4: n["fwd"], 5: n["dq"] + n["dkv"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cli-leg", nargs=argparse.REMAINDER,
+                    help="(internal) OUT ARGV...: one rank of a CLI leg")
     args = ap.parse_args()
+    if args.cli_leg:
+        return cli_leg(args.cli_leg[0], args.cli_leg[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -1421,9 +1664,12 @@ def main() -> int:
         kernels[kname]["launches"] = n
     prefix_phase(torch, args.seed)
     generate_phase(torch, da, args.seed)
-    for num, n in training_phase(torch, fa, args.seed).items():
+    figures: dict = {}
+    for num, n in training_phase(torch, fa, args.seed, figures).items():
         flash[num]["launches"] = n
-    image_phase(torch, args.seed, repo)
+    image_phase(torch, args.seed, repo, figures)
+    for num, n in dp_phase(torch, args.seed, repo, figures).items():
+        flash[num]["launches"] += n
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = [flash[num] for num in sorted(flash)] + list(kernels.values())

@@ -5,7 +5,8 @@ twin at the same path there, and the tests in ``tests/test_torch_*.py``
 hold each against it on converted weights.  This package imports
 ``torch`` and numpy only — never ``jax``, ``flax`` or the JAX package.
 
-Ported so far (serving, paged serving, LM training):
+Ported so far (serving, paged serving, LM and image training, data
+parallelism):
 
 - ``models``  GPT-2 (dense) with the contiguous and paged KV-cache decode
   modes, dropout and remat for training, the flax <-> torch weight bridge
@@ -18,9 +19,13 @@ Ported so far (serving, paged serving, LM training):
   continuous-batching engine (with speculative verify), scheduler and SLO
   metrics.
 - ``train``   precision policy, optax-style optimizers, state, train and
-  eval steps, the epoch loop; ``parallel`` gradient accumulation; ``data``
-  the LM datasets and the loader.
-- ``cli``     LM training and the ``--serve`` subset of the reference CLI.
+  eval steps, the epoch loop; ``parallel`` gradient accumulation and
+  data-parallel replication; ``data`` the LM and image datasets, the
+  corpus builder and the loader.
+- ``comm``    the process group under torchrun, the data-parallel
+  collectives, the KV codec.
+- ``cli``     image and LM training (``--distributed``: one process per
+  GPU) and the ``--serve`` subset of the reference CLI.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"`` / ``--use-cpu``); without CUDA and without that request

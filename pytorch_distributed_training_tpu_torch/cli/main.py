@@ -13,10 +13,16 @@ batch 32, adam, lr 0.1) on CUDA; ``--use-cpu`` runs on the host;
 
 trains GPT-2; ``--serve`` serves instead (add ``--serve-paged
 [--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool).
-Checkpoints are not ported yet, so the server runs fresh-init weights
-drawn from ``--seed``.  Not ported yet: data, tensor, pipeline and
-sequence parallelism, the ViTs, ``imagefolder:`` and ``packed-images:``,
-``--device-cache``, checkpoint and resume, telemetry and resilience.
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m pytorch_distributed_training_tpu_torch.cli.main --distributed ...
+
+trains data-parallel, one process per GPU (``--use-cpu``: gloo on the
+host); ``--batch-size`` stays global.  Checkpoints are not ported yet, so
+the server runs fresh-init weights drawn from ``--seed``.  Not ported
+yet: tensor, pipeline and sequence parallelism, the ViTs,
+``imagefolder:`` and ``packed-images:``, ``--device-cache``, checkpoint
+and resume, telemetry and resilience.
 """
 
 from __future__ import annotations
@@ -62,6 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--use-cpu", action="store_true",
                    help="Run on the host instead of the CUDA device.")
+    p.add_argument("--distributed", action="store_true",
+                   help="Data-parallel run over the process group that "
+                        "torchrun's env describes (NCCL on CUDA, gloo on "
+                        "the host).")
     p.add_argument("--data-dir", default="./data", help="Dataset root.")
     p.add_argument("--model", default="resnet18",
                    help="resnet18|resnet50|gpt2|... (the registry's names)")
@@ -409,7 +419,27 @@ def run_train(args, overrides: dict, device=None):
     """Train ``args.model`` on ``args.dataset``; prints the JAX CLI's
     milestones and one summary line per epoch (image classifiers add
     ``accuracy``, and ``eval_accuracy`` under ``--eval``).  Returns the
-    Trainer."""
+    Trainer.  ``--distributed`` joins the process group first and leaves
+    it at the end, whatever happens between."""
+    from ..comm import init as comm_init
+    from ..utils.device import resolve_device
+    from ..utils.seeding import seed_everything
+
+    device = resolve_device(device)
+    group = comm_init.initialize(device) if args.distributed else None
+    try:
+        rank, world = comm_init.process_index(), comm_init.process_count()
+        if group is not None:
+            print(f"Process group initialized - WORLD_SIZE: {world}, "
+                  f"RANK: {rank}")
+        print(f"process {rank}/{world} | backend={device.type} | devices=1")
+        seed_everything(args.seed)
+        return _train(args, overrides, device, group, rank, world)
+    finally:
+        comm_init.shutdown()
+
+
+def _train(args, overrides, device, group, rank, world):
     import itertools
 
     from ..data import DataLoader, DataLoaderConfig
@@ -420,7 +450,6 @@ def run_train(args, overrides: dict, device=None):
         make_policy, make_train_step,
     )
     from ..utils import metrics as metrics_lib
-    from ..utils.device import resolve_device
 
     kind = _dataset_kind(args.dataset)
     m_kind = model_kind(args.model)
@@ -443,12 +472,16 @@ def run_train(args, overrides: dict, device=None):
             do_eval=args.do_eval)
     else:
         ds, eval_ds, num_classes = _image_datasets(args)
-    device = resolve_device(device)
-    print(f"process 0/1 | backend={device.type} | devices=1")
+    if args.batch_size % (args.accum_steps * world):
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must divide into "
+            f"--accum-steps {args.accum_steps} microbatches x {world} "
+            "processes")
     loader = DataLoader(ds, DataLoaderConfig(
         batch_size=args.batch_size, num_workers=args.num_workers,
         seed=args.seed,
-    ))
+    ), shard_index=rank, num_shards=world,
+        num_microbatches=args.accum_steps)
     policy = make_policy(args.precision)
     net = create_model(args.model, num_classes=num_classes,
                        dtype=policy.param_dtype, device=device,
@@ -463,11 +496,11 @@ def run_train(args, overrides: dict, device=None):
                         warmup_steps=args.warmup_steps)
     tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay,
                          momentum=args.momentum, grad_clip=args.grad_clip)
-    state = create_train_state(net, tx, policy=policy)
+    state = create_train_state(net, tx, policy=policy, process_group=group)
     step_fn = make_train_step(
         kind=kind, policy=policy, num_microbatches=args.accum_steps,
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
-        lm_loss_chunk=args.ce_chunk,
+        lm_loss_chunk=args.ce_chunk, process_group=group,
     )
     trainer = Trainer(state, step_fn, device, TrainerConfig())
     logger = metrics_lib.MetricsLogger(args.metrics_jsonl)
@@ -528,6 +561,8 @@ def main(argv: list[str] | None = None):
             "--remat applies to transformer models (gpt2*, vit_*); ResNet's "
             "fused-BN path already minimizes saved activations"
         )
+    if args.serve and args.distributed:
+        raise SystemExit("--distributed applies to training")
     if not args.serve:
         return run_train(args, overrides,
                          device="cpu" if args.use_cpu else None)

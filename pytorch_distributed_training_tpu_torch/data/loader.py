@@ -4,14 +4,19 @@ package's ``data/loader.py``.
 Each process iterates a disjoint 1/num_shards slice of a seeded global
 permutation (DistributedSampler semantics: equal-length shards by
 wrapping, reshuffled each epoch by folding the epoch into the seed), with
-the JAX loader's exact index logic.  A dataset with a batched
-``get_batch`` (the native gathers) is fetched in-process unless its
-``prefers_get_batch()`` says no; otherwise ``num_workers > 0`` assembles
-batches in a pool of spawned worker processes, at most two per worker in
-flight, in the index order, handing them back through shared memory.
-``prefetch_to_device`` keeps ``size`` batches in flight: pinned host
-memory copied with ``non_blocking``, so the next batch's copy rides under
-the current step.
+the JAX loader's exact index logic.  With ``num_microbatches`` N > 1 over
+P > 1 shards the rows are dealt so that the ranks together hold JAX's
+microbatches: JAX assembles the global batch process-major and splits it
+row-wise into N microbatches, so rank p is handed the p-th of P equal
+slices of each of them, in microbatch order (``rank_rows``), and its own
+N-way split then lines up with JAX's (what sync-BN statistics need).  A
+dataset with a batched ``get_batch`` (the native gathers) is fetched
+in-process unless its ``prefers_get_batch()`` says no; otherwise
+``num_workers > 0`` assembles batches in a pool of spawned worker
+processes, at most two per worker in flight, in the index order, handing
+them back through shared memory.  ``prefetch_to_device`` keeps ``size``
+batches in flight: pinned host memory copied with ``non_blocking``, so
+the next batch's copy rides under the current step.
 """
 
 from __future__ import annotations
@@ -56,6 +61,21 @@ def _as_arrays(batch: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {k: v.numpy() for k, v in batch.items()}
 
 
+def rank_rows(global_rows: np.ndarray, rank: int, world: int,
+              num_microbatches: int) -> np.ndarray:
+    """Rank ``rank``'s rows of one global batch: the ``rank``-th of
+    ``world`` equal slices of each of its ``num_microbatches`` row-wise
+    microbatches, concatenated in microbatch order."""
+    n = len(global_rows)
+    if n % (num_microbatches * world):
+        raise ValueError(
+            f"global batch {n} must divide into {num_microbatches} "
+            f"microbatches x {world} ranks"
+        )
+    return np.asarray(global_rows).reshape(
+        num_microbatches, world, -1)[:, rank].reshape(-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class DataLoaderConfig:
     batch_size: int = 32
@@ -69,16 +89,19 @@ class DataLoader:
     """Iterates host-local numpy batches of a (possibly sharded) dataset."""
 
     def __init__(self, dataset: Any, config: DataLoaderConfig | None = None,
-                 *, shard_index: int = 0, num_shards: int = 1):
+                 *, shard_index: int = 0, num_shards: int = 1,
+                 num_microbatches: int = 1):
         self.dataset = dataset
         self.config = config or DataLoaderConfig()
-        if self.config.batch_size % num_shards != 0 and num_shards > 1:
+        if self.config.batch_size % (num_shards * num_microbatches):
             raise ValueError(
                 f"global batch size {self.config.batch_size} must divide "
-                f"evenly over {num_shards} shards"
+                f"evenly over {num_shards} shards x {num_microbatches} "
+                "microbatches"
             )
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.num_microbatches = num_microbatches
         self.epoch = 0
 
     @property
@@ -92,7 +115,9 @@ class DataLoader:
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
 
-    def _shard_indices(self) -> np.ndarray:
+    def _shard_indices(self, shard: int | None = None) -> np.ndarray:
+        """Shard ``shard``'s (default: this loader's) slice of the epoch's
+        permutation."""
         n = len(self.dataset)
         if self.config.shuffle:
             rng = np.random.default_rng((self.config.seed << 20) + self.epoch)
@@ -103,7 +128,8 @@ class DataLoader:
             pad = (-n) % self.num_shards
             if pad:
                 order = np.concatenate([order, order[:pad]])
-            order = order[self.shard_index::self.num_shards]
+            shard = self.shard_index if shard is None else shard
+            order = order[shard::self.num_shards]
         return order
 
     def __len__(self) -> int:
@@ -117,8 +143,20 @@ class DataLoader:
         bs = self.local_batch_size
         limit = len(idx) - (len(idx) % bs) if self.config.drop_last \
             else len(idx)
+        deal = self.num_shards > 1 and self.num_microbatches > 1
+        shards = ([self._shard_indices(q) for q in range(self.num_shards)]
+                  if deal else None)
         for start in range(0, limit, bs):
-            yield [int(i) for i in idx[start:start + bs]]
+            if deal and start + bs <= len(idx):
+                # JAX's global batch of this step, process-major.
+                rows = rank_rows(
+                    np.concatenate([s[start:start + bs] for s in shards]),
+                    self.shard_index, self.num_shards,
+                    self.num_microbatches)
+            else:
+                # (A ragged last batch, drop_last off: this shard's own.)
+                rows = idx[start:start + bs]
+            yield [int(i) for i in rows]
 
     def _pool(self):
         """The worker pool, created once and reused across epochs.  spawn,

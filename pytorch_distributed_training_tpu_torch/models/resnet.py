@@ -21,7 +21,11 @@ is given (the JAX head's ``dtype=float32``).
 In training the BatchNorms use the batch statistics; the forward puts
 their updated running statistics into ``new_stats`` (keyed like the
 model's buffers) when the caller passes that dict and leaves the buffers
-alone, else it updates the buffers.  Convolutions, pooling and the head
+alone, else it updates the buffers.  A ``group`` (a ``torch.distributed``
+process group, which the data-parallel train step hands to the forward)
+reaches every BatchNorm, which then takes its statistics over all
+ranks' batches: the JAX model's global-batch statistics.  The model
+itself holds no group.  Convolutions, pooling and the head
 are library calls (cuDNN on the card), as the JAX model leaves them to
 XLA.
 """
@@ -82,26 +86,27 @@ class BasicBlock(nn.Module):
         return (FusedBNRelu if self.fused else BatchNorm)(features,
                                                            device=device)
 
-    def _norm_relu(self, bn, y, new_stats):
+    def _norm_relu(self, bn, y, new_stats, group):
         if self.fused:
-            return bn(y, new_stats)
-        return F.relu(bn(y, new_stats))
+            return bn(y, new_stats, group)
+        return F.relu(bn(y, new_stats, group))
 
-    def _tail(self, y, residual, new_stats):
+    def _tail(self, y, residual, new_stats, group):
         bn = getattr(self, f"bn{self.depth - 1}")
         if self.fused_tail:
-            return bn(y, residual, new_stats)
-        return F.relu(bn(y, new_stats) + residual)
+            return bn(y, residual, new_stats, group)
+        return F.relu(bn(y, new_stats, group) + residual)
 
-    def _residual(self, x, new_stats):
+    def _residual(self, x, new_stats, group):
         if self.downsample_conv is None:
             return x
-        return self.downsample_bn(self.downsample_conv(x), new_stats)
+        return self.downsample_bn(self.downsample_conv(x), new_stats, group)
 
-    def forward(self, x, new_stats: dict | None = None):
-        y = self._norm_relu(self.bn0, self.conv0(x), new_stats)
+    def forward(self, x, new_stats: dict | None = None, group=None):
+        y = self._norm_relu(self.bn0, self.conv0(x), new_stats, group)
         y = self.conv1(y)
-        return self._tail(y, self._residual(x, new_stats), new_stats)
+        return self._tail(y, self._residual(x, new_stats, group), new_stats,
+                          group)
 
 
 class Bottleneck(BasicBlock):
@@ -118,11 +123,12 @@ class Bottleneck(BasicBlock):
         self.bn1 = self._norm_relu_module(filters, device)
         self.conv2 = _conv(filters, filters * 4, 1, device=device)
 
-    def forward(self, x, new_stats: dict | None = None):
-        y = self._norm_relu(self.bn0, self.conv0(x), new_stats)
-        y = self._norm_relu(self.bn1, self.conv1(y), new_stats)
+    def forward(self, x, new_stats: dict | None = None, group=None):
+        y = self._norm_relu(self.bn0, self.conv0(x), new_stats, group)
+        y = self._norm_relu(self.bn1, self.conv1(y), new_stats, group)
         y = self.conv2(y)
-        return self._tail(y, self._residual(x, new_stats), new_stats)
+        return self._tail(y, self._residual(x, new_stats, group), new_stats,
+                          group)
 
 
 class Stem(nn.Module):
@@ -145,9 +151,9 @@ class Stem(nn.Module):
         self.bn_init = (FusedBNRelu if fused else BatchNorm)(features,
                                                              device=device)
 
-    def forward(self, x, new_stats: dict | None = None):
+    def forward(self, x, new_stats: dict | None = None, group=None):
         x = self.conv_init(x)
-        x = self.bn_init(x, new_stats)
+        x = self.bn_init(x, new_stats, group)
         if not self.fused:
             x = F.relu(x)
         if not self.small:
@@ -155,12 +161,13 @@ class Stem(nn.Module):
         return x
 
 
-def _module_call(module, tensors, x, new_stats):
+def _module_call(module, tensors, x, new_stats, group):
     """``module`` as a function of its tensors: under remat the backward's
     recompute then runs on the tensors the forward ran on (the step's
     compute-dtype copies), not on the module's own parameters."""
     return torch.func.functional_call(module, tensors, (x,),
-                                      {"new_stats": new_stats})
+                                      {"new_stats": new_stats,
+                                       "group": group})
 
 
 class ResNet(nn.Module):
@@ -214,7 +221,7 @@ class ResNet(nn.Module):
                               generator=generator)
         self.head.bias.zero_()
 
-    def forward(self, x, new_stats: dict | None = None):
+    def forward(self, x, new_stats: dict | None = None, group=None):
         own = self.training and new_stats is None
         if own:
             # Collect, then write the buffers once: a remat recompute then
@@ -225,11 +232,11 @@ class ResNet(nn.Module):
             tensors = {**dict(self.stem.named_parameters()),
                        **dict(self.stem.named_buffers())}
             x = checkpoint(_module_call, self.stem, tensors, x, new_stats,
-                           use_reentrant=False)
+                           group, use_reentrant=False)
         else:
-            x = self.stem(x, new_stats)
+            x = self.stem(x, new_stats, group)
         for blk in self.blocks:
-            x = blk(x, new_stats)
+            x = blk(x, new_stats, group)
         x = x.mean(dim=(2, 3))
         logits = F.linear(x.float(), self.head.weight.float(),
                           self.head.bias.float())

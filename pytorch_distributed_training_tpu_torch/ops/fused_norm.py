@@ -16,6 +16,16 @@ The tensors are NCHW (any memory format); statistics reduce over every
 dimension but 1.  Statistics are computed in f32 (f64 for an f64 input)
 as ``E[x]`` and ``E[x^2] - E[x]^2`` (the biased variance); ``scale`` and
 ``bias`` are folded to the input's dtype before ``x * scale + bias``.
+The fused functions take ``gamma``/``beta`` as the f32 masters and round
+them to the input's dtype themselves, so under the bf16 policy the
+forward is JAX's and ``dgamma``/``dbeta`` reach the master as f32 sums,
+as JAX's ``custom_vjp`` hands them on.
+
+Sync-BN: given a ``torch.distributed`` process group, every function and
+module takes its statistics over all ranks' batches (the JAX model's
+statistics are over the global batch, XLA inserting the reductions):
+one all-reduce of the stacked ``[sum x, sum x^2, n]`` in the forward
+and, in the fused backward, one of ``[sum dz, sum dz * xhat]``.
 
 The modules keep flax's layout: parameters ``scale``/``bias`` and the
 running ``mean``/``var`` buffers, all f32.  In training they update the
@@ -31,6 +41,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..comm import collectives
 
 F32 = torch.float32
 
@@ -48,37 +60,79 @@ def _channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, *([1] * (x.ndim - 2)))
 
 
-def _bn_core(x, gamma, beta, eps):
-    """Forward math of the three functions: returns (z, mean, var)."""
+def _affine(gamma, beta, x):
+    """``gamma``/``beta`` rounded to ``x``'s dtype, then held in the
+    statistics dtype.  The train step hands the fused functions the f32
+    master parameters; rounding here gives the values the JAX model
+    computes with (its step casts them to the compute dtype), while the
+    gradients leave as the f32 sums JAX's ``custom_vjp`` returns."""
+    stat = _stat_dtype(x)
+    return gamma.to(x.dtype).to(stat), beta.to(x.dtype).to(stat)
+
+
+def _batch_stats(x, group, differentiable: bool = False):
+    """(mean, var, n) of ``x`` per channel in the statistics dtype, over
+    every rank of ``group`` when one is given: the local ``[sum x, sum
+    x^2, n]`` stacked and summed over the group, then the same biased
+    ``E[x^2] - E[x]^2``.  ``n`` is the (global) count.  ``differentiable``
+    sums through ``all_reduce_sum``, whose backward sums the statistics'
+    cotangents over the ranks too (autograd's BatchNorm)."""
     xf = x.to(_stat_dtype(x))
     dims = _reduce_dims(x)
-    mean = xf.mean(dims)
-    var = (xf * xf).mean(dims) - mean * mean
+    if group is None:
+        mean = xf.mean(dims)
+        var = (xf * xf).mean(dims) - mean * mean
+        return mean, var, xf.numel() // x.shape[1]
+    c = x.shape[1]
+    sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                      xf.new_full((1,), xf.numel() // c)])
+    sums = (collectives.all_reduce_sum(sums, group) if differentiable
+            else collectives.psum(sums, group))
+    n = sums[2 * c]
+    mean = sums[:c] / n
+    return mean, sums[c:2 * c] / n - mean * mean, n
+
+
+def _bn_core(x, gamma, beta, eps, group=None):
+    """Forward math of the three functions: returns (z, mean, var, n)."""
+    gamma, beta = _affine(gamma, beta, x)
+    mean, var, n = _batch_stats(x, group)
     rstd = torch.rsqrt(var + eps)
     scale = (gamma * rstd).to(x.dtype)
     bias = (beta - mean * gamma * rstd).to(x.dtype)
-    return x * _channel(scale, x) + _channel(bias, x), mean, var
+    return x * _channel(scale, x) + _channel(bias, x), mean, var, n
 
 
-def _bn_bwd_core(z, gamma, beta, var, dz, eps):
+def _bn_bwd_core(z, gamma, beta, var, n, dz, eps, group=None):
     """The BN gradient with ``xhat`` rebuilt from the output ``z``:
     returns (dx, dgamma, dbeta).  A |gamma| below 1e-12 is replaced by
     1e-12 with gamma's sign, so a transiently tiny gamma still
-    reconstructs without overflow and without flipping xhat's sign."""
+    reconstructs without overflow and without flipping xhat's sign.
+
+    With a ``group`` the two sums that ``dx`` needs are summed over it
+    (one all-reduce) and ``n`` is the global count; ``dgamma``/``dbeta``
+    stay this rank's own sums.  Each rank differentiates its local loss,
+    so its cotangents are world-size times the global loss's: ``dx`` is
+    consistent under that scale, and the local sums give the true
+    ``dgamma``/``dbeta`` once the step averages gradients over ranks
+    (summed ones would come out world-size times too large)."""
     stat = _stat_dtype(z)
     rstd = torch.rsqrt(var + eps)
-    g = gamma.to(stat)
+    g, b = _affine(gamma, beta, z)
     tiny = torch.full_like(g, 1e-12)
     safe_g = torch.where(g.abs() < tiny, torch.copysign(tiny, g), g)
-    xhat = (z.to(stat) / _channel(safe_g, z)
-            - _channel(beta.to(stat) / safe_g, z))
+    xhat = z.to(stat) / _channel(safe_g, z) - _channel(b / safe_g, z)
     dims = _reduce_dims(z)
-    n = z.numel() // z.shape[1]
     dzf = dz.to(stat)
     sum_dz = dzf.sum(dims)
     sum_dz_xhat = (dzf * xhat).sum(dims)
-    dx = _channel(g * rstd, z) * (dzf - _channel(sum_dz / n, z)
-                                  - xhat * _channel(sum_dz_xhat / n, z))
+    mean_dz, mean_dz_xhat = sum_dz / n, sum_dz_xhat / n
+    if group is not None:
+        c = z.shape[1]
+        sums = collectives.psum(torch.cat([sum_dz, sum_dz_xhat]), group)
+        mean_dz, mean_dz_xhat = sums[:c] / n, sums[c:] / n
+    dx = _channel(g * rstd, z) * (dzf - _channel(mean_dz, z)
+                                  - xhat * _channel(mean_dz_xhat, z))
     return dx.to(z.dtype), sum_dz_xhat, sum_dz
 
 
@@ -89,27 +143,36 @@ def _relu_grad(z, dy):
                        torch.where(z == 0, dy * 0.5, torch.zeros_like(dy)))
 
 
+def _save(ctx, saved, var, n, eps, group) -> None:
+    """What the three functions keep for the backward: ``z`` (and ``r``),
+    gamma, beta and the statistics."""
+    ctx.save_for_backward(*saved, var)
+    ctx.n, ctx.eps, ctx.group = n, eps, group
+
+
+def _grads(ctx, z, gamma, beta, var, dz):
+    return _bn_bwd_core(z, gamma, beta, var, ctx.n, dz, ctx.eps, ctx.group)
+
+
 class _BatchNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        z, mean, var = _bn_core(x, gamma, beta, eps)
-        ctx.save_for_backward(z, gamma, beta, var)
-        ctx.eps = eps
+    def forward(ctx, x, gamma, beta, eps, group):
+        z, mean, var, n = _bn_core(x, gamma, beta, eps, group)
+        _save(ctx, (z, gamma, beta), var, n, eps, group)
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
     @staticmethod
     def backward(ctx, dz, _dmean, _dvar):
         z, gamma, beta, var = ctx.saved_tensors
-        return (*_bn_bwd_core(z, gamma, beta, var, dz, ctx.eps), None)
+        return (*_grads(ctx, z, gamma, beta, var, dz), None, None)
 
 
 class _BNRelu(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        z, mean, var = _bn_core(x, gamma, beta, eps)
-        ctx.save_for_backward(z, gamma, beta, var)
-        ctx.eps = eps
+    def forward(ctx, x, gamma, beta, eps, group):
+        z, mean, var, n = _bn_core(x, gamma, beta, eps, group)
+        _save(ctx, (z, gamma, beta), var, n, eps, group)
         ctx.mark_non_differentiable(mean, var)
         return z.clamp_min(0), mean, var
 
@@ -117,15 +180,14 @@ class _BNRelu(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         z, gamma, beta, var = ctx.saved_tensors
         dz = _relu_grad(z, dy)
-        return (*_bn_bwd_core(z, gamma, beta, var, dz, ctx.eps), None)
+        return (*_grads(ctx, z, gamma, beta, var, dz), None, None)
 
 
 class _BNAddRelu(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, r, gamma, beta, eps):
-        z, mean, var = _bn_core(x, gamma, beta, eps)
-        ctx.save_for_backward(z, r, gamma, beta, var)
-        ctx.eps = eps
+    def forward(ctx, x, r, gamma, beta, eps, group):
+        z, mean, var, n = _bn_core(x, gamma, beta, eps, group)
+        _save(ctx, (z, r, gamma, beta), var, n, eps, group)
         ctx.mark_non_differentiable(mean, var)
         return (z + r.to(z.dtype)).clamp_min(0), mean, var
 
@@ -134,26 +196,28 @@ class _BNAddRelu(torch.autograd.Function):
         z, r, gamma, beta, var = ctx.saved_tensors
         # The ReLU mask from the two saved tensors: no pre-ReLU sum kept.
         ds = torch.where(z + r.to(z.dtype) > 0, dout, torch.zeros_like(dout))
-        dx, dgamma, dbeta = _bn_bwd_core(z, gamma, beta, var, ds, ctx.eps)
-        return dx, ds.to(r.dtype), dgamma, dbeta, None
+        dx, dgamma, dbeta = _grads(ctx, z, gamma, beta, var, ds)
+        return dx, ds.to(r.dtype), dgamma, dbeta, None, None
 
 
-def batch_norm(x, gamma, beta, eps: float = 1e-5):
+def batch_norm(x, gamma, beta, eps: float = 1e-5, group=None):
     """Train-mode BatchNorm ``(x, gamma, beta) -> (z, mean, var)``;
-    ``mean``/``var`` are the batch statistics, outside the gradient."""
-    return _BatchNorm.apply(x, gamma, beta, eps)
+    ``mean``/``var`` are the batch statistics, outside the gradient.
+    With a process ``group`` they are taken over every rank's batch
+    (sync-BN)."""
+    return _BatchNorm.apply(x, gamma, beta, eps, group)
 
 
-def bn_relu(x, gamma, beta, eps: float = 1e-5):
+def bn_relu(x, gamma, beta, eps: float = 1e-5, group=None):
     """``relu(batch_norm(x))`` saving only ``z``: returns (y, mean, var)."""
-    return _BNRelu.apply(x, gamma, beta, eps)
+    return _BNRelu.apply(x, gamma, beta, eps, group)
 
 
-def bn_add_relu(x, r, gamma, beta, eps: float = 1e-5):
+def bn_add_relu(x, r, gamma, beta, eps: float = 1e-5, group=None):
     """Residual-block tail ``relu(bn(x) + r)`` saving ``z`` and the
     residual input ``r``, which the graph keeps anyway: returns
     (out, mean, var)."""
-    return _BNAddRelu.apply(x, r, gamma, beta, eps)
+    return _BNAddRelu.apply(x, r, gamma, beta, eps, group)
 
 
 class _NormBase(nn.Module):
@@ -164,7 +228,15 @@ class _NormBase(nn.Module):
     ``new_stats[self.stats_key + ".mean" / ".var"]`` when the caller
     passes that dict (the train step's functional call: the buffers stay
     as they were) and into this module's buffers otherwise.  The owning
-    model sets ``stats_key`` to the module's name."""
+    model sets ``stats_key`` to the module's name.  A ``group`` (a
+    ``torch.distributed`` process group) takes the statistics over every
+    rank's batch.
+
+    ``master_affine``: the module computes with ``scale``/``bias`` as
+    given in f32 and rounds them itself, so the train step hands it the
+    master parameters uncast (see ``master_affine_params``)."""
+
+    master_affine = False
 
     def __init__(self, features: int, *, momentum: float = 0.9,
                  epsilon: float = 1e-5, scale_init: float = 1.0,
@@ -181,9 +253,10 @@ class _NormBase(nn.Module):
 
     def _eval_scale_bias(self, x):
         """The running statistics folded into a per-channel affine."""
+        gamma, beta = _affine(self.scale, self.bias, x)
         rstd = torch.rsqrt(self.var + self.epsilon)
-        scale = (self.scale * rstd).to(x.dtype)
-        bias = (self.bias - self.mean * self.scale * rstd).to(x.dtype)
+        scale = (gamma * rstd).to(x.dtype)
+        bias = (beta - self.mean * gamma * rstd).to(x.dtype)
         return _channel(scale, x), _channel(bias, x)
 
     @torch.no_grad()
@@ -207,12 +280,10 @@ class BatchNorm(_NormBase):
     differentiates it.  ``scale_init`` 0 gives the zero-init residual
     tail."""
 
-    def forward(self, x, new_stats: dict | None = None):
+    def forward(self, x, new_stats: dict | None = None, group=None):
         if self.training:
-            xf = x.to(_stat_dtype(x))
-            dims = _reduce_dims(x)
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            mean, var, _ = _batch_stats(x, group, differentiable=True)
+            var = var.clamp_min(0.0)
             self._update_stats(mean.detach(), var.detach(), new_stats)
         else:
             mean, var = self.mean, self.var
@@ -224,11 +295,13 @@ class BatchNorm(_NormBase):
 class FusedBNRelu(_NormBase):
     """``BatchNorm -> relu`` through :func:`bn_relu`."""
 
-    def forward(self, x, new_stats: dict | None = None):
+    master_affine = True
+
+    def forward(self, x, new_stats: dict | None = None, group=None):
         if not self.training:
             scale, bias = self._eval_scale_bias(x)
             return (x * scale + bias).clamp_min(0)
-        y, mean, var = bn_relu(x, self.scale, self.bias, self.epsilon)
+        y, mean, var = bn_relu(x, self.scale, self.bias, self.epsilon, group)
         self._update_stats(mean, var, new_stats)
         return y
 
@@ -237,11 +310,14 @@ class FusedBN(_NormBase):
     """A bare BatchNorm through :func:`batch_norm` (the downsample
     branch's, whose output the block tail keeps anyway)."""
 
-    def forward(self, x, new_stats: dict | None = None):
+    master_affine = True
+
+    def forward(self, x, new_stats: dict | None = None, group=None):
         if not self.training:
             scale, bias = self._eval_scale_bias(x)
             return x * scale + bias
-        z, mean, var = batch_norm(x, self.scale, self.bias, self.epsilon)
+        z, mean, var = batch_norm(x, self.scale, self.bias, self.epsilon,
+                                  group)
         self._update_stats(mean, var, new_stats)
         return z
 
@@ -250,11 +326,23 @@ class FusedBNAddRelu(_NormBase):
     """The block tail ``BatchNorm -> + residual -> relu`` through
     :func:`bn_add_relu`."""
 
-    def forward(self, x, residual, new_stats: dict | None = None):
+    master_affine = True
+
+    def forward(self, x, residual, new_stats: dict | None = None,
+                group=None):
         if not self.training:
             scale, bias = self._eval_scale_bias(x)
             return (x * scale + bias + residual.to(x.dtype)).clamp_min(0)
         y, mean, var = bn_add_relu(x, residual, self.scale, self.bias,
-                                   self.epsilon)
+                                   self.epsilon, group)
         self._update_stats(mean, var, new_stats)
         return y
+
+
+def master_affine_params(model: nn.Module) -> set[str]:
+    """Names of the parameters the train step keeps out of the policy's
+    cast: the fused norms' ``scale``/``bias``, which JAX's ``custom_vjp``
+    differentiates into f32 sums that reach the f32 master unrounded."""
+    return {f"{name}.{p}" if name else p
+            for name, m in model.named_modules()
+            if getattr(m, "master_affine", False) for p in ("scale", "bias")}

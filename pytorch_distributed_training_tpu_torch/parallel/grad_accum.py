@@ -2,8 +2,12 @@
 package's ``parallel/grad_accum.py`` (there a ``lax.scan`` inside the
 jitted step, here a Python loop of forward/backward passes).
 
-The explicit cross-device sync (``sync_fn``) waits for the communication
-slice.
+``sync_fn`` is the explicit cross-rank sync (data parallelism): applied
+once, after the microbatch loop, to the f32 accumulated gradients (and
+the loss and aux values) before the cast to the parameter dtype.  The
+JAX version can also overlap it with the next microbatch
+(``sync_overlap``) and carries error-feedback state (``sync_carry``);
+both wait for the communication slice.
 """
 
 from __future__ import annotations
@@ -37,6 +41,24 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _leaves(tree) -> list:
+    out: list = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _unflatten(tree, leaves: list):
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), tree)
+
+
+def _synced(sync_fn, grads: list, value):
+    """One ``sync_fn`` call over the f32 grads and the value's leaves."""
+    values = [v.float() for v in _leaves(value)]
+    out = sync_fn([g.float() for g in grads] + values)
+    return out[:len(grads)], _unflatten(value, out[len(grads):])
+
+
 def accumulate_gradients(
     loss_fn: Callable[..., Any],
     params: dict,
@@ -45,6 +67,7 @@ def accumulate_gradients(
     *,
     has_aux: bool = False,
     pass_microbatch_index: bool = False,
+    sync_fn: Callable[[list], list] | None = None,
 ):
     """Mean loss and grads of ``loss_fn`` over ``num_microbatches`` splits.
 
@@ -61,6 +84,13 @@ def accumulate_gradients(
     Gradients accumulate in f32 whatever the parameter dtype (N bf16 adds
     would lose bits), are scaled by 1/N after the sum and cast like the
     params.  With one microbatch everything is returned as computed.
+
+    ``sync_fn(tensors) -> tensors`` (``comm.collectives.pmean`` over a
+    process group) is called once per step on a list of f32 tensors: the
+    gradient sums (at one microbatch the gradients as computed, in f32),
+    then the loss and aux leaves; its results replace them before the
+    1/N scale and the cast.  One call, so a data-parallel step makes one
+    all-reduce.
     """
     names = list(params)
     leaves = [params[n] for n in names]
@@ -75,6 +105,9 @@ def accumulate_gradients(
 
     if num_microbatches <= 1:
         value, grads = call(batch, 0)
+        if sync_fn is not None:
+            grads, value = _synced(sync_fn, list(grads), value)
+            grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
         return value, dict(zip(names, grads))
 
     acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
@@ -86,6 +119,8 @@ def accumulate_gradients(
         value = _tree_map(lambda v: v.float(), value)
         total = value if total is None else _tree_map(torch.add, total,
                                                       value)
+    if sync_fn is not None:
+        acc, total = _synced(sync_fn, acc, total)
     inv = 1.0 / num_microbatches
     return (_tree_map(lambda v: v * inv, total),
             {n: (a * inv).to(p.dtype) for n, a, p in zip(names, acc, leaves)})

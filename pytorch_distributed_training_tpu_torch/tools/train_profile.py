@@ -4,6 +4,9 @@
     python3 -m pytorch_distributed_training_tpu_torch.tools.train_profile \
         [--model gpt2|resnet18|resnet50|...] [--dataset D] [--image-size N] \
         [--steps 3] [--warmup 2] [--remat] [--ce-chunk 256] [--rows 25]
+    python3 -m torch.distributed.run --standalone --nproc_per_node 1 \
+        -m pytorch_distributed_training_tpu_torch.tools.train_profile \
+        --distributed [--model ...]
 
 Builds one of ``chip_smoke.py``'s training configurations:
 
@@ -31,6 +34,20 @@ prints:
   operator time per step, the ten operators with the most device time
   per step, the flash kernels' device time per step, and the peak memory.
 
+``--distributed`` (under torchrun) joins the process group and profiles
+the data-parallel step (``make_train_step(process_group=...)``) instead.
+It first times the plain and the data-parallel step in turns on the same
+state (two rounds of plain, DP, DP, plain; ``--steps`` steps each), one
+small all-reduce back to back (500 calls), and, outside the step, the
+gradient ``pmean`` on f32 tensors shaped like the parameters against one
+``psum`` of a buffer of their size (the difference is its flatten/copy
+time).  The profiled steps record the collectives' shapes; each
+backend all-reduce row (``nccl:all_reduce``) is the gradient ``pmean``'s
+when it is the step's largest and sync-BN's otherwise, and its
+``c10d::allreduce_`` row (the same call, in the same order) gives its
+host time.  The JSON line then adds, per step: the NCCL kernels' device
+time and count, each kind's all-reduce count, host time and device time,
+and the host time of all collectives.
 Needs a CUDA device.
 """
 
@@ -40,12 +57,14 @@ import argparse
 import itertools
 import json
 import os
+import statistics
 import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SEQ, BATCH, ACCUM = 1024, 16, 2
+TURNS = 2   # --distributed: rounds of plain, DP, DP, plain
 
 
 def busy_seconds(events) -> float:
@@ -67,8 +86,9 @@ def busy_seconds(events) -> float:
     return busy_us / 1e6
 
 
-def _lm_setup(args, device, total):
-    """T1: (state, step, loader, items per example, label)."""
+def _lm_setup(args, device, total, group=None):
+    """T1: (state, step factory, loader, items per example, label); the
+    factory takes the process group (or None)."""
     from pytorch_distributed_training_tpu_torch.cli.main import (
         build_optimizer, build_schedule,
     )
@@ -87,17 +107,22 @@ def _lm_setup(args, device, total):
                         warmup_steps=2)
     state = create_train_state(
         model, build_optimizer("adamw", lr, weight_decay=0.1, grad_clip=1.0),
-        policy=policy)
-    step = make_train_step(kind="lm", policy=policy, num_microbatches=ACCUM,
-                           seed=1, lm_loss_chunk=args.ce_chunk)
+        policy=policy, process_group=group)
+
+    def make_step(process_group):
+        return make_train_step(kind="lm", policy=policy,
+                               num_microbatches=ACCUM, seed=1,
+                               lm_loss_chunk=args.ce_chunk,
+                               process_group=process_group)
+
     loader = DataLoader(SyntheticTokens(seq_len=SEQ),
                         DataLoaderConfig(batch_size=BATCH))
-    return state, step, loader, SEQ, "tokens_per_s"
+    return state, make_step, loader, SEQ, "tokens_per_s"
 
 
-def _image_setup(args, device, total):
-    """R1 (resnet18) or R2 (other ResNets): (state, step, loader, items per
-    example, label)."""
+def _image_setup(args, device, total, group=None):
+    """R1 (resnet18) or R2 (other ResNets): (state, step factory, loader,
+    items per example, label)."""
     from pytorch_distributed_training_tpu_torch.cli.main import (
         build_optimizer,
     )
@@ -125,10 +150,66 @@ def _image_setup(args, device, total):
                          dtype=policy.param_dtype, device=device, seed=0)
     tx = (build_optimizer("adam", 0.1, weight_decay=1e-3) if r1
           else build_optimizer("sgd", 0.1, weight_decay=1e-3))
-    state = create_train_state(model, tx, policy=policy)
-    step = make_train_step(kind="image_classifier", policy=policy)
+    state = create_train_state(model, tx, policy=policy,
+                               process_group=group)
+
+    def make_step(process_group):
+        return make_train_step(kind="image_classifier", policy=policy,
+                               process_group=process_group)
+
     loader = DataLoader(ds, DataLoaderConfig(batch_size=32 if r1 else 128))
-    return state, step, loader, 1, "images_per_s"
+    return state, make_step, loader, 1, "images_per_s"
+
+
+def _time_calls(torch, fn, n: int) -> tuple[float, float]:
+    """``fn`` back to back ``n`` times after a warm-up: (host ms a call,
+    stream ms a call between CUDA events around the calls)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    end.synchronize()
+    return host_ms, start.elapsed_time(end) / n
+
+
+def _all_reduce_rows(events) -> list[tuple]:
+    """(elements, host us, device us) of each all-reduce in the profile,
+    in call order: the backend's row (``nccl:all_reduce``, recorded with
+    its tensor's shape) paired with the ``c10d::allreduce_`` row of the
+    same call, whose host time includes the dispatch and whose device
+    time the kernel it launched."""
+    def ordered(rows):
+        return sorted(rows, key=lambda e: e.time_range.start)
+
+    c10d = ordered(e for e in events if e.name == "c10d::allreduce_")
+    backend = ordered(e for e in events if e.name.endswith(":all_reduce")
+                      and e.device_type.name == "CPU")
+    if len(c10d) != len(backend):
+        raise RuntimeError(f"{len(c10d)} c10d::allreduce_ rows against "
+                           f"{len(backend)} backend all-reduce rows")
+    rows = []
+    for call, row in zip(c10d, backend):
+        numel = 1
+        for d in row.input_shapes[0]:
+            numel *= d
+        rows.append((numel, call.cpu_time_total, _device_us(call)))
+    return rows
+
+
+def _device_us(event) -> float:
+    """A profiler row's device time with its children's (the attribute's
+    name moved across torch versions)."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    return 0.0
 
 
 def main() -> int:
@@ -143,6 +224,8 @@ def main() -> int:
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--ce-chunk", type=int, default=None)
     ap.add_argument("--rows", type=int, default=25)
+    ap.add_argument("--distributed", action="store_true",
+                    help="profile the data-parallel step (under torchrun)")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -151,30 +234,84 @@ def main() -> int:
         print("train_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from pytorch_distributed_training_tpu_torch.comm import (
+        collectives, init as comm_init,
+    )
     from pytorch_distributed_training_tpu_torch.data.loader import to_device
+    from pytorch_distributed_training_tpu_torch.utils.device import (
+        resolve_device,
+    )
 
-    device = torch.device("cuda", torch.cuda.current_device())
+    device = resolve_device(None)
+    group = comm_init.initialize(device) if args.distributed else None
+    if args.distributed and group is None:
+        print("train_profile: --distributed needs torchrun's env",
+              file=sys.stderr)
+        return 1
+    try:
+        return _profile(args, torch, profile, ProfilerActivity, to_device,
+                        collectives, device, group)
+    finally:
+        comm_init.shutdown()
+
+
+def _profile(args, torch, profile, ProfilerActivity, to_device, collectives,
+             device, group) -> int:
     total = args.warmup + 2 * args.steps
     setup = _lm_setup if args.model.startswith("gpt2") else _image_setup
-    state, step, loader, per_example, rate_key = setup(args, device, total)
+    if args.distributed:
+        total += (4 * TURNS + 1) * args.steps
+    state, make_step, loader, per_example, rate_key = setup(
+        args, device, total, group)
+    step = make_step(group)
     batches = [to_device(b, device)
                for b in itertools.islice(iter(loader), args.steps)]
     loader.close()
     examples = next(iter(batches[0].values())).shape[0]
     cycle = itertools.cycle(batches)
 
-    def run(n):
+    def run(n, fn=step):
         nonlocal state
         for _ in range(n):
-            state, metrics = step(state, next(cycle))
+            state, metrics = fn(state, next(cycle))
         return float(metrics["loss"])  # waits for the device
 
     run(args.warmup)
+    extra: dict = {}
+    if args.distributed:
+        plain = make_step(None)
+        run(1, plain)
+        turns: dict = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain") * TURNS:
+            t0 = time.perf_counter()
+            run(args.steps, plain if name == "plain" else step)
+            turns[name].append((time.perf_counter() - t0) / args.steps * 1e3)
+        small = torch.zeros(129, device=device)
+        small_ms, _ = _time_calls(
+            torch, lambda: collectives.psum(small, group), 500)
+        grads = [torch.zeros_like(p, dtype=torch.float32)
+                 for p in state.params.values()]
+        flat = torch.zeros(sum(g.numel() for g in grads), device=device)
+        pmean_host, pmean_ms = _time_calls(
+            torch, lambda: collectives.pmean(grads, group), 20)
+        _, psum_ms = _time_calls(
+            torch, lambda: collectives.psum(flat, group), 20)
+        extra = {"step_ms_plain_turns": turns["plain"],
+                 "step_ms_dp_turns": turns["dp"],
+                 "step_ms_plain_median": statistics.median(turns["plain"]),
+                 "step_ms_dp_median": statistics.median(turns["dp"]),
+                 "small_all_reduce_us": small_ms * 1e3,
+                 "grad_mb": flat.numel() * 4 / 1e6,
+                 "pmean_alone_host_ms": pmean_host,
+                 "pmean_alone_ms": pmean_ms,
+                 "psum_flat_alone_ms": psum_ms,
+                 "flatten_copy_ms": pmean_ms - psum_ms}
+        del grads, flat
     t0 = time.perf_counter()
     loss = run(args.steps)
     step_s = (time.perf_counter() - t0) / args.steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=args.distributed) as prof:
         t0 = time.perf_counter()
         run(args.steps)
         torch.cuda.synchronize()
@@ -192,9 +329,31 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     flash_us = sum(us for name, us in by_name.items() if "flash_" in name)
     host_us = sum(a.self_cpu_time_total for a in avg)
+    per = 1e3 * args.steps
+    if args.distributed:
+        nccl = [e for e in device_events if "nccl" in e.name.lower()]
+        nccl_us = sum(e.time_range.end - e.time_range.start for e in nccl)
+        rows = _all_reduce_rows(events)
+        largest = max(n for n, _, _ in rows)
+        kinds = {"grad_all_reduce": [r for r in rows if r[0] == largest],
+                 "sync_bn": [r for r in rows if r[0] != largest]}
+        extra.update({
+            "world": torch.distributed.get_world_size(),
+            "backend": torch.distributed.get_backend(),
+            "nccl_kernels_per_step": len(nccl) / args.steps,
+            "nccl_kernels_ms_per_step": nccl_us / per,
+            "collectives_host_ms_per_step": sum(r[1] for r in rows) / per,
+        })
+        for kind, rs in kinds.items():
+            extra.update({
+                f"{kind}s_per_step": len(rs) / args.steps,
+                f"{kind}_host_ms_per_step": sum(r[1] for r in rs) / per,
+                f"{kind}_device_ms_per_step": sum(r[2] for r in rs) / per,
+            })
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "model": args.model,
         "remat": args.remat, "ce_chunk": args.ce_chunk, "steps": args.steps,
+        "distributed": args.distributed,
         "batch": examples, "loss": loss, "step_ms": step_s * 1e3,
         rate_key: examples * per_example / step_s,
         "profiled_wall_s": wall_s, "device_busy_s": busy_s,
@@ -205,6 +364,7 @@ def main() -> int:
                                    for name, us in top],
         "flash_kernels_ms_per_step": flash_us / 1e3 / args.steps,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **extra,
     }))
     return 0
 

@@ -7,6 +7,10 @@ is needed.  This is not ``torch.autocast``: as in the JAX step, EVERY
 float parameter (embeddings and LayerNorm included) is cast to the
 compute dtype, and the cast stays in the autograd graph, so the gradient
 that reaches a master parameter is the compute-dtype gradient cast back.
+The exception is ``keep``: the fused BatchNorms' ``scale``/``bias`` go in
+as the f32 masters and are rounded inside the norm
+(``ops/fused_norm.py``), which is what JAX's ``custom_vjp`` makes of the
+cast.
 
 ``f32`` on the card keeps PyTorch's defaults: matmuls in full f32
 (``torch.backends.cuda.matmul.allow_tf32`` is False) and cuDNN
@@ -30,17 +34,22 @@ class Policy:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
 
-    def cast_to_compute(self, params: dict) -> dict:
-        """Cast float tensors to the compute dtype (others untouched)."""
-        return _cast(params, self.compute_dtype)
+    def cast_to_compute(self, params: dict, keep=frozenset()) -> dict:
+        """Cast float tensors to the compute dtype (others, and the names
+        in ``keep``, untouched)."""
+        return {k: v if k in keep else _cast_one(v, self.compute_dtype)
+                for k, v in params.items()}
 
     def cast_to_param(self, params: dict) -> dict:
         return _cast(params, self.param_dtype)
 
 
+def _cast_one(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return v.to(dtype) if v.is_floating_point() else v
+
+
 def _cast(params: dict, dtype: torch.dtype) -> dict:
-    return {k: v.to(dtype) if v.is_floating_point() else v
-            for k, v in params.items()}
+    return {k: _cast_one(v, dtype) for k, v in params.items()}
 
 
 def make_policy(name: str) -> Policy:

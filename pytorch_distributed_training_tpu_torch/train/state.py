@@ -2,10 +2,12 @@
 — step, parameters, optimizer state, BatchNorm running statistics — with
 ``apply_gradients``.
 
-No mesh and no sharding yet (data parallel is a later slice).  The
-parameters are the model's own master tensors and ``batch_stats`` its
-buffers (the ResNets' running ``mean``/``var``, f32 under every policy;
-empty for GPT-2); ``apply_gradients`` updates them and the optimizer
+Data parallelism replicates the state: ``create_train_state`` with a
+process group broadcasts rank 0's (``parallel/sharding.py``), and every
+rank then applies the same all-reduced gradients.  The parameters are
+the model's own master tensors and ``batch_stats`` its buffers (the
+ResNets' running ``mean``/``var``, f32 under every policy; empty for
+GPT-2); ``apply_gradients`` updates them and the optimizer
 state in place (one copy of each, where JAX returns new arrays) and
 returns the state with the step advanced.  The step is a host integer:
 nothing reads it back from the device.
@@ -19,6 +21,8 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..ops.fused_norm import master_affine_params
+from ..parallel.sharding import replicate_state
 from .optim import Transform
 from .policy import Policy
 
@@ -31,6 +35,9 @@ class TrainState:
     model: nn.Module        # the module the parameters belong to
     tx: Transform
     batch_stats: dict = dataclasses.field(default_factory=dict)
+    # Parameters the step hands the model uncast: the fused BatchNorms'
+    # f32 master scale/bias, which round themselves (ops/fused_norm.py).
+    keep: frozenset = frozenset()
 
     def apply_gradients(self, grads: dict,
                         batch_stats: dict | None = None) -> "TrainState":
@@ -50,15 +57,21 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, tx: Transform, *,
-                       policy: Policy | None = None) -> TrainState:
+                       policy: Policy | None = None,
+                       process_group: Any = None) -> TrainState:
     """Cast ``model``'s parameters to the policy's parameter dtype (its
     buffers, the running statistics, stay f32) and wrap them with a fresh
-    optimizer state."""
+    optimizer state; with a ``process_group``, rank 0's state replaces
+    every rank's."""
     policy = policy or Policy()
     for p in model.parameters():
         p.data = p.data.to(policy.param_dtype)
     params = dict(model.named_parameters())
-    return TrainState(step=0, params=params,
-                      opt_state=tx.init(list(params.values())),
-                      model=model, tx=tx,
-                      batch_stats=dict(model.named_buffers()))
+    state = TrainState(step=0, params=params,
+                       opt_state=tx.init(list(params.values())),
+                       model=model, tx=tx,
+                       batch_stats=dict(model.named_buffers()),
+                       keep=frozenset(master_affine_params(model)))
+    if process_group is not None:
+        replicate_state(state, process_group)
+    return state

@@ -17,6 +17,17 @@ memory.  The ResNet's running statistics go into the functional call as
 buffers and its new ones come back in a dict: each microbatch computes
 them from the same old statistics, and the step stores their mean, as
 the JAX step's scan does.  The eval step uses the running statistics.
+The fused BatchNorms' ``scale``/``bias`` (``TrainState.keep``) skip the
+policy's cast (they round themselves, ``ops/fused_norm.py``).
+
+Data parallelism (``process_group``): each rank runs the step on its
+rows of the global batch; the f32 gradient sums, the loss and the
+metrics are averaged over the group by one all-reduce after the
+microbatch loop (``comm.collectives.pmean`` as accumulation's
+``sync_fn``), so the optimizer, its clip included, sees the global
+gradients and the returned metrics are global means.  The ResNet's
+BatchNorms take their statistics over the group (sync-BN), so the new
+running statistics are the same on every rank.
 
 Not yet ported: ``grad_fn`` (pipeline schedules), ``grad_sync`` (the
 explicit two-tier sync), ``anomaly_policy`` and ``state_shardings``; they
@@ -30,6 +41,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..comm import collectives
 from ..ops.losses import chunked_lm_cross_entropy, cross_entropy_loss
 from ..parallel.grad_accum import accumulate_gradients
 from .policy import Policy
@@ -64,13 +76,15 @@ def prepare_image_input(x: torch.Tensor, policy: Policy,
     return x.permute(0, 3, 1, 2)
 
 
-def _image_forward(model, params, batch_stats, image, *, policy,
-                   new_stats: dict | None):
-    """The model on the compute-dtype parameters and the running
-    statistics; in training its new statistics go into ``new_stats``."""
-    tensors = {**policy.cast_to_compute(params), **batch_stats}
+def _image_forward(model, params, batch_stats, image, *, policy, keep,
+                   new_stats: dict | None, group=None):
+    """The model on the compute-dtype parameters (those named in ``keep``
+    as given) and the running statistics; in training its new statistics
+    go into ``new_stats``, over ``group``'s ranks when one is given."""
+    tensors = {**policy.cast_to_compute(params, keep), **batch_stats}
     return torch.func.functional_call(model, tensors, (image,),
-                                      {"new_stats": new_stats})
+                                      {"new_stats": new_stats,
+                                       "group": group})
 
 
 def _accuracy(logits, labels):
@@ -87,13 +101,15 @@ def _lm_head_matrix(params: dict, policy: Policy) -> torch.Tensor:
     return params["wte"].to(policy.compute_dtype)
 
 
-def dropout_generator(seed: int, step: int, microbatch: int) -> torch.Generator:
+def dropout_generator(seed: int, step: int, microbatch: int,
+                      rank: int = 0) -> torch.Generator:
     """The host generator a microbatch's dropout draws from, seeded by
-    (seed, step, microbatch): fresh noise every step, distinct masks per
-    accumulation slice, the same draws on a rerun."""
-    mixed = np.random.SeedSequence([seed, step, microbatch]).generate_state(
-        1, np.uint64
-    )[0]
+    (seed, step, microbatch, rank): fresh noise every step, distinct
+    masks per accumulation slice and per data-parallel rank (whose rows
+    differ), the same draws on a rerun.  JAX draws one mask over the
+    global batch, which no choice of seeds here reproduces bit for bit."""
+    mixed = np.random.SeedSequence(
+        [seed, step, microbatch, rank]).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(mixed))
 
 
@@ -131,6 +147,7 @@ def make_train_step(
     anomaly_policy: Any = None,
     state_shardings: Any = None,
     input_normalize: tuple | None = None,
+    process_group: Any = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``(state, batch) → (state, metrics)``.  ``kind="lm"``: ``batch =
     {"tokens": (B, L)}``, next-token CE, metrics ``{"loss"}``.
@@ -140,22 +157,32 @@ def make_train_step(
     (mean, std) applied to uint8 images on the device.
     ``num_microbatches > 1`` accumulates over that many splits of the
     batch.  ``seed`` (the JAX step's ``base_rng``) seeds dropout per
-    (seed, step, microbatch); without it a model with dropout raises."""
+    (seed, step, microbatch, rank); without it a model with dropout
+    raises.  ``process_group`` (a ``torch.distributed`` group) makes the
+    step data-parallel over its ranks: ``batch`` is this rank's rows
+    (``data.DataLoader`` with ``num_microbatches`` hands out JAX's
+    microbatches), the result the global batch's."""
     _check_kind(kind)
     _not_ported(grad_fn=grad_fn, grad_sync=grad_sync,
                 anomaly_policy=anomaly_policy,
                 state_shardings=state_shardings)
     policy = policy or Policy()
+    sync = None
+    if process_group is not None:
+        def sync(tensors):
+            return collectives.pmean(tensors, process_group)
     if kind == "image_classifier":
         return _image_train_step(policy, num_microbatches, input_normalize,
-                                 label_smoothing)
+                                 label_smoothing, process_group, sync)
+    rank = (torch.distributed.get_rank(process_group)
+            if process_group is not None else 0)
 
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
         drop = model.cfg.dropout_rate > 0.0
 
         def fn(params, mb, i):
-            gen = (dropout_generator(seed, state.step, i)
+            gen = (dropout_generator(seed, state.step, i, rank)
                    if drop and seed is not None else None)
             return _lm_loss(model, params, mb["tokens"], policy=policy,
                             generator=gen, lm_loss_chunk=lm_loss_chunk,
@@ -163,7 +190,7 @@ def make_train_step(
 
         loss, grads = accumulate_gradients(
             fn, state.params, batch, num_microbatches,
-            pass_microbatch_index=True,
+            pass_microbatch_index=True, sync_fn=sync,
         )
         state = state.apply_gradients(grads)
         return state, {"loss": loss}
@@ -172,7 +199,7 @@ def make_train_step(
 
 
 def _image_train_step(policy, num_microbatches, input_normalize,
-                      label_smoothing):
+                      label_smoothing, group, sync):
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
 
@@ -180,7 +207,8 @@ def _image_train_step(policy, num_microbatches, input_normalize,
             image = prepare_image_input(mb["image"], policy, input_normalize)
             new_stats: dict = {}
             logits = _image_forward(model, params, state.batch_stats, image,
-                                    policy=policy, new_stats=new_stats)
+                                    policy=policy, keep=state.keep,
+                                    new_stats=new_stats, group=group)
             loss = cross_entropy_loss(logits, mb["label"],
                                       label_smoothing=label_smoothing)
             return loss, {"accuracy": _accuracy(logits, mb["label"]),
@@ -188,6 +216,7 @@ def _image_train_step(policy, num_microbatches, input_normalize,
 
         (loss, aux), grads = accumulate_gradients(
             fn, state.params, batch, num_microbatches, has_aux=True,
+            sync_fn=sync,
         )
         new_stats = aux.pop("batch_stats")
         state = state.apply_gradients(grads, batch_stats=new_stats)
@@ -216,7 +245,8 @@ def make_eval_step(
             image = prepare_image_input(batch["image"], policy,
                                         input_normalize)
             logits = _image_forward(model, state.params, state.batch_stats,
-                                    image, policy=policy, new_stats=None)
+                                    image, policy=policy,
+                                    keep=state.keep, new_stats=None)
             return {"loss": cross_entropy_loss(logits, batch["label"]),
                     "accuracy": _accuracy(logits, batch["label"])}
         loss = _lm_loss(model, state.params, batch["tokens"], policy=policy,

@@ -8,7 +8,9 @@ state chains into the last loss).  Between log points steps are only
 enqueued, never waited for.  The epoch summary has the JAX trainer's keys:
 ``epoch, step, elapsed_s, examples, examples_per_sec,
 rolling_examples_per_sec, loss``, then the step's other metrics as read at
-the last log point (an image classifier's ``accuracy``).
+the last log point (an image classifier's ``accuracy``).  Under data
+parallelism the batch a rank holds is its share of the global one:
+examples count the global batch, as the JAX trainer's global arrays do.
 
 The telemetry emitter, spans, fault injection, recovery, preemption,
 goodput ledger, profile windows and step checkpoints wait for their
@@ -21,6 +23,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Iterable
 
+from ..comm.init import process_count
 from ..data.loader import prefetch_to_device, to_device
 from ..utils.profiling import StepTimer
 from .state import TrainState
@@ -55,7 +58,8 @@ class Trainer:
         examples = 0
         losses: list[float] = []
         timer = StepTimer()
-        local_batch = 0
+        batch_size = 0
+        world = process_count()
         metrics: dict | None = None
         last_metrics: dict = {}
         step_idx = -1
@@ -63,8 +67,8 @@ class Trainer:
         t0 = time.perf_counter()
         for step_idx, batch in enumerate(it):
             self.state, metrics = self.train_step(self.state, batch)
-            local_batch = int(next(iter(batch.values())).shape[0])
-            examples += local_batch
+            batch_size = int(next(iter(batch.values())).shape[0]) * world
+            examples += batch_size
             timer.tick()  # dispatch rate, no device sync
             if step_idx % cfg.log_every == 0:
                 # The host waits for the device only here.
@@ -84,7 +88,7 @@ class Trainer:
             "elapsed_s": elapsed,
             "examples": examples,
             "examples_per_sec": examples / elapsed if elapsed > 0 else 0.0,
-            "rolling_examples_per_sec": timer.examples_per_sec(local_batch),
+            "rolling_examples_per_sec": timer.examples_per_sec(batch_size),
             "loss": losses[-1] if losses else float("nan"),
             **{k: v for k, v in last_metrics.items() if k != "loss"},
         }

@@ -7,7 +7,10 @@ their counterparts in the port:
 - the output-saving BatchNorm functions (``batch_norm``, ``bn_relu``,
   ``bn_add_relu``): outputs, statistics and grads against the JAX
   ``custom_vjp``s and against the port's plain composition (f32, atol
-  1e-5); the modules' running statistics and eval outputs;
+  1e-5); the modules' running statistics and eval outputs; under the
+  bf16 policy the fused modules' f32 master ``scale``/``bias`` get JAX's
+  unrounded f32 ``dgamma``/``dbeta`` (1e-6 relative) with the forward
+  bit-equal;
 - the space-to-depth stem: the s2d channel order bit-equal to JAX's, the
   convolution against a plain 7x7 stride-2 conv with padding 3 and the
   JAX stem (atol 1e-5);
@@ -225,6 +228,53 @@ def test_bn_modules_match_jax(name):
     m.eval()
     np.testing.assert_allclose(_nhwc(m(*targs)), np.asarray(y_ref),
                                atol=1e-5, err_msg=f"{name} eval")
+
+
+_FUSED = {"bn_relu": tfn.FusedBNRelu, "batch_norm": tfn.FusedBN,
+          "bn_add_relu": tfn.FusedBNAddRelu}
+
+
+@pytest.mark.parametrize("name", sorted(_FUSED))
+def test_bf16_master_affine_grads_reach_the_master_as_jax_sums(name):
+    """Under the bf16 policy the step's cast keeps the fused norms' f32
+    master ``scale``/``bias`` (``master_affine_params``): the forward is
+    bit-equal to JAX's on the bf16-cast gamma/beta, and ``dgamma``/
+    ``dbeta`` reach the f32 master as JAX's ``custom_vjp`` sums, within
+    1e-6 of their largest entry.  Rounded to bf16 on the way (as autograd
+    rounds a gradient to a bf16 input's dtype) they are ~1e-3 off."""
+    bf16 = jnp.bfloat16
+    x, g, b, r, dy = _bn_inputs(seed=4)
+    g[2] = 0.8                   # away from the clamp: a sum, not a limit
+    xb, rb, dyb = (jnp.asarray(a).astype(bf16) for a in (x, r, dy))
+    fn = _jax_fn(name)
+    y_ref, vjp = jax.vjp(
+        lambda gg, bb: fn(xb, rb, gg.astype(bf16), bb.astype(bf16))[0],
+        jnp.asarray(g), jnp.asarray(b))
+    dg_ref, db_ref = (np.asarray(v) for v in vjp(dyb))
+    assert dg_ref.dtype == np.float32
+
+    module = _FUSED[name](g.shape[0]).train()
+    master = {"scale": torch.tensor(g, requires_grad=True),
+              "bias": torch.tensor(b, requires_grad=True)}
+    keep = tfn.master_affine_params(module)
+    assert keep == {"scale", "bias"}
+    tensors = make_policy("bf16").cast_to_compute(master, keep)
+
+    def port(a):
+        return _nchw(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+
+    args = (port(xb), port(rb)) if name == "bn_add_relu" else (port(xb),)
+    y = torch.func.functional_call(module, tensors, args)
+    dg, db = torch.autograd.grad(y, (master["scale"], master["bias"]),
+                                 port(dyb))
+    np.testing.assert_array_equal(
+        _nhwc(y.detach().float()), np.asarray(y_ref.astype(jnp.float32)))
+    for got, ref in ((dg, dg_ref), (db, db_ref)):
+        assert got.dtype == torch.float32
+        scale = np.abs(ref).max()
+        assert np.abs(got.numpy() - ref).max() <= 1e-6 * scale
+        rounded = got.to(torch.bfloat16).float().numpy()
+        assert np.abs(rounded - ref).max() > 1e-4 * scale
 
 
 # --- the space-to-depth stem ------------------------------------------------
