@@ -43,7 +43,18 @@ the port's main paths:
   epochs of 8 steps, the flash launches counted in the rank, which runs
   this script as ``--cli-leg OUT ARGV...``), D3 two ranks on the one card
   over gloo (a shallow ResNet and a 2-layer GPT-2, f32, TF32 off, 3
-  steps): the ranks bit-identical and within 1e-4 of one process.
+  steps): the ranks bit-identical and within 1e-4 of one process;
+- ViT-B/16 (BASELINE configs[2]) on packed ImageNet-format records of
+  random bytes written by the port's ``synthesize_packed_images``: V1
+  the CLI at full width (224 px, 1000 classes, bf16, batch 128, adamw,
+  40 steps; the native uint8 crop counted; images/s, step time, analytic
+  MFU, peak memory), V2 V1 with ``--distributed`` (one NCCL rank, one
+  gradient ``pmean`` a step and no other all-reduce), V3 the ``auto``
+  layout under ``PDT_FORCE_ATTN=flash`` (the flash kernels at L 197,
+  launches counted exactly) timed in turns against the default ``bhld2``
+  layout and ``auto`` under ``PDT_FORCE_ATTN=xla``, V4 a shallow f32 ViT
+  three steps card against host (TF32 off), and R2p R2's ResNet-50
+  command reading the same packed file.
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -56,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -109,6 +121,10 @@ FLASH_SHAPES = {
     "C": {"batch": 2, "seq": 1024, "heads": 25, "fwd": 1, "bwd": 7},
     "D": {"batch": 2, "seq": 2048, "heads": 12, "fwd": 6, "bwd": 8},
 }
+# The TPU rows JAX's flash_attention takes for ViT-B/16's L 197 (padded to
+# 256, heads-fused single tile): #2 forward, #3 backward
+# (tests/test_torch_vit.py pins the routing).
+VIT_FLASH_ROWS = (2, 3)
 SERVE_ARGV = ["--serve", "--model", "gpt2", "--precision", "bf16",
               "--seq-len", "512", "--serve-requests", "16",
               "--serve-slots", "8", "--serve-max-new", "64",
@@ -752,7 +768,8 @@ def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
     """The flash forward (out, LSE) and backward (dq, dk, dv from a seeded
     dO) against their plain versions on the card, at the four training
     shapes A-D in bf16 (timed) and at shape B in f32, a causal cross
-    length (q 256, k 1024) and the non-causal L 197.  Tolerances: f32 out
+    length (q 256, k 1024) and the non-causal L 197 (batch 4, and V3's
+    ViT-B/16 batch 128 in bf16).  Tolerances: f32 out
     and LSE atol 2e-5, grads 2e-4 (the JAX tests' own); bf16 out, LSE and
     grads 2e-2 + 2e-2 |ref|: both sides round the same f32 p and ds to
     bf16 except where their f32 sums differ in the last bit across a
@@ -773,7 +790,9 @@ def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
               ("cross-length", 2, 256, 1024, 12, True, torch.float32),
               ("cross-length", 2, 256, 1024, 12, True, torch.bfloat16),
               ("L197 non-causal", 4, 197, 197, 12, False, torch.float32),
-              ("L197 non-causal", 4, 197, 197, 12, False, torch.bfloat16)]
+              ("L197 non-causal", 4, 197, 197, 12, False, torch.bfloat16),
+              ("V3 L197 non-causal", 128, 197, 197, 12, False,
+               torch.bfloat16)]
     rows = {}
     for label, batch, q_len, k_len, heads, causal, dtype in cases:
         q, k, v, do = _flash_inputs(torch, batch, q_len, k_len, heads, dtype,
@@ -1303,19 +1322,10 @@ def resnet_parity_phase(torch, seed: int) -> None:
     pool's argmax is discontinuous, and a near-tie that the card's
     rounding tips the other way sends a gradient element elsewhere, which
     the three steps then amplify."""
-    import copy
-
-    import numpy as np
     import torch.nn.functional as F
 
-    from pytorch_distributed_training_tpu_torch.cli.main import (
-        build_optimizer,
-    )
     from pytorch_distributed_training_tpu_torch.models import resnet
     from pytorch_distributed_training_tpu_torch.ops.s2d_stem import s2d_conv
-    from pytorch_distributed_training_tpu_torch.train import (
-        create_train_state, make_policy, make_train_step,
-    )
 
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1335,46 +1345,69 @@ def resnet_parity_phase(torch, seed: int) -> None:
         print(f"image R4 s2d stem (224 px, f32): card vs the plain 7x7/s2 "
               f"conv {err_plain:.3g}, vs the host {err_host:.3g} (1e-5)",
               flush=True)
-        steps = 3
         host_model = resnet.resnet18(
             10, {"stage_sizes": (1, 1), "small_stem": True}, device="cpu",
             seed=seed)
-        card_model = copy.deepcopy(host_model).to("cuda")
-        rng = np.random.default_rng(seed)
-        batches = [(rng.random((32, 32, 32, 3), np.float32),
-                    rng.integers(0, 10, 32).astype(np.int32))
-                   for _ in range(steps)]
-        policy = make_policy("f32")
-        results = {}
-        for where, model in (("host", host_model), ("card", card_model)):
-            dev = next(model.parameters()).device
-            state = create_train_state(
-                model, build_optimizer("sgd", 0.05, weight_decay=1e-3),
-                policy=policy)
-            step = make_train_step(kind="image_classifier", policy=policy,
-                                   num_microbatches=2)
-            losses = []
-            for x, y in batches:
-                state, m = step(state, {
-                    "image": torch.from_numpy(x).to(dev),
-                    "label": torch.from_numpy(y).to(dev)})
-                losses.append(float(m["loss"]))
-            results[where] = (losses, {
-                k: v.detach().cpu() for k, v in
-                {**state.params, **state.batch_stats}.items()})
+        cl, loss_err, name, err = card_host_steps(torch, host_model, 32, 32,
+                                                  seed, "R4")
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+    print(f"image R4 (shallow f32 ResNet, CIFAR stem, 3 sgd steps, card vs "
+          f"host, TF32 off): losses {[round(x, 6) for x in cl]}, max loss diff "
+          f"{loss_err:.3g} (1e-4), max weight/statistic diff "
+          f"{err:.3g} at {name} (1e-4)", flush=True)
+
+
+def card_host_steps(torch, host_model, batch: int, size: int, seed: int,
+                    tag: str) -> tuple:
+    """Three f32 sgd steps (lr 0.05, wd 1e-3, 2 microbatches) of a
+    10-class ``host_model`` on the host and of its copy on the card from
+    the same weights, on seeded batches of ``batch`` ``size``-px images;
+    fails unless losses, weights and running statistics agree within
+    1e-4.  Returns (card losses, max loss difference, the name of the
+    tensor that differs most, its difference)."""
+    import copy
+
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    card_model = copy.deepcopy(host_model).to("cuda")
+    rng = np.random.default_rng(seed)
+    batches = [(rng.random((batch, size, size, 3), np.float32),
+                rng.integers(0, 10, batch).astype(np.int32))
+               for _ in range(3)]
+    policy = make_policy("f32")
+    results = {}
+    for where, model in (("host", host_model), ("card", card_model)):
+        dev = next(model.parameters()).device
+        state = create_train_state(
+            model, build_optimizer("sgd", 0.05, weight_decay=1e-3),
+            policy=policy)
+        step = make_train_step(kind="image_classifier", policy=policy,
+                               num_microbatches=2)
+        losses = []
+        for x, y in batches:
+            state, m = step(state, {"image": torch.from_numpy(x).to(dev),
+                                    "label": torch.from_numpy(y).to(dev)})
+            losses.append(float(m["loss"]))
+        results[where] = (losses, {
+            k: v.detach().cpu() for k, v in
+            {**state.params, **state.batch_stats}.items()})
     (hl, hp), (cl, cp) = results["host"], results["card"]
     loss_err = max(abs(a - b) for a, b in zip(hl, cl))
     worst = {k: (cp[k] - v).abs().max().item() for k, v in hp.items()}
     name = max(worst, key=worst.get)
-    check(loss_err <= 1e-4, f"R4: losses {cl} vs host {hl}")
+    check(loss_err <= 1e-4, f"{tag}: losses {cl} vs host {hl}")
     check(worst[name] <= 1e-4,
-          f"R4: max weight/statistic difference {worst[name]:.3g} ({name})")
-    print(f"image R4 (shallow f32 ResNet, CIFAR stem, 3 sgd steps, card vs "
-          f"host, TF32 off): losses {[round(x, 6) for x in cl]}, max loss diff "
-          f"{loss_err:.3g} (1e-4), max weight/statistic diff "
-          f"{worst[name]:.3g} at {name} (1e-4)", flush=True)
+          f"{tag}: max weight/statistic difference {worst[name]:.3g} "
+          f"({name})")
+    return cl, loss_err, name, worst[name]
 
 
 def torchrun(repo: str, nproc: int, argv: list, timeout: float) -> str:
@@ -1382,26 +1415,40 @@ def torchrun(repo: str, nproc: int, argv: list, timeout: float) -> str:
     ranks, in its own session: on a failure or at the time limit every
     process it started is killed.  Returns its stdout; a non-zero exit
     fails the run."""
-    import signal
+    return torchrun_wait(torchrun_start(repo, nproc, argv), argv, timeout)
 
-    proc = subprocess.Popen(
+
+def torchrun_start(repo: str, nproc: int, argv: list):
+    """Start ``torchrun`` (see ``torchrun``) without waiting for it."""
+    return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", str(nproc), *argv], cwd=repo,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
+
+
+def torchrun_wait(proc, argv: list, timeout: float) -> str:
+    """Wait for a ``torchrun_start`` process (see ``torchrun``)."""
     try:
         out, err = proc.communicate(timeout=timeout)
     finally:
         if proc.poll() is None or proc.returncode != 0:
-            try:
-                os.killpg(proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            proc.wait()
+            torchrun_kill(proc)
     check(proc.returncode == 0,
           f"torchrun {' '.join(argv[:3])}: exit {proc.returncode}\n"
           f"{out[-4000:]}\n{err[-4000:]}")
     return out
+
+
+def torchrun_kill(proc) -> None:
+    """Kill every process of a ``torchrun_start`` session."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
 
 
 def _records(path: str) -> list:
@@ -1533,30 +1580,27 @@ def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
           f"dq {n['dq']} dkv {n['dkv']}; {time.monotonic() - t0:.1f} s",
           flush=True)
 
+    # D3: both pairs of ranks start at once; the one-process references
+    # are computed while they run.
+    legs = {"resnet": (["--batch", "32", "--image-size", "32",
+                        "--small-stem", "--filters", "64"],
+                       dict(batch=32, size=32, small_stem=True, filters=64)),
+            "gpt2": (["--batch", "8"], dict(batch=8, size=0))}
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    procs = {}
     try:
-        for model, extra, kw in (
-                ("resnet", ["--batch", "32", "--image-size", "32",
-                            "--small-stem", "--filters", "64"],
-                 dict(batch=32, size=32, small_stem=True, filters=64)),
-                ("gpt2", ["--batch", "8"], dict(batch=8, size=0))):
-            t0 = time.monotonic()
-            out = os.path.join(out_dir, f"d3_{model}")
-            torchrun(repo, 2, ["-m", DP_CHECK, "--model", model, "--device",
-                               "cuda", "--backend", "gloo", "--out", out,
-                               "--seed", str(seed), *extra], timeout=180)
-            ranks = []
-            for r in range(2):
-                with open(os.path.join(out, f"rank{r}.json")) as f:
-                    ranks.append(json.load(f))
-                ranks[r]["params"] = dict(np.load(
-                    os.path.join(out, f"rank{r}.npz")))
-            check(ranks[0]["checksums"] == ranks[1]["checksums"]
-                  and ranks[0]["losses"] == ranks[1]["losses"],
-                  f"D3 {model}: the two ranks bit-identical after every step")
+        for model, (extra, _) in legs.items():
+            argv = ["-m", DP_CHECK, "--model", model, "--device", "cuda",
+                    "--backend", "gloo", "--out",
+                    os.path.join(out_dir, f"d3_{model}"), "--seed",
+                    str(seed), *extra]
+            procs[model] = (torchrun_start(repo, 2, argv), argv)
+        refs = {}
+        for model, (_, kw) in legs.items():
             ref_model = dp_check.build_model(
                 model, torch.device("cuda"), seed=seed,
                 small_stem=kw.get("small_stem", False),
@@ -1567,10 +1611,25 @@ def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
             losses, _, state = dp_check.run_steps(
                 model, ref_model, batches, accum=dp_check.ACCUM,
                 device="cuda")
+            refs[model] = losses, {
+                k: v.detach().cpu().numpy() for k, v in
+                {**state.params, **state.batch_stats}.items()}
+        for model in legs:
+            proc, argv = procs.pop(model)
+            torchrun_wait(proc, argv, timeout=180)
+            out = os.path.join(out_dir, f"d3_{model}")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+                ranks[r]["params"] = dict(np.load(
+                    os.path.join(out, f"rank{r}.npz")))
+            check(ranks[0]["checksums"] == ranks[1]["checksums"]
+                  and ranks[0]["losses"] == ranks[1]["losses"],
+                  f"D3 {model}: the two ranks bit-identical after every step")
+            losses, ref = refs[model]
             loss_err = max(abs(a - b)
                            for a, b in zip(losses, ranks[0]["losses"]))
-            ref = {k: v.detach().cpu().numpy() for k, v in
-                   {**state.params, **state.batch_stats}.items()}
             worst, key_bias = {}, 0.0
             for k, v in ref.items():
                 d = np.abs(ranks[0]["params"][k] - v)
@@ -1592,11 +1651,318 @@ def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
                   f"statistic diff {worst[name]:.3g} at {name} (1e-4)"
                   + (f", key bias {key_bias:.3g} (Adam's bound 1.8e-3)"
                      if model == "gpt2" else "")
-                  + f"; {time.monotonic() - t0:.1f} s", flush=True)
+                  + f"; {time.monotonic() - t0:.1f} s since both pairs "
+                  "started", flush=True)
     finally:
+        for proc, _ in procs.values():   # a check failed: stop the rest
+            torchrun_kill(proc)
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
     return {4: n["fwd"], 5: n["dq"] + n["dkv"]}
+
+
+# Packed records for the ViT legs: 232 px (the pack size a 224 crop is
+# taken from), 1000 classes; 1024 records are one 8-step epoch at batch
+# 128 (165 MB, written at each run under build/chip_smoke/vit/).
+VIT_RECORDS, VIT_RECORD_SIZE = 1024, 232
+VIT_STEPS = VIT_RECORDS // 128    # a V1 epoch; V1, V2 and R2p run two
+
+
+def vit_argv(path: str) -> list:
+    """V1: ViT-B/16 at full width through the CLI, DeiT's per-GPU batch
+    and lr rule (5e-4 x global batch / 512, not rescaled here)."""
+    return ["--model", "vit_b16", "--dataset", f"packed-images:{path}",
+            "--image-size", "224", "--precision", "bf16", "--batch-size",
+            "128", "--optimizer", "adamw", "--learning-rate", "5e-4",
+            "--weight-decay", "0.05", "--grad-clip", "1.0", "--epochs", "2",
+            "--steps-per-epoch", str(VIT_STEPS)]
+
+
+def vit_forward_flops(cfg, image_size: int) -> float:
+    """Forward flops of one image, 2 per multiply-add: per token and
+    layer 24 D^2 (qkv, proj, the 4D MLP) + 4 L D (scores and their
+    product with v), the patch convolution and the head; norms, GELU and
+    softmax not counted."""
+    d, p = cfg.hidden_dim, cfg.patch_size
+    patches = (-(-image_size // p)) ** 2
+    tokens = patches + 1
+    layers = cfg.depth * tokens * (8 * d * d + 4 * d * cfg.mlp_dim
+                                   + 4 * tokens * d)
+    return float(layers + 2 * patches * 3 * p * p * d
+                 + 2 * d * cfg.num_classes)
+
+
+def vit_phase(torch, fa, seed: int, repo: str, figures: dict) -> dict:
+    """The ViT path (BASELINE configs[2]) on packed records: V1 through
+    the CLI, V2 with ``--distributed``, V3 forced flash against the
+    kernel-free layouts, V4 card against host, R2p ResNet-50 on the same
+    records.  Returns V3's launches by row."""
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.data import (
+        native, synthesize_packed_images,
+    )
+
+    out_dir = os.path.join(repo, "build", "chip_smoke", "vit")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "train.pck")
+    t0 = time.monotonic()
+    synthesize_packed_images(path, n=VIT_RECORDS, size=VIT_RECORD_SIZE,
+                             num_classes=1000, seed=seed)
+    # Without a sidecar the classes are 0..max label, which 1024 random
+    # labels may leave short of 1000; pack_image_folder writes one too.
+    with open(path + ".classes", "w") as f:
+        f.write("\n".join(str(i) for i in range(1000)))
+    print(f"vit records: {VIT_RECORDS} x {VIT_RECORD_SIZE} px, 1000 "
+          f"classes, {os.path.getsize(path) / 1e6:.1f} MB written in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    # V1: the CLI at full width; every step's loss recorded.
+    step_losses: list = []
+    original = _recording_steps(step_losses)
+    native.crop_resize_flip_u8.calls = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = cli(vit_argv(path) + ["--seed", str(seed)])
+    finally:
+        import pytorch_distributed_training_tpu_torch.train as train
+        train.make_train_step = original
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    crops = native.crop_resize_flip_u8.calls
+    losses = [float(x) for x in step_losses]
+    steps = 2 * VIT_STEPS
+    check(trainer.state.step == steps and len(losses) == steps,
+          f"V1: {steps} steps")
+    check(_finite(losses), f"V1: losses finite ({losses})")
+    # At init the head's lecun-normal logits have variance ~1 over the
+    # unit-variance final LayerNorm output, so the first loss sits near
+    # ln 1000 + 1/2 (the log-sum-exp of 1000 unit normals), not ln 1000.
+    check(abs(losses[0] - (math.log(1000) + 0.5)) < 0.5,
+          f"V1: first loss {losses[0]:.4f} near ln 1000 + 1/2 = 7.41")
+    check(all(p.is_cuda for p in trainer.state.params.values()),
+          "V1: parameters on the card")
+    check(crops == steps, f"V1: native uint8 crops {crops}, one a step")
+    img_s, step_ms = _warm_epoch_line(trainer, VIT_STEPS)
+    cfg = trainer.state.model.cfg
+    fwd = vit_forward_flops(cfg, 224)
+    mfu = 3 * fwd * img_s / 989e12
+    figures["V1"] = (img_s, step_ms)
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    check(n_params == 86_567_656, f"V1: ViT-B/16 at 224 px with 1000 "
+          f"classes has 86,567,656 parameters ({n_params})")
+    print(f"vit V1 (ViT-B/16, 224 px, 1000 classes, bf16, batch 128, adamw "
+          f"lr 5e-4 wd 0.05 clip 1.0, packed uint8 records): {steps} steps, "
+          f"{n_params} params, losses first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f}; warm epoch {img_s:.1f} images/s, step "
+          f"{step_ms:.1f} ms, peak memory {peak_gb:.2f} GB, MFU "
+          f"{mfu * 100:.2f} % ({fwd / 1e9:.2f} GFLOP forward an image, x3 "
+          f"trained, 989 TF/s dense bf16); native u8 crops {crops}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # V2: V1 with --distributed, one NCCL rank.
+    t0 = time.monotonic()
+    script = os.path.join(repo, "chip_smoke.py")
+    metrics = os.path.join(out_dir, "v2.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    counts = os.path.join(out_dir, "v2_calls.json")
+    out = torchrun(repo, 1, [script, "--cli-leg", counts, *vit_argv(path),
+                             "--distributed", "--seed", str(seed),
+                             "--metrics-jsonl", metrics], timeout=300)
+    check("Process group initialized - WORLD_SIZE: 1, RANK: 0" in out
+          and "process 0/1 | backend=cuda | devices=1" in out,
+          "V2: the CLI joined a one-rank group on the card")
+    with open(counts) as f:
+        n = json.load(f)
+    recs = _records(metrics)
+    check(n["steps"] == steps and len(recs) == 2
+          and _finite([r["loss"] for r in recs]),
+          f"V2: {steps} steps, finite losses ({recs})")
+    check(n["comm"] == {"psum": steps, "pmean": steps},
+          f"V2: one gradient pmean a step and no other all-reduce "
+          f"({n['comm']})")
+    check(n["fwd"] == n["dq"] == n["dkv"] == 0
+          and not any(n["plain"].values()) and not any(n["xla"].values()),
+          f"V2: the bhld2 layout reaches no attention entry ({n})")
+    v2_img_s = recs[-1]["examples_per_sec"]
+    print(f"vit V2 (V1 with --distributed, NCCL world 1): warm epoch "
+          f"{v2_img_s:.1f} images/s, step "
+          f"{recs[-1]['elapsed_s'] / VIT_STEPS * 1e3:.1f} ms; V1 in this "
+          f"call {img_s:.1f} images/s ({v2_img_s / img_s:.3f}x); "
+          f"{n['comm']['pmean']} gradient pmeans, "
+          f"{n['comm']['psum'] - n['comm']['pmean']} other all-reduces; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    launches = vit_flash_turns(torch, fa, seed)
+    vit_parity_phase(torch, seed)
+
+    # R2p: R2's ResNet-50 command on the same records (uint8, native crop).
+    argv = list(R2_ARGV)
+    argv[argv.index("synthetic-images")] = f"packed-images:{path}"
+    argv[argv.index("--steps-per-epoch") + 1] = str(VIT_STEPS)
+    native.crop_resize_flip_u8.calls = 0
+    trainer = cli(argv + ["--seed", str(seed)])
+    calls = native.crop_resize_flip_u8.calls
+    check(trainer.state.step == steps and calls == steps
+          and _finite(trainer.last_epoch_losses),
+          f"R2p: {steps} steps, finite losses, {steps} native crops "
+          f"({calls})")
+    r2p_img_s, r2p_ms = _warm_epoch_line(trainer, VIT_STEPS)
+    r2_img_s, r2_ms = figures["R2"]
+    print(f"image R2p (R2's ResNet-50 command on the packed uint8 records): "
+          f"{steps} steps, warm epoch {r2p_img_s:.1f} images/s, step "
+          f"{r2p_ms:.1f} ms; R2 (synthetic f32 images, 6 workers) in this "
+          f"call {r2_img_s:.1f} images/s, {r2_ms:.1f} ms "
+          f"({r2p_img_s / r2_img_s:.3f}x)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+VIT_TURN_STEPS = 5        # steps a V3 turn; each variant runs two turns
+
+
+def vit_flash_turns(torch, fa, seed: int) -> dict:
+    """V3: ViT-B/16 built through the API with the ``auto`` layout, bf16,
+    batch 128, 224 px, adamw, on uint8 batches already on the card.
+    Three variants in turns (flash, bhld2, xla, xla, bhld2, flash; 5 steps
+    each, after 2 warm-up steps each): ``auto`` under
+    ``PDT_FORCE_ATTN=flash`` (the flash kernels at L 197), the default
+    ``bhld2`` layout (no attention entry), ``auto`` under
+    ``PDT_FORCE_ATTN=xla`` (the plain attention).  The flash turns must
+    launch the forward, dq and dk/dv kernels once a layer a step each and
+    run no attention outside them.  Returns the launches by row."""
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.data.transforms import (
+        IMAGENET_MEAN, IMAGENET_STD,
+    )
+    from pytorch_distributed_training_tpu_torch.models import create_model
+    from pytorch_distributed_training_tpu_torch.ops import attention as attn
+    from pytorch_distributed_training_tpu_torch.tools.train_profile import (
+        VIT_ATTN, set_attn,
+    )
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    policy = make_policy("bf16")
+    model = create_model("vit_b16", image_size=224, seed=seed,
+                         cfg_overrides={"attn_layout": "auto"})
+    state = create_train_state(
+        model, build_optimizer("adamw", 5e-4, weight_decay=0.05,
+                               grad_clip=1.0), policy=policy)
+    step = make_train_step(kind="image_classifier", policy=policy,
+                           input_normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [{"image": torch.randint(0, 256, (128, 224, 224, 3),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.uint8),
+                "label": torch.randint(0, 1000, (128,), generator=gen,
+                                       device="cuda")} for _ in range(2)]
+    entries = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plain = {"flash_fwd_plain": 0, "_bwd_tiles": 0, "flash_bwd_plain": 0}
+    xla = {"_xla_attention": 0, "_xla_attention_remat": 0}
+    saved = (_count_calls(fa, list(plain), plain),
+             _count_calls(attn, list(xla), xla))
+    env = os.environ.get("PDT_FORCE_ATTN")
+    times: dict = {k: [] for k in VIT_ATTN}
+    losses = []
+
+    def run(name, n):
+        nonlocal state
+        set_attn(model, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, metrics = step(state, batches[i % 2])
+        losses.append(float(metrics["loss"]))   # waits for the device
+        return (time.perf_counter() - t0) / n * 1e3
+
+    try:
+        for name in ("flash", "bhld2", "xla"):
+            run(name, 2)
+        for e in entries:
+            e.launches = 0
+        for c in (plain, xla):
+            for k in c:
+                c[k] = 0
+        # As timeit does: no garbage collection inside the timed turns
+        # (a full pass over the objects of the earlier phases otherwise
+        # lands in one of them).
+        gc.collect()
+        gc.disable()
+        for name in ("flash", "bhld2", "xla", "xla", "bhld2", "flash"):
+            before = [e.launches for e in entries] + [sum(xla.values())]
+            times[name].append(run(name, VIT_TURN_STEPS))
+            after = [e.launches for e in entries] + [sum(xla.values())]
+            moved = [a - b for a, b in zip(after, before)]
+            want = {"flash": [12 * VIT_TURN_STEPS] * 3 + [0],
+                    "bhld2": [0, 0, 0, 0],
+                    "xla": [0, 0, 0, 12 * VIT_TURN_STEPS]}[name]
+            check(moved == want, f"V3 {name} turn: flash fwd/dq/dkv and "
+                  f"plain attention calls {moved}, expected {want}")
+        n_fwd, n_dq, n_dkv = (e.launches for e in entries)
+    finally:
+        gc.enable()
+        for module, originals in zip((fa, attn), saved):
+            for name, fn in originals.items():
+                setattr(module, name, fn)
+        if env is None:
+            os.environ.pop("PDT_FORCE_ATTN", None)
+        else:
+            os.environ["PDT_FORCE_ATTN"] = env
+    flash_steps = 2 * VIT_TURN_STEPS
+    want = 12 * flash_steps
+    check(n_fwd == n_dq == n_dkv == want,
+          f"V3: flash launches fwd {n_fwd} dq {n_dq} dkv {n_dkv}, expected "
+          f"{want} each (12 layers x {flash_steps} steps x 1 microbatch)")
+    check(not any(plain.values()), f"V3: plain flash versions ran {plain}")
+    check(_finite(losses), f"V3: losses finite ({losses})")
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"vit V3 (ViT-B/16 through the API, bf16, batch 128, 224 px, "
+          f"batches on the card, turns flash/bhld2/xla/xla/bhld2/flash of "
+          f"{VIT_TURN_STEPS} steps): step ms flash (auto, PDT_FORCE_ATTN="
+          f"flash, #{VIT_FLASH_ROWS[0]}/#{VIT_FLASH_ROWS[1]}) "
+          f"{ms['flash']:.2f} {times['flash']}, bhld2 (default) "
+          f"{ms['bhld2']:.2f} {times['bhld2']}, xla (auto, PDT_FORCE_ATTN="
+          f"xla) {ms['xla']:.2f} {times['xla']}; flash / bhld2 "
+          f"{ms['flash'] / ms['bhld2']:.3f}; launches fwd {n_fwd} dq {n_dq} "
+          f"dkv {n_dkv}, plain attention {sum(xla.values())} calls in the "
+          f"xla turns only", flush=True)
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return {VIT_FLASH_ROWS[0]: n_fwd, VIT_FLASH_ROWS[1]: n_dq + n_dkv}
+
+
+def vit_parity_phase(torch, seed: int) -> None:
+    """V4, TF32 off: a shallow f32 ViT (2 layers, width 64, 4 heads, MLP
+    128, 32 px, 10 classes) trains 3 sgd steps of batch 8 in 2
+    microbatches on the card and on the host from the same weights:
+    losses and weights within 1e-4."""
+    from pytorch_distributed_training_tpu_torch.models import create_model
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        host_model = create_model(
+            "vit_b16", num_classes=10, image_size=32, device="cpu",
+            seed=seed, cfg_overrides={"depth": 2, "hidden_dim": 64,
+                                      "num_heads": 4, "mlp_dim": 128})
+        cl, loss_err, name, err = card_host_steps(torch, host_model, 8, 32,
+                                                  seed, "V4")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    print(f"vit V4 (shallow f32 ViT, 32 px, 3 sgd steps in 2 microbatches, "
+          f"card vs host, TF32 off): losses {[round(x, 6) for x in cl]}, "
+          f"max loss diff {loss_err:.3g} (1e-4), max weight diff "
+          f"{err:.3g} at {name} (1e-4)", flush=True)
 
 
 def main() -> int:
@@ -1653,23 +2019,41 @@ def main() -> int:
             check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
                       for ln in spills), "no decode kernel instance spills")
 
-    flash = flash_kernel_phase(torch, fa, args.seed, bandwidth)
-    kernels = kernel_phase(torch, da, args.seed, bandwidth)
-    kernels.update(paged_kernel_phase(torch, pa, args.seed, bandwidth))
-    parity_phase(torch, args.seed)
-    train_parity_phase(torch, fa, args.seed)
-    _, launches = serving_phase(torch, da, args.seed)
-    launches.update(paged_serving_phase(torch, da, pa, args.seed))
+    seconds: dict = {"build": time.monotonic() - t0}
+
+    def timed(name, phase, *a):
+        t0 = time.monotonic()
+        out = phase(*a)
+        seconds[name] = time.monotonic() - t0
+        return out
+
+    flash = timed("flash", flash_kernel_phase, torch, fa, args.seed,
+                  bandwidth)
+    kernels = timed("decode", kernel_phase, torch, da, args.seed, bandwidth)
+    kernels.update(timed("paged", paged_kernel_phase, torch, pa, args.seed,
+                         bandwidth))
+    timed("parity", parity_phase, torch, args.seed)
+    timed("train parity", train_parity_phase, torch, fa, args.seed)
+    _, launches = timed("serving", serving_phase, torch, da, args.seed)
+    launches.update(timed("paged serving", paged_serving_phase, torch, da,
+                          pa, args.seed))
     for kname, n in launches.items():
         kernels[kname]["launches"] = n
-    prefix_phase(torch, args.seed)
-    generate_phase(torch, da, args.seed)
+    timed("prefix", prefix_phase, torch, args.seed)
+    timed("generate", generate_phase, torch, da, args.seed)
     figures: dict = {}
-    for num, n in training_phase(torch, fa, args.seed, figures).items():
+    for num, n in timed("training", training_phase, torch, fa, args.seed,
+                        figures).items():
         flash[num]["launches"] = n
-    image_phase(torch, args.seed, repo, figures)
-    for num, n in dp_phase(torch, args.seed, repo, figures).items():
+    timed("image", image_phase, torch, args.seed, repo, figures)
+    for num, n in timed("dp", dp_phase, torch, args.seed, repo,
+                        figures).items():
         flash[num]["launches"] += n
+    for num, n in timed("vit", vit_phase, torch, fa, args.seed, repo,
+                        figures).items():
+        flash[num]["launches"] += n
+    print("phases: " + ", ".join(f"{k} {v:.1f} s"
+                                 for k, v in seconds.items()), flush=True)
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     rows = [flash[num] for num in sorted(flash)] + list(kernels.values())

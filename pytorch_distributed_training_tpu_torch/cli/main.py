@@ -12,7 +12,15 @@ batch 32, adam, lr 0.1) on CUDA; ``--use-cpu`` runs on the host;
         --batch-size 16 --accum-steps 2 --optimizer adamw
 
 trains GPT-2; ``--serve`` serves instead (add ``--serve-paged
-[--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool).
+[--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool);
+
+    python -m pytorch_distributed_training_tpu_torch.cli.main \
+        --model vit_b16 --dataset packed-images:train.pck --image-size 224 \
+        --precision bf16 --batch-size 128 --optimizer adamw \
+        --learning-rate 5e-4 --weight-decay 0.05 --grad-clip 1.0
+
+trains ViT-B/16 on packed ImageNet-format records (``imagefolder:<root>``
+reads a class-folder tree instead).
 
     python -m torch.distributed.run --nproc_per_node 2 \
         -m pytorch_distributed_training_tpu_torch.cli.main --distributed ...
@@ -20,9 +28,8 @@ trains GPT-2; ``--serve`` serves instead (add ``--serve-paged
 trains data-parallel, one process per GPU (``--use-cpu``: gloo on the
 host); ``--batch-size`` stays global.  Checkpoints are not ported yet, so
 the server runs fresh-init weights drawn from ``--seed``.  Not ported
-yet: tensor, pipeline and sequence parallelism, the ViTs,
-``imagefolder:`` and ``packed-images:``, ``--device-cache``, checkpoint
-and resume, telemetry and resilience.
+yet: tensor, pipeline and sequence parallelism, the MoE GPT-2,
+``--device-cache``, checkpoint and resume, telemetry and resilience.
 """
 
 from __future__ import annotations
@@ -63,8 +70,8 @@ def _parse_overrides(text: str | None) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pytorch_distributed_training_tpu_torch.cli.main",
-        description="ResNet and GPT-2 training and continuous-batching "
-                    "serving on CUDA (PyTorch port).",
+        description="ResNet, ViT and GPT-2 training and "
+                    "continuous-batching serving on CUDA (PyTorch port).",
     )
     p.add_argument("--use-cpu", action="store_true",
                    help="Run on the host instead of the CUDA device.")
@@ -74,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the host).")
     p.add_argument("--data-dir", default="./data", help="Dataset root.")
     p.add_argument("--model", default="resnet18",
-                   help="resnet18|resnet50|gpt2|... (the registry's names)")
+                   help="resnet18|resnet50|vit_b16|gpt2|... (the registry's "
+                        "names)")
     p.add_argument("--model-overrides", default=None,
                    help="Comma-separated config overrides, e.g. "
                         "'num_layers=2,hidden_dim=64,vocab_size=512'.")
@@ -87,13 +95,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "per finished request (--serve) here.")
     # --- training (the JAX CLI's flags and defaults) ---
     p.add_argument("--dataset", default="cifar10",
-                   help="cifar10|shapes|synthetic-images|synthetic-tokens|"
-                        "token-file:<path> (imagefolder: and packed-images: "
-                        "are not ported yet).")
+                   help="cifar10|shapes|synthetic-images|"
+                        "imagefolder:<root>|packed-images:<path>|"
+                        "synthetic-tokens|token-file:<path>")
     p.add_argument("--synthetic-data", action="store_true",
                    help="Use synthetic data (no dataset files needed).")
     p.add_argument("--image-size", type=int, default=32,
-                   help="Synthetic image side (224 for ImageNet-like runs).")
+                   help="Synthetic image side, and the crop side of "
+                        "imagefolder:/packed-images: (224 for ImageNet).")
     p.add_argument("--batch-size", type=int, default=32,
                    help="Global batch size.")
     p.add_argument("--num-workers", type=int, default=2,
@@ -349,12 +358,12 @@ def build_optimizer(name: str, lr, *, weight_decay: float,
 
 
 _IMAGE_DATASETS = ("cifar10", "synthetic-images", "shapes")
-_NOT_PORTED_DATASETS = ("imagefolder:", "packed-images:")
+_IMAGENET_DATASETS = ("imagefolder:", "packed-images:")
 
 
 def _dataset_kind(dataset: str) -> str:
     """The batches ``--dataset`` provides, before anything is read."""
-    if dataset in _IMAGE_DATASETS or dataset.startswith(_NOT_PORTED_DATASETS):
+    if dataset in _IMAGE_DATASETS or dataset.startswith(_IMAGENET_DATASETS):
         return "image_classifier"
     if dataset == "synthetic-tokens" or dataset.startswith("token-file:"):
         return "lm"
@@ -362,31 +371,77 @@ def _dataset_kind(dataset: str) -> str:
 
 
 def _image_datasets(args):
-    """(train set, eval set or None, num_classes): the JAX CLI's image
-    datasets."""
-    from ..data import ShapeImages, SyntheticImages, cifar10
+    """(train set, eval set or None, num_classes, input_normalize): the
+    JAX CLI's image datasets.  ``input_normalize`` is the (mean, std) the
+    step applies on the device to uint8 batches (packed records), else
+    None."""
+    import os
 
-    if args.dataset.startswith(_NOT_PORTED_DATASETS):
-        raise SystemExit(f"--dataset {args.dataset}: ImageNet folders and "
-                         "packed records (data/imagenet.py) are not yet "
-                         "ported")
+    from ..data import (
+        ImageFolder, PackedImages, ShapeImages, SyntheticImages, cifar10,
+    )
+    from ..data.transforms import (
+        imagenet_eval_transform, imagenet_train_transform,
+    )
+
     if args.dataset == "cifar10":
         ds = cifar10(args.data_dir, train=True, synthetic=args.synthetic_data)
         eval_ds = (cifar10(args.data_dir, train=False,
                            synthetic=args.synthetic_data)
                    if args.do_eval else None)
-        return ds, eval_ds, len(ds.classes)
+        return ds, eval_ds, len(ds.classes), None
     if args.dataset == "synthetic-images":
         ds = SyntheticImages(image_size=args.image_size, num_classes=1000)
         eval_ds = (SyntheticImages(n=1000, image_size=args.image_size,
                                    num_classes=1000, seed=1)
                    if args.do_eval else None)
-        return ds, eval_ds, 1000
+        return ds, eval_ds, 1000, None
+    if args.dataset.startswith("imagefolder:"):
+        # root/train + root/val; a flat root trains and evaluates on the
+        # same images, with a warning.
+        root = args.dataset.split(":", 1)[1]
+        train_root = eval_root = root
+        if os.path.isdir(os.path.join(root, "train")):
+            train_root = os.path.join(root, "train")
+            eval_root = (os.path.join(root, "val")
+                         if os.path.isdir(os.path.join(root, "val"))
+                         else train_root)
+        ds = ImageFolder(train_root,
+                         transform=imagenet_train_transform(args.image_size),
+                         seed=args.seed)
+        eval_ds = None
+        if args.do_eval:
+            if eval_root == train_root:
+                print("warning: no val/ split found — eval runs on the "
+                      "training images (use <root>/train + <root>/val)")
+            eval_ds = ImageFolder(
+                eval_root, transform=imagenet_eval_transform(args.image_size),
+                seed=args.seed)
+        return ds, eval_ds, len(ds.classes), None
+    if args.dataset.startswith("packed-images:"):
+        # uint8 batches from one native call each; ToTensor + Normalize
+        # run in the step on the device.  The held-out split is a sibling
+        # <path>.eval file.
+        path = args.dataset.split(":", 1)[1]
+        ds = PackedImages(path, train=True, crop_size=args.image_size,
+                          seed=args.seed, output_dtype="uint8")
+        eval_ds = None
+        if args.do_eval:
+            eval_path = path + ".eval"
+            if not os.path.exists(eval_path):
+                eval_path = path
+                print("warning: no .eval packed file found — eval runs on "
+                      "the training records (pack a held-out split to "
+                      f"{path}.eval)")
+            eval_ds = PackedImages(eval_path, train=False,
+                                   crop_size=args.image_size, seed=args.seed,
+                                   output_dtype="uint8")
+        return ds, eval_ds, len(ds.classes), (ds.mean, ds.std)
     # The learnable procedural set: train and eval are disjoint draws.
     ds = ShapeImages(n=50_000, train=True, seed=args.seed)
     eval_ds = (ShapeImages(n=10_000, train=False, seed=args.seed)
                if args.do_eval else None)
-    return ds, eval_ds, len(ds.classes)
+    return ds, eval_ds, len(ds.classes), None
 
 
 def _lm_datasets(dataset: str, *, seq_len: int, vocab: int, do_eval: bool):
@@ -462,16 +517,24 @@ def _train(args, overrides, device, group, rank, world):
         )
     if args.ce_chunk is not None and kind != "lm":
         raise SystemExit("--ce-chunk applies to LM models (--model gpt2*)")
+    if args.remat:
+        overrides["remat"] = True
+    input_normalize = image_size = None
     if kind == "lm":
-        if args.remat:
-            overrides["remat"] = True
         num_classes = None
         ds, eval_ds = _lm_datasets(
             args.dataset, seq_len=args.seq_len,
             vocab=int(overrides.get("vocab_size", 50257)),
             do_eval=args.do_eval)
     else:
-        ds, eval_ds, num_classes = _image_datasets(args)
+        ds, eval_ds, num_classes, input_normalize = _image_datasets(args)
+        if args.model.startswith("vit"):
+            # A ViT's position table is sized from the images it will
+            # see: the crop side of the ImageNet-format sets, else the
+            # stored side (CIFAR-10, shapes).
+            image_size = (args.image_size if args.dataset.startswith(
+                ("synthetic-images", "imagefolder:", "packed-images:"))
+                else int(ds[0]["image"].shape[0]))
     if args.batch_size % (args.accum_steps * world):
         raise SystemExit(
             f"--batch-size {args.batch_size} must divide into "
@@ -485,7 +548,8 @@ def _train(args, overrides, device, group, rank, world):
     policy = make_policy(args.precision)
     net = create_model(args.model, num_classes=num_classes,
                        dtype=policy.param_dtype, device=device,
-                       seed=args.seed, cfg_overrides=overrides)
+                       seed=args.seed, cfg_overrides=overrides,
+                       image_size=image_size)
     total_steps = args.total_steps
     if total_steps is None:
         per_epoch = args.steps_per_epoch if args.steps_per_epoch is not None \
@@ -500,7 +564,8 @@ def _train(args, overrides, device, group, rank, world):
     step_fn = make_train_step(
         kind=kind, policy=policy, num_microbatches=args.accum_steps,
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
-        lm_loss_chunk=args.ce_chunk, process_group=group,
+        lm_loss_chunk=args.ce_chunk, input_normalize=input_normalize,
+        process_group=group,
     )
     trainer = Trainer(state, step_fn, device, TrainerConfig())
     logger = metrics_lib.MetricsLogger(args.metrics_jsonl)
@@ -513,7 +578,8 @@ def _train(args, overrides, device, group, rank, world):
         # --accum-steps, so its full logits could outgrow a config whose
         # train step fits.
         eval_step = make_eval_step(kind=kind, policy=policy,
-                                   lm_loss_chunk=args.ce_chunk or 256)
+                                   lm_loss_chunk=args.ce_chunk or 256,
+                                   input_normalize=input_normalize)
 
     print("training started")
     t0 = time.perf_counter()

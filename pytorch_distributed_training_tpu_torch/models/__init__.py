@@ -1,9 +1,9 @@
-"""Models of the port: GPT-2 (dense), the ResNets, their JAX weight
-bridge, generation."""
+"""Models of the port: GPT-2 (dense), the ResNets, the ViTs, their JAX
+weight bridge, generation."""
 
 from .convert import (
     gpt2_params_from_jax, gpt2_params_to_jax, resnet_params_from_jax,
-    resnet_params_to_jax,
+    resnet_params_to_jax, vit_params_from_jax, vit_params_to_jax,
 )
 from .generate import eos_cut_length, filter_logits, generate, sample_logits
 from .gpt2 import (
@@ -17,6 +17,10 @@ from .resnet import (
     BasicBlock, Bottleneck, ResNet, resnet18, resnet34, resnet50, resnet101,
     resnet152,
 )
+from .vit import (
+    EncoderBlock, MlpBlock, ViTConfig, VisionTransformer, vit_b16, vit_l16,
+    vit_s16,
+)
 
 __all__ = [
     "GPT2", "Block", "GPT2Config", "SelfAttention", "MAX_FUSED_DECODE_CHUNK",
@@ -27,5 +31,7 @@ __all__ = [
     "eos_cut_length", "create_model", "model_kind", "MODEL_NAMES",
     "ResNet", "BasicBlock", "Bottleneck", "resnet18", "resnet34",
     "resnet50", "resnet101", "resnet152", "resnet_params_from_jax",
-    "resnet_params_to_jax",
+    "resnet_params_to_jax", "VisionTransformer", "ViTConfig", "EncoderBlock",
+    "MlpBlock", "vit_s16", "vit_b16", "vit_l16", "vit_params_from_jax",
+    "vit_params_to_jax",
 ]

@@ -1,5 +1,5 @@
-"""Weight bridge between the JAX package's GPT-2 and ResNet param trees
-and this port's ``state_dict``, both ways.
+"""Weight bridge between the JAX package's GPT-2, ResNet and ViT param
+trees and this port's ``state_dict``, both ways.
 
 The tree is nested mappings of arrays (numpy, or anything ``np.asarray``
 takes), as ``GPT2.init(...)["params"]`` returns it.  What changes on the
@@ -16,7 +16,9 @@ way:
   ``batch_stats`` ``mean``/``var`` are buffers; flax's auto-names
   (``BasicBlock_i`` / ``Bottleneck_i``, ``Conv_j``, ``BatchNorm_j``) map to
   ``blocks.i``, ``convj``, ``bnj``, and ``conv_init``/``bn_init`` live
-  under the port's ``stem``.
+  under the port's ``stem``;
+- the ViT's ``block_i`` become ``blocks.i``; its ``cls_token`` and
+  ``pos_embed`` keep their (1, 1, D) and (1, N, D) shapes.
 
 No downloading is involved: tests build the JAX params from its own
 init, compare the two models on the same inputs, and map the port's
@@ -180,3 +182,64 @@ def resnet_params_to_jax(state: Mapping[str, torch.Tensor]
             tree = tree.setdefault(p, {})
         tree["kernel" if leaf == "weight" else leaf] = x
     return params, stats
+
+
+def vit_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Map a flax ``VisionTransformer`` param tree to the port's
+    ``VisionTransformer.state_dict()`` keys (f32)."""
+    out = {"cls_token": _t(tree["cls_token"]),
+           "pos_embed": _t(tree["pos_embed"])}
+    out["patch_embed.weight"] = _from_flax_leaf(tree["patch_embed"]["kernel"])
+    out["patch_embed.bias"] = _t(tree["patch_embed"]["bias"])
+    layer = 0
+    while f"block_{layer}" in tree:
+        blk = tree[f"block_{layer}"]
+        p = f"blocks.{layer}"
+        _layer_norm(blk["ln1"], f"{p}.ln1", out)
+        _dense(blk["attn"]["qkv"], f"{p}.attn.qkv", out)
+        _dense(blk["attn"]["proj"], f"{p}.attn.proj", out)
+        _layer_norm(blk["ln2"], f"{p}.ln2", out)
+        _dense(blk["mlp"]["fc1"], f"{p}.mlp.fc1", out)
+        _dense(blk["mlp"]["fc2"], f"{p}.mlp.fc2", out)
+        layer += 1
+    _layer_norm(tree["ln_final"], "ln_final", out)
+    _dense(tree["head"], "head", out)
+    return out
+
+
+def vit_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``vit_params_from_jax``: the port's ViT
+    ``state_dict()`` (or a name -> tensor mapping of its keys) as the flax
+    param tree of f32 numpy arrays."""
+    def dense(prefix):
+        return {"kernel": _np(params[f"{prefix}.weight"]).T.copy(),
+                "bias": _np(params[f"{prefix}.bias"])}
+
+    def layer_norm(prefix):
+        return {"scale": _np(params[f"{prefix}.weight"]),
+                "bias": _np(params[f"{prefix}.bias"])}
+
+    tree = {
+        "patch_embed": {
+            "kernel": _np(params["patch_embed.weight"]).transpose(
+                2, 3, 1, 0).copy(),                  # OIHW -> HWIO
+            "bias": _np(params["patch_embed.bias"]),
+        },
+        "cls_token": _np(params["cls_token"]),
+        "pos_embed": _np(params["pos_embed"]),
+    }
+    layer = 0
+    while f"blocks.{layer}.ln1.weight" in params:
+        p = f"blocks.{layer}"
+        tree[f"block_{layer}"] = {
+            "ln1": layer_norm(f"{p}.ln1"),
+            "attn": {"qkv": dense(f"{p}.attn.qkv"),
+                     "proj": dense(f"{p}.attn.proj")},
+            "ln2": layer_norm(f"{p}.ln2"),
+            "mlp": {"fc1": dense(f"{p}.mlp.fc1"),
+                    "fc2": dense(f"{p}.mlp.fc2")},
+        }
+        layer += 1
+    tree["ln_final"] = layer_norm("ln_final")
+    tree["head"] = dense("head")
+    return tree

@@ -55,6 +55,17 @@ def dropout(x, rate: float, generator: torch.Generator | None):
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` in place: a normal truncated at 2 sigma and
+    rescaled to variance 1 / fan_in (0.87962566 is that truncation's
+    stddev); fan_in is every dim but the first (a Linear's input width, a
+    convolution's in x kh x kw)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
 def _site_generator(seed, device):
     """The generator one dropout site draws from, or None (no dropout)."""
     if seed is None:
@@ -142,13 +153,7 @@ class GPT2(nn.Module):
         self.wpe.normal_(0.0, 0.01, generator=generator)
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                fan_in = m.weight.shape[1]
-                # flax lecun_normal: truncated normal on [-2, 2] rescaled to
-                # unit variance (0.87962566 is that truncation's stddev).
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(
-                    m.weight, 0.0, std, -2 * std, 2 * std, generator=generator
-                )
+                lecun_normal_(m.weight, generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.LayerNorm):

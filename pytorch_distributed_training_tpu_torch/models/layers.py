@@ -3,10 +3,20 @@
 Counterpart of the JAX package's ``models/layers.py::SelfAttention``,
 limited to what the serving and training slices run:
 
-- the causal full-sequence forward (``cache=None``), through
-  ``ops.attention.dot_product_attention``'s auto dispatch: the flash
-  kernels on the card at ``q_len >= 256``, the plain path below and on
-  the host;
+- the full-sequence forward (``cache=None``), causal (GPT-2) or not
+  (ViT), through ``ops.attention.dot_product_attention``'s auto
+  dispatch: the flash kernels on the card at ``q_len >= 256``, the plain
+  path below and on the host;
+- the non-causal head-major layouts of the ViT (``attn_layout``):
+  ``"bhld"`` transposes q/k/v, taken as column spans of the packed qkv
+  activation, to (B, H, L, Dh) once; ``"bhld2"`` (the ViT's default)
+  makes each of q/k/v head-major straight from its own column span of
+  the one ``qkv`` weight (``_qkv_to_heads``).  Both then run
+  ``_bhld_core``: (b, h)-leading score and combine products and an
+  output projection that contracts (h, d) against the ``proj`` weight
+  viewed as (D, H, Dh) (``_proj_from_heads``).  Neither calls
+  ``dot_product_attention``, so neither reaches a kernel.  The parameters
+  are the ``nn.Linear`` ``qkv``/``proj`` under every layout;
 - slot mode: per-row start ``positions`` (B,), a chunk of C tokens per row
   written at ``positions[b]..positions[b]+C-1``, each query attending its
   own row's prefix.  ``serve/engine.py`` drives it with ragged positions;
@@ -41,7 +51,7 @@ import torch
 from torch import nn
 
 from ..comm.compress import quantize_kv
-from ..ops.attention import dot_product_attention
+from ..ops.attention import SoftmaxLowp, dot_product_attention
 from ..ops.decode_attention import decode_attention, decode_attention_multi
 from ..ops.paged_attention import (
     MAX_FUSED_PREFILL_CHUNK, paged_decode_attention,
@@ -56,6 +66,7 @@ from ..ops.paged_attention import (
 MAX_FUSED_DECODE_CHUNK = 8
 # Stored payload dtype of each quantized KV storage kind.
 KV_QUANT_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
+ATTN_LAYOUTS = ("auto", "bhld", "bhld2")
 
 
 def new_kv_cache(batch: int, num_heads: int, length: int, head_dim: int, *,
@@ -102,18 +113,27 @@ def cache_quant(cache) -> str | None:
 
 
 class SelfAttention(nn.Module):
-    """Fused-QKV multi-head self-attention over (B, L, D)."""
+    """Fused-QKV multi-head self-attention over (B, L, D).
+
+    ``attn_layout`` ("auto", "bhld", "bhld2") picks the activation layout
+    of the non-causal full-sequence forward; the causal and cached paths
+    always take "auto"'s, as in the JAX package."""
 
     def __init__(self, hidden_dim: int, num_heads: int, *, causal: bool = True,
-                 device=None, dtype=None):
+                 attn_layout: str = "auto", device=None, dtype=None):
         super().__init__()
         if hidden_dim % num_heads:
             raise ValueError(
                 f"hidden_dim {hidden_dim} is not divisible by "
                 f"num_heads {num_heads}"
             )
+        if attn_layout not in ATTN_LAYOUTS:
+            raise ValueError(
+                f"attn_layout {attn_layout!r} not in {ATTN_LAYOUTS}"
+            )
         self.num_heads = num_heads
         self.causal = causal
+        self.attn_layout = attn_layout
         kw = dict(device=device, dtype=dtype)
         self.qkv = nn.Linear(hidden_dim, 3 * hidden_dim, **kw)
         self.proj = nn.Linear(hidden_dim, hidden_dim, **kw)
@@ -128,8 +148,19 @@ class SelfAttention(nn.Module):
         (chunks wider than the fused kernels) reads it."""
         b, l, d = x.shape
         h = self.num_heads
-        # Columns split as (3, H, Dh): q is columns 0..d-1, as in the JAX
-        # package's decode split.
+        if cache is None and not self.causal and self.attn_layout != "auto":
+            if positions is not None:
+                raise ValueError("positions need a KV cache")
+            if self.attn_layout == "bhld2":
+                q, k, v = _qkv_to_heads(x, self.qkv.weight, self.qkv.bias, h)
+            else:
+                q, k, v = (t.transpose(1, 2) for t in
+                           self.qkv(x).view(b, l, 3, h, d // h).unbind(2))
+            return _bhld_core(q, k, v, self.proj.weight, self.proj.bias)
+        # Columns split as (3, H, Dh): q is columns 0..d-1.  The JAX
+        # package picks between this split and last-axis column spans
+        # (``qkv[..., :d]``) by the attention it dispatches to, a layout
+        # choice for XLA; in PyTorch both are the same strided view.
         q, k, v = self.qkv(x).view(b, l, 3, h, d // h).unbind(2)
         if cache is None:
             if positions is not None:
@@ -150,6 +181,46 @@ class SelfAttention(nn.Module):
             else:
                 out = _slot_attend(q, k, v, positions, cache, attn_mask)
         return self.proj(out.reshape(b, l, d))
+
+
+def _qkv_to_heads(x, weight, bias, num_heads: int):
+    """q, k, v as (B, H, L, Dh), each from its own column span of the
+    (3D, D) ``qkv`` weight viewed (H, Dh, D), the bias added after the
+    product in the activations' dtype (JAX ``_QkvToHeads``)."""
+    d = x.shape[-1]
+    dh = d // num_heads
+    out = []
+    for i in range(3):
+        w = weight[i * d:(i + 1) * d].view(num_heads, dh, d)
+        bb = bias[i * d:(i + 1) * d].view(num_heads, 1, dh)
+        out.append(torch.einsum("bld,hed->bhle", x, w) + bb)
+    return tuple(out)
+
+
+def _proj_from_heads(o, weight, bias):
+    """The output projection of a (B, H, L, Dh) attention output: the
+    (D, D) ``proj`` weight viewed (D, H, Dh), contracted over (h, d)
+    (JAX ``_ProjFromHeads``)."""
+    _, h, _, dh = o.shape
+    w = weight.view(weight.shape[0], h, dh)
+    return torch.einsum("bhld,fhd->blf", o, w) + bias
+
+
+def _bhld_core(q, k, v, proj_weight, proj_bias):
+    """Non-causal attention over (B, H, L, Dh) q/k/v and the head-major
+    output projection (JAX ``_bhld_core``).  bf16: the score product and
+    its scale in bf16, then ``SoftmaxLowp`` (f32 softmax, bf16
+    probabilities saved); f32 keeps an f32 chain."""
+    scale = q.shape[-1] ** -0.5
+    if q.dtype == torch.bfloat16:
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * torch.tensor(
+            scale, dtype=q.dtype)
+        weights = SoftmaxLowp.apply(logits)
+    else:
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+        weights = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
+    return _proj_from_heads(o, proj_weight, proj_bias)
 
 
 def _slot_attend(q, k, v, positions, cache, attn_mask):

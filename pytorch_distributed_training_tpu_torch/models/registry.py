@@ -1,11 +1,12 @@
 """Model registry: the same names as the JAX package's
-``models/registry.py``.  GPT-2 (dense) and the ResNets are ported; the
-others raise."""
+``models/registry.py``.  GPT-2 (dense), the ResNets and the ViTs are
+ported; the MoE GPT-2 raises."""
 
 from __future__ import annotations
 
 from .gpt2 import gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl
 from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
+from .vit import vit_b16, vit_l16, vit_s16
 
 _LM_FACTORIES = {
     "gpt2": gpt2_124m,
@@ -20,8 +21,14 @@ _IMAGE_FACTORIES = {
     "resnet101": resnet101,
     "resnet152": resnet152,
 }
-_NOT_YET_PORTED = {"vit_s16", "vit_b16", "vit_l16", "gpt2_moe"}
-MODEL_NAMES = sorted({*_LM_FACTORIES, *_IMAGE_FACTORIES, *_NOT_YET_PORTED})
+_VIT_FACTORIES = {
+    "vit_s16": vit_s16,
+    "vit_b16": vit_b16,
+    "vit_l16": vit_l16,
+}
+_NOT_YET_PORTED = {"gpt2_moe"}
+MODEL_NAMES = sorted({*_LM_FACTORIES, *_IMAGE_FACTORIES, *_VIT_FACTORIES,
+                      *_NOT_YET_PORTED})
 
 
 def model_kind(name: str) -> str:
@@ -33,14 +40,23 @@ def model_kind(name: str) -> str:
 
 def create_model(name: str, *, num_classes: int | None = None, dtype=None,
                  device=None, seed: int = 0,
-                 cfg_overrides: dict | None = None):
+                 cfg_overrides: dict | None = None,
+                 image_size: int | None = None):
     """Build a model by registry name, weights drawn from ``seed``.
     ``num_classes`` sizes a classifier's head (1000 by default; the
     reference sizes it from the dataset) and is ignored for LMs.
-    ``device`` defaults to CUDA (``utils.device``)."""
+    ``image_size`` sizes a ViT's position table (224 by default; the
+    other models take any size).  ``device`` defaults to CUDA
+    (``utils.device``)."""
     model_kind(name)
     if name in _NOT_YET_PORTED:
         raise NotImplementedError(f"model {name!r} is not yet ported")
+    if name in _VIT_FACTORIES:
+        return _VIT_FACTORIES[name](
+            1000 if num_classes is None else num_classes, cfg_overrides,
+            image_size=224 if image_size is None else image_size,
+            device=device, dtype=dtype, seed=seed,
+        )
     if name in _IMAGE_FACTORIES:
         return _IMAGE_FACTORIES[name](
             1000 if num_classes is None else num_classes, cfg_overrides,

@@ -1,5 +1,5 @@
-"""Output-saving BatchNorm: the BatchNorm part of the JAX package's
-``ops/fused_norm.py``.
+"""Output-saving BatchNorm and a low-memory LayerNorm: the counterparts
+of the JAX package's ``ops/fused_norm.py``.
 
 ``batch_norm``, ``bn_relu`` and ``bn_add_relu`` are
 ``torch.autograd.Function``s whose saved activation is the normalized
@@ -35,6 +35,11 @@ one).  ``BatchNorm`` is the plain composition's norm, flax
 ``nn.BatchNorm``'s math, differentiated by autograd: the reference the
 fused functions are held against, and the model's norm when
 ``tpu_fused=False`` or ``zero_init_residual=True``.
+
+``layer_norm`` / ``FusedLayerNorm`` (JAX lines 276-349) are opt-in and
+used by no stock model: a LayerNorm over the last axis whose backward
+saves the input, the mean and the rstd and rebuilds ``xhat``, so no
+higher-precision (B, L, D) tensor is kept for the gradient.
 """
 
 from __future__ import annotations
@@ -346,3 +351,71 @@ def master_affine_params(model: nn.Module) -> set[str]:
     return {f"{name}.{p}" if name else p
             for name, m in model.named_modules()
             if getattr(m, "master_affine", False) for p in ("scale", "bias")}
+
+
+class _LayerNorm(torch.autograd.Function):
+    """JAX ``layer_norm``'s ``custom_vjp``: statistics in the promoted
+    dtype (f32 for f32/bf16 input) with the two-pass variance, output in
+    ``x``'s dtype; the backward is the standard LN gradient in the same
+    dtype, ``dscale``/``dbias`` returned in the scale's and bias's dtype
+    (``.astype(scale.dtype)``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        y, mean, rstd = _ln_core(x, scale, bias, eps)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.bias_dtype = bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mean, rstd = ctx.saved_tensors
+        sd = _stat_dtype(x)
+        xhat = (x.to(sd) - mean) * rstd
+        dyf = dy.to(sd)
+        dxhat = dyf * scale.to(sd)
+        m1 = dxhat.mean(-1, keepdim=True)
+        m2 = (dxhat * xhat).mean(-1, keepdim=True)
+        dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+        dims = tuple(range(dy.ndim - 1))
+        dscale = (dyf * xhat).sum(dims).to(scale.dtype)
+        dbias = dyf.sum(dims).to(ctx.bias_dtype)
+        return dx, dscale, dbias, None
+
+
+def _ln_core(x, scale, bias, eps):
+    sd = _stat_dtype(x)
+    xf = x.to(sd)
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean) * rstd * scale.to(sd) + bias.to(sd)
+    return y.to(x.dtype), mean, rstd
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    """LayerNorm over the last axis with the low-memory backward.  Under
+    the bf16 policy ``scale``/``bias`` arrive as bf16 copies, so their
+    gradients come back rounded to bf16, as in JAX (unlike the fused
+    BatchNorms', whose f32 masters get f32 sums)."""
+    return _LayerNorm.apply(x, scale, bias, eps)
+
+
+class FusedLayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``'s parameters (``scale`` 1, ``bias`` 0, f32)
+    with ``layer_norm``'s backward; the output is cast to ``dtype`` when
+    one is given."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6, dtype=None,
+                 device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features, dtype=F32,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=F32,
+                                             device=device))
+
+    def forward(self, x):
+        y = layer_norm(x, self.scale, self.bias, self.epsilon)
+        return y.to(self.dtype) if self.dtype is not None else y

@@ -2,8 +2,9 @@
 """Where a training step of the PyTorch port spends its time, on one GPU.
 
     python3 -m pytorch_distributed_training_tpu_torch.tools.train_profile \
-        [--model gpt2|resnet18|resnet50|...] [--dataset D] [--image-size N] \
-        [--steps 3] [--warmup 2] [--remat] [--ce-chunk 256] [--rows 25]
+        [--model gpt2|resnet18|resnet50|vit_b16|...] [--dataset D] \
+        [--image-size N] [--steps 3] [--warmup 2] [--remat] \
+        [--ce-chunk 256] [--rows 25]
     python3 -m torch.distributed.run --standalone --nproc_per_node 1 \
         -m pytorch_distributed_training_tpu_torch.tools.train_profile \
         --distributed [--model ...]
@@ -18,7 +19,18 @@ Builds one of ``chip_smoke.py``'s training configurations:
   (coupled), f32;
 - any other ResNet, R2: ``--dataset synthetic-images``, 1000 classes,
   bf16 policy, batch 128, sgd lr 0.1 with momentum 0.9 and weight decay
-  1e-3 (``--image-size 224`` for ImageNet width).
+  1e-3 (``--image-size 224`` for ImageNet width);
+- ``vit_s16``/``vit_b16``/``vit_l16``, V1: uint8 batches from a packed
+  file of random records it writes under ``build/train_profile/``
+  (``--image-size``, default 224, cropped from 232 px records), 1000
+  classes, bf16 policy, batch 128, adamw lr 5e-4, weight decay 0.05,
+  clip 1.0, the images scaled and normalized in the step.  Before the
+  profile it times the three attention variants of ``chip_smoke.py``'s V3
+  in turns (bhld2, flash, xla, xla, flash, bhld2; ``--steps`` steps
+  each): the default ``bhld2`` layout, ``auto`` under
+  ``PDT_FORCE_ATTN=flash`` and ``auto`` under ``PDT_FORCE_ATTN=xla``;
+  the profile is of the default layout, then one profile of each other
+  variant adds its device time and top operators to the JSON line.
 
 It fetches ``--steps`` batches to the device first (the tool times the
 step, not the loader), runs ``--warmup`` steps, times ``--steps`` steady
@@ -139,7 +151,8 @@ def _image_setup(args, device, total, group=None):
     if dataset == "cifar10":
         ds = cifar10("", synthetic=True)
     elif dataset == "synthetic-images":
-        ds = SyntheticImages(image_size=args.image_size, num_classes=1000)
+        ds = SyntheticImages(image_size=args.image_size or 32,
+                             num_classes=1000)
     elif dataset == "shapes":
         ds = ShapeImages()
     else:
@@ -159,6 +172,71 @@ def _image_setup(args, device, total, group=None):
 
     loader = DataLoader(ds, DataLoaderConfig(batch_size=32 if r1 else 128))
     return state, make_step, loader, 1, "images_per_s"
+
+
+def _vit_setup(args, device, total, group=None):
+    """V1 (a ViT): (state, step factory, loader, items per example,
+    label)."""
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.data import (
+        DataLoader, DataLoaderConfig, PackedImages, synthesize_packed_images,
+    )
+    from pytorch_distributed_training_tpu_torch.models import create_model
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    size = args.image_size or 224
+    out_dir = os.path.join(REPO, "build", "train_profile")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "vit.pck")
+    synthesize_packed_images(path, n=128 * args.steps,
+                             size=size + size // 28, num_classes=1000)
+    ds = PackedImages(path, crop_size=size, output_dtype="uint8")
+    policy = make_policy("bf16")
+    model = create_model(args.model, num_classes=1000, image_size=size,
+                         dtype=policy.param_dtype, device=device, seed=0,
+                         cfg_overrides={"remat": args.remat,
+                                        "attn_layout": "auto"})
+    state = create_train_state(
+        model, build_optimizer("adamw", 5e-4, weight_decay=0.05,
+                               grad_clip=1.0),
+        policy=policy, process_group=group)
+
+    def make_step(process_group):
+        return make_train_step(kind="image_classifier", policy=policy,
+                               input_normalize=(ds.mean, ds.std),
+                               process_group=process_group)
+
+    loader = DataLoader(ds, DataLoaderConfig(batch_size=128))
+    return state, make_step, loader, 1, "images_per_s"
+
+
+# The attention variants of a ViT: (layout, PDT_FORCE_ATTN).
+VIT_ATTN = {"bhld2": ("bhld2", ""), "flash": ("auto", "flash"),
+            "xla": ("auto", "xla")}
+
+
+def set_attn(model, variant: str) -> None:
+    """Switch every attention of ``model`` to ``VIT_ATTN[variant]``: its
+    layout and the ``PDT_FORCE_ATTN`` dispatch override."""
+    layout, forced = VIT_ATTN[variant]
+    for m in model.modules():
+        if hasattr(m, "attn_layout"):
+            m.attn_layout = layout
+    os.environ["PDT_FORCE_ATTN"] = forced
+
+
+def _device_rows(events) -> dict:
+    """Device time (us) by kernel name."""
+    by_name: dict = {}
+    for e in events:
+        if e.device_type.name == "CUDA":
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.end - e.time_range.start)
+    return by_name
 
 
 def _time_calls(torch, fn, n: int) -> tuple[float, float]:
@@ -217,8 +295,9 @@ def main() -> int:
     ap.add_argument("--model", default="gpt2")
     ap.add_argument("--dataset", default=None,
                     help="ResNets: cifar10 | synthetic-images | shapes")
-    ap.add_argument("--image-size", type=int, default=32,
-                    help="synthetic-images side")
+    ap.add_argument("--image-size", type=int, default=None,
+                    help="synthetic-images side (default 32), or a ViT's "
+                         "crop side (default 224)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--remat", action="store_true")
@@ -258,7 +337,9 @@ def main() -> int:
 def _profile(args, torch, profile, ProfilerActivity, to_device, collectives,
              device, group) -> int:
     total = args.warmup + 2 * args.steps
-    setup = _lm_setup if args.model.startswith("gpt2") else _image_setup
+    vit = args.model.startswith("vit")
+    setup = (_lm_setup if args.model.startswith("gpt2")
+             else _vit_setup if vit else _image_setup)
     if args.distributed:
         total += (4 * TURNS + 1) * args.steps
     state, make_step, loader, per_example, rate_key = setup(
@@ -276,8 +357,36 @@ def _profile(args, torch, profile, ProfilerActivity, to_device, collectives,
             state, metrics = fn(state, next(cycle))
         return float(metrics["loss"])  # waits for the device
 
-    run(args.warmup)
     extra: dict = {}
+    if vit:
+        turns: dict = {k: [] for k in VIT_ATTN}
+        for name in VIT_ATTN:
+            set_attn(state.model, name)
+            run(args.warmup)
+        for name in ("bhld2", "flash", "xla", "xla", "flash", "bhld2"):
+            set_attn(state.model, name)
+            run(1)
+            t0 = time.perf_counter()
+            run(args.steps)
+            turns[name].append((time.perf_counter() - t0) / args.steps * 1e3)
+        extra = {"attn_step_ms_turns": turns,
+                 "attn_step_ms_median": {k: statistics.median(v)
+                                         for k, v in turns.items()}}
+        for name in ("flash", "xla"):
+            set_attn(state.model, name)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(args.steps)
+            rows = _device_rows(prof.events())
+            top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
+            extra[f"{name}_device_ms_per_step"] = (
+                sum(rows.values()) / 1e3 / args.steps)
+            extra[f"{name}_flash_kernels_ms_per_step"] = sum(
+                us for n, us in rows.items() if "flash_" in n
+            ) / 1e3 / args.steps
+            extra[f"{name}_top_device_ms_per_step"] = [
+                [n[:80], us / 1e3 / args.steps] for n, us in top]
+        set_attn(state.model, "bhld2")
+    run(args.warmup)
     if args.distributed:
         plain = make_step(None)
         run(1, plain)
@@ -322,10 +431,7 @@ def _profile(args, torch, profile, ProfilerActivity, to_device, collectives,
     events = prof.events()
     busy_s = busy_seconds(events)
     device_events = [e for e in events if e.device_type.name == "CUDA"]
-    by_name: dict = {}
-    for e in device_events:
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.end - e.time_range.start)
+    by_name = _device_rows(events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     flash_us = sum(us for name, us in by_name.items() if "flash_" in name)
     host_us = sum(a.self_cpu_time_total for a in avg)
@@ -353,6 +459,7 @@ def _profile(args, torch, profile, ProfilerActivity, to_device, collectives,
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "model": args.model,
         "remat": args.remat, "ce_chunk": args.ce_chunk, "steps": args.steps,
+        "device_ms_per_step": sum(by_name.values()) / 1e3 / args.steps,
         "distributed": args.distributed,
         "batch": examples, "loss": loss, "step_ms": step_s * 1e3,
         rate_key: examples * per_example / step_s,

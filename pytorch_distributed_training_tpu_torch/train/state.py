@@ -7,7 +7,7 @@ process group broadcasts rank 0's (``parallel/sharding.py``), and every
 rank then applies the same all-reduced gradients.  The parameters are
 the model's own master tensors and ``batch_stats`` its buffers (the
 ResNets' running ``mean``/``var``, f32 under every policy; empty for
-GPT-2); ``apply_gradients`` updates them and the optimizer
+GPT-2 and the ViTs); ``apply_gradients`` updates them and the optimizer
 state in place (one copy of each, where JAX returns new arrays) and
 returns the state with the step advanced.  The step is a host integer:
 nothing reads it back from the device.

@@ -18,7 +18,10 @@ buffers and its new ones come back in a dict: each microbatch computes
 them from the same old statistics, and the step stores their mean, as
 the JAX step's scan does.  The eval step uses the running statistics.
 The fused BatchNorms' ``scale``/``bias`` (``TrainState.keep``) skip the
-policy's cast (they round themselves, ``ops/fused_norm.py``).
+policy's cast (they round themselves, ``ops/fused_norm.py``).  A model
+with neither running statistics nor fused norms (the ViT) takes the same
+step with both empty; one whose ``dropout_rate`` is above 0 gets the
+dropout generator of ``dropout_generator``.
 
 Data parallelism (``process_group``): each rank runs the step on its
 rows of the global batch; the f32 gradient sums, the loss and the
@@ -77,14 +80,16 @@ def prepare_image_input(x: torch.Tensor, policy: Policy,
 
 
 def _image_forward(model, params, batch_stats, image, *, policy, keep,
-                   new_stats: dict | None, group=None):
+                   new_stats: dict | None, group=None, generator=None):
     """The model on the compute-dtype parameters (those named in ``keep``
     as given) and the running statistics; in training its new statistics
-    go into ``new_stats``, over ``group``'s ranks when one is given."""
+    go into ``new_stats``, over ``group``'s ranks when one is given.  A
+    dropout ``generator``, when there is one, goes in as well."""
     tensors = {**policy.cast_to_compute(params, keep), **batch_stats}
-    return torch.func.functional_call(model, tensors, (image,),
-                                      {"new_stats": new_stats,
-                                       "group": group})
+    kwargs = {"new_stats": new_stats, "group": group}
+    if generator is not None:
+        kwargs["generator"] = generator
+    return torch.func.functional_call(model, tensors, (image,), kwargs)
 
 
 def _accuracy(logits, labels):
@@ -171,11 +176,12 @@ def make_train_step(
     if process_group is not None:
         def sync(tensors):
             return collectives.pmean(tensors, process_group)
-    if kind == "image_classifier":
-        return _image_train_step(policy, num_microbatches, input_normalize,
-                                 label_smoothing, process_group, sync)
     rank = (torch.distributed.get_rank(process_group)
             if process_group is not None else 0)
+    if kind == "image_classifier":
+        return _image_train_step(policy, num_microbatches, input_normalize,
+                                 label_smoothing, process_group, sync, seed,
+                                 rank)
 
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
@@ -199,16 +205,20 @@ def make_train_step(
 
 
 def _image_train_step(policy, num_microbatches, input_normalize,
-                      label_smoothing, group, sync):
+                      label_smoothing, group, sync, seed, rank):
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
+        drop = getattr(model, "dropout_rate", 0.0) > 0.0
 
-        def fn(params, mb):
+        def fn(params, mb, i):
+            gen = (dropout_generator(seed, state.step, i, rank)
+                   if drop and seed is not None else None)
             image = prepare_image_input(mb["image"], policy, input_normalize)
             new_stats: dict = {}
             logits = _image_forward(model, params, state.batch_stats, image,
                                     policy=policy, keep=state.keep,
-                                    new_stats=new_stats, group=group)
+                                    new_stats=new_stats, group=group,
+                                    generator=gen)
             loss = cross_entropy_loss(logits, mb["label"],
                                       label_smoothing=label_smoothing)
             return loss, {"accuracy": _accuracy(logits, mb["label"]),
@@ -216,7 +226,7 @@ def _image_train_step(policy, num_microbatches, input_normalize,
 
         (loss, aux), grads = accumulate_gradients(
             fn, state.params, batch, num_microbatches, has_aux=True,
-            sync_fn=sync,
+            pass_microbatch_index=True, sync_fn=sync,
         )
         new_stats = aux.pop("batch_stats")
         state = state.apply_gradients(grads, batch_stats=new_stats)

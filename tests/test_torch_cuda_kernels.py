@@ -35,7 +35,10 @@ counts, a bit-identical backward on repeat, an autograd pass through
 ``flash_attention`` and the wrapper's refusals.  The ResNet path runs no
 kernel of its own, but its output-saving BatchNorm functions are held on
 CUDA tensors against the host and the plain composition, and a shallow
-f32 ResNet trains three steps like the host.
+f32 ResNet trains three steps like the host.  The ViT path likewise: a
+2-layer ViT-B/16 (full width, 224 px) forward and backward on the card
+against the host in f32 (TF32 off) under each attention layout, and a
+``PackedImages`` uint8 batch moved to the card and scaled there.
 """
 
 import pytest
@@ -683,3 +686,73 @@ def test_small_resnet_trains_like_the_host(dev):
     for k, v in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][k], v, atol=1e-4, rtol=0,
                                    msg=k)
+
+
+@pytest.mark.parametrize("layout", ["bhld2", "bhld", "auto"])
+def test_vit_forward_backward_like_the_host(dev, layout):
+    """ViT-B/16 at full width cut to 2 layers, 224 px, f32 with TF32 off:
+    logits and every parameter's gradient on the card against the host
+    from the same weights.  ``auto`` at L 197 takes the plain attention
+    path on both."""
+    import copy
+
+    from pytorch_distributed_training_tpu_torch.models import create_model
+    from pytorch_distributed_training_tpu_torch.ops.losses import (
+        cross_entropy_loss,
+    )
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        host = create_model("vit_b16", device="cpu", seed=2, image_size=224,
+                            cfg_overrides={"depth": 2,
+                                           "attn_layout": layout})
+        card = copy.deepcopy(host).to(dev)
+        gen = torch.Generator().manual_seed(2)
+        x = torch.rand(4, 224, 224, 3, generator=gen)
+        y = torch.randint(0, 1000, (4,), generator=gen)
+        out = {}
+        for where, model in (("cpu", host), ("cuda", card)):
+            logits = model(x.to(where).permute(0, 3, 1, 2))
+            loss = cross_entropy_loss(logits, y.to(where))
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            out[where] = (logits.detach().cpu(), [g.cpu() for g in grads])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4,
+                               rtol=0)
+    names = [n for n, _ in host.named_parameters()]
+    for n, a, b in zip(names, out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=n)
+
+
+def test_packed_uint8_batch_on_the_card(dev, tmp_path):
+    """A packed uint8 batch (native crop) goes to the card and is scaled
+    and normalized there as on the host."""
+    from pytorch_distributed_training_tpu_torch.data import (
+        PackedImages, synthesize_packed_images,
+    )
+    from pytorch_distributed_training_tpu_torch.data.loader import to_device
+    from pytorch_distributed_training_tpu_torch.train import make_policy
+    from pytorch_distributed_training_tpu_torch.train.step import (
+        prepare_image_input,
+    )
+
+    path = str(tmp_path / "p.pck")
+    synthesize_packed_images(path, n=16, size=232, num_classes=1000)
+    ds = PackedImages(path, crop_size=224, output_dtype="uint8")
+    batch = ds.get_batch(list(range(16)))
+    on_card = to_device(batch, dev)
+    assert on_card["image"].dtype == torch.uint8 and on_card["image"].is_cuda
+    assert torch.equal(on_card["image"].cpu(),
+                       torch.from_numpy(batch["image"]))
+    policy = make_policy("f32")
+    norm = (ds.mean, ds.std)
+    card = prepare_image_input(on_card["image"], policy, norm)
+    host = prepare_image_input(torch.from_numpy(batch["image"]), policy,
+                               norm)
+    assert card.shape == (16, 3, 224, 224)
+    torch.testing.assert_close(card.cpu(), host, atol=1e-6, rtol=0)

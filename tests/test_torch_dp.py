@@ -12,9 +12,11 @@ against the JAX package, on the CPU with gloo.
   process-major, split by JAX's ``_split_microbatches``).
 - Train steps: two gloo ranks (``tools/dp_check.py``) against JAX's
   ``make_train_step`` on the global batch in one process: a ResNet (f32,
-  ``batch_stats``, accumulation 2) within 1e-4 and GPT-2 (2 layers, f32,
-  dropout 0, accumulation 2) within rtol 1e-5, three steps; both ranks'
-  parameters bit-identical after every step.
+  ``batch_stats``, accumulation 2) within 1e-4, GPT-2 (2 layers, f32,
+  dropout 0, accumulation 2) and a 2-layer ViT (width 64, 32 px,
+  accumulation 2) within rtol 1e-5, three steps; the ViT under the bf16
+  policy too, its losses within 2e-2 of JAX's; both ranks' parameters
+  bit-identical after every step.
 - The CLI under ``torch.distributed.run`` with ``--distributed
   --use-cpu``.
 
@@ -39,7 +41,7 @@ from pytorch_distributed_training_tpu_torch import data as tdata
 from pytorch_distributed_training_tpu_torch.data.loader import rank_rows
 from pytorch_distributed_training_tpu_torch.models import (
     gpt2_params_from_jax, gpt2_params_to_jax, resnet_params_from_jax,
-    resnet_params_to_jax,
+    resnet_params_to_jax, vit_params_from_jax, vit_params_to_jax,
 )
 from pytorch_distributed_training_tpu_torch.tools import dp_check
 from tests.test_torch_resnet import (
@@ -47,6 +49,9 @@ from tests.test_torch_resnet import (
 )
 from tests.test_torch_train import (
     SMALL, _assert_params_close, _jax_params, _run_jax as _run_jax_gpt2,
+)
+from tests.test_torch_vit import (
+    SMALL as VIT_SMALL, _jax_init as _jax_vit_init, run_jax as _run_jax_vit,
 )
 from tests.torch_dp_worker import (
     FUNCTIONS, MODULES, REPO, bn_case, bn_inputs, launch,
@@ -144,13 +149,14 @@ def test_rank_rows_at_one_microbatch_is_the_shard_slice():
 
 # --- train steps against JAX ------------------------------------------------
 
-def _two_ranks(tmp_path, model: str, init: dict) -> list[dict]:
+def _two_ranks(tmp_path, model: str, init: dict,
+               extra: tuple = ()) -> list[dict]:
     path = tmp_path / "init.npz"
     np.savez(path, **{k: v.numpy() for k, v in init.items()})
     out = tmp_path / "out"
     launch(["-m", "pytorch_distributed_training_tpu_torch.tools.dp_check",
             "--model", model, "--device", "cpu", "--out", str(out),
-            "--init", str(path)])
+            "--init", str(path), *extra])
     ranks = []
     for r in range(2):
         with open(out / f"rank{r}.json") as f:
@@ -198,15 +204,47 @@ def test_gpt2_two_ranks_match_jax(tmp_path):
                          lr_bound=2 * dp_check.STEPS * lr)
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_vit_two_ranks_match_jax(tmp_path, precision):
+    assert {**VIT_SMALL, "patch_size": 16} == {**dp_check.VIT,
+                                               "patch_size": 16}
+    jm, params = _jax_vit_init(
+        32, dtype=jax.numpy.bfloat16 if precision == "bf16" else
+        jax.numpy.float32)
+    init = vit_params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    ranks = _two_ranks(tmp_path, "vit", init,
+                       ("--image-size", "32", "--precision", precision))
+    batches = [(b["image"], b["label"]) for b in
+               dp_check.global_batches("vit", dp_check.STEPS, 8, 32, 1)]
+    lr = 3e-4
+    ref_losses, ref_state = _run_jax_vit(
+        jm, params, batches, opt="adamw", lr=lr, wd=0.05,
+        accum=dp_check.ACCUM, precision=precision)
+    if precision == "bf16":
+        np.testing.assert_allclose(ranks[0]["losses"], ref_losses,
+                                   atol=2e-2, rtol=0)
+        return
+    np.testing.assert_allclose(ranks[0]["losses"], ref_losses, rtol=1e-5)
+    got = vit_params_to_jax({k: torch.from_numpy(ranks[0][k]) for k in init})
+    _assert_params_close(got, jax.tree_util.tree_map(np.asarray,
+                                                     ref_state.params),
+                         atol=1e-5, lr_bound=2 * dp_check.STEPS * lr)
+
+
 # --- the CLI ----------------------------------------------------------------
 
-@pytest.mark.parametrize("model", ["gpt2", "resnet18"])
+@pytest.mark.parametrize("model", ["gpt2", "resnet18", "vit_b16"])
 def test_cli_distributed_on_two_cpu_ranks(tmp_path, model):
     if model == "gpt2":
         extra = ["--dataset", "synthetic-tokens", "--seq-len", "32",
                  "--model-overrides", "num_layers=2,hidden_dim=64,"
                  "num_heads=2,vocab_size=256,max_seq_len=64",
                  "--accum-steps", "2"]
+    elif model == "vit_b16":
+        extra = ["--dataset", "cifar10", "--synthetic-data",
+                 "--model-overrides", "depth=2,hidden_dim=64,num_heads=4,"
+                 "mlp_dim=128", "--optimizer", "adamw", "--learning-rate",
+                 "5e-4", "--precision", "bf16", "--accum-steps", "2"]
     else:
         extra = ["--dataset", "cifar10", "--synthetic-data",
                  "--model-overrides", "num_filters=8,small_stem=true",

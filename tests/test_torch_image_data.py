@@ -320,7 +320,7 @@ def test_cli_image_usage_errors():
     with pytest.raises(SystemExit, match="--remat applies to transformer"):
         cli_main(base + ["--remat"])
     for ds in ("imagefolder:/x", "packed-images:/x"):
-        with pytest.raises(SystemExit, match="not yet ported"):
+        with pytest.raises(FileNotFoundError, match="/x"):
             cli_main(base + ["--dataset", ds])
     with pytest.raises(SystemExit, match="pick a matching pair"):
         cli_main(base + ["--dataset", "synthetic-tokens"])

@@ -37,9 +37,9 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 
 def test_port_imports_with_jax_blocked():
-    """Import the serving and training entry points, the ResNet path's and
-    the data-parallel path's modules in a fresh interpreter where
-    importing jax, flax or the JAX package fails."""
+    """Import the serving and training entry points, the ResNet path's,
+    the data-parallel path's and the ViT path's modules in a fresh
+    interpreter where importing jax, flax or the JAX package fails."""
     blocked = ", ".join(repr(m) for m in FORBIDDEN)
     code = (
         "import sys\n"
@@ -73,6 +73,9 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.parallel.sharding\n"
         "import pytorch_distributed_training_tpu_torch.utils.seeding\n"
         "import pytorch_distributed_training_tpu_torch.tools.dp_check\n"
+        "import pytorch_distributed_training_tpu_torch.models.vit\n"
+        "import pytorch_distributed_training_tpu_torch.data.imagenet\n"
+        "import pytorch_distributed_training_tpu_torch.ops.pooling\n"
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"({blocked},) and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"

@@ -462,7 +462,7 @@ def test_cli_usage_errors():
     image = ["--use-cpu", "--model", "resnet18", "--dataset", "cifar10"]
     with pytest.raises(SystemExit, match="--ce-chunk applies to LM"):
         cli_main(image + ["--ce-chunk", "8"])
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(FileNotFoundError, match="/x"):
         cli_main(["--use-cpu", "--model", "resnet18", "--dataset",
                   "imagefolder:/x"])
     with pytest.raises(SystemExit, match="unknown optimizer"):
