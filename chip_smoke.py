@@ -54,7 +54,16 @@ the port's main paths:
   launches counted exactly) timed in turns against the default ``bhld2``
   layout and ``auto`` under ``PDT_FORCE_ATTN=xla``, V4 a shallow f32 ViT
   three steps card against host (TF32 off), and R2p R2's ResNet-50
-  command reading the same packed file.
+  command reading the same packed file;
+- checkpoint and resume (T1 writes its step-8 checkpoint as it trains):
+  C0 what a save of T1's state (GPT-2 124M, 1.49 GB) and of R2's costs
+  (host stall, commit, restore) and the torn-save check on the card, C1
+  T1's command preempted by ``sigterm@4`` (exit 75) and resumed, its
+  flash launches and step-8 checkpoint equal to T1's, C2 R2's command
+  under ``--elastic`` with ``crash@7``, its step-12 checkpoint equal to
+  the uninterrupted run's, C3 the multi-node shape of configs[4] (two
+  ``torch.distributed.run`` nodes of one rank, static rendezvous, gloo on
+  the one card) and its step-2 checkpoint resumed by one process.
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -933,6 +942,10 @@ R2_ARGV = ["--model", "resnet50", "--dataset", "synthetic-images",
            "20", "--num-workers", "6"]
 CLI = "pytorch_distributed_training_tpu_torch.cli.main"
 DP_CHECK = "pytorch_distributed_training_tpu_torch.tools.dp_check"
+# The checkpoint phase's directories (T1 writes its epoch-end save here
+# too); removed when the phase ends.
+CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                    "chip_smoke", "ckpt")
 
 
 TRAIN_COMMON = ["--dataset", "synthetic-tokens", "--precision", "bf16",
@@ -954,7 +967,8 @@ TRAIN_RUNS = [
             "num_layers=2,max_seq_len=2048", "--seq-len", "2048",
             "--batch-size", "4", "--steps-per-epoch", "2"],
      2, 1, 2, False, (6, 8)),
-    ("T1", T1_RECIPE + ["--steps-per-epoch", "8"], 12, 2, 8, False, (4, 5)),
+    ("T1", T1_RECIPE + ["--steps-per-epoch", "8", "--checkpoint-dir",
+                        os.path.join(CKPT, "t1")], 12, 2, 8, False, (4, 5)),
     ("T5", T1_RECIPE + ["--steps-per-epoch", "2", "--remat", "--ce-chunk",
                         "256"], 12, 2, 2, True, (4, 5)),
 ]
@@ -1457,11 +1471,13 @@ def _records(path: str) -> list:
 
 
 def cli_leg(out: str, argv: list) -> int:
-    """One rank of a CLI leg under torchrun (``--cli-leg OUT ARGV...``):
-    runs the CLI with the flash kernels' launches counted and writes them
-    to OUT with the plain flash and plain attention calls (which must be
-    none) and the calls of the collectives ``psum`` and ``pmean`` (each
-    ``pmean`` makes one ``psum``; the rest are sync-BN's)."""
+    """One rank of a CLI leg under torchrun, or one CLI process
+    (``--cli-leg OUT ARGV...``): runs the CLI with the flash kernels'
+    launches counted and writes them to OUT with the plain flash and
+    plain attention calls (which must be none) and the calls of the
+    collectives ``psum`` and ``pmean`` (each ``pmean`` makes one ``psum``;
+    the rest are sync-BN's); exits with the CLI's code (75 when it was
+    preempted)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1483,12 +1499,16 @@ def cli_leg(out: str, argv: list) -> int:
     _count_calls(collectives, list(comm), comm)
     for e in entries:
         e.launches = 0
-    trainer = cli(argv)
+    code, steps = 0, None
+    try:
+        steps = cli(argv).state.step
+    except SystemExit as e:      # the preemption exit (75)
+        code = e.code
     with open(out, "w") as f:
         json.dump({"fwd": entries[0].launches, "dq": entries[1].launches,
                    "dkv": entries[2].launches, "plain": plain, "xla": xla,
-                   "comm": comm, "steps": trainer.state.step}, f)
-    return 0
+                   "comm": comm, "steps": steps}, f)
+    return code
 
 
 def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
@@ -1965,6 +1985,457 @@ def vit_parity_phase(torch, seed: int) -> None:
           f"{err:.3g} at {name} (1e-4)", flush=True)
 
 
+# The checkpoint phase: C0 what a save costs, C1 GPT-2 124M preempted and
+# resumed (T1's recipe), C2 ResNet-50 under the supervisor (R2's recipe),
+# C3 two nodes of one rank (configs[4]'s shape) and a restore at world 1.
+C2_ARGV = [*R2_ARGV[:R2_ARGV.index("--epochs")], "--epochs", "2",
+           "--steps-per-epoch", "6", *R2_ARGV[R2_ARGV.index("--num-workers"):]]
+
+
+def _run_cli(repo: str, argv: list):
+    """``python -m <the port's CLI> ARGV`` started in its own session;
+    returns the process (stdout and stderr piped)."""
+    return subprocess.Popen([sys.executable, "-m", CLI, *argv], cwd=repo,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+
+
+def _finish(proc, what: str, timeout: float, code: int = 0) -> str:
+    """Wait for ``proc``; fails the run (and kills its session) unless it
+    exits ``code``.  Returns its stdout."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            torchrun_kill(proc)
+    check(proc.returncode == code,
+          f"{what}: exit {proc.returncode}, expected {code}\n{out[-3000:]}\n"
+          f"{err[-3000:]}")
+    return out
+
+
+def _leaves(directory: str, step: int) -> dict:
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+
+    return CheckpointManager(directory).manifest(step)["leaves"]
+
+
+def _distance(torch, dir_a: str, dir_b: str, step: int) -> tuple:
+    """(max |a - b| over the float tensors of two steps, its tensor)."""
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+
+    a, b = (CheckpointManager(d).load_tensors(step) for d in (dir_a, dir_b))
+    worst = {k: float((a[k].double() - b[k].double()).abs().max())
+             for k in a if a[k].is_floating_point() and a[k].numel()}
+    name = max(worst, key=worst.get)
+    return worst[name], name
+
+
+def _same_run(torch, label: str, run: str, ref: str, step: int,
+              rerun) -> str:
+    """The determinism rule: ``run``'s step ``step`` must equal the
+    uninterrupted ``ref``'s on every tensor's crc32; where it does not,
+    the tensors that differ are named and it is held to the distance
+    between ``ref`` and a second uninterrupted run of the same command
+    (``rerun()``, which makes it and returns its directory)."""
+    got, want = _leaves(run, step), _leaves(ref, step)
+    check(got.keys() == want.keys(), f"{label}: manifests' tensors differ")
+    differ = sorted(k for k in want if got[k]["crc32"] != want[k]["crc32"])
+    if not differ:
+        return f"step {step} bitwise equal to the uninterrupted run " \
+            f"({len(want)} tensors' crc32)"
+    d1, at1 = _distance(torch, run, ref, step)
+    d0, at0 = _distance(torch, rerun(), ref, step)
+    check(d1 <= d0, f"{label}: resumed run {d1:.3g} from the uninterrupted "
+          f"one (at {at1}), two uninterrupted runs {d0:.3g} apart (at {at0})")
+    return (f"step {step} not bitwise: {len(differ)} of {len(want)} tensors "
+            f"differ (first {differ[:3]}); max diff {d1:.3g} at {at1}, "
+            f"within two uninterrupted runs' {d0:.3g} (at {at0})")
+
+
+def save_costs(torch, label: str, state, template, scratch: str,
+               step_ms: float) -> str:
+    """C0 for one state: its bytes, ``save``'s host stall (3 async saves,
+    median), the card's wait (CUDA events on the compute stream around
+    ``save`` on an idle card: the staging copy, which the compute stream
+    waits for before any later kernel), the commit (call to committed,
+    median) and a restore of the newest into ``template``."""
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from pytorch_distributed_training_tpu_torch.checkpoint.manager import (
+        flatten_state,
+    )
+
+    tensors, _ = flatten_state(state)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    mgr = CheckpointManager(scratch)
+    stalls, waits, commits = [], [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        mgr.save(state, step=1000 + i)
+        stalls.append(time.perf_counter() - t0)
+        e1.record()
+        mgr.wait_until_finished()
+        commits.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        waits.append(e0.elapsed_time(e1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = CheckpointManager(scratch).restore_latest(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(restored.step == 1002, f"C0 {label}: restored step 1002")
+    stall, wait = statistics.median(stalls), statistics.median(waits)
+    return (f"{nbytes / 1e9:.3f} GB; save stall {stall * 1e3:.2f} ms "
+            f"(median of {[round(x * 1e3, 2) for x in stalls]} ms; "
+            f"{stall * 1e3 / step_ms * 100:.2f} % of the {step_ms:.1f} ms "
+            f"step), the card's wait for the staging copy {wait:.2f} ms "
+            f"(median of {[round(x, 2) for x in waits]} ms; "
+            f"{nbytes / wait / 1e6:.1f} GB/s; {wait / step_ms * 100:.2f} % "
+            f"of the step), commit {statistics.median(commits):.2f} s "
+            f"(median of {[round(x, 2) for x in commits]}), restore "
+            f"{restore_s:.2f} s")
+
+
+def save_in_flight(torch, state, step_fn, batch, scratch: str,
+                   steps: int = 24):
+    """What an async save costs T1's training: windows of ``steps`` T1
+    steps (GPT-2 124M, B 16, L 1024, 2 microbatches) with a save at the
+    start of the window or without, in the order plain, save, save,
+    plain.  Per window: the first step's device time (CUDA events; the
+    save's staging copy lands in it), the window's host time up to its
+    last step's end, and the commit's time left at that point.  Returns
+    (state, line)."""
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+
+    mgr = CheckpointManager(scratch)
+    for _ in range(2):
+        state, _ = step_fn(state, batch)
+    first, window, left = {False: [], True: []}, {False: [], True: []}, []
+    for i, saving in enumerate((False, True, True, False)):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        if saving:
+            mgr.save(state, step=2000 + i)
+        state, _ = step_fn(state, batch)
+        e1.record()
+        for _ in range(steps - 1):
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mgr.wait_until_finished()
+        window[saving].append(t1 - t0)
+        first[saving].append(e0.elapsed_time(e1))
+        if saving:
+            left.append(time.perf_counter() - t1)
+    f0, f1 = (statistics.mean(first[k]) for k in (False, True))
+    w0, w1 = (statistics.mean(window[k]) for k in (False, True))
+    return state, (
+        f"{steps}-step windows, plain/save/save/plain: first step "
+        f"{f0:.2f} ms without a save, {f1:.2f} ms with one in flight "
+        f"(+{f1 - f0:.2f} ms; {[round(x, 2) for x in first[False]]} / "
+        f"{[round(x, 2) for x in first[True]]}); window "
+        f"{w0 * 1e3:.1f} ms without, {w1 * 1e3:.1f} ms with "
+        f"(+{(w1 - w0) * 1e3:.1f} ms a save, "
+        f"{(w1 - w0) / w0 * 100:.2f} %; "
+        f"{[round(x * 1e3, 1) for x in window[False]]} / "
+        f"{[round(x * 1e3, 1) for x in window[True]]}); the commit still "
+        f"ran {[round(x * 1e3, 1) for x in left]} ms past the window")
+
+
+def checkpoint_phase(torch, seed: int, repo: str, figures: dict) -> dict:
+    """C0: what a save of T1's state (GPT-2 124M: f32 master, adamw, 1.49
+    GB) and of R2's (ResNet-50, sgd) costs, the torn-save check on the
+    card (an async save, a step at once, the committed bytes equal to
+    the state at the save), and T1's steps with a save in flight.  C1: T1's command preempted by
+    ``sigterm@4`` under step checkpoints every 2 (exit 75, steps 2, 4, 5
+    committed), then resumed (``resumed from step 5 (epoch 0, skipping 5
+    consumed batches)``, step 8 committed); the flash launches of the two
+    processes equal T1's, and the step-8 checkpoint equals T1's.  C2:
+    R2's command for 2 x 6 steps under ``--elastic`` with ``crash@7``:
+    one restart, step 12 equal to the uninterrupted run's.  C3: two
+    ``torch.distributed.run`` nodes of one rank (static rendezvous, gloo
+    on the one card) train D3's shallow f32 ResNet 4 steps, saving step
+    2; one process restores it bit for bit and takes steps 3-4 within
+    1e-4 of the two nodes.  Returns C1's launches by flash row."""
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from pytorch_distributed_training_tpu_torch.checkpoint.manager import (
+        flatten_state,
+    )
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer, build_schedule,
+    )
+    from pytorch_distributed_training_tpu_torch.models import create_model
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    card = card_line()
+    dev = torch.device("cuda")
+    t1_dir = os.path.join(CKPT, "t1")
+    policy = make_policy("bf16")
+
+    def gpt2_state(s):
+        model = create_model("gpt2", dtype=policy.param_dtype, device=dev,
+                             seed=s)
+        # T1's recipe with a longer horizon: at T1's step 8 its rate has
+        # decayed to 0, and the torn-save check needs a step that moves
+        # the weights.
+        lr = build_schedule("warmup-cosine", 6e-4, total_steps=16,
+                            warmup_steps=2)
+        return create_train_state(model, build_optimizer(
+            "adamw", lr, weight_decay=0.1, grad_clip=1.0), policy=policy)
+
+    def resnet_state(s):
+        model = create_model("resnet50", num_classes=1000,
+                             dtype=policy.param_dtype, device=dev, seed=s)
+        return create_train_state(model, build_optimizer(
+            "sgd", 0.1, weight_decay=1e-3), policy=policy)
+
+    # --- C0 -----------------------------------------------------------------
+    t0 = time.monotonic()
+    state = gpt2_state(seed + 7)
+    torch.cuda.synchronize()
+    t_r = time.perf_counter()
+    state = CheckpointManager(t1_dir).restore_latest(state)
+    torch.cuda.synchronize()
+    t1_restore = time.perf_counter() - t_r
+    check(state is not None and state.step == 8, "C0: T1's step 8 restores")
+    line = save_costs(torch, "GPT-2", state, gpt2_state(seed + 8),
+                      os.path.join(CKPT, "c0_gpt2"), figures["T1"][1])
+    print(f"ckpt C0 GPT-2 124M (T1's state: f32 master, adamw; {card}): "
+          f"{line}; T1's step-8 restore {t1_restore:.2f} s", flush=True)
+    # The torn-save check: an async save, then at once a step that
+    # updates the parameters and moments in place.
+    step_fn = make_train_step(kind="lm", policy=policy)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, VOCAB, (2, 1024), device=dev,
+                                     generator=gen)}
+    at_save = {k: v.detach().clone()
+               for k, v in flatten_state(state)[0].items()}
+    mgr = CheckpointManager(os.path.join(CKPT, "c0_torn"))
+    mgr.save(state, step=8)
+    state, _ = step_fn(state, batch)
+    mgr.wait_until_finished()
+    saved = mgr.load_tensors(8)
+    torn = [k for k, v in at_save.items() if not torch.equal(saved[k],
+                                                             v.cpu())]
+    moved = not torch.equal(state.params["wte"], at_save["params/wte"])
+    check(not torn and moved, f"C0 torn-save check: {len(torn)} tensors "
+          f"differ from the state at the save (first {torn[:3]}); the step "
+          f"moved the weights: {moved}")
+    del at_save, saved, mgr
+    tokens = torch.randint(0, VOCAB, (16, 1024), device=dev, generator=gen)
+    state, line = save_in_flight(
+        torch, state, make_train_step(kind="lm", policy=policy,
+                                      num_microbatches=2),
+        {"tokens": tokens}, os.path.join(CKPT, "c0_flight"))
+    print(f"ckpt C0 GPT-2 124M, T1's step with an async save in flight "
+          f"({card}): {line}", flush=True)
+    del state, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = save_costs(torch, "ResNet-50", resnet_state(seed),
+                      resnet_state(seed + 1),
+                      os.path.join(CKPT, "c0_resnet50"), figures["R2"][1])
+    print(f"ckpt C0 ResNet-50 (R2's state: f32 master, sgd momentum, "
+          f"batch_stats; {card}): {line}; torn-save check: the committed "
+          f"bytes equal the state at the save after an in-place step; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    for name in ("c0_gpt2", "c0_torn", "c0_flight", "c0_resnet50"):
+        shutil.rmtree(os.path.join(CKPT, name))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- C2 and C3 start; C1 runs meanwhile -----------------------------------
+    t0 = time.monotonic()
+    script = os.path.join(repo, "chip_smoke.py")
+    c2 = {name: os.path.join(CKPT, name) for name in
+          ("c2_ref", "c2_ref2", "c2")}
+
+    def uninterrupted(argv: list, directory: str, what: str):
+        """A second uninterrupted run, made only when the determinism
+        rule needs it."""
+        def run():
+            _finish(_run_cli(repo, [*argv, "--checkpoint-dir", directory]),
+                    what, 300)
+            return directory
+        return run
+
+    procs = {}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    c3 = os.path.join(CKPT, "c3")
+    c3_argv = ["-m", DP_CHECK, "--model", "resnet", "--device", "cuda",
+               "--backend", "gloo", "--out", os.path.join(c3, "out"),
+               "--steps", "4", "--save-at", "2", "--batch", "32",
+               "--image-size", "32", "--small-stem", "--filters", "64",
+               "--seed", str(seed)]
+    c2_argv = [*C2_ARGV, "--seed", str(seed)]
+    try:
+        procs["c2_ref"] = _run_cli(repo, [*c2_argv, "--checkpoint-dir",
+                                          c2["c2_ref"]])
+        procs["c2"] = _run_cli(repo, [
+            *c2_argv, "--elastic", "--max-restarts",
+            "1", "--checkpoint-dir", c2["c2"], "--ckpt-every-steps", "3",
+            "--inject-faults", "crash@7"])
+        for node in range(2):
+            procs[f"c3_{node}"] = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--nnodes",
+                 "2", "--nproc_per_node", "1", "--node_rank", str(node),
+                 "--master_addr", "localhost", "--master_port", str(port),
+                 *c3_argv, "--checkpoint-dir",
+                 os.path.join(c3, f"node{node}")],
+                cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, start_new_session=True)
+
+        # --- C1 ---------------------------------------------------------------
+        t1_argv = [*T1_RECIPE, "--steps-per-epoch", "8", *TRAIN_COMMON,
+                   "--seed", str(seed)]
+        c1 = os.path.join(CKPT, "c1")
+        argv = [*t1_argv, "--checkpoint-dir", c1, "--ckpt-every-steps", "2",
+                "--inject-faults", "sigterm@4"]
+        counts = []
+        for i, extra in enumerate(([], ["--resume"])):
+            out_json = os.path.join(CKPT, f"c1_{i}.json")
+            proc = subprocess.Popen(
+                [sys.executable, script, "--cli-leg", out_json, *argv,
+                 *extra], cwd=repo, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)
+            out = _finish(proc, f"C1 process {i + 1}", 300,
+                          code=75 if i == 0 else 0)
+            with open(out_json) as f:
+                counts.append(json.load(f))
+            steps = CheckpointManager(c1).all_steps()
+            if i == 0:
+                check("preempted at step 5; checkpoint committed; exiting 75"
+                      in out and steps == [2, 4, 5],
+                      f"C1: exit 75 at step 5, steps 2, 4, 5 committed "
+                      f"({steps})")
+            else:
+                check("resumed from step 5 (epoch 0, skipping 5 consumed "
+                      "batches)" in out and steps[-1] == 8,
+                      f"C1: resumed from step 5, step 8 committed ({steps})"
+                      f"\n{out[-2000:]}")
+        want = 12 * 2 * 8
+        n = {k: counts[0][k] + counts[1][k] for k in ("fwd", "dq", "dkv")}
+        check(n == {"fwd": want, "dq": want, "dkv": want},
+              f"C1: flash launches of the two processes {n}, expected "
+              f"{want} each (T1's)")
+        check(not any(v for c in counts for v in [*c["plain"].values(),
+                                                  *c["xla"].values()]),
+              f"C1: attention outside the kernels {counts}")
+        verdict = _same_run(torch, "C1", c1, t1_dir, 8, uninterrupted(
+            t1_argv, os.path.join(CKPT, "t1_2"), "C1: T1 again"))
+        print(f"ckpt C1 (GPT-2 124M, T1's recipe, #4/#5; sigterm@4, step "
+              f"checkpoints every 2): exit 75 with steps 2, 4, 5; resumed "
+              f"from step 5 (epoch 0, skipping 5 consumed batches) to step "
+              f"8; flash launches {counts[0]['fwd']} + {counts[1]['fwd']} "
+              f"fwd, {counts[0]['dq']} + {counts[1]['dq']} dq, "
+              f"{counts[0]['dkv']} + {counts[1]['dkv']} dkv = T1's {want} "
+              f"each; {verdict}; {time.monotonic() - t0:.1f} s", flush=True)
+
+        # --- C2 ---------------------------------------------------------------
+        _finish(procs.pop("c2_ref"), "C2 uninterrupted", 300)
+        out = _finish(procs.pop("c2"), "C2 under --elastic", 300)
+        check("supervisor: finished after 1 restarts (0 hang kills, 0 "
+              "preemptions), exit 0" in out,
+              f"C2: one restart under the supervisor\n{out[-3000:]}")
+        resumed = re.search(r"resumed from step (\d+) \(epoch (\d+), "
+                            r"skipping (\d+) consumed batches\)", out)
+        check(resumed is not None and resumed.group(1) in ("3", "6"),
+              f"C2: the relaunch resumed from step 6 or 3\n{out[-3000:]}")
+        verdict = _same_run(torch, "C2", c2["c2"], c2["c2_ref"], 12,
+                            uninterrupted(c2_argv, c2["c2_ref2"],
+                                          "C2 uninterrupted again"))
+        leaves = _leaves(c2["c2"], 12)
+        check(any(k.startswith("batch_stats/") for k in leaves)
+              and any(k.startswith("opt_state/") for k in leaves),
+              "C2: the step-12 manifest covers batch_stats and momentum")
+        print(f"ckpt C2 (ResNet-50, R2's recipe, 2 x 6 steps, --elastic "
+              f"--max-restarts 1, step checkpoints every 3, crash@7): exit "
+              f"13 before step 7, {resumed.group(0)}, supervisor: finished "
+              f"after 1 restarts; {verdict}; {time.monotonic() - t0:.1f} s "
+              "since C1 started", flush=True)
+
+        # --- C3 ---------------------------------------------------------------
+        outs = [_finish(procs.pop(f"c3_{node}"), f"C3 node {node}", 180)
+                for node in range(2)]
+        for node, out in enumerate(outs):
+            check(f"RANK {node} LOCAL_RANK 0 GROUP_RANK {node}" in out,
+                  f"C3 node {node}: torchrun's identity\n{out[-2000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(c3, "out", f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        check(ranks[0]["checksums"] == ranks[1]["checksums"],
+              "C3: the two nodes' ranks bit-identical after every step")
+        node1 = os.path.join(c3, "node1")
+        check(not os.path.exists(node1) or not os.listdir(node1),
+              "C3: node 1's checkpoint directory stays empty")
+        saved = dict(np.load(os.path.join(c3, "out", "rank0.npz")))
+        saved_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            model = dp_check.build_model("resnet", dev, seed=seed + 1,
+                                         small_stem=True, filters=64)
+            batches = dp_check.global_batches("resnet", 4, 32, 32, seed + 1)
+            losses, sums, state = dp_check.run_steps(
+                "resnet", model, batches, accum=dp_check.ACCUM,
+                device="cuda", resume=True,
+                checkpoint=CheckpointManager(os.path.join(c3, "node0")))
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved_tf32
+        check(sums[0] == ranks[0]["checksums"][1],
+              "C3: the one-process restore is bitwise the two nodes' step 2")
+        loss_err = max(abs(a - b) for a, b in zip(losses,
+                                                  ranks[0]["losses"][2:]))
+        worst = {k: float(np.abs(v.detach().cpu().numpy() - saved[k]).max())
+                 for k, v in {**state.params, **state.batch_stats}.items()}
+        name = max(worst, key=worst.get)
+        check(loss_err <= 1e-4 and worst[name] <= 1e-4,
+              f"C3: steps 3-4 at world 1 vs the two nodes: losses "
+              f"{loss_err:.3g}, weights {worst[name]:.3g} at {name}")
+        print(f"ckpt C3 (configs[4]'s shape: 2 torchrun nodes of 1 rank, "
+              f"static rendezvous, gloo on the one card; D3's shallow f32 "
+              f"ResNet, TF32 off, 4 steps, step 2 saved by rank 0 alone): "
+              f"ranks bit-identical; node 1's directory empty; world-1 "
+              f"restore bitwise (the manifest verified), steps 3-4 losses "
+              f"within {loss_err:.3g}, weights within {worst[name]:.3g} at "
+              f"{name} (1e-4); NCCL across two hosts is not measurable on "
+              f"one card; {time.monotonic() - t0:.1f} s since C1 started",
+              flush=True)
+    finally:
+        for proc in procs.values():   # a check failed: stop the rest
+            torchrun_kill(proc)
+        shutil.rmtree(CKPT, ignore_errors=True)
+    return {4: n["fwd"], 5: n["dq"] + n["dkv"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2020,6 +2491,10 @@ def main() -> int:
                       for ln in spills), "no decode kernel instance spills")
 
     seconds: dict = {"build": time.monotonic() - t0}
+    # T1 writes its epoch-end checkpoint here: start from nothing.
+    import shutil
+
+    shutil.rmtree(CKPT, ignore_errors=True)
 
     def timed(name, phase, *a):
         t0 = time.monotonic()
@@ -2051,6 +2526,9 @@ def main() -> int:
         flash[num]["launches"] += n
     for num, n in timed("vit", vit_phase, torch, fa, args.seed, repo,
                         figures).items():
+        flash[num]["launches"] += n
+    for num, n in timed("checkpoint", checkpoint_phase, torch, args.seed,
+                        repo, figures).items():
         flash[num]["launches"] += n
     print("phases: " + ", ".join(f"{k} {v:.1f} s"
                                  for k, v in seconds.items()), flush=True)

@@ -26,10 +26,22 @@ reads a class-folder tree instead).
         -m pytorch_distributed_training_tpu_torch.cli.main --distributed ...
 
 trains data-parallel, one process per GPU (``--use-cpu``: gloo on the
-host); ``--batch-size`` stays global.  Checkpoints are not ported yet, so
-the server runs fresh-init weights drawn from ``--seed``.  Not ported
-yet: tensor, pipeline and sequence parallelism, the MoE GPT-2,
-``--device-cache``, checkpoint and resume, telemetry and resilience.
+host); ``--batch-size`` stays global.  Several hosts join one group through
+torchrun's static rendezvous (``--nnodes N --node_rank r --master_addr A
+--master_port P``).
+
+``--checkpoint-dir D`` saves a checkpoint at each epoch's end (rank 0
+writes; ``--ckpt-every-steps N`` adds async step checkpoints) and makes
+SIGTERM commit a synchronous checkpoint at the next step boundary and
+exit 75; ``--resume`` continues from the newest verified step, skipping
+the batches its epoch already consumed; ``--elastic [--max-restarts N
+--heartbeat-timeout S]`` runs the command under the supervisor, which
+relaunches it with ``--resume`` after a crash, hang or preemption;
+``--inject-faults crash@N,stall@N:S,sigterm@N,ckpt_truncate@N`` tests all
+of it.  ``--serve --checkpoint-dir D`` serves the trained parameters.
+Not ported yet: tensor, pipeline and sequence parallelism, the MoE GPT-2,
+``--device-cache``, telemetry, the anomaly policy (``--skip-bad-steps``)
+and elastic resizing.
 """
 
 from __future__ import annotations
@@ -93,6 +105,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-jsonl", default=None,
                    help="Append per-epoch metrics (training) or one record "
                         "per finished request (--serve) here.")
+    # --- checkpoints and resilience (the JAX CLI's flags and defaults) ---
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="Save a checkpoint per epoch.")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from --checkpoint-dir if present.")
+    p.add_argument("--ckpt-every-steps", type=int, default=None,
+                   help="Mid-epoch checkpoint cadence (global steps): async "
+                        "step-granular saves so a crash/preemption loses at "
+                        "most this many steps; resume skips the consumed "
+                        "batches of the partial epoch deterministically "
+                        "(requires --checkpoint-dir).")
+    p.add_argument("--elastic", action="store_true",
+                   help="Supervise the run: restart on crash/hang, resuming "
+                        "from --checkpoint-dir (torchelastic equivalent).  "
+                        "Crash relaunches back off exponentially with "
+                        "jitter; a preemption exit (SIGTERM -> step "
+                        "checkpoint -> exit 75) relaunches immediately "
+                        "without charging --max-restarts.")
+    p.add_argument("--max-restarts", type=int, default=3,
+                   help="Restart budget under --elastic.")
+    p.add_argument("--heartbeat-timeout", type=float, default=600.0,
+                   help="Seconds without training progress before a hung "
+                        "run is killed (--elastic).")
+    p.add_argument("--inject-faults", default=None,
+                   help="Deterministic fault injection "
+                        "(resilience/faults.py): comma-separated "
+                        "kind@step[:arg] with kinds crash, stall, sigterm, "
+                        "ckpt_truncate — each fires once per run (markers "
+                        "persist across supervised relaunches in "
+                        "<ckpt-dir>/.fault_state).  Chaos testing only.")
     # --- training (the JAX CLI's flags and defaults) ---
     p.add_argument("--dataset", default="cifar10",
                    help="cifar10|shapes|synthetic-images|"
@@ -186,8 +228,11 @@ def build_parser() -> argparse.ArgumentParser:
 def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
               n_requests, rate, num_slots, max_new, prefill_chunk, spec_k=0,
               spec_ngram=4, device=None, paged=False, block_size=16,
-              num_blocks=0, kv_dtype="bf16", kv_host_mb=0.0) -> dict:
+              num_blocks=0, kv_dtype="bf16", kv_host_mb=0.0,
+              checkpoint_dir=None) -> dict:
     """Serve ``model`` over the synthetic trace and print the summary.
+    With ``checkpoint_dir`` the newest verified checkpoint's parameters
+    replace the fresh-init weights drawn from ``seed``.
 
     Returns ``{"summary", "engine", "tokens"}``: the SLO summary, the
     engine's counters, and every request's generated tokens by id."""
@@ -211,8 +256,6 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
     policy = make_policy(precision)
     # Serving casts every parameter (LayerNorm and embeddings included) to
     # the compute dtype, as the JAX CLI does.
-    print("warning: serving FRESH-INIT weights (pass --checkpoint-dir "
-          "with a trained run for real outputs)")
     net = create_model(
         model, dtype=policy.compute_dtype, device=device, seed=seed,
         cfg_overrides=overrides,
@@ -222,6 +265,19 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
             f"--serve-max-new {max_new} leaves no room for a prompt in the "
             f"model's {net.cfg.max_seq_len}-position cache"
         )
+    params = None
+    if checkpoint_dir:
+        from ..checkpoint import CheckpointManager
+
+        params = CheckpointManager(checkpoint_dir).restore_params()
+        if params is not None:
+            _load_params(net, params)
+            print(f"serving params restored from {checkpoint_dir}")
+    if params is None:
+        if checkpoint_dir:
+            print(f"warning: no committed checkpoint in {checkpoint_dir}")
+        print("warning: serving FRESH-INIT weights (pass --checkpoint-dir "
+              "with a trained run for real outputs)")
     max_len = net.cfg.max_seq_len
     tokens: dict = {}
     engine = ServingEngine(
@@ -311,6 +367,22 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         k: v for k, v in summary.items() if not isinstance(v, dict)
     }})
     return {"summary": summary, "engine": engine.stats(), "tokens": tokens}
+
+
+def _load_params(net, params: dict) -> None:
+    """Copy checkpointed parameters into ``net`` by name, cast to its
+    dtype; the names must be exactly the model's."""
+    import torch
+
+    names = dict(net.named_parameters())
+    if set(names) != set(params):
+        diff = sorted(set(names) ^ set(params))
+        raise ValueError(
+            f"checkpoint parameters do not match --model: {len(diff)} "
+            f"names differ (first: {diff[0]})")
+    with torch.no_grad():
+        for name, p in names.items():
+            p.copy_(params[name])
 
 
 def build_schedule(lr_schedule: str, learning_rate: float, *,
@@ -496,10 +568,16 @@ def run_train(args, overrides: dict, device=None):
 
 def _train(args, overrides, device, group, rank, world):
     import itertools
+    import os
 
+    from ..checkpoint import CheckpointManager
     from ..data import DataLoader, DataLoaderConfig
     from ..data.loader import to_device
     from ..models import create_model, model_kind
+    from ..resilience import (
+        PREEMPTED_EXIT_CODE, FaultInjector, Preempted, PreemptionHandler,
+    )
+    from ..resilience.faults import FAULTS_ENV
     from ..train import (
         Trainer, TrainerConfig, create_train_state, make_eval_step,
         make_policy, make_train_step,
@@ -540,6 +618,17 @@ def _train(args, overrides, device, group, rank, world):
             f"--batch-size {args.batch_size} must divide into "
             f"--accum-steps {args.accum_steps} microbatches x {world} "
             "processes")
+    faults = None
+    fault_spec = args.inject_faults or os.environ.get(FAULTS_ENV)
+    if fault_spec:
+        # Fired-markers persist under the checkpoint dir, so a supervised
+        # relaunch (which resumes BELOW the fault step) does not refire.
+        try:
+            faults = FaultInjector.from_spec(fault_spec, state_dir=(
+                os.path.join(args.checkpoint_dir, ".fault_state")
+                if args.checkpoint_dir else None))
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     loader = DataLoader(ds, DataLoaderConfig(
         batch_size=args.batch_size, num_workers=args.num_workers,
         seed=args.seed,
@@ -561,13 +650,54 @@ def _train(args, overrides, device, group, rank, world):
     tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay,
                          momentum=args.momentum, grad_clip=args.grad_clip)
     state = create_train_state(net, tx, policy=policy, process_group=group)
+    # Optimizer steps per epoch — translates a restored step counter back
+    # into an epoch index on --resume.  len(loader) is the per-process
+    # step count, which equals the global optimizer step count (every
+    # process advances state.step together).
+    per_epoch_steps = args.steps_per_epoch \
+        if args.steps_per_epoch is not None else max(len(loader), 1)
+    start_epoch = resume_skip_steps = 0
+    ckpt_mgr = None
+    if args.checkpoint_dir:
+        def ckpt_anomaly(kind, **fields):
+            # A silent fallback to an older step is a debugging trap.
+            print(f"checkpoint: {kind} {fields}")
+
+        ckpt_mgr = CheckpointManager(
+            args.checkpoint_dir, on_anomaly=ckpt_anomaly,
+            fault_injector=faults, process_group=group)
+        restored = ckpt_mgr.restore_latest(state) if args.resume else None
+        if restored is not None:
+            state = restored
+            # Resume where training left off; a mid-epoch step checkpoint
+            # also skips the partial epoch's consumed batches (the
+            # loader's epoch-seeded order replays them identically).
+            start_epoch = min(state.step // per_epoch_steps, args.epochs)
+            if start_epoch < args.epochs:
+                resume_skip_steps = state.step - start_epoch * per_epoch_steps
+            print(f"resumed from step {state.step} (epoch {start_epoch}, "
+                  f"skipping {resume_skip_steps} consumed batches)")
     step_fn = make_train_step(
         kind=kind, policy=policy, num_microbatches=args.accum_steps,
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
         lm_loss_chunk=args.ce_chunk, input_normalize=input_normalize,
         process_group=group,
     )
-    trainer = Trainer(state, step_fn, device, TrainerConfig())
+    # Preemption latch: a checkpointed run takes a synchronous step
+    # checkpoint on SIGTERM and exits the code the supervisor relaunches
+    # for free.
+    preemption = checkpoint_fn = None
+    if ckpt_mgr is not None:
+        def checkpoint_fn(s, wait=False):
+            ckpt_mgr.save(s, wait=wait)
+
+        try:
+            preemption = PreemptionHandler().install()
+        except ValueError:
+            preemption = None  # not the main thread (embedded callers)
+    trainer = Trainer(state, step_fn, device, TrainerConfig(
+        checkpoint_every_steps=args.ckpt_every_steps),
+        faults=faults, preemption=preemption, checkpoint_fn=checkpoint_fn)
     logger = metrics_lib.MetricsLogger(args.metrics_jsonl)
     eval_loader = eval_step = None
     if eval_ds is not None:
@@ -583,13 +713,24 @@ def _train(args, overrides, device, group, rank, world):
 
     print("training started")
     t0 = time.perf_counter()
+    preempted = None
     try:
-        for epoch in range(args.epochs):
+        for epoch in range(start_epoch, args.epochs):
             loader.set_epoch(epoch)
             batches = iter(loader)
-            if args.steps_per_epoch is not None:
-                batches = itertools.islice(batches, args.steps_per_epoch)
+            # Deterministic mid-epoch resume: drop the batches the
+            # interrupted run already consumed, capped at the same
+            # absolute per-epoch bound.
+            skip = resume_skip_steps if epoch == start_epoch else 0
+            if skip or args.steps_per_epoch is not None:
+                batches = itertools.islice(batches, skip,
+                                           args.steps_per_epoch)
             logger.log(trainer.run_epoch(batches, epoch=epoch))
+            if ckpt_mgr is not None:
+                # Async: staging is enqueued now, the write overlaps the
+                # eval and the next epoch; the finally below commits the
+                # last save.
+                ckpt_mgr.save(trainer.state)
             if eval_loader is None:
                 continue
             batches = iter(eval_loader)
@@ -605,16 +746,89 @@ def _train(args, overrides, device, group, rank, world):
             if n_batches:
                 logger.log({"epoch": epoch, **{
                     f"eval_{k}": v / n_batches for k, v in totals.items()}})
+    except Preempted as e:
+        # The trainer already committed a synchronous step checkpoint at
+        # the boundary; fall through to the shared cleanup.
+        preempted = e
     finally:
-        loader.close()
+        if preemption is not None:
+            preemption.uninstall()
+        try:
+            loader.close()
+        finally:
+            # Every exit path waits for the last async save to commit
+            # (and raises if it failed).
+            if ckpt_mgr is not None:
+                ckpt_mgr.close()
     elapsed = time.perf_counter() - t0
+    if preempted is not None:
+        print(f"preempted at step {preempted.step}; checkpoint "
+              f"{'committed' if preempted.saved else 'unavailable'}; "
+              f"exiting {PREEMPTED_EXIT_CODE}")
+        print(f"elapsed time: {elapsed:.2f}s")
+        sys.exit(PREEMPTED_EXIT_CODE)
     print("training finished")
     print(f"elapsed time: {elapsed:.2f}s")
     return trainer
 
 
+# Flags the supervisor keeps to itself: the child runs without them.
+_SUPERVISOR_FLAGS = ("elastic", "max_restarts", "heartbeat_timeout")
+
+
+def _child_argv(parser: argparse.ArgumentParser, args) -> list[str]:
+    """The parsed options as an argv for the supervised child, without
+    the supervisor's own flags (built from the parsed options, not
+    sys.argv, so programmatic calls supervise the intended command)."""
+    argv: list[str] = []
+    for action in parser._actions:
+        if not action.option_strings or action.dest in _SUPERVISOR_FLAGS \
+                or action.dest == "help":
+            continue
+        value = getattr(args, action.dest)
+        if isinstance(action, argparse._StoreTrueAction):
+            if value:
+                argv.append(action.option_strings[0])
+        elif value is not None:
+            argv.extend([action.option_strings[0], str(value)])
+    return argv
+
+
+def _run_elastic(parser: argparse.ArgumentParser, args) -> None:
+    """Re-execute this entry point under the failure supervisor: a crash
+    or heartbeat stall relaunches it with --resume, restoring the latest
+    checkpoint and continuing at the right epoch."""
+    import os
+
+    from ..utils.supervisor import supervise
+
+    if not args.checkpoint_dir:
+        parser.error("--elastic requires --checkpoint-dir to resume into")
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    child = [sys.executable, "-m", "pytorch_distributed_training_tpu_torch"
+             ".cli.main", *_child_argv(parser, args)]
+    result = supervise(
+        child, max_restarts=args.max_restarts,
+        heartbeat_path=os.path.join(args.checkpoint_dir, ".heartbeat"),
+        heartbeat_timeout_s=args.heartbeat_timeout,
+    )
+    if result.restarts or result.hung_kills or result.preemptions:
+        print(f"supervisor: finished after {result.restarts} restarts "
+              f"({result.hung_kills} hang kills, {result.preemptions} "
+              f"preemptions), exit {result.exit_code}")
+    # Signal deaths (negative Popen codes) map to the 128+N shell
+    # convention (SIGKILL -> 137).
+    code = result.exit_code
+    sys.exit(128 + abs(code) if code < 0 else code)
+
+
 def main(argv: list[str] | None = None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.elastic:
+        return _run_elastic(parser, args)
+    if args.ckpt_every_steps and not args.checkpoint_dir:
+        parser.error("--ckpt-every-steps requires --checkpoint-dir")
     from ..models import model_kind
 
     try:
@@ -645,7 +859,7 @@ def main(argv: list[str] | None = None):
         device="cpu" if args.use_cpu else None,
         paged=args.serve_paged, block_size=args.serve_block_size,
         num_blocks=args.serve_num_blocks, kv_dtype=args.serve_kv_dtype,
-        kv_host_mb=args.serve_kv_host_mb,
+        kv_host_mb=args.serve_kv_host_mb, checkpoint_dir=args.checkpoint_dir,
     )
 
 

@@ -3,7 +3,8 @@ weight bridge, generation."""
 
 from .convert import (
     gpt2_params_from_jax, gpt2_params_to_jax, resnet_params_from_jax,
-    resnet_params_to_jax, vit_params_from_jax, vit_params_to_jax,
+    resnet_params_to_jax, train_state_from_jax, train_state_to_jax,
+    vit_params_from_jax, vit_params_to_jax,
 )
 from .generate import eos_cut_length, filter_logits, generate, sample_logits
 from .gpt2 import (
@@ -33,5 +34,5 @@ __all__ = [
     "resnet50", "resnet101", "resnet152", "resnet_params_from_jax",
     "resnet_params_to_jax", "VisionTransformer", "ViTConfig", "EncoderBlock",
     "MlpBlock", "vit_s16", "vit_b16", "vit_l16", "vit_params_from_jax",
-    "vit_params_to_jax",
+    "vit_params_to_jax", "train_state_from_jax", "train_state_to_jax",
 ]

@@ -24,10 +24,17 @@ No downloading is involved: tests build the JAX params from its own
 init, compare the two models on the same inputs, and map the port's
 parameters back (``gpt2_params_to_jax``) to compare weights after the
 same training steps leaf by leaf.
+
+``train_state_from_jax`` / ``train_state_to_jax`` carry a whole training
+state across: the JAX ``CheckpointManager.restore_latest`` arrays
+(``step``, ``params``, optax's ``opt_state``, ``batch_stats``) into a
+port ``TrainState`` and back.  The JAX package writes orbax checkpoints,
+which need JAX to read, so this bridge runs in the tests only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from collections.abc import Mapping
 
@@ -243,3 +250,139 @@ def vit_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
     tree["ln_final"] = layer_norm("ln_final")
     tree["head"] = dense("head")
     return tree
+
+
+# --- whole training states ----------------------------------------------
+
+
+def _family(names) -> str:
+    names = set(names)
+    if "wte" in names:
+        return "gpt2"
+    if "patch_embed" in names or "patch_embed.weight" in names:
+        return "vit"
+    return "resnet"
+
+
+def _tree_to_named(tree: Mapping, family: str) -> dict[str, torch.Tensor]:
+    """A param-shaped flax tree (params, or a moment of them) by the
+    port's parameter names."""
+    if family == "gpt2":
+        return gpt2_params_from_jax(tree)
+    if family == "vit":
+        return vit_params_from_jax(tree)
+    return resnet_params_from_jax(tree, {})
+
+
+def _named_to_tree(named: Mapping[str, torch.Tensor], family: str) -> dict:
+    if family == "gpt2":
+        return gpt2_params_to_jax(named)
+    if family == "vit":
+        return vit_params_to_jax(named)
+    return resnet_params_to_jax(named)[0]
+
+
+def train_state_from_jax(arrays: Mapping, state):
+    """Fill the port ``TrainState`` ``state`` (live tensors, filled in
+    place with ``copy_``) from a JAX training state's arrays as numpy
+    (``{"step", "params", "opt_state", "batch_stats"}``, what the JAX
+    ``CheckpointManager.restore_latest`` returns); returns ``state`` with
+    the step.
+
+    ``opt_state`` is optax's, for the optimizers the CLI builds (adam with
+    coupled L2, adamw, sgd with ``trace``, ``clip_by_global_norm`` in
+    front; constant, cosine and warmup-cosine rates): chains are tuples,
+    ``ScaleByAdamState`` is (count, mu, nu), ``TraceState`` (trace,),
+    ``ScaleByScheduleState`` (count,), and the stateless transforms (and
+    a constant rate's ``ScaleState``) are empty.  The port's rate counter
+    under a constant rate, which optax does not keep, is the step."""
+    from ..train.optim import AdamState, CountState
+
+    family = _family(arrays["params"])
+    names = list(state.params)
+    step = int(np.asarray(arrays["step"]))
+
+    def fill(targets: dict, source: Mapping, what: str) -> None:
+        if set(targets) != set(source):
+            diff = sorted(set(targets) ^ set(source))
+            raise ValueError(f"{what}: {len(diff)} names differ "
+                             f"(first: {diff[0]})")
+        with torch.no_grad():
+            for n, t in targets.items():
+                t.copy_(source[n])
+
+    def slots(tree, live: list, what: str) -> None:
+        fill(dict(zip(names, live)), _tree_to_named(tree, family), what)
+
+    def walk(port, jax_node, path: str):
+        jax_node = tuple(jax_node)   # a chain's tuple, a namedtuple
+        if isinstance(port, tuple):
+            if len(port) != len(jax_node):
+                raise ValueError(f"{path}: {len(port)} transforms against "
+                                 f"optax's {len(jax_node)}")
+            return tuple(walk(p, j, f"{path}/{i}")
+                         for i, (p, j) in enumerate(zip(port, jax_node)))
+        if isinstance(port, AdamState):
+            count, mu, nu = jax_node
+            slots(mu, port.mu, f"{path}/mu")
+            slots(nu, port.nu, f"{path}/nu")
+            port.count = int(np.asarray(count))
+            return port
+        if isinstance(port, CountState):
+            # A constant rate's ScaleState holds no count: the step.
+            port.count = int(np.asarray(jax_node[0])) if jax_node else step
+            return port
+        if isinstance(port, list):      # optax.trace's momentum
+            slots(jax_node[0], port, f"{path}/trace")
+            return port
+        raise TypeError(f"{path}: no optax counterpart for {type(port)}")
+
+    opt_state = walk(state.opt_state, arrays["opt_state"], "opt_state")
+    if family == "resnet":
+        named = resnet_params_from_jax(arrays["params"],
+                                       arrays["batch_stats"])
+        fill(state.params, {n: named[n] for n in state.params}, "params")
+        fill(state.batch_stats, {n: named[n] for n in named
+                                 if n not in state.params}, "batch_stats")
+    else:
+        fill(state.params, _tree_to_named(arrays["params"], family),
+             "params")
+        fill(state.batch_stats, {}, "batch_stats")
+    return dataclasses.replace(state, step=step, opt_state=opt_state)
+
+
+def train_state_to_jax(state, *, scheduled: bool = True) -> dict:
+    """The inverse of ``train_state_from_jax``: ``{"step", "params",
+    "opt_state", "batch_stats"}`` as numpy, ``opt_state`` in optax's
+    layout with plain tuples for its named tuples (the same leaves in the
+    same order: ``jax.tree_util.tree_unflatten`` of the optax state's
+    structure over its leaves rebuilds optax's state).  ``scheduled``:
+    False for a constant rate, whose optax state (``ScaleState``) holds
+    no count."""
+    from ..train.optim import AdamState, CountState
+
+    family = _family(state.params)
+    names = list(state.params)
+
+    def tree(live: list) -> dict:
+        return _named_to_tree(dict(zip(names, live)), family)
+
+    def walk(port):
+        if isinstance(port, tuple):
+            return tuple(walk(p) for p in port)
+        if isinstance(port, AdamState):
+            return (np.asarray(port.count, np.int32), tree(port.mu),
+                    tree(port.nu))
+        if isinstance(port, CountState):
+            return (np.asarray(port.count, np.int32),) if scheduled else ()
+        if isinstance(port, list):
+            return (tree(port),)
+        raise TypeError(f"no optax counterpart for {type(port)}")
+
+    if family == "resnet":
+        params, stats = resnet_params_to_jax(
+            {**state.params, **state.batch_stats})
+    else:
+        params, stats = _named_to_tree(state.params, family), {}
+    return {"step": np.asarray(state.step, np.int32), "params": params,
+            "opt_state": walk(state.opt_state), "batch_stats": stats}

@@ -6,7 +6,8 @@ batches.
     python -m torch.distributed.run --nproc_per_node 2 \\
         -m pytorch_distributed_training_tpu_torch.tools.dp_check \\
         --model resnet|vit|gpt2 --out OUT [--device cpu] [--backend gloo] \\
-        [--init weights.npz] [--batch 8] [--precision f32|bf16]
+        [--init weights.npz] [--batch 8] [--precision f32|bf16] \\
+        [--steps 3] [--checkpoint-dir D [--save-at K] [--resume]]
 
 Each rank runs on its card (``LOCAL_RANK``'s) unless ``--device cpu``
 asks for the host.
@@ -15,11 +16,20 @@ Each rank joins the group (``comm.init.initialize``), takes its rows of
 each global batch as the loader deals them (``data.loader.rank_rows``:
 JAX's microbatches split over the ranks), runs ``make_train_step`` with
 the group (sync-BN, one gradient all-reduce a step) and writes
-``OUT/rank<r>.json``: the losses and, after every step, a SHA-256 of
-every parameter and running statistic (ranks must agree bit for bit),
+``OUT/rank<r>.json``: the losses and, after every step (and a restore),
+a SHA-256 of every parameter and running statistic (ranks must agree bit
+for bit),
 plus ``OUT/rank<r>.npz`` with the final parameters and statistics.
 ``run_steps`` with no group is the one-process run on the whole global
 batch that the ranks are held to.
+
+Checkpoints (``checkpoint.CheckpointManager``, rank 0 writes):
+``--save-at K`` commits the state after global step K into
+``--checkpoint-dir``; ``--resume`` restores the newest step there first
+and takes the remaining steps of the same ``--steps`` batches, so a run
+saved at one world size continues at another.  Each rank prints its
+torchrun identity (``RANK``, ``LOCAL_RANK``, ``GROUP_RANK``: the global
+rank, the rank on its node, the node).
 
 Models (the ``--precision`` policy, f32 by default; weights from
 ``--seed`` unless ``--init`` gives a state dict): ``resnet``, the shallow
@@ -97,10 +107,15 @@ def checksum(state) -> str:
 
 def run_steps(kind: str, model, batches: list[dict], *, accum: int,
               device, group=None, rank: int = 0, world: int = 1,
-              precision: str = "f32"):
+              precision: str = "f32", checkpoint=None,
+              save_at: int | None = None, resume: bool = False):
     """Train ``model`` on rank ``rank``'s rows of ``batches`` on
     ``device``; returns
-    (losses, checksums after each step, final state)."""
+    (losses, checksums after each step, final state).  ``checkpoint`` (a
+    ``CheckpointManager``): with ``resume`` the state restores from it
+    first, the batches before its step are skipped and the checksums
+    start with the restored state's; the state after global step
+    ``save_at`` is committed to it."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.cli.main import (
@@ -116,11 +131,18 @@ def run_steps(kind: str, model, batches: list[dict], *, accum: int,
           "vit": build_optimizer("adamw", 3e-4, weight_decay=0.05),
           "gpt2": build_optimizer("adamw", 3e-4, weight_decay=0.1)}[kind]
     state = create_train_state(model, tx, policy=policy, process_group=group)
+    if resume:
+        restored = checkpoint.restore_latest(state)
+        if restored is None:
+            raise SystemExit(f"--resume: no committed step under "
+                             f"{checkpoint.directory}")
+        state = restored
+    sums = [checksum(state)] if resume else []
     step = make_train_step(
         kind="lm" if kind == "gpt2" else "image_classifier",
         policy=policy, num_microbatches=accum, process_group=group)
-    losses, sums = [], []
-    for b in batches:
+    losses = []
+    for b in batches[state.step:]:
         n = len(next(iter(b.values())))
         rows = rank_rows(np.arange(n), rank, world, accum)
         local = {k: torch.from_numpy(v[rows]).to(device)
@@ -128,6 +150,8 @@ def run_steps(kind: str, model, batches: list[dict], *, accum: int,
         state, metrics = step(state, local)
         losses.append(float(metrics["loss"]))
         sums.append(checksum(state))
+        if checkpoint is not None and state.step == save_at:
+            checkpoint.save(state, wait=True)
     return losses, sums, state
 
 
@@ -146,9 +170,16 @@ def main() -> int:
     ap.add_argument("--filters", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--precision", default="f32", help="f32|bf16")
+    ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--save-at", type=int, default=None)
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args()
     import torch
 
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
     from pytorch_distributed_training_tpu_torch.comm import init as comm_init
     from pytorch_distributed_training_tpu_torch.utils.device import (
         resolve_device,
@@ -161,16 +192,22 @@ def main() -> int:
     group = comm_init.initialize(device, backend=args.backend)
     try:
         rank, world = comm_init.process_index(), comm_init.process_count()
+        print(" ".join(f"{k} {os.environ.get(k)}" for k in (
+            "RANK", "LOCAL_RANK", "GROUP_RANK")), flush=True)
         init = dict(np.load(args.init)) if args.init else None
         model = build_model(args.model, device, seed=args.seed, init=init,
                             small_stem=args.small_stem, filters=args.filters,
                             image_size=args.image_size)
-        batches = global_batches(args.model, STEPS, args.batch,
+        batches = global_batches(args.model, args.steps, args.batch,
                                  args.image_size, args.seed + 1)
+        checkpoint = (CheckpointManager(args.checkpoint_dir,
+                                        process_group=group)
+                      if args.checkpoint_dir else None)
         losses, sums, state = run_steps(
             args.model, model, batches, accum=ACCUM, group=group,
             rank=rank, world=world, device=device,
-            precision=args.precision)
+            precision=args.precision, checkpoint=checkpoint,
+            save_at=args.save_at, resume=args.resume)
         os.makedirs(args.out, exist_ok=True)
         np.savez(os.path.join(args.out, f"rank{rank}.npz"), **{
             k: v.detach().cpu().numpy()

@@ -12,8 +12,15 @@ the last log point (an image classifier's ``accuracy``).  Under data
 parallelism the batch a rank holds is its share of the global one:
 examples count the global batch, as the JAX trainer's global arrays do.
 
-The telemetry emitter, spans, fault injection, recovery, preemption,
-goodput ledger, profile windows and step checkpoints wait for their
+The resilience hooks are the JAX trainer's, in its order within a step:
+the fault plane (``faults.on_step``) before the step dispatches; then,
+after it, the preemption latch (a synchronous ``checkpoint_fn(state,
+wait=True)`` and :class:`~..resilience.Preempted`), then the step
+checkpoint cadence (``checkpoint_every_steps``: an async
+``checkpoint_fn(state, wait=False)`` when the global step is a multiple).
+The supervisor's heartbeat (``Heartbeat.from_env``) beats at the epoch's
+start, at log points and around saves.  The telemetry emitter, spans,
+anomaly recovery, goodput ledger and profile windows wait for their
 slices.
 """
 
@@ -25,7 +32,9 @@ from typing import Any, Callable, Iterable
 
 from ..comm.init import process_count
 from ..data.loader import prefetch_to_device, to_device
+from ..resilience.preemption import Preempted
 from ..utils.profiling import StepTimer
+from ..utils.supervisor import Heartbeat
 from .state import TrainState
 
 
@@ -33,18 +42,30 @@ from .state import TrainState
 class TrainerConfig:
     log_every: int = 50
     prefetch: int = 2        # batches kept in flight on device (0 disables)
+    # Mid-epoch checkpoint cadence (global steps): an async step-granular
+    # save through ``checkpoint_fn`` every N steps, so a preemption or
+    # crash loses at most N steps.
+    checkpoint_every_steps: int | None = None
 
 
 class Trainer:
-    """Runs ``train_step`` over batches on ``device``."""
+    """Runs ``train_step`` over batches on ``device``.  ``faults``
+    (``resilience.FaultInjector``), ``preemption``
+    (``resilience.PreemptionHandler``) and ``checkpoint_fn(state, wait)``
+    are the resilience hooks (module docstring)."""
 
     def __init__(self, state: TrainState,
                  train_step: Callable[[TrainState, Any], tuple[TrainState, dict]],
-                 device, config: TrainerConfig | None = None):
+                 device, config: TrainerConfig | None = None, *,
+                 faults=None, preemption=None,
+                 checkpoint_fn: Callable[..., None] | None = None):
         self.state = state
         self.train_step = train_step
         self.device = device
         self.config = config or TrainerConfig()
+        self.faults = faults
+        self.preemption = preemption
+        self.checkpoint_fn = checkpoint_fn
         self.history: list[dict] = []
         self.last_epoch_losses: list[float] = []
         self._global_step = state.step
@@ -64,18 +85,46 @@ class Trainer:
         last_metrics: dict = {}
         step_idx = -1
         last_logged_step = -1
+        # Liveness for the elastic supervisor: beat at the epoch's start
+        # (covers the first batch's load), at log points and around saves.
+        heartbeat = Heartbeat.from_env()
+        if heartbeat is not None:
+            heartbeat.beat()
         t0 = time.perf_counter()
         for step_idx, batch in enumerate(it):
+            if self.faults is not None:
+                # May stall without beating, SIGTERM this process or end
+                # it outright (resilience/faults.py).
+                batch = self.faults.on_step(self._global_step, batch)
             self.state, metrics = self.train_step(self.state, batch)
             batch_size = int(next(iter(batch.values())).shape[0]) * world
             examples += batch_size
             timer.tick()  # dispatch rate, no device sync
             if step_idx % cfg.log_every == 0:
+                if heartbeat is not None:
+                    heartbeat.beat()
                 # The host waits for the device only here.
                 last_metrics = {k: float(v) for k, v in metrics.items()}
                 losses.append(last_metrics["loss"])
                 last_logged_step = step_idx
             self._global_step += 1
+            if self.preemption is not None and self.preemption.triggered:
+                # SIGTERM landed during this step: commit a synchronous
+                # step checkpoint at this boundary, then leave with the
+                # distinct preemption exit (the CLI's exit 75).
+                if heartbeat is not None:
+                    heartbeat.beat()  # cover the blocking save
+                saved = self.checkpoint_fn is not None
+                if saved:
+                    self.checkpoint_fn(self.state, wait=True)
+                raise Preempted(self._global_step, saved)
+            if (cfg.checkpoint_every_steps and self.checkpoint_fn is not None
+                    and self._global_step % cfg.checkpoint_every_steps == 0):
+                # Async: staging is enqueued on the device, the write
+                # overlaps the following steps.
+                self.checkpoint_fn(self.state, wait=False)
+                if heartbeat is not None:
+                    heartbeat.beat()
         if examples:
             # The closing fetch: completes only after all device work has.
             final_loss = float(metrics["loss"])

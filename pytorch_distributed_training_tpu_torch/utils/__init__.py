@@ -1,1 +1,2 @@
-"""Device selection and human-facing metrics logging."""
+"""Device selection, human-facing metrics logging, seeding, and the
+supervisor's restart loop with its backoff policy."""

@@ -38,7 +38,8 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 def test_port_imports_with_jax_blocked():
     """Import the serving and training entry points, the ResNet path's,
-    the data-parallel path's and the ViT path's modules in a fresh
+    the data-parallel path's, the ViT path's and the checkpoint and
+    resilience modules in a fresh
     interpreter where importing jax, flax or the JAX package fails."""
     blocked = ", ".join(repr(m) for m in FORBIDDEN)
     code = (
@@ -76,6 +77,12 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.models.vit\n"
         "import pytorch_distributed_training_tpu_torch.data.imagenet\n"
         "import pytorch_distributed_training_tpu_torch.ops.pooling\n"
+        "import pytorch_distributed_training_tpu_torch.checkpoint.manager\n"
+        "import pytorch_distributed_training_tpu_torch.resilience.faults\n"
+        "import pytorch_distributed_training_tpu_torch.resilience."
+        "preemption\n"
+        "import pytorch_distributed_training_tpu_torch.utils.backoff\n"
+        "import pytorch_distributed_training_tpu_torch.utils.supervisor\n"
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"({blocked},) and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"

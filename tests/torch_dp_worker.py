@@ -10,6 +10,7 @@ Run as a script, this file is one rank of a gloo group on the CPU:
 
     python tests/torch_dp_worker.py syncbn OUT     # BN functions, modules
     python tests/torch_dp_worker.py collectives OUT
+    python tests/torch_dp_worker.py restore_error OUT  # rank 0's walk fails
 
 Each rank writes ``OUT/rank<r>.npz``; the tests compare them with the
 one-process results on the concatenated batch.
@@ -146,6 +147,32 @@ def _collectives(rank: int, world: int, group) -> dict:
             "dsum": dx.numpy()}
 
 
+def _restore_error(rank: int, world: int, group, out: str) -> dict:
+    """A restore whose rank-0 walk fails outside the per-step checks (the
+    directory cannot be listed): every rank must raise, none may wait in
+    the outcome's broadcast.  Returns each rank's exception."""
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+
+    def unreadable():
+        raise PermissionError("the checkpoint directory cannot be listed")
+
+    mgr = CheckpointManager(os.path.join(out, "ckpt"), process_group=group)
+    if rank == 0:
+        mgr.all_steps = unreadable
+    try:
+        mgr.restore_latest(None)     # the template: never reached
+        got = {"type": np.array("none"), "msg": np.array("")}
+    except Exception as e:   # the outcome under test
+        got = {"type": np.array(type(e).__name__), "msg": np.array(str(e))}
+    # Rank 0 leaves the group only once rank 1 has taken the outcome off
+    # the wire.
+    collectives.barrier(group)
+    return got
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
@@ -157,8 +184,9 @@ def main() -> int:
     group = comm_init.initialize("cpu")
     try:
         rank, world = comm_init.process_index(), comm_init.process_count()
-        res = {"syncbn": _syncbn, "collectives": _collectives}[task](
-            rank, world, group)
+        tasks = {"syncbn": _syncbn, "collectives": _collectives,
+                 "restore_error": lambda *a: _restore_error(*a, out)}
+        res = tasks[task](rank, world, group)
         os.makedirs(out, exist_ok=True)
         np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     finally:
