@@ -63,7 +63,18 @@ the port's main paths:
   under ``--elastic`` with ``crash@7``, its step-12 checkpoint equal to
   the uninterrupted run's, C3 the multi-node shape of configs[4] (two
   ``torch.distributed.run`` nodes of one rank, static rendezvous, gloo on
-  the one card) and its step-2 checkpoint resumed by one process.
+  the one card) and its step-2 checkpoint resumed by one process;
+- device-resident datasets (``--device-cache``): DC1 R1, DC2 R2p's
+  ResNet-50 and V1's ViT-B/16 on the packed records, DC3 T1 on a token
+  file written from the seed, each beside its loader run, with a
+  profiled window's busy share and host-to-device copies a step (none
+  allowed with the cache), DC4 DC1's cached command preempted and
+  resumed, bitwise;
+- the skip gate (``--skip-bad-steps``): G1 T1 with and without it,
+  bitwise alike, and its cost a step in turns; G2 R1 with ``nan_batch``
+  and ``spike_batch``, the NaN step skipped with the parameters
+  unchanged; G3 a threshold under every clean norm: a rollback, an abort
+  and the supervisor's relaunch failing alike.
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -2436,6 +2447,464 @@ def checkpoint_phase(torch, seed: int, repo: str, figures: dict) -> dict:
     return {4: n["fwd"], 5: n["dq"] + n["dkv"]}
 
 
+# The device-cache and skip-gate legs write under here (removed at the end).
+DC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                  "chip_smoke", "dc")
+R1_BASE = ["--model", "resnet18", "--dataset", "cifar10", "--synthetic-data"]
+R1_ARGV = R1_BASE + ["--epochs", "2", "--steps-per-epoch", "50"]
+T1_TWO_EPOCHS = T1_RECIPE + ["--epochs", "2", "--steps-per-epoch", "8"]
+
+
+def _hooked_steps(after):
+    """Wrap the port's ``make_train_step`` so ``after(i, state, metrics)``
+    runs after the process's i-th step; returns the original for
+    restoring."""
+    import pytorch_distributed_training_tpu_torch.train as train
+
+    original = train.make_train_step
+
+    def make(**kw):
+        step, count = original(**kw), iter(range(1 << 62))
+
+        def hooked(state, batch):
+            state, metrics = step(state, batch)
+            after(next(count), state, metrics)
+            return state, metrics
+
+        return hooked
+
+    train.make_train_step = make
+    return original
+
+
+class _Window:
+    """A ``torch.profiler`` window over steps ``first`` .. ``first +
+    count - 1`` of a CLI run, each with the batch fetch before it: started
+    on an idle card after step ``first - 1``, stopped after a synchronize.
+    ``figures()``: wall and busy time, host-to-device copies and bytes, a
+    step."""
+
+    def __init__(self, torch, first: int, count: int, trace: str):
+        self.torch, self.first, self.count, self.trace = (torch, first,
+                                                          count, trace)
+        self.prof = self.t0 = self.wall = None
+
+    def __call__(self, i, state, metrics):
+        torch = self.torch
+        if i == self.first - 1:
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif i == self.first + self.count - 1:
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.prof.stop()
+
+    def figures(self) -> dict:
+        from pytorch_distributed_training_tpu_torch.tools.train_profile import (
+            busy_seconds,
+        )
+
+        check(self.wall is not None, "profiler window ran")
+        self.prof.export_chrome_trace(self.trace)
+        with open(self.trace) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(self.trace)
+        h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+               and "HtoD" in e.get("name", "")]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(bool(kernels), "the profiler saw the card's kernels")
+        n = self.count
+        return {"step_ms": self.wall / n * 1e3,
+                "busy": busy_seconds(self.prof.events()) / self.wall,
+                "h2d": len(h2d) / n,
+                "h2d_bytes": sum(e.get("args", {}).get("bytes", 0)
+                                 for e in h2d) / n}
+
+
+def _caches_built(created: list):
+    """Record each device cache the CLI builds; returns the originals."""
+    import pytorch_distributed_training_tpu_torch.data as data
+
+    originals = {}
+    for name in ("DeviceCachedImages", "DeviceCachedTokens"):
+        cls = originals[name] = getattr(data, name)
+
+        def build(*a, _cls=cls, **kw):
+            created.append(_cls(*a, **kw))
+            return created[-1]
+
+        setattr(data, name, build)
+    return originals
+
+
+def _leg(torch, cli, argv, window=None, after=None):
+    """One in-process CLI run with optional step hooks; returns (trainer,
+    caches built)."""
+    import pytorch_distributed_training_tpu_torch.data as data
+    import pytorch_distributed_training_tpu_torch.train as train
+
+    hooks = [h for h in (window, after) if h is not None]
+    created: list = []
+    originals = _caches_built(created)
+    original = _hooked_steps(lambda *a: [h(*a) for h in hooks])
+    try:
+        trainer = cli(argv)
+    finally:
+        train.make_train_step = original
+        for name, cls in originals.items():
+            setattr(data, name, cls)
+    return trainer, created
+
+
+def _line(label: str, trainer, steps: int, win: dict, per: float,
+          unit: str, caches: list) -> str:
+    rate, step_ms = _warm_epoch_line(trainer, steps)
+    cache = (f"; cache {sum(c.nbytes for c in caches) / 1e6:.1f} MB on the "
+             "card" if caches else "")
+    return (f"{label}: warm epoch {rate * per:.1f} {unit}, step "
+            f"{step_ms:.2f} ms; profiled window {win['step_ms']:.2f} ms a "
+            f"step, busy {win['busy'] * 100:.1f} %, H2D {win['h2d']:g} "
+            f"copies / {win['h2d_bytes']:.0f} bytes a step{cache}")
+
+
+def _pair(torch, cli, label, argv, steps, first, count, per, unit,
+          order=("loader", "cache")):
+    """The loader runs and the ``--device-cache`` runs of ``argv`` in
+    ``order``, each with a profiler window; the cache's must copy nothing
+    from the host."""
+    for mode in order:
+        win = _Window(torch, first, count, os.path.join(DC, "trace.json"))
+        extra = ["--device-cache"] if mode == "cache" else []
+        trainer, caches = _leg(torch, cli, argv + extra, window=win)
+        figs = win.figures()
+        losses = [h["loss"] for h in trainer.history]
+        check(_finite(losses), f"{label} {mode}: losses finite ({losses})")
+        if mode == "cache":
+            check(len(caches) == 1, f"{label}: the run built its cache")
+            check(figs["h2d"] == 0,
+                  f"{label}: {figs['h2d']} host-to-device copies a warm "
+                  "step with the cache, expected 0")
+        print(_line(f"{label} {mode}", trainer, steps, figs, per, unit,
+                    caches), flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def _flash_entries(fa) -> tuple:
+    return fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
+
+
+def _reset_flash(fa) -> None:
+    for e in _flash_entries(fa):
+        e.launches = 0
+
+
+def gate_turns(torch, seed: int, steps: int = 5) -> None:
+    """T1's step (GPT-2 124M, bf16 policy, B 16 = 2 x 8, L 1024, adamw
+    under warmup-cosine, clip 1.0) with and without the gate, on one
+    batch on the card, in turns off / on / on / off twice (``steps`` a
+    turn, garbage collection off): the gate's cost a step; then one
+    profiled step of each: kernels launched and device time.  Before the
+    turns, one warm gated step under the sync debug mode "error": the
+    gate must not wait for the device."""
+    import dataclasses
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer, build_schedule,
+    )
+    from pytorch_distributed_training_tpu_torch.models import create_model
+    from pytorch_distributed_training_tpu_torch.resilience import (
+        AnomalyPolicy, init_resilience_state,
+    )
+    from pytorch_distributed_training_tpu_torch.tools.train_profile import (
+        busy_seconds,
+    )
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    policy = make_policy("bf16")
+    runs = {}
+    for gate in ("off", "on"):
+        model = create_model("gpt2", dtype=policy.param_dtype, device=dev,
+                             seed=seed)
+        state = create_train_state(model, build_optimizer(
+            "adamw", build_schedule("warmup-cosine", 6e-4, total_steps=8,
+                                    warmup_steps=2),
+            weight_decay=0.1, grad_clip=1.0), policy=policy)
+        if gate == "on":
+            state = dataclasses.replace(
+                state, resilience=init_resilience_state(dev))
+        runs[gate] = [state, make_train_step(
+            kind="lm", policy=policy, num_microbatches=2, seed=seed + 1,
+            anomaly_policy=AnomalyPolicy() if gate == "on" else None)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, VOCAB, (16, 1024), generator=gen,
+                                     device=dev)}
+
+    def turn(gate, n):
+        state, step = runs[gate]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        runs[gate][0] = state
+        return (time.perf_counter() - t0) / n * 1e3
+
+    for gate in runs:
+        turn(gate, 2)
+    # A warm gated step waits for nothing: under the sync debug mode
+    # "error" any host sync raises (the counts and the optimizer's tables
+    # went up once, in the first gated step).
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs["on"][0], _ = runs["on"][1](runs["on"][0], batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("G1: a warm gated step of T1 under torch.cuda.set_sync_debug_mode"
+          "('error'): no host sync", flush=True)
+    times = {"off": [], "on": []}
+    gc.disable()
+    try:
+        for gate in ("off", "on", "on", "off") * 2:
+            times[gate].append(turn(gate, steps))
+    finally:
+        gc.enable()
+    prof = {}
+    for gate in runs:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as p:
+            turn(gate, 1)
+        events = [e for e in p.events() if e.device_type.name == "CUDA"]
+        prof[gate] = (len(events), busy_seconds(events) * 1e3)
+    off, on = (statistics.median(times[g]) for g in ("off", "on"))
+    print(f"G1 turns (T1's step on one batch on the card, {steps} steps a "
+          f"turn, off / on / on / off x 2): off "
+          f"{' / '.join(f'{x:.2f}' for x in times['off'])} ms, on "
+          f"{' / '.join(f'{x:.2f}' for x in times['on'])} ms; medians "
+          f"{off:.2f} / {on:.2f} ms: the gate costs {on - off:+.2f} ms "
+          f"({(on / off - 1) * 100:+.2f} %) a step; one step's kernels "
+          f"{prof['off'][0]} / {prof['on'][0]} "
+          f"({prof['on'][0] - prof['off'][0]:+d}), device time "
+          f"{prof['off'][1]:.2f} / {prof['on'][1]:.2f} ms "
+          f"({prof['on'][1] - prof['off'][1]:+.2f})", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+
+def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
+    """The device-resident datasets and the skip gate through the CLI.
+    DC1 R1 with and without ``--device-cache`` (loader / cache / cache /
+    loader), DC2 R2p's ResNet-50 and V1's ViT-B/16 on V1's packed
+    records, DC3 T1 on a token file written from the seed (flash #4/#5):
+    each warm epoch's rate and step, and a profiled window's busy share
+    and host-to-device copies a step, which must be 0 with the cache.
+    G1 T1 with ``--skip-bad-steps`` against T1 without, off / on / on /
+    off: bitwise the same trajectory (flash #4/#5); then ``gate_turns``,
+    the gate's cost a step.  G2 R1's loader command (float batches) with the gate,
+    ``nan_batch@3`` and ``spike_batch@6:1e4``: the NaN step skipped, the
+    parameters bitwise unchanged across it, the norms around the spike.
+    G3 R1's loader command with a spike threshold below G2's clean norms
+    under ``--elastic --max-restarts 1``: a rollback, an abort, the
+    supervisor's relaunch failing the same way (a subprocess, beside
+    DC4).  DC4 DC1's cached command preempted by ``sigterm@4`` under
+    step checkpoints every 2 and resumed, cuDNN held to its
+    deterministic algorithms: bitwise on the uninterrupted cached run at
+    step 100.  Returns DC3's and G1's flash launches by row."""
+    import shutil
+
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.checkpoint.manager import (
+        checksum_manifest,
+    )
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.data.lm_corpus import (
+        synthesize_token_bin,
+    )
+
+    shutil.rmtree(DC, ignore_errors=True)
+    os.makedirs(DC)
+    seed_argv = ["--seed", str(seed)]
+    launches = {4: 0, 5: 0}
+
+    # DC1: the reference's run, loader / cache / cache / loader; warm steps
+    # 20-24 of the first epoch are profiled, the second epoch is timed
+    # unprofiled.
+    _pair(torch, cli, "DC1 R1", R1_ARGV + seed_argv, 50, 20, 5, 1,
+          "images/s", order=("loader", "cache", "cache", "loader"))
+    # DC2: the packed records of the ViT legs (232 px, cropped to 224).
+    packed = os.path.join(repo, "build", "chip_smoke", "vit", "train.pck")
+    r2p = list(R2_ARGV)
+    r2p[r2p.index("synthetic-images")] = f"packed-images:{packed}"
+    r2p[r2p.index("--steps-per-epoch") + 1] = str(VIT_STEPS)
+    _pair(torch, cli, "DC2 R2p", r2p + seed_argv, VIT_STEPS, 3, 3, 1,
+          "images/s")
+    _pair(torch, cli, "DC2 V1", vit_argv(packed) + seed_argv, VIT_STEPS, 3,
+          3, 1, "images/s")
+    # DC3: T1 on a token file of 4M ids from the seed (a GPT-2 vocabulary).
+    tokens = os.path.join(DC, "train.bin")
+    synthesize_token_bin(tokens, n_tokens=4_000_000, vocab_size=50257,
+                         seed=seed)
+    t1_file = [a if a != "synthetic-tokens" else f"token-file:{tokens}"
+               for a in T1_TWO_EPOCHS + TRAIN_COMMON] + seed_argv
+    _reset_flash(fa)
+    _pair(torch, cli, "DC3 T1", t1_file, 8, 3, 3, 1024, "tokens/s")
+    fwd, dq, dkv = (e.launches for e in _flash_entries(fa))
+    check(fwd == dq == dkv == 2 * 12 * 2 * 16,
+          f"DC3: flash launches fwd {fwd} dq {dq} dkv {dkv}, expected "
+          f"{2 * 12 * 2 * 16} each (two runs of 16 steps)")
+    launches[4] += fwd
+    launches[5] += dq + dkv
+
+    # G1: T1 with and without the gate, off / on / on / off; every step's
+    # loss bits and the end weights' crc32 must agree.
+    runs = []
+    _reset_flash(fa)
+    for gate in (False, True, True, False):
+        losses: list = []
+        trainer, _ = _leg(torch, cli, T1_TWO_EPOCHS + TRAIN_COMMON + seed_argv
+                          + (["--skip-bad-steps"] if gate else []),
+                          after=lambda i, s, m: losses.append(m["loss"]))
+        bits = [float(x) for x in losses]
+        crc = {n: v["crc32"] for n, v in checksum_manifest(
+            {n: p.detach().cpu() for n, p in
+             trainer.state.params.items()}).items()}
+        runs.append((gate, bits, crc, _warm_epoch_line(trainer, 8)[1]))
+        if gate:
+            check(int(trainer.state.resilience.skipped_total) == 0,
+                  "G1: nothing skipped")
+        del trainer
+        torch.cuda.empty_cache()
+    fwd, dq, dkv = (e.launches for e in _flash_entries(fa))
+    check(fwd == dq == dkv == 4 * 12 * 2 * 16,
+          f"G1: flash launches fwd {fwd} dq {dq} dkv {dkv}, expected "
+          f"{4 * 12 * 2 * 16} each (four runs of 16 steps)")
+    launches[4] += fwd
+    launches[5] += dq + dkv
+    ref = runs[0]
+    for gate, bits, crc, _ in runs[1:]:
+        check(bits == ref[1], f"G1: losses {bits} against {ref[1]}")
+        check(crc == ref[2], "G1: end weights bitwise equal")
+    off = [r[3] for r in runs if not r[0]]
+    on = [r[3] for r in runs if r[0]]
+    print(f"G1 T1 --skip-bad-steps (off / on / on / off, 2 x 8 steps): "
+          f"16 losses and {len(ref[2])} weights bitwise equal; warm step "
+          f"off {' / '.join(f'{x:.2f}' for x in off)} ms, on "
+          f"{' / '.join(f'{x:.2f}' for x in on)} ms", flush=True)
+    gate_turns(torch, seed)
+
+    # G2: R1's loader command, 10 steps, with the gate and two faults.
+    metrics: list = []
+    seen: dict = {}
+
+    def g2(i, state, m):
+        metrics.append({k: v.detach().clone() for k, v in m.items()})
+        if state.step == 3:        # the params after step 2 (global 0-2)
+            seen["before"] = {n: p.detach().clone()
+                              for n, p in state.params.items()}
+        elif state.step == 4:
+            seen["same"] = all(torch.equal(p, seen["before"][n])
+                               for n, p in state.params.items())
+
+    g2_argv = R1_BASE + ["--epochs", "1", "--steps-per-epoch", "10",
+                              "--skip-bad-steps", "--inject-faults",
+                              "nan_batch@3,spike_batch@6:1e4"] + seed_argv
+    trainer, _ = _leg(torch, cli, g2_argv, after=g2)
+    skipped = [int(m["skipped"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    total = int(trainer.state.resilience.skipped_total)
+    check(skipped[3] == 1 and total >= 1 and seen.get("same"),
+          f"G2: the NaN step skipped (skipped {skipped}, total {total}, "
+          f"params unchanged {seen.get('same')})")
+    check(all(s == (not math.isfinite(g)) for s, g in zip(skipped, norms)),
+          f"G2: skipped exactly the non-finite steps ({skipped}, {norms})")
+    print(f"G2 R1 --skip-bad-steps nan_batch@3 spike_batch@6:1e4 (10 "
+          f"steps): skipped {skipped}, skipped_total {total}, parameters "
+          f"bitwise unchanged across step 3; grad norms steps 4-8 "
+          f"{[round(g, 4) for g in norms[4:9]]} (step 6 scaled by 1e4: "
+          f"{'skipped' if skipped[6] else 'finite and applied'}), clean "
+          f"norms {min(n for n, s in zip(norms, skipped) if not s):.4f}-"
+          f"{max(n for n, s in zip(norms, skipped) if not s):.4f}",
+          flush=True)
+    clean = min(n for n, s in zip(norms, skipped) if not s)
+    del trainer
+
+    # G3: in the background, beside DC4 (both check outcomes, not times).
+    g3_dir = os.path.join(DC, "g3")
+    g3 = _run_cli(repo, R1_BASE + [
+        "--epochs", "1", "--steps-per-epoch", "101", "--skip-bad-steps",
+        "--grad-spike-threshold", f"{clean / 10:g}", "--rollback-after", "2",
+        "--max-rollbacks", "1", "--elastic", "--max-restarts", "1",
+        "--checkpoint-dir", g3_dir] + seed_argv)
+
+    # DC4: the cached R1 run preempted before step 4 and resumed, against
+    # the uninterrupted cached run, both with epoch-end checkpoints.
+    # cuDNN may pick convolution algorithms that accumulate in a varying
+    # order, which R1 (f32, adam lr 0.1) amplifies from one run to the
+    # next: DC4's runs take the deterministic ones, so that what is
+    # compared is the resume.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def dc1_run(directory):
+        trainer, _ = _leg(torch, cli, R1_ARGV + seed_argv + [
+            "--device-cache", "--checkpoint-dir", directory])
+        check(trainer.state.step == 100, "DC4 reference: 100 steps")
+
+    ref_dir, run_dir = os.path.join(DC, "ref"), os.path.join(DC, "dc4")
+    dc1_run(ref_dir)
+    dc4 = R1_ARGV + seed_argv + ["--device-cache", "--checkpoint-dir",
+                                 run_dir, "--ckpt-every-steps", "2",
+                                 "--inject-faults", "sigterm@4"]
+    try:
+        cli(dc4)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    check(code == 75, f"DC4: preempted run exit {code}, expected 75")
+    trainer = cli(dc4 + ["--resume"])
+    check(trainer.state.step == 100, "DC4: resumed to step 100")
+    reruns = iter(range(1 << 30))
+
+    def rerun():
+        directory = os.path.join(DC, f"rerun{next(reruns)}")
+        dc1_run(directory)
+        return directory
+
+    verdict = _same_run(torch, "DC4", run_dir, ref_dir, 100, rerun)
+    torch.backends.cudnn.deterministic = deterministic
+    print(f"DC4 R1 --device-cache sigterm@4 (exit 75 at step 5, resumed; "
+          f"cuDNN's deterministic algorithms): {verdict}", flush=True)
+    del trainer
+
+    try:
+        out, err = g3.communicate(timeout=600)
+    finally:
+        if g3.poll() is None:
+            torchrun_kill(g3)
+    staged = re.findall(r"staged in ([0-9.]+) ms", err)
+    check(g3.returncode == 1
+          and err.count("recovery: rollback 1 at step 50") == 2
+          and err.count("recovery: abort at step 100") == 2
+          and "supervisor: finished after 1 restarts" in out,
+          f"G3: exit {g3.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+    print(f"G3 R1 --grad-spike-threshold {clean / 10:g} --rollback-after 2 "
+          f"--max-rollbacks 1 --elastic --max-restarts 1 (101 steps): each "
+          f"process rolled back once at step 50 and aborted at step 100 "
+          f"(RecoveryAborted); the supervisor relaunched once, exit "
+          f"{g3.returncode}; snapshot staging {' / '.join(staged)} ms",
+          flush=True)
+    shutil.rmtree(DC, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2529,6 +2998,9 @@ def main() -> int:
         flash[num]["launches"] += n
     for num, n in timed("checkpoint", checkpoint_phase, torch, args.seed,
                         repo, figures).items():
+        flash[num]["launches"] += n
+    for num, n in timed("cache+guard", cache_guard_phase, torch, fa,
+                        args.seed, repo).items():
         flash[num]["launches"] += n
     print("phases: " + ", ".join(f"{k} {v:.1f} s"
                                  for k, v in seconds.items()), flush=True)

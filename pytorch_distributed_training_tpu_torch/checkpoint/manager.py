@@ -2,9 +2,10 @@
 ``checkpoint/manager.py`` in the port's own format.
 
 Saves the tensor and counter portion of a ``TrainState`` (``step``,
-``params``, the optimizer state, ``batch_stats``); the model and the
-optimizer's transformations are code, rebuilt by the caller, whose live
-state is the template a restore fills.
+``params``, the optimizer state, ``batch_stats`` and, under the anomaly
+gate, its ``resilience`` counters); the model and the optimizer's
+transformations are code, rebuilt by the caller, whose live state is the
+template a restore fills.
 
 **Format.**  Under the port's data parallelism the state is replicated
 (``parallel/sharding.py::replicate_state``), so rank 0 alone writes.  One
@@ -15,7 +16,8 @@ committed step is the directory ``<dir>/<step>/``:
   list of the optimizer state keyed by parameter name), in the logical
   (contiguous) layout;
 - ``scalars.json`` — the host counters: ``step`` and every ``count`` in
-  the optimizer state (``AdamState.count``, ``CountState.count``);
+  the optimizer state (``AdamState.count``, ``CountState.count``) that is
+  a host int;
 - ``structure.json`` — each tensor's dtype and shape and the counters'
   names: what the template must match.
 
@@ -54,7 +56,18 @@ error every rank raises) and ``replicate_state`` hands every rank the
 restored tensors, so only rank 0's host needs the files and every rank
 is bit-identical by construction.  Tensors are ``copy_``-ed into the
 live parameters, optimizer tensors and BatchNorm buffers (the modules
-hold them; they are never rebound) and the host counters are replaced.
+hold them; they are never rebound) and the counters are set.
+
+**Counters.**  Under the anomaly gate the optimizer's counts are 0-dim
+device tensors (``train/optim.py``) and the gate's ``bad_streak`` and
+``skipped_total`` ride the state (``resilience/anomaly.py``); both are
+saved as tensors (``opt_state/<path>``, ``resilience/<name>``), staged
+with the rest.  A count may therefore be saved in either form and is
+restored into whichever form the template holds; a checkpoint without
+the resilience counters (one saved without the gate) restores them as 0.
+Rank 0 reads every counter as an int and broadcasts them with the
+outcome, so all ranks set the same values.  (The JAX package does not
+checkpoint its resilience counters; they restart at 0 there.)
 """
 
 from __future__ import annotations
@@ -101,20 +114,62 @@ def _walk(tree: Any, path: str, names: list[str], tensors: dict,
 
 def flatten_state(state) -> tuple[dict[str, torch.Tensor], dict[str, int]]:
     """``(tensors, scalars)`` of a ``TrainState``: every tensor by its
-    checkpoint name, and ``step`` with every optimizer counter."""
+    checkpoint name (the gate's counters as ``resilience/<name>``), and
+    ``step`` with every optimizer counter that is a host int."""
     tensors = {f"params/{n}": t for n, t in state.params.items()}
     tensors.update({f"batch_stats/{n}": t
                     for n, t in state.batch_stats.items()})
     counts: dict[str, int] = {}
     _walk(state.opt_state, "opt_state", list(state.params), tensors, counts)
+    if dataclasses.is_dataclass(state.resilience):
+        for f in dataclasses.fields(state.resilience):
+            tensors[f"resilience/{f.name}"] = getattr(state.resilience,
+                                                      f.name)
     return tensors, {"step": int(state.step), **counts}
+
+
+def _is_counter(name: str, t) -> bool:
+    """An optimizer count or a resilience counter: state that restores
+    as an int, whichever form it was saved in."""
+    if not isinstance(t, torch.Tensor):
+        return True
+    return name.startswith("resilience/") or (
+        name.startswith("opt_state/") and t.dim() == 0
+        and not t.is_floating_point())
+
+
+def split_counters(tensors: dict, scalars: dict) -> tuple[dict, dict]:
+    """``(tensors, counters)``: the tensors that are neither counts nor
+    resilience counters, and those counters (ints or 0-dim tensors) with
+    ``step``, by name."""
+    rest = {n: t for n, t in tensors.items() if not _is_counter(n, t)}
+    counters = {**scalars, **{n: t for n, t in tensors.items()
+                              if _is_counter(n, t)}}
+    return rest, counters
+
+
+def set_counters(state, counters: dict):
+    """``state`` with ``step``, every optimizer count and the resilience
+    counters set from ``counters`` (name -> int); a resilience counter
+    missing from it becomes 0.  Tensors are filled in place."""
+    names = list(state.params)
+    opt_state = _set_counts(state.opt_state, "opt_state", names, counters)
+    if dataclasses.is_dataclass(state.resilience):
+        for f in dataclasses.fields(state.resilience):
+            getattr(state.resilience, f.name).fill_(
+                counters.get(f"resilience/{f.name}", 0))
+    return dataclasses.replace(state, step=int(counters["step"]),
+                               opt_state=opt_state)
 
 
 def _set_counts(tree: Any, path: str, names: list[str],
                 counts: dict) -> Any:
-    """``tree`` with every int counter replaced from ``counts`` (in place
-    for dataclasses; tuples are rebuilt)."""
+    """``tree`` with every counter replaced from ``counts``: host ints
+    swapped, 0-dim tensors filled (in place for dataclasses; tuples are
+    rebuilt)."""
     if isinstance(tree, torch.Tensor):
+        if path in counts and tree.dim() == 0:
+            tree.fill_(int(counts[path]))
         return tree
     if isinstance(tree, int):
         return counts[path]
@@ -456,14 +511,18 @@ class CheckpointManager:
     @staticmethod
     def _match(step: int, tensors: dict, scalars: dict, template) -> None:
         """Raise ValueError unless the step has the template's tensors
-        (names, dtypes, shapes) and counters: a config change, not
+        (names, dtypes, shapes) and optimizer counts (in either form; the
+        resilience counters are optional): a config change, not
         corruption."""
-        want, want_scalars = flatten_state(template)
+        want, want_counters = split_counters(*flatten_state(template))
+        tensors, counters = split_counters(tensors, scalars)
         diff = sorted(set(want) ^ set(tensors)) + sorted(
             n for n in set(want) & set(tensors)
             if (want[n].dtype, tuple(want[n].shape))
             != (tensors[n].dtype, tuple(tensors[n].shape)))
-        diff += sorted(set(want_scalars) ^ set(scalars))
+        diff += sorted(
+            {n for n in set(want_counters) ^ set(counters)
+             if not n.startswith("resilience/")})
         if diff:
             raise ValueError(
                 f"step {step}: checkpoint/template structure mismatch on "
@@ -539,8 +598,9 @@ class CheckpointManager:
         if self.rank == 0:
             try:
                 found = self._walk_restore(template)
-                outcome = ("none",) if found is None else \
-                    ("step", found[2])
+                outcome = ("none",) if found is None else ("step", {
+                    n: int(v) for n, v in
+                    split_counters(found[1], found[2])[1].items()})
             except Exception as e:
                 # Every rank must hear of it: a rank 0 that raised before
                 # the broadcast would leave the others waiting in it.
@@ -556,19 +616,14 @@ class CheckpointManager:
             raise RuntimeError(f"rank 0's restore failed: {outcome[1]}")
         if outcome[0] == "none":
             return None
-        scalars = outcome[1]
         if found is not None:
-            tensors = flatten_state(template)[0]
+            tensors = split_counters(*flatten_state(template))[0]
             with torch.no_grad():
                 for name, live in tensors.items():
                     live.copy_(found[1][name])
         if self.group is not None:
             replicate_state(template, self.group)
-        names = list(template.params)
-        opt_state = _set_counts(template.opt_state, "opt_state", names,
-                                scalars)
-        return dataclasses.replace(template, step=int(scalars["step"]),
-                                   opt_state=opt_state)
+        return set_counters(template, outcome[1])
 
     def restore_params(self) -> dict[str, torch.Tensor] | None:
         """The ``params`` of the newest checkpoint as a name → host tensor

@@ -39,9 +39,19 @@ the batches its epoch already consumed; ``--elastic [--max-restarts N
 relaunches it with ``--resume`` after a crash, hang or preemption;
 ``--inject-faults crash@N,stall@N:S,sigterm@N,ckpt_truncate@N`` tests all
 of it.  ``--serve --checkpoint-dir D`` serves the trained parameters.
+
+``--device-cache`` keeps the training set on the device (uint8 images:
+cifar10, synthetic-images, shapes, packed-images; or a ``token-file:``
+stream) and assembles every batch there, with no host-to-device copy a
+step.  ``--skip-bad-steps [--grad-spike-threshold G]`` puts the update
+behind the skip gate (a non-finite or spiking step leaves the state as it
+was), rolls back to a host snapshot after ``--rollback-after`` bad steps
+in a row and aborts (nonzero, for ``--elastic`` to relaunch) after
+``--max-rollbacks``; ``--inject-faults nan_batch@N,spike_batch@N:F``
+tests it.
+
 Not ported yet: tensor, pipeline and sequence parallelism, the MoE GPT-2,
-``--device-cache``, telemetry, the anomaly policy (``--skip-bad-steps``)
-and elastic resizing.
+telemetry and elastic resizing.
 """
 
 from __future__ import annotations
@@ -128,13 +138,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--heartbeat-timeout", type=float, default=600.0,
                    help="Seconds without training progress before a hung "
                         "run is killed (--elastic).")
+    p.add_argument("--skip-bad-steps", action="store_true",
+                   help="Skip gate (resilience/anomaly.py): a step with a "
+                        "non-finite loss or gradient norm (or a norm over "
+                        "--grad-spike-threshold) leaves the state as it "
+                        "was; --rollback-after bad steps in a row roll back "
+                        "to the last host snapshot, --max-rollbacks "
+                        "rollbacks abort for a supervised restart.")
+    p.add_argument("--grad-spike-threshold", type=float, default=None,
+                   help="Skip finite steps whose global gradient norm "
+                        "exceeds this (--skip-bad-steps; default: "
+                        "non-finite only).")
+    p.add_argument("--rollback-after", type=int, default=8,
+                   help="Consecutive skipped steps before rolling back to "
+                        "the last snapshot (--skip-bad-steps).")
+    p.add_argument("--max-rollbacks", type=int, default=2,
+                   help="Rollbacks before aborting the run for a supervised "
+                        "restart (--skip-bad-steps).")
+    p.add_argument("--snapshot-every-steps", type=int, default=200,
+                   help="Host snapshot cadence for the rollback "
+                        "(--skip-bad-steps).")
     p.add_argument("--inject-faults", default=None,
                    help="Deterministic fault injection "
                         "(resilience/faults.py): comma-separated "
                         "kind@step[:arg] with kinds crash, stall, sigterm, "
-                        "ckpt_truncate — each fires once per run (markers "
-                        "persist across supervised relaunches in "
-                        "<ckpt-dir>/.fault_state).  Chaos testing only.")
+                        "nan_batch, spike_batch, ckpt_truncate — each fires "
+                        "once per run (markers persist across supervised "
+                        "relaunches in <ckpt-dir>/.fault_state).  Chaos "
+                        "testing only.")
     # --- training (the JAX CLI's flags and defaults) ---
     p.add_argument("--dataset", default="cifar10",
                    help="cifar10|shapes|synthetic-images|"
@@ -179,6 +210,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "seq, vocab) logits.")
     p.add_argument("--remat", action="store_true",
                    help="Rematerialize transformer blocks in the backward.")
+    p.add_argument("--device-cache", action="store_true",
+                   help="Keep the training set on the device and assemble "
+                        "every batch there (shuffle, crop, flip; or token "
+                        "windows): uint8 image sets (cifar10, "
+                        "synthetic-images, shapes, packed-images) or a "
+                        "token-file: stream.  No host-to-device copy a "
+                        "step.  Crop boxes are drawn per batch, flips per "
+                        "sample; eval stays on the host loader.")
     p.add_argument("--eval", dest="do_eval", action="store_true",
                    help="Evaluate on a held-out split after each epoch.")
     p.add_argument("--eval-steps", type=int, default=None,
@@ -566,7 +605,58 @@ def run_train(args, overrides: dict, device=None):
         comm_init.shutdown()
 
 
+def _device_cache(args, ds, kind, device, rank, world):
+    """The JAX CLI's ``--device-cache`` branch: the token stream (LM) or
+    the uint8 records (images) uploaded to ``device``, each rank drawing
+    the global batch and keeping its rows.  Refused across hosts: every
+    rank holds the whole set, which only the ranks of one node share."""
+    import os
+
+    from ..data import DeviceCachedImages, DeviceCachedTokens, Subset
+
+    if world > 1 and int(os.environ.get("LOCAL_WORLD_SIZE", world)) != world:
+        raise SystemExit(
+            "--device-cache is single-host (each host would need its own "
+            "shard); use the streaming loader for multi-host runs")
+    shard = dict(device=device, seed=args.seed, rank=rank, world=world,
+                 num_microbatches=args.accum_steps)
+    if kind == "lm":
+        src, lo, hi = ds, None, None
+        if isinstance(src, Subset):
+            lo, hi = src.start, src.stop
+            src = src.dataset
+        stream = getattr(src, "tokens", None)
+        if stream is None:
+            raise SystemExit(
+                f"--device-cache for LM needs a token-stream dataset "
+                f"(token-file:<path>); {args.dataset!r} has none")
+        if lo is not None:
+            # Window-range subset -> token-range slice (+1 so the last
+            # window keeps its next-token target).
+            stream = stream[lo * args.seq_len:hi * args.seq_len + 1]
+        return DeviceCachedTokens(stream, default_seq_len=args.seq_len,
+                                  **shard)
+    images = getattr(ds, "images", None)
+    if images is None:
+        raise SystemExit(
+            f"--device-cache needs a dataset with uint8 records (cifar10, "
+            f"shapes, packed-images); {args.dataset!r} has none")
+    side = int(images.shape[1])
+    if args.image_size > side:
+        # The cache crops from the stored records and cannot upscale.
+        print(f"warning: --device-cache trains at the stored record "
+              f"resolution {side}px, not --image-size {args.image_size} "
+              f"(records cannot be upscaled on-device; use the host loader "
+              f"for resize-up training)", file=sys.stderr)
+    try:
+        return DeviceCachedImages(ds, crop_size=min(args.image_size, side),
+                                  train=True, **shard)
+    except ValueError as e:  # non-uint8 records, crop too large, ...
+        raise SystemExit(f"--device-cache: {e}") from None
+
+
 def _train(args, overrides, device, group, rank, world):
+    import dataclasses
     import itertools
     import os
 
@@ -575,7 +665,9 @@ def _train(args, overrides, device, group, rank, world):
     from ..data.loader import to_device
     from ..models import create_model, model_kind
     from ..resilience import (
-        PREEMPTED_EXIT_CODE, FaultInjector, Preempted, PreemptionHandler,
+        PREEMPTED_EXIT_CODE, AnomalyPolicy, FaultInjector, Preempted,
+        PreemptionHandler, RecoveryConfig, RecoveryManager,
+        init_resilience_state,
     )
     from ..resilience.faults import FAULTS_ENV
     from ..train import (
@@ -650,6 +742,19 @@ def _train(args, overrides, device, group, rank, world):
     tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay,
                          momentum=args.momentum, grad_clip=args.grad_clip)
     state = create_train_state(net, tx, policy=policy, process_group=group)
+    # The skip gate rides the step; the recovery manager stages snapshots
+    # and rolls back or aborts at the trainer's log points.  The counters
+    # join the state before a restore fills them.
+    anomaly_policy = recovery = None
+    if args.skip_bad_steps:
+        anomaly_policy = AnomalyPolicy(
+            grad_norm_threshold=args.grad_spike_threshold)
+        state = dataclasses.replace(state,
+                                    resilience=init_resilience_state(device))
+        recovery = RecoveryManager(RecoveryConfig(
+            rollback_after=args.rollback_after,
+            max_rollbacks=args.max_rollbacks,
+            snapshot_every_steps=args.snapshot_every_steps))
     # Optimizer steps per epoch — translates a restored step counter back
     # into an epoch index on --resume.  len(loader) is the per-process
     # step count, which equals the global optimizer step count (every
@@ -681,8 +786,10 @@ def _train(args, overrides, device, group, rank, world):
         kind=kind, policy=policy, num_microbatches=args.accum_steps,
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
         lm_loss_chunk=args.ce_chunk, input_normalize=input_normalize,
-        process_group=group,
+        process_group=group, anomaly_policy=anomaly_policy,
     )
+    cache = (_device_cache(args, ds, kind, device, rank, world)
+             if args.device_cache else None)
     # Preemption latch: a checkpointed run takes a synchronous step
     # checkpoint on SIGTERM and exits the code the supervisor relaunches
     # for free.
@@ -696,8 +803,10 @@ def _train(args, overrides, device, group, rank, world):
         except ValueError:
             preemption = None  # not the main thread (embedded callers)
     trainer = Trainer(state, step_fn, device, TrainerConfig(
+        prefetch=0 if cache is not None else TrainerConfig.prefetch,
         checkpoint_every_steps=args.ckpt_every_steps),
-        faults=faults, preemption=preemption, checkpoint_fn=checkpoint_fn)
+        faults=faults, preemption=preemption, checkpoint_fn=checkpoint_fn,
+        recovery=recovery)
     logger = metrics_lib.MetricsLogger(args.metrics_jsonl)
     eval_loader = eval_step = None
     if eval_ds is not None:
@@ -716,8 +825,11 @@ def _train(args, overrides, device, group, rank, world):
     preempted = None
     try:
         for epoch in range(start_epoch, args.epochs):
-            loader.set_epoch(epoch)
-            batches = iter(loader)
+            if cache is not None:
+                batches = cache.batches(epoch, args.batch_size)
+            else:
+                loader.set_epoch(epoch)
+                batches = iter(loader)
             # Deterministic mid-epoch resume: drop the batches the
             # interrupted run already consumed, capped at the same
             # absolute per-epoch bound.

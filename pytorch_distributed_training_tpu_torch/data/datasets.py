@@ -54,6 +54,25 @@ class SyntheticImages:
         label = np.int32(rng.integers(0, len(self.classes)))
         return {"image": img, "label": label}
 
+    @property
+    def images(self) -> np.ndarray:
+        """uint8 record view for ``DeviceCachedImages`` (materialized once;
+        the device cache re-scales by /255 on the device, so values match
+        ``__getitem__``'s floats to quantization)."""
+        if not hasattr(self, "_records"):
+            samples = [self[i] for i in range(self.n)]
+            self._records = (
+                (np.stack([s["image"] for s in samples]) * 255.0
+                 ).astype(np.uint8),
+                np.asarray([s["label"] for s in samples], np.int32),
+            )
+        return self._records[0]
+
+    @property
+    def labels(self) -> np.ndarray:
+        self.images  # materialize both together
+        return self._records[1]
+
 
 SHAPE_CLASSES = (
     "disk", "ring", "square", "diamond", "triangle",
@@ -183,7 +202,27 @@ class ShapeImages:
         label = np.int32(rng.integers(0, len(self.classes)))
         return {"image": self._render(rng, int(label)), "label": label}
 
+    @property
+    def images(self) -> np.ndarray:
+        """uint8 record view for ``DeviceCachedImages`` (materialized once;
+        the cache re-scales by /255 on the device, matching
+        ``__getitem__``'s floats to quantization).  Quantized sample by
+        sample, so the peak is the uint8 cache, not n float32 renders held
+        at once."""
+        if not hasattr(self, "_records"):
+            imgs = np.empty((self.n, 32, 32, 3), np.uint8)
+            labels = np.empty((self.n,), np.int32)
+            for i in range(self.n):
+                s = self[i]
+                imgs[i] = (s["image"] * 255.0).astype(np.uint8)
+                labels[i] = s["label"]
+            self._records = (imgs, labels)
+        return self._records[0]
 
+    @property
+    def labels(self) -> np.ndarray:
+        self.images  # materialize both together
+        return self._records[1]
 
 
 class SyntheticTokens:

@@ -211,6 +211,21 @@ def load_token_bin(path: str) -> np.ndarray:
     return np.memmap(path, dtype=np.uint16, mode="r")
 
 
+def synthesize_token_bin(path: str, *, n_tokens: int, vocab_size: int,
+                         seed: int = 0) -> int:
+    """A token bin of ``n_tokens`` ids drawn uniformly from
+    [0, ``vocab_size``) by ``np.random.default_rng(seed)``, in the layout
+    ``tokenize_to_bin`` writes (flat uint16); returns the token count.
+    For runs that need the file format without a corpus or a
+    tokenizer."""
+    if vocab_size > 2**16:
+        raise ValueError(
+            f"vocab {vocab_size} exceeds the uint16 bin format (max 65536)")
+    rng = np.random.default_rng(seed)
+    rng.integers(0, vocab_size, n_tokens).astype(np.uint16).tofile(path)
+    return n_tokens
+
+
 def build_corpus(
     out_dir: str,
     roots: Sequence[str],

@@ -61,19 +61,21 @@ def _as_arrays(batch: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {k: v.numpy() for k, v in batch.items()}
 
 
-def rank_rows(global_rows: np.ndarray, rank: int, world: int,
-              num_microbatches: int) -> np.ndarray:
+def rank_rows(global_rows, rank: int, world: int, num_microbatches: int):
     """Rank ``rank``'s rows of one global batch: the ``rank``-th of
     ``world`` equal slices of each of its ``num_microbatches`` row-wise
-    microbatches, concatenated in microbatch order."""
-    n = len(global_rows)
+    microbatches, concatenated in microbatch order.  ``global_rows`` is a
+    numpy array or a tensor, rows first, its trailing dimensions kept; a
+    tensor is reshaped where it lies (the device caches' batches: no
+    index crosses from the host)."""
+    n, rest = len(global_rows), tuple(global_rows.shape[1:])
     if n % (num_microbatches * world):
         raise ValueError(
             f"global batch {n} must divide into {num_microbatches} "
             f"microbatches x {world} ranks"
         )
-    return np.asarray(global_rows).reshape(
-        num_microbatches, world, -1)[:, rank].reshape(-1)
+    return global_rows.reshape(num_microbatches, world, -1, *rest)[
+        :, rank].reshape(n // world, *rest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,9 +211,13 @@ class DataLoader:
 
 def to_device(batch: dict, device) -> dict:
     """numpy batch → tensors on ``device``: pinned and copied without
-    blocking the host when the device is a GPU."""
+    blocking the host when the device is a GPU.  Tensors already there
+    (a device cache's batches) pass through."""
     out = {}
     for k, v in batch.items():
+        if isinstance(v, torch.Tensor) and v.device == torch.device(device):
+            out[k] = v
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v))
         if torch.device(device).type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)

@@ -15,14 +15,22 @@ the same optimizer step regardless of epochs, resumes, or data skips:
 - ``sigterm@N``       — deliver SIGTERM to self before step N: the
   preemption notice.  The step completes; the trainer then takes a
   synchronous step checkpoint and exits ``PREEMPTED_EXIT_CODE``.
+- ``nan_batch@N``     — overwrite every float leaf of step N's batch with
+  NaN: the poisoned-batch scenario the skip gate (``--skip-bad-steps``)
+  must turn into a no-op update.
+- ``spike_batch@N[:F]`` — scale the float leaves by F (default 1e4): a
+  finite gradient spike, for ``--grad-spike-threshold``.
 - ``ckpt_truncate@N`` — after the first checkpoint for a step >= N
   commits, truncate its largest payload file: the corrupt-checkpoint
   scenario ``restore_latest``'s manifest verification must catch and
   fall back from.
 
-JAX's ``nan_batch`` and ``spike_batch`` need the skip-step anomaly policy,
-and the serving and elastic kinds their tiers; none is ported yet, and a
-spec naming one is refused rather than silently ignored.
+The batch faults act on the batch's own device and only on float leaves:
+integer leaves (token ids, labels) and uint8 images (packed records, the
+device cache) pass through, as in JAX, so they change nothing in an LM
+run or a uint8 one.  The JAX package's serving and elastic kinds need
+their tiers; none is ported yet, and a spec naming one is refused rather
+than silently ignored.
 
 **Once-per-run semantics.**  A crash/preemption relaunch resumes from a
 checkpoint *below* the fault step and would re-reach it — so each fault
@@ -38,11 +46,11 @@ import os
 import signal
 import time
 
-FAULT_KINDS = ("crash", "stall", "sigterm", "ckpt_truncate")
+FAULT_KINDS = ("crash", "stall", "sigterm", "nan_batch", "spike_batch",
+               "ckpt_truncate")
 # The JAX package's other kinds, refused here until their slices land.
-_NOT_PORTED = ("nan_batch", "spike_batch", "replica_crash", "replica_stall",
-               "replica_slow", "handoff_drop", "slice_lost", "slice_return",
-               "host_hang")
+_NOT_PORTED = ("replica_crash", "replica_stall", "replica_slow",
+               "handoff_drop", "slice_lost", "slice_return", "host_hang")
 
 # Distinct from real Python tracebacks (1) and signal deaths (negative /
 # 128+N) so the chaos harness can assert WHICH death it injected.
@@ -50,7 +58,7 @@ CRASH_EXIT_CODE = 13
 
 FAULTS_ENV = "PDT_FAULTS"
 
-_DEFAULT_ARGS = {"stall": 3600.0}
+_DEFAULT_ARGS = {"stall": 3600.0, "spike_batch": 1e4}
 
 
 class _FiredMarkers:
@@ -152,8 +160,9 @@ class FaultInjector:
         return self._markers.fired(fault.name)
 
     def on_step(self, global_step: int, batch):
-        """Fire any fault armed for this step; returns the batch.  Called
-        by the trainer before the step dispatches."""
+        """Fire any fault armed for this step; returns the (possibly
+        corrupted) batch.  Called by the trainer before the step
+        dispatches."""
         for fault in self.faults:
             if fault.step != global_step or fault.kind == "ckpt_truncate" \
                     or self.fired(fault):
@@ -167,6 +176,11 @@ class FaultInjector:
                 self._sleep(fault.arg or _DEFAULT_ARGS["stall"])
             elif fault.kind == "sigterm":
                 self._kill(os.getpid(), signal.SIGTERM)
+            elif fault.kind == "nan_batch":
+                batch = corrupt_batch(batch, "nan")
+            elif fault.kind == "spike_batch":
+                batch = corrupt_batch(
+                    batch, "spike", fault.arg or _DEFAULT_ARGS["spike_batch"])
         return batch
 
     def on_checkpoint_saved(self, manager, step: int) -> None:
@@ -181,6 +195,21 @@ class FaultInjector:
             manager.wait_until_finished()
             self._markers.mark(fault.name)
             truncate_checkpoint(manager.directory, step)
+
+
+def corrupt_batch(batch: dict, mode: str, factor: float = 1e4) -> dict:
+    """NaN-fill (``mode="nan"``) or scale by ``factor`` the float tensors
+    of a batch on their own device (the trainer's batches are on it);
+    integer and uint8 leaves pass through untouched."""
+    import torch
+
+    def fix(x: torch.Tensor) -> torch.Tensor:
+        if not x.is_floating_point():
+            return x
+        return torch.full_like(x, float("nan")) if mode == "nan" \
+            else x * factor
+
+    return {k: fix(v) for k, v in batch.items()}
 
 
 def truncate_checkpoint(directory: str, step: int) -> str:

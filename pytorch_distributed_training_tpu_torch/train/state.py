@@ -10,7 +10,10 @@ ResNets' running ``mean``/``var``, f32 under every policy; empty for
 GPT-2 and the ViTs); ``apply_gradients`` updates them and the optimizer
 state in place (one copy of each, where JAX returns new arrays) and
 returns the state with the step advanced.  The step is a host integer:
-nothing reads it back from the device.
+nothing reads it back from the device.  ``apply_gradients(..., ok=...)``
+is the anomaly gate's form (``resilience/anomaly.py``): every tensor it
+would update changes only where the 0-dim device bool ``ok`` holds, and
+the step advances either way.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..ops.fused_norm import master_affine_params
 from ..parallel.sharding import replicate_state
-from .optim import Transform
+from .optim import Transform, select_
 from .policy import Policy
 
 
@@ -38,20 +41,33 @@ class TrainState:
     # Parameters the step hands the model uncast: the fused BatchNorms'
     # f32 master scale/bias, which round themselves (ops/fused_norm.py).
     keep: frozenset = frozenset()
+    # The anomaly gate's device counters (resilience/anomaly.py:
+    # ResilienceState) when the policy is on; empty otherwise.
+    resilience: Any = ()
 
-    def apply_gradients(self, grads: dict,
-                        batch_stats: dict | None = None) -> "TrainState":
+    def apply_gradients(self, grads: dict, batch_stats: dict | None = None,
+                        ok: torch.Tensor | None = None) -> "TrainState":
         """One optimizer update; ``batch_stats`` (name -> tensor), when
-        given, becomes the new running statistics."""
+        given, becomes the new running statistics.  With ``ok`` (a 0-dim
+        bool device tensor) the parameters, the optimizer state and the
+        statistics change only where it holds."""
         names = list(self.params)
         params = [self.params[n] for n in names]
-        updates, opt_state = self.tx.update(
-            [grads[n] for n in names], self.opt_state, params
-        )
+        # Outside autograd: the decayed-weight term reads the parameters,
+        # and an in-place moment update would otherwise join the graph.
         with torch.no_grad():
-            torch._foreach_add_(params, updates)
+            updates, opt_state = self.tx.update(
+                [grads[n] for n in names], self.opt_state, params, ok=ok
+            )
+            if ok is None:
+                torch._foreach_add_(params, updates)
+            else:
+                select_(ok, torch._foreach_add(params, updates), params)
             for name, value in (batch_stats or {}).items():
-                self.batch_stats[name].copy_(value)
+                if ok is None:
+                    self.batch_stats[name].copy_(value)
+                else:
+                    select_(ok, [value], [self.batch_stats[name]])
         return dataclasses.replace(self, step=self.step + 1,
                                    opt_state=opt_state)
 

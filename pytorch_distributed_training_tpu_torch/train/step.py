@@ -32,9 +32,16 @@ gradients and the returned metrics are global means.  The ResNet's
 BatchNorms take their statistics over the group (sync-BN), so the new
 running statistics are the same on every rank.
 
+``anomaly_policy`` (a ``resilience.AnomalyPolicy``) puts every path's
+update behind the skip gate (``resilience/anomaly.py``): a non-finite
+loss or gradient norm (or a norm over the threshold) keeps the old
+parameters, optimizer state and statistics while the step advances; the
+state must carry ``resilience=init_resilience_state(device)``.  Under
+data parallelism the gradients are averaged before the gate, so every
+rank takes the same decision without another collective.
+
 Not yet ported: ``grad_fn`` (pipeline schedules), ``grad_sync`` (the
-explicit two-tier sync), ``anomaly_policy`` and ``state_shardings``; they
-raise.
+explicit two-tier sync) and ``state_shardings``; they raise.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from ..comm import collectives
 from ..ops.losses import chunked_lm_cross_entropy, cross_entropy_loss
 from ..parallel.grad_accum import accumulate_gradients
+from ..resilience.anomaly import guarded_apply
 from .policy import Policy
 from .state import TrainState
 
@@ -68,7 +76,9 @@ def prepare_image_input(x: torch.Tensor, policy: Policy,
     NCHW view of the same memory (``channels_last``).  uint8 input is
     scaled by 1/255 in the compute dtype and, with ``normalize = (mean,
     std)``, normalized per channel; float input passes through (the host
-    pipeline already scaled it)."""
+    pipeline already scaled it).  The steps pass ``normalize`` as tensors
+    already on the batch's device (``_normalize_on``), so no call copies
+    from the host."""
     if x.dtype == torch.uint8:
         dt = policy.compute_dtype
         x = x.to(dt) / torch.tensor(255.0, dtype=dt)
@@ -77,6 +87,24 @@ def prepare_image_input(x: torch.Tensor, policy: Policy,
                          for v in normalize)
             x = (x - mean) / std
     return x.permute(0, 3, 1, 2)
+
+
+def _normalize_on(normalize: tuple | None, policy: Policy):
+    """``device -> (mean, std)``: ``input_normalize`` as compute-dtype
+    tensors on that device, uploaded once per device rather than once a
+    step (None without ``normalize``)."""
+    by_device: dict = {}
+
+    def on(device) -> tuple | None:
+        if normalize is None:
+            return None
+        if device not in by_device:
+            by_device[device] = tuple(
+                torch.as_tensor(v, dtype=policy.compute_dtype, device=device)
+                for v in normalize)
+        return by_device[device]
+
+    return on
 
 
 def _image_forward(model, params, batch_stats, image, *, policy, keep,
@@ -166,12 +194,20 @@ def make_train_step(
     raises.  ``process_group`` (a ``torch.distributed`` group) makes the
     step data-parallel over its ranks: ``batch`` is this rank's rows
     (``data.DataLoader`` with ``num_microbatches`` hands out JAX's
-    microbatches), the result the global batch's."""
+    microbatches), the result the global batch's.  ``anomaly_policy``
+    gates the update (module docstring) and adds the gate's metrics."""
     _check_kind(kind)
     _not_ported(grad_fn=grad_fn, grad_sync=grad_sync,
-                anomaly_policy=anomaly_policy,
                 state_shardings=state_shardings)
     policy = policy or Policy()
+
+    def apply_update(state, loss, grads, batch_stats=None):
+        """The one update gate every path exits through."""
+        if anomaly_policy is None:
+            return state.apply_gradients(grads, batch_stats=batch_stats), {}
+        return guarded_apply(state, loss, grads, anomaly_policy,
+                             batch_stats=batch_stats)
+
     sync = None
     if process_group is not None:
         def sync(tensors):
@@ -179,9 +215,10 @@ def make_train_step(
     rank = (torch.distributed.get_rank(process_group)
             if process_group is not None else 0)
     if kind == "image_classifier":
-        return _image_train_step(policy, num_microbatches, input_normalize,
+        return _image_train_step(policy, num_microbatches,
+                                 _normalize_on(input_normalize, policy),
                                  label_smoothing, process_group, sync, seed,
-                                 rank)
+                                 rank, apply_update)
 
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
@@ -198,14 +235,14 @@ def make_train_step(
             fn, state.params, batch, num_microbatches,
             pass_microbatch_index=True, sync_fn=sync,
         )
-        state = state.apply_gradients(grads)
-        return state, {"loss": loss}
+        state, gate = apply_update(state, loss, grads)
+        return state, {"loss": loss, **gate}
 
     return train_step
 
 
-def _image_train_step(policy, num_microbatches, input_normalize,
-                      label_smoothing, group, sync, seed, rank):
+def _image_train_step(policy, num_microbatches, normalize_on,
+                      label_smoothing, group, sync, seed, rank, apply_update):
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
         drop = getattr(model, "dropout_rate", 0.0) > 0.0
@@ -213,7 +250,8 @@ def _image_train_step(policy, num_microbatches, input_normalize,
         def fn(params, mb, i):
             gen = (dropout_generator(seed, state.step, i, rank)
                    if drop and seed is not None else None)
-            image = prepare_image_input(mb["image"], policy, input_normalize)
+            image = prepare_image_input(mb["image"], policy,
+                                        normalize_on(mb["image"].device))
             new_stats: dict = {}
             logits = _image_forward(model, params, state.batch_stats, image,
                                     policy=policy, keep=state.keep,
@@ -229,8 +267,8 @@ def _image_train_step(policy, num_microbatches, input_normalize,
             pass_microbatch_index=True, sync_fn=sync,
         )
         new_stats = aux.pop("batch_stats")
-        state = state.apply_gradients(grads, batch_stats=new_stats)
-        return state, {"loss": loss, **aux}
+        state, gate = apply_update(state, loss, grads, batch_stats=new_stats)
+        return state, {"loss": loss, **aux, **gate}
 
     return train_step
 
@@ -247,13 +285,14 @@ def make_eval_step(
     gradients."""
     _check_kind(kind)
     policy = policy or Policy()
+    normalize_on = _normalize_on(input_normalize, policy)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         model = state.model.eval()
         if kind == "image_classifier":
             image = prepare_image_input(batch["image"], policy,
-                                        input_normalize)
+                                        normalize_on(batch["image"].device))
             logits = _image_forward(model, state.params, state.batch_stats,
                                     image, policy=policy,
                                     keep=state.keep, new_stats=None)

@@ -19,9 +19,14 @@ wait=True)`` and :class:`~..resilience.Preempted`), then the step
 checkpoint cadence (``checkpoint_every_steps``: an async
 ``checkpoint_fn(state, wait=False)`` when the global step is a multiple).
 The supervisor's heartbeat (``Heartbeat.from_env``) beats at the epoch's
-start, at log points and around saves.  The telemetry emitter, spans,
-anomaly recovery, goodput ledger and profile windows wait for their
-slices.
+start, at log points and around saves.  Under the skip gate
+(``recovery``, a ``resilience.RecoveryManager``) the device's bad streak
+is read at log points only, where the host waits anyway, and may roll the
+state back or abort; after each step the manager stages its host
+snapshot at its own cadence; the summary carries the gate's metrics as
+read at the last log point (``skipped_total`` among them) and the
+rollbacks so far.  The telemetry emitter, spans, goodput ledger and
+profile windows wait for their slices.
 """
 
 from __future__ import annotations
@@ -51,14 +56,16 @@ class TrainerConfig:
 class Trainer:
     """Runs ``train_step`` over batches on ``device``.  ``faults``
     (``resilience.FaultInjector``), ``preemption``
-    (``resilience.PreemptionHandler``) and ``checkpoint_fn(state, wait)``
-    are the resilience hooks (module docstring)."""
+    (``resilience.PreemptionHandler``), ``checkpoint_fn(state, wait)``
+    and ``recovery`` (``resilience.RecoveryManager``) are the resilience
+    hooks (module docstring)."""
 
     def __init__(self, state: TrainState,
                  train_step: Callable[[TrainState, Any], tuple[TrainState, dict]],
                  device, config: TrainerConfig | None = None, *,
                  faults=None, preemption=None,
-                 checkpoint_fn: Callable[..., None] | None = None):
+                 checkpoint_fn: Callable[..., None] | None = None,
+                 recovery=None):
         self.state = state
         self.train_step = train_step
         self.device = device
@@ -66,6 +73,7 @@ class Trainer:
         self.faults = faults
         self.preemption = preemption
         self.checkpoint_fn = checkpoint_fn
+        self.recovery = recovery
         self.history: list[dict] = []
         self.last_epoch_losses: list[float] = []
         self._global_step = state.step
@@ -107,7 +115,17 @@ class Trainer:
                 last_metrics = {k: float(v) for k, v in metrics.items()}
                 losses.append(last_metrics["loss"])
                 last_logged_step = step_idx
+                if self.recovery is not None and "bad_streak" in metrics:
+                    # Rollback or abort at log cadence: every bad step in
+                    # between was a no-op update by construction.
+                    self.state = self.recovery.observe(
+                        self.state, self._global_step,
+                        int(last_metrics["bad_streak"]))
             self._global_step += 1
+            if self.recovery is not None:
+                # The host snapshot at its own cadence (waits for the
+                # state's in-flight computation).
+                self.recovery.maybe_stage(self.state, self._global_step)
             if self.preemption is not None and self.preemption.triggered:
                 # SIGTERM landed during this step: commit a synchronous
                 # step checkpoint at this boundary, then leave with the
@@ -140,6 +158,8 @@ class Trainer:
             "rolling_examples_per_sec": timer.examples_per_sec(batch_size),
             "loss": losses[-1] if losses else float("nan"),
             **{k: v for k, v in last_metrics.items() if k != "loss"},
+            **({"rollbacks": self.recovery.rollbacks}
+               if self.recovery is not None else {}),
         }
         self.history.append(summary)
         self.last_epoch_losses = losses

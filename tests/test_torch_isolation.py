@@ -38,8 +38,9 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 def test_port_imports_with_jax_blocked():
     """Import the serving and training entry points, the ResNet path's,
-    the data-parallel path's, the ViT path's and the checkpoint and
-    resilience modules in a fresh
+    the data-parallel path's, the ViT path's, the checkpoint and
+    resilience modules (the skip gate and recovery among them) and the
+    device caches in a fresh
     interpreter where importing jax, flax or the JAX package fails."""
     blocked = ", ".join(repr(m) for m in FORBIDDEN)
     code = (
@@ -81,6 +82,10 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.resilience.faults\n"
         "import pytorch_distributed_training_tpu_torch.resilience."
         "preemption\n"
+        "import pytorch_distributed_training_tpu_torch.resilience.anomaly\n"
+        "import pytorch_distributed_training_tpu_torch.resilience.recovery\n"
+        "import pytorch_distributed_training_tpu_torch.data.device_cache\n"
+        "import pytorch_distributed_training_tpu_torch.data.token_cache\n"
         "import pytorch_distributed_training_tpu_torch.utils.backoff\n"
         "import pytorch_distributed_training_tpu_torch.utils.supervisor\n"
         "leaked = [m for m in sys.modules if m.split('.')[0] in "

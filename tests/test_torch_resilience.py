@@ -59,11 +59,19 @@ def test_fault_plan_parse_and_defaults():
         parse_faults("crash@soon")
 
 
-@pytest.mark.parametrize("kind", ["nan_batch@2", "spike_batch@4:10",
-                                  "replica_crash@3:0", "slice_lost@4:1"])
+@pytest.mark.parametrize("kind", ["replica_crash@3:0", "slice_lost@4:1"])
 def test_unported_fault_kinds_are_refused(kind):
     with pytest.raises(ValueError, match="not ported yet"):
         parse_faults(f"crash@1,{kind}")
+
+
+@pytest.mark.parametrize("kind,arg", [("nan_batch@2", None),
+                                      ("spike_batch@4:10", 10.0)])
+def test_batch_fault_kinds_are_accepted(kind, arg):
+    """The skip gate's faults, refused until it was ported."""
+    fault = parse_faults(f"crash@1,{kind}")[1]
+    assert (fault.kind, fault.arg) == (kind.split("@")[0], arg)
+    assert parse_faults("spike_batch@3")[0].arg == 1e4
 
 
 def test_fault_injector_fires_once_and_persists_markers(tmp_path):

@@ -11,6 +11,7 @@ Run as a script, this file is one rank of a gloo group on the CPU:
     python tests/torch_dp_worker.py syncbn OUT     # BN functions, modules
     python tests/torch_dp_worker.py collectives OUT
     python tests/torch_dp_worker.py restore_error OUT  # rank 0's walk fails
+    python tests/torch_dp_worker.py cache_rows OUT  # --device-cache rows
 
 Each rank writes ``OUT/rank<r>.npz``; the tests compare them with the
 one-process results on the concatenated batch.
@@ -173,6 +174,34 @@ def _restore_error(rank: int, world: int, group, out: str) -> dict:
     return got
 
 
+CACHE_ACCUM = 2    # microbatches of the cache_rows batches
+
+
+def cache_rows(rank, world, group):
+    """The CLI's device caches (``--device-cache``: synthetic images
+    cropped from 10 to 8 px; a token stream) under this rank and world:
+    this rank's rows of three global batches of two epochs, stacked."""
+    import types
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        _device_cache, build_parser,
+    )
+    from pytorch_distributed_training_tpu_torch.data import SyntheticImages
+
+    args = build_parser().parse_args([
+        "--device-cache", "--image-size", "8", "--seq-len", "8",
+        "--accum-steps", str(CACHE_ACCUM), "--seed", "4"])
+    images = _device_cache(args, SyntheticImages(n=24, image_size=10),
+                           "image_classifier", "cpu", rank, world)
+    batches = [b for epoch in range(2) for b in images.batches(epoch, 8)]
+    stream = types.SimpleNamespace(tokens=np.arange(500) % 301)
+    tokens = _device_cache(args, stream, "lm", "cpu", rank, world)
+    windows = [b["tokens"] for b in tokens.batches(1, 8, steps=3)]
+    return {"image": np.stack([b["image"].numpy() for b in batches]),
+            "label": np.stack([b["label"].numpy() for b in batches]),
+            "tokens": np.stack([w.numpy() for w in windows])}
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
@@ -185,7 +214,8 @@ def main() -> int:
     try:
         rank, world = comm_init.process_index(), comm_init.process_count()
         tasks = {"syncbn": _syncbn, "collectives": _collectives,
-                 "restore_error": lambda *a: _restore_error(*a, out)}
+                 "restore_error": lambda *a: _restore_error(*a, out),
+                 "cache_rows": cache_rows}
         res = tasks[task](rank, world, group)
         os.makedirs(out, exist_ok=True)
         np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
