@@ -75,6 +75,18 @@ the port's main paths:
   and ``spike_batch``, the NaN step skipped with the parameters
   unchanged; G3 a threshold under every clean norm: a rollback, an abort
   and the supervisor's relaunch failing alike.
+- the two-tier gradient sync (``--grad-sync``), ranks of
+  ``torch.distributed.run`` on the one card over gloo (NCCL takes one
+  rank a card) in 2 slices of 2: H0 the codecs (int8, int4, top-k, the
+  bf16 payload's int16 view) on GPT-2 124M's ``hier-int8`` bucket layout,
+  card against host bitwise, each encode and decode timed per bucket; H1
+  a 2-layer f32 GPT-2, the five modes against flat (the step-1 loss
+  within 1e-5, weights within 10x the JAX package's tolerances, the
+  error-feedback residual non-zero) and ``hier-int8`` striped and
+  pipelined bitwise serial; H2 GPT-2 124M on T1's recipe under flat and
+  under ``hier-int8`` with stripe ``auto`` and the phase pipeline: ranks
+  bit-identical, the step-3 losses within ``H2_INT8_LOSS_BOUND``, flash
+  #4/#5 counted, step and sync times (gloo's on one card).
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -2905,14 +2917,338 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
     return launches
 
 
+# --- the two-tier gradient sync (--grad-sync) --------------------------------
+
+GS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                  "chip_smoke", "grad_sync")
+# JAX's documented parameter tolerances (tests/test_hier_sync.py:39-44);
+# H1 holds each mode's weights to 10x them against flat.
+PARAM_ATOL = {"hier": 1e-6, "hier-bf16": 5e-3, "hier-int8": 2e-2,
+              "hier-int4": 5e-2, "hier-topk": 2e-2}
+# H1: (label, mode, extra GradSyncConfig fields).  Buckets of 0.05 MB make
+# the 2-layer model's ~0.5 MB of gradient several buckets, so the
+# pipelined walk has waves to overlap.
+H1_RUNS = (("flat", "flat", {}), ("hier", "hier", {}),
+           ("hier-bf16", "hier-bf16", {}), ("hier-int8", "hier-int8", {}),
+           ("hier-int4", "hier-int4", {}), ("hier-topk", "hier-topk", {}),
+           ("hier-int8-sp", "hier-int8", {"stripe": 2,
+                                          "phase_overlap": True}))
+H1_BUCKET_MB, H1_BATCH, H1_LR = 0.05, 8, 3e-4
+# H2: the step-3 loss of hier-int8 against flat (PERF.md, written before
+# the first run).
+H2_INT8_LOSS_BOUND = 2e-2
+H2_ARGS = ["--model", "gpt2_124m", "--batch", "16", "--accum", "2",
+           "--steps", "3", "--device", "cuda", "--backend", "gloo"]
+
+
+def h1_leg(out: str, seed: int) -> int:
+    """One rank of H1 (``--h1-leg OUT SEED``): every run of ``H1_RUNS``
+    over the gloo group on the card, ``tools/dp_check.py``'s 2-layer
+    GPT-2 in f32 with TF32 off, accumulation 2, 3 steps; writes
+    ``OUT/<label>.rank<r>.json`` (losses, checksums, the residual's
+    largest magnitude) and rank 0's weights ``OUT/<label>.npz``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_training_tpu_torch.comm import (
+        GradSyncConfig, collectives, init as comm_init,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    group = comm_init.initialize(device, backend="gloo")
+    try:
+        rank, world = comm_init.process_index(), comm_init.process_count()
+        batches = dp_check.global_batches("gpt2", dp_check.STEPS, H1_BATCH,
+                                          0, seed + 1)
+        for label, mode, extra in H1_RUNS:
+            cfg = None if mode == "flat" else GradSyncConfig(
+                mode=mode, n_slices=2, bucket_mb=H1_BUCKET_MB, **extra)
+            model = dp_check.build_model("gpt2", device, seed=seed)
+            figures: dict = {}
+            losses, sums, state = dp_check.run_steps(
+                "gpt2", model, batches, accum=dp_check.ACCUM, device=device,
+                group=group, rank=rank, world=world, grad_sync=cfg,
+                figures=figures)
+            with open(os.path.join(out, f"{label}.rank{rank}.json"),
+                      "w") as f:
+                json.dump({"losses": losses, "checksums": sums,
+                           "residual_max": figures.get("residual_max", []),
+                           "n_buckets": figures.get("n_buckets"),
+                           "stripe": figures.get("stripe")}, f)
+            if rank == 0:
+                np.savez(os.path.join(out, f"{label}.npz"), **{
+                    k: v.detach().cpu().numpy()
+                    for k, v in state.params.items()})
+        collectives.barrier(group)
+    finally:
+        comm_init.shutdown()
+    return 0
+
+
+def torchrun_logged(repo: str, nproc: int, argv: list, log_dir: str):
+    """``torchrun_start`` with each rank's stdout and stderr also written
+    under ``log_dir`` (torchrun's ``--log-dir``), for ``rank_tails``."""
+    import shutil
+
+    shutil.rmtree(log_dir, ignore_errors=True)
+    return torchrun_start(repo, nproc, ["--log-dir", log_dir, "--tee", "3",
+                                        *argv])
+
+
+def rank_tails(log_dir: str, n: int = 1500) -> str:
+    """The last ``n`` characters of each rank's stderr under ``log_dir``."""
+    import glob
+
+    tails = []
+    for path in sorted(glob.glob(os.path.join(log_dir, "**", "stderr.log"),
+                                 recursive=True)):
+        with open(path, errors="replace") as f:
+            tails.append(f"--- {os.path.relpath(path, log_dir)}\n"
+                         f"{f.read()[-n:]}")
+    return "\n".join(tails) or "(no rank wrote a stderr log)"
+
+
+def wait_ranks(proc, argv: list, timeout: float, log_dir: str, what: str):
+    """``torchrun_wait`` that, when the leg fails, prints the tail of each
+    rank's stderr before the failure ends the run."""
+    try:
+        return torchrun_wait(proc, argv, timeout)
+    except BaseException:
+        print(f"{what} failed; each rank's stderr:\n{rank_tails(log_dir)}",
+              flush=True)
+        raise
+
+
+def _codec_ms(torch, fn, n_buckets: int) -> float:
+    """Device time of ``fn`` over every bucket, per bucket (CUDA events)."""
+    return time_ms(torch, fn, reps=10) / n_buckets
+
+
+def grad_sync_codecs(torch, seed: int) -> None:
+    """H0: the grad-sync codecs on the card against the host, bitwise, on
+    seeded (n_buckets, shard) f32 at GPT-2 124M's auto layout under
+    hier-int8 (H2's: 4 ranks, 2 slices); top-k also on a row of ties.
+    Prints each encode's and decode's device time per bucket."""
+    from pytorch_distributed_training_tpu_torch.comm import compress as cc
+    from pytorch_distributed_training_tpu_torch.models import create_model
+
+    t0 = time.monotonic()
+    model = create_model("gpt2", device="meta")
+    params = dict(model.named_parameters())
+    total = 4 * sum(p.numel() for p in params.values())
+    mb = cc.auto_bucket_mb(total, mode="hier-int8", phase_overlap=True)
+    layout = cc._BucketLayout.build(params, bucket_mb=mb, divisor=4)
+    nb, shard = layout.n_buckets, layout.bucket_elems // 2
+    gen = torch.Generator().manual_seed(seed)
+    host = torch.randn((nb, shard), generator=gen) * 1e-3
+    host[0, :4096] = torch.round(host[0, :4096] * 1e4) / 1e4   # ties
+    host[-1, -4096:] = 0.0                                    # padding
+    card = host.cuda()
+
+    def same(a, b):
+        return all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+    lines = []
+    for name, enc, dec in (
+            ("int8", cc.encode_int8, cc.decode_int8),
+            ("int4", cc.encode_int4, cc.decode_int4),
+            ("topk", lambda x: cc.encode_topk(x, 0.1),
+             lambda b, q, s: cc.decode_topk(b, q, s, shard))):
+        on_card, on_host = enc(card), enc(host)
+        check(same(on_card, on_host), f"H0: {name} payload card == host")
+        check(torch.equal(dec(*on_card).cpu(), dec(*on_host)),
+              f"H0: {name} decode card == host")
+        enc_ms = _codec_ms(torch, lambda: enc(card), nb)
+        dec_ms = _codec_ms(torch, lambda: dec(*on_card), nb)
+        lines.append(f"{name} encode {enc_ms:.3f} / decode {dec_ms:.3f} ms")
+    ties = torch.tensor([[1.0, -1.0, 0.5, -0.5] * 16]).repeat(2, 1)
+    check(same(cc.encode_topk(ties.cuda(), 0.25), cc.encode_topk(ties, 0.25)),
+          "H0: top-k on a row of ties card == host (lower index first)")
+    bits = card.to(torch.bfloat16).view(torch.int16)
+    check(torch.equal(bits.cpu(), host.to(torch.bfloat16).view(torch.int16)),
+          "H0: the bf16 payload's int16 view card == host")
+    print(f"grad sync H0 (codecs, card vs host bitwise, {nb} buckets x "
+          f"{shard} f32 = GPT-2 124M's hier-int8 auto layout at {mb} MB, "
+          f"4 ranks in 2 slices): per bucket {'; '.join(lines)}; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+def _h1_check(out: str) -> None:
+    import numpy as np
+
+    runs = {}
+    for label, mode, _ in H1_RUNS:
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(out, f"{label}.rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        check(all(x["checksums"] == ranks[0]["checksums"]
+                  and x["losses"] == ranks[0]["losses"] for x in ranks),
+              f"H1 {label}: the 4 ranks bit-identical after every step")
+        runs[label] = (ranks, dict(np.load(os.path.join(out,
+                                                        f"{label}.npz"))))
+    flat_losses, flat = runs["flat"][0][0]["losses"], runs["flat"][1]
+    parts = []
+    for label, mode, _ in H1_RUNS[1:]:
+        ranks, params = runs[label]
+        # The step-1 loss is the forward on the same weights, which no
+        # sync mode touches (JAX's check); later losses follow weights
+        # that the lossy codecs move apart, so only hier (f32 over the
+        # hop) holds all three to 1e-5.
+        diffs = [abs(a - b) for a, b in zip(ranks[0]["losses"],
+                                            flat_losses)]
+        loss_err = max(diffs) if mode == "hier" else diffs[0]
+        worst, key_bias = 0.0, 0.0
+        for k, v in flat.items():
+            d = np.abs(params[k] - v)
+            if k.endswith("qkv.bias"):
+                third = d.shape[0] // 3
+                key_bias = max(key_bias, float(d[third:2 * third].max()))
+                d = np.concatenate([d[:third], d[2 * third:]])
+            worst = max(worst, float(d.max()))
+        tol = 10 * PARAM_ATOL[mode]
+        check(loss_err <= 1e-5 and worst <= tol
+              and key_bias <= 2 * 3 * H1_LR,
+              f"H1 {label} vs flat: losses {diffs} (1e-5), weights "
+              f"{worst:.3g} ({tol:g}), key bias {key_bias:.3g}")
+        if mode in ("hier-int8", "hier-int4", "hier-topk"):
+            check(all(m > 0 for m in ranks[0]["residual_max"]),
+                  f"H1 {label}: the EF residual is non-zero "
+                  f"({ranks[0]['residual_max']})")
+        parts.append(f"{label} {diffs[0]:.2g}, {max(diffs):.2g}/"
+                     f"{worst:.2g}")
+    sp, serial = runs["hier-int8-sp"], runs["hier-int8"]
+    check(sp[0][0]["stripe"] == 2 and sp[0][0]["n_buckets"] > 1
+          and sp[0][0]["checksums"] == serial[0][0]["checksums"],
+          "H1: hier-int8 striped 2 and pipelined bitwise hier-int8 serial")
+    print(f"grad sync H1 (4 ranks on one card over gloo, 2 slices x 2, "
+          f"2-layer GPT-2 f32, TF32 off, accumulation 2, 3 steps, "
+          f"{sp[0][0]['n_buckets']} buckets): ranks bit-identical; diff to "
+          f"flat of the step-1 loss, of any step's loss / of the weights "
+          f"after 3 steps: {'; '.join(parts)}; striped + pipelined int8 "
+          f"bitwise serial", flush=True)
+
+
+def _h2_ranks(directory: str) -> list:
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(directory, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def grad_sync_phase(torch, seed: int, repo: str) -> dict:
+    """The two-tier gradient sync: H0 the codecs card vs host; H1 four
+    ranks on the card over gloo (NCCL takes one rank a card) in 2 slices
+    of 2, the five modes against flat on a 2-layer GPT-2, striping and
+    the phase pipeline bitwise the serial schedule; H2 GPT-2 124M (T1's
+    recipe, L 1024, 16 = 2 x 8 rows a step, 2 rows a rank a microbatch)
+    under flat and under hier-int8 with stripe auto and the phase
+    pipeline, 3 steps each: first loss near ln 50257, the step-3 losses
+    within ``H2_INT8_LOSS_BOUND``, ranks bit-identical, flash #4/#5
+    counted.  Its times are gloo's on one card: no NCCL figure and no
+    network's.  Returns the flash launches by row."""
+    import shutil
+
+    shutil.rmtree(GS, ignore_errors=True)
+    os.makedirs(GS)
+    script = os.path.join(repo, "chip_smoke.py")
+    t0 = time.monotonic()
+    h1_out, h1_logs = os.path.join(GS, "h1"), os.path.join(GS, "h1_logs")
+    os.makedirs(h1_out)
+    h1_argv = [script, "--h1-leg", h1_out, str(seed)]
+    proc = torchrun_logged(repo, 4, h1_argv, h1_logs)
+    try:
+        grad_sync_codecs(torch, seed)
+        wait_ranks(proc, h1_argv, 240, h1_logs, "H1")
+    finally:
+        torchrun_kill(proc)
+    _h1_check(h1_out)
+    print(f"grad sync H1: {time.monotonic() - t0:.1f} s since it started",
+          flush=True)
+
+    runs = {}
+    for label, extra in (("flat", []), ("hier-int8", [
+            "--grad-sync", "hier-int8", "--grad-sync-slices", "2",
+            "--grad-sync-stripe", "auto", "--grad-sync-overlap", "on"])):
+        t0 = time.monotonic()
+        out, logs = os.path.join(GS, f"h2_{label}"), os.path.join(
+            GS, f"h2_{label}_logs")
+        argv = ["-m", DP_CHECK, *H2_ARGS, "--seed", str(seed), "--out", out,
+                *extra]
+        proc = torchrun_logged(repo, 4, argv, logs)
+        try:
+            wait_ranks(proc, argv, 300, logs, f"H2 {label}")
+        finally:
+            torchrun_kill(proc)
+        ranks = _h2_ranks(out)
+        check(all(x["checksums"] == ranks[0]["checksums"]
+                  and x["losses"] == ranks[0]["losses"] for x in ranks),
+              f"H2 {label}: the 4 ranks bit-identical after every step")
+        losses = ranks[0]["losses"]
+        check(_finite(losses) and 10.0 <= losses[0] <= 12.0,
+              f"H2 {label}: first loss {losses[0]} near ln 50257 = 10.8")
+        runs[label] = ranks
+        steps = [statistics.median(x["step_s"][1:]) * 1e3 for x in ranks]
+        line = (f"grad sync H2 {label} (GPT-2 124M, bf16, L 1024, 16 = 2 x "
+                f"8 rows, 4 ranks in 2 slices x 2 on one card over gloo, 3 "
+                f"steps): losses {[round(x, 4) for x in losses]}; step "
+                f"(median of steps 2-3, by rank) "
+                f"{[round(x, 1) for x in steps]} ms; peak memory by rank "
+                f"{[round(x['peak_mem_gb'], 2) for x in ranks]} GB")
+        if label != "flat":
+            sync_ms = [sum(x["sync_s"][x["syncs_per_step"]:]) * 1e3
+                       / (len(x["step_s"]) - 1) for x in ranks]
+            check(all(m > 0 for m in ranks[0]["residual_max"]),
+                  f"H2 {label}: the EF residual is non-zero")
+            first = ranks[0]
+            line += (f"; sync a step, issue + wait (steps 2-3, card "
+                     f"synchronized around each) "
+                     f"{[round(x, 1) for x in sync_ms]} ms; "
+                     f"{first['n_buckets']} buckets of {first['bucket_mb']} "
+                     f"MB ({first['bucket_policy']}), stripe "
+                     f"{first['stripe']}, {first['syncs_per_step']} syncs a "
+                     f"step; analytic bytes a sync: DCN "
+                     f"{first['dcn_bytes_per_sync']}, ICI "
+                     f"{first['ici_bytes_per_sync']}")
+        print(line + f"; {time.monotonic() - t0:.1f} s", flush=True)
+    diff = abs(runs["hier-int8"][0]["losses"][-1]
+               - runs["flat"][0]["losses"][-1])
+    check(diff <= H2_INT8_LOSS_BOUND,
+          f"H2: step-3 loss hier-int8 vs flat {diff:.3g} within "
+          f"{H2_INT8_LOSS_BOUND}")
+    print(f"grad sync H2: step-3 loss hier-int8 vs flat {diff:.4g} (bound "
+          f"{H2_INT8_LOSS_BOUND}); timings are gloo's on one card, not "
+          "NCCL's and not a network's", flush=True)
+    fwd = sum(x["flash"]["fwd"] for r in runs.values() for x in r)
+    bwd = sum(x["flash"]["dq"] + x["flash"]["dkv"]
+              for r in runs.values() for x in r)
+    want = 12 * 2 * 3 * 4 * 2
+    check(fwd == want and bwd == 2 * want,
+          f"H2: flash launches fwd {fwd}, dq + dkv {bwd}; expected {want} "
+          f"and {2 * want}")
+    shutil.rmtree(GS, ignore_errors=True)
+    return {4: fwd, 5: bwd}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cli-leg", nargs=argparse.REMAINDER,
                     help="(internal) OUT ARGV...: one rank of a CLI leg")
+    ap.add_argument("--h1-leg", nargs=2, metavar=("OUT", "SEED"),
+                    help="(internal) one rank of the grad-sync H1 leg")
     args = ap.parse_args()
     if args.cli_leg:
         return cli_leg(args.cli_leg[0], args.cli_leg[1:])
+    if args.h1_leg:
+        return h1_leg(args.h1_leg[0], int(args.h1_leg[1]))
     import torch
 
     if not torch.cuda.is_available():
@@ -3001,6 +3337,9 @@ def main() -> int:
         flash[num]["launches"] += n
     for num, n in timed("cache+guard", cache_guard_phase, torch, fa,
                         args.seed, repo).items():
+        flash[num]["launches"] += n
+    for num, n in timed("grad sync", grad_sync_phase, torch, args.seed,
+                        repo).items():
         flash[num]["launches"] += n
     print("phases: " + ", ".join(f"{k} {v:.1f} s"
                                  for k, v in seconds.items()), flush=True)

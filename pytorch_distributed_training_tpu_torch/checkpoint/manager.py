@@ -68,6 +68,12 @@ the resilience counters (one saved without the gate) restores them as 0.
 Rank 0 reads every counter as an int and broadcasts them with the
 outcome, so all ranks set the same values.  (The JAX package does not
 checkpoint its resilience counters; they restart at 0 there.)
+
+**Not saved:** the two-tier sync's error-feedback residual
+(``TrainState.grad_sync_residual``), as in JAX, whose restore keeps the
+template's.  A restore leaves the template's residual as it is (the
+CLI's: fresh zeros), so a resumed compressed run restarts its error
+feedback.
 """
 
 from __future__ import annotations

@@ -28,7 +28,13 @@ reads a class-folder tree instead).
 trains data-parallel, one process per GPU (``--use-cpu``: gloo on the
 host); ``--batch-size`` stays global.  Several hosts join one group through
 torchrun's static rendezvous (``--nnodes N --node_rank r --master_addr A
---master_port P``).
+--master_port P``).  ``--grad-sync hier|hier-bf16|hier-int8|hier-int4|
+hier-topk`` replaces the one gradient all-reduce with the two-tier sync
+(reduce-scatter within a node, the compressed shards across nodes,
+all-gather within a node; ``comm/hierarchical.py``), over the nodes of
+the launch or ``--grad-sync-slices S``, with ``--grad-sync-bucket-mb``,
+``--grad-sync-topk-frac``, ``--grad-sync-stripe`` and
+``--grad-sync-overlap``.
 
 ``--checkpoint-dir D`` saves a checkpoint at each epoch's end (rank 0
 writes; ``--ckpt-every-steps N`` adds async step checkpoints) and makes
@@ -50,8 +56,9 @@ in a row and aborts (nonzero, for ``--elastic`` to relaunch) after
 ``--max-rollbacks``; ``--inject-faults nan_batch@N,spike_batch@N:F``
 tests it.
 
-Not ported yet: tensor, pipeline and sequence parallelism, the MoE GPT-2,
-telemetry and elastic resizing.
+Not ported yet: tensor, pipeline and sequence parallelism, ZeRO-1 and
+FSDP, ``--pp-compress``, the MoE GPT-2, telemetry (with it the
+``grad_sync_model`` event) and elastic resizing.
 """
 
 from __future__ import annotations
@@ -61,6 +68,86 @@ import sys
 import time
 
 import numpy as np
+
+
+GRAD_SYNC_CHOICES = ("flat", "hier", "hier-bf16", "hier-int8", "hier-int4",
+                     "hier-topk")
+
+
+def _check_grad_sync(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's flag checks of --grad-sync and its companions, as
+    usage errors (exit 2), before anything is built.  Parses the stripe
+    and the bucket size in place."""
+    flat = args.grad_sync == "flat"
+    if flat and args.grad_sync_slices is not None:
+        parser.error(
+            "--grad-sync-slices only affects the explicit two-tier sync; "
+            "pass --grad-sync hier|hier-bf16|hier-int8|hier-int4|hier-topk "
+            "with it (the flat all-reduce has no slice parameter to "
+            "simulate)")
+    if flat and str(args.grad_sync_stripe) != "off":
+        parser.error(
+            "--grad-sync-stripe lanes the explicit two-tier sync's DCN hop; "
+            "the flat all-reduce has no DCN hop to stripe — pass a "
+            "--grad-sync mode with it")
+    if flat and args.grad_sync_overlap != "off":
+        parser.error(
+            "--grad-sync-overlap pipelines the explicit two-tier sync's "
+            "ICI/DCN phases across buckets; the flat all-reduce has no "
+            "phases to pipeline — pass a --grad-sync mode with it")
+    if str(args.grad_sync_stripe) not in ("auto", "off"):
+        try:
+            args.grad_sync_stripe = int(args.grad_sync_stripe)
+        except ValueError:
+            parser.error(f"--grad-sync-stripe must be 'auto', 'off', or a "
+                         f"lane count, got {args.grad_sync_stripe!r}")
+        if args.grad_sync_stripe < 1:
+            parser.error(f"--grad-sync-stripe must be >= 1, got "
+                         f"{args.grad_sync_stripe}")
+    if flat and str(args.grad_sync_bucket_mb) != "auto":
+        parser.error(
+            "--grad-sync-bucket-mb sizes the explicit two-tier sync's "
+            "buckets; the flat all-reduce has none — pass a --grad-sync "
+            "mode with it")
+    if str(args.grad_sync_bucket_mb) != "auto":
+        try:
+            args.grad_sync_bucket_mb = float(args.grad_sync_bucket_mb)
+        except ValueError:
+            parser.error(f"--grad-sync-bucket-mb must be 'auto' or a number "
+                         f"(MB), got {args.grad_sync_bucket_mb!r}")
+        if args.grad_sync_bucket_mb <= 0:
+            parser.error(f"--grad-sync-bucket-mb must be > 0, got "
+                         f"{args.grad_sync_bucket_mb}")
+    if not flat and not args.distributed:
+        parser.error(
+            f"--grad-sync {args.grad_sync} syncs the gradients of a "
+            "data-parallel group: it needs --distributed over more than one "
+            "process (torchrun)")
+
+
+def _build_grad_sync(args, state, group):
+    """The ``GradSync`` of ``--grad-sync`` (None for ``flat``), its
+    refusals as usage errors, and JAX's ``grad-sync:`` line."""
+    import dataclasses
+
+    from ..comm import GradSync, GradSyncConfig
+
+    if args.grad_sync == "flat":
+        return state, None
+    try:
+        sync = GradSync(group, state.params, GradSyncConfig(
+            mode=args.grad_sync, n_slices=args.grad_sync_slices,
+            bucket_mb=args.grad_sync_bucket_mb,
+            topk_frac=args.grad_sync_topk_frac, stripe=args.grad_sync_stripe,
+            phase_overlap=args.grad_sync_overlap == "on"))
+    except ValueError as e:
+        build_parser().error(f"--grad-sync {args.grad_sync}: {e}")
+    print(f"grad-sync: {args.grad_sync} over {sync.n_slices} slice(s) x "
+          f"{sync.ici_size} ici, {sync.layout.n_buckets} bucket(s) of "
+          f"{sync.bucket_mb} MB ({sync.bucket_policy}), stripe={sync.stripe} "
+          f"overlap={'on' if sync.phase_overlap else 'off'}", flush=True)
+    return dataclasses.replace(
+        state, grad_sync_residual=sync.init_residual()), sync
 
 
 def _parse_overrides(text: str | None) -> dict:
@@ -101,6 +188,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Data-parallel run over the process group that "
                         "torchrun's env describes (NCCL on CUDA, gloo on "
                         "the host).")
+    p.add_argument("--grad-sync", default="flat", choices=GRAD_SYNC_CHOICES,
+                   help="Gradient all-reduce strategy (comm/hierarchical.py)."
+                        " flat: the one all-reduce of --distributed. hier: "
+                        "the two-tier sync: reduce-scatter within a node, "
+                        "all-reduce of the 1/L shards across nodes, "
+                        "all-gather within a node, once per microbatch of "
+                        "--accum-steps. hier-bf16/hier-int8/hier-int4 "
+                        "compress the cross-node hop (per-bucket scales and "
+                        "error-feedback residuals for the lossy ones); "
+                        "hier-topk sends the top --grad-sync-topk-frac of "
+                        "each bucket by magnitude. Needs --distributed.")
+    p.add_argument("--grad-sync-slices", type=int, default=None,
+                   help="Override the detected slice (node) count for "
+                        "--grad-sync, to simulate several nodes; slices are "
+                        "consecutive ranks.")
+    p.add_argument("--grad-sync-bucket-mb", default="auto",
+                   help="Gradient bucket size for --grad-sync: 'auto' "
+                        "derives it from the inter-node link's latency x "
+                        "bandwidth crossover per compression mode "
+                        "(comm.compress.auto_bucket_mb), or a number in MB "
+                        "of f32 gradient.")
+    p.add_argument("--grad-sync-topk-frac", type=float, default=0.1,
+                   help="Transmitted fraction per bucket under --grad-sync "
+                        "hier-topk.")
+    p.add_argument("--grad-sync-stripe", default="off",
+                   help="Multi-path striping of the --grad-sync cross-node "
+                        "hop (comm/striping.py): 'auto' uses min(ranks a "
+                        "node, 4) lanes' links, 'off' one, or a lane count. "
+                        "Bitwise the same gradients.")
+    p.add_argument("--grad-sync-overlap", default="off", choices=("on", "off"),
+                   help="Pipeline the --grad-sync phases over the buckets "
+                        "(bucket i's cross-node all-reduce beside bucket "
+                        "i+1's reduce-scatter and bucket i-1's all-gather). "
+                        "Bitwise the same gradients.")
     p.add_argument("--data-dir", default="./data", help="Dataset root.")
     p.add_argument("--model", default="resnet18",
                    help="resnet18|resnet50|vit_b16|gpt2|... (the registry's "
@@ -742,6 +863,8 @@ def _train(args, overrides, device, group, rank, world):
     tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay,
                          momentum=args.momentum, grad_clip=args.grad_clip)
     state = create_train_state(net, tx, policy=policy, process_group=group)
+    # The residual joins the state before a restore, which keeps it.
+    state, grad_sync = _build_grad_sync(args, state, group)
     # The skip gate rides the step; the recovery manager stages snapshots
     # and rolls back or aborts at the trainer's log points.  The counters
     # join the state before a restore fills them.
@@ -787,6 +910,7 @@ def _train(args, overrides, device, group, rank, world):
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
         lm_loss_chunk=args.ce_chunk, input_normalize=input_normalize,
         process_group=group, anomaly_policy=anomaly_policy,
+        grad_sync=grad_sync,
     )
     cache = (_device_cache(args, ds, kind, device, rank, world)
              if args.device_cache else None)
@@ -937,6 +1061,7 @@ def _run_elastic(parser: argparse.ArgumentParser, args) -> None:
 def main(argv: list[str] | None = None):
     parser = build_parser()
     args = parser.parse_args(argv)
+    _check_grad_sync(parser, args)
     if args.elastic:
         return _run_elastic(parser, args)
     if args.ckpt_every_steps and not args.checkpoint_dir:

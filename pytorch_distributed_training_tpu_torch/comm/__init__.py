@@ -1,3 +1,71 @@
 """Communication of the port: process-group setup (``comm.init``), the
-data-parallel collectives (``comm.collectives``) and the KV-cache codec
-(``comm.compress``) that the quantized paged pool needs."""
+collectives (``comm.collectives``), the slice split of a group
+(``comm.mesh``), the codecs (``comm.compress``: the gradient-sync codecs
+and the KV-cache codec of the quantized paged pool), striping and the
+phase pipeline (``comm.striping``) and the two-tier gradient sync
+(``comm.hierarchical``).  The names the JAX package's ``comm`` exports,
+where the port has them; the mesh constructors and the pipeline codec
+wait for the model-parallel slice."""
+
+from .init import initialize, is_initialized, process_count, process_index, shutdown
+from .mesh import (
+    AXIS_DATA,
+    dcn_axis_name,
+    ici_axis_name,
+    num_slices,
+    split_slice_groups,
+    stripe_lane_perm,
+)
+from .compress import auto_bucket_mb, bucket_wire_bytes
+from .hierarchical import GRAD_SYNC_MODES, GradSync, GradSyncConfig
+from .striping import (
+    STRIPE_CHOICES,
+    ici_bytes_per_sync,
+    pipelined_sync,
+    resolve_stripe,
+    split_stripes,
+    striped_dcn_hop,
+)
+from .collectives import (
+    all_gather,
+    all_to_all,
+    barrier,
+    broadcast,
+    pmean,
+    ppermute,
+    psum,
+    reduce_scatter,
+)
+
+__all__ = [
+    "initialize",
+    "is_initialized",
+    "process_count",
+    "process_index",
+    "shutdown",
+    "num_slices",
+    "split_slice_groups",
+    "dcn_axis_name",
+    "ici_axis_name",
+    "stripe_lane_perm",
+    "STRIPE_CHOICES",
+    "resolve_stripe",
+    "split_stripes",
+    "striped_dcn_hop",
+    "pipelined_sync",
+    "ici_bytes_per_sync",
+    "GradSync",
+    "GradSyncConfig",
+    "GRAD_SYNC_MODES",
+    "auto_bucket_mb",
+    "bucket_wire_bytes",
+    "AXIS_DATA",
+    "psum",
+    "pmean",
+    "all_gather",
+    "reduce_scatter",
+    "ppermute",
+    "all_to_all",
+    "broadcast",
+    "barrier",
+]

@@ -1,28 +1,209 @@
-"""Collective operations over a process group: the part of the JAX
-package's ``comm/collectives.py`` that data parallelism needs (``psum``,
-``pmean``, ``broadcast``, ``barrier``), over a ``torch.distributed``
-``ProcessGroup`` where JAX names a mesh axis.
+"""Collective operations over a process group: the JAX package's
+``comm/collectives.py`` (``psum``, ``pmean``, ``all_gather``,
+``reduce_scatter``, ``ppermute``, ``all_to_all``, ``broadcast``,
+``barrier``) over a ``torch.distributed`` ``ProcessGroup`` where JAX
+names a mesh axis; ``new_group`` refuses what JAX's axis check refuses.
 
 The reference's two collectives hide inside DDP: the construction-time
 parameter broadcast (``src/main.py:53``) and the gradient all-reduce in
 ``backward()`` (``src/main.py:78``).  Here both are explicit calls, on
-NCCL for CUDA tensors or gloo (which also takes CUDA tensors, staged
-through the host).  ``all_gather``, ``reduce_scatter``, ``ppermute`` and
-``all_to_all`` wait for the communication slice.
+NCCL for CUDA tensors or gloo.  The gather, scatter and all-to-all are
+tiled as JAX's are (``tiled=True``).  ``all_gather``, ``reduce_scatter``,
+``ppermute`` and ``psum`` take ``async_op=True`` and then return a
+:class:`Pending` whose ``wait()`` gives the result (the pipelined bucket
+walk of ``comm/striping.py`` issues a wave's collectives that way).
+
+Transport rules of the two backends:
+
+- neither gloo nor NCCL has a 16-bit integer type, so an ``int16``
+  tensor (the bit pattern of a bf16 payload, which the sync sends as
+  integers as JAX bitcasts it to u16) moves as its ``uint8`` bytes in
+  the data-movement collectives; a reduction of it is refused;
+- gloo (torch 2.11, probed with CUDA tensors on an H100) runs the
+  all-reduce, gather, reduce-scatter, all-to-all and broadcast on CUDA
+  tensors, but its point-to-point send/recv does not: the process dies
+  writing from a device pointer.  ``ppermute`` over a gloo group
+  therefore stages a CUDA tensor through the host (copy out, send/recv,
+  copy back).  Only a gloo group takes that branch; NCCL runs every call
+  directly.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
 
 F32 = torch.float32
+# Dtypes the backends cannot carry, sent as their bytes.
+_BYTE_WIRE = (torch.int16,)
+# The tensor reduce-scatter under its newer name where torch has it.
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
 
 
-def psum(x: torch.Tensor, group) -> torch.Tensor:
+class Pending:
+    """An issued collective: ``wait()`` waits for its work handles and
+    returns ``finish()``'s result (once)."""
+
+    def __init__(self, works: Sequence, finish: Callable):
+        self._works, self._finish = list(works), finish
+        self._done, self._result = False, None
+
+    def wait(self):
+        if not self._done:
+            for w in self._works:
+                w.wait()
+            self._result = self._finish()
+            self._done = True
+        return self._result
+
+
+def _issued(works, finish, async_op: bool):
+    pending = Pending([w for w in works if w is not None], finish)
+    return pending if async_op else pending.wait()
+
+
+def new_group(ranks: Sequence[int]):
+    """``dist.new_group(ranks)``, refusing what JAX's axis check refuses:
+    no members (a reduce over nobody would be the identity) or a member
+    named twice (it would be counted twice).  Collective: every rank of
+    the world calls it, in the same order."""
+    ranks = list(ranks)
+    if not ranks:
+        raise ValueError("collective over an empty group: the reduce "
+                         "would silently be the identity")
+    if len(set(ranks)) != len(ranks):
+        raise ValueError(f"duplicate ranks in {ranks}")
+    return dist.new_group(ranks)
+
+
+def _size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def _to_wire(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.dtype in _BYTE_WIRE else x
+
+
+def _from_wire(x: torch.Tensor, dtype) -> torch.Tensor:
+    return x.view(dtype) if dtype in _BYTE_WIRE else x
+
+
+def _reducible(x: torch.Tensor) -> None:
+    if x.dtype in _BYTE_WIRE:
+        raise TypeError(f"no backend reduces {x.dtype}: it moves as bytes")
+
+
+def psum(x: torch.Tensor, group, *, async_op: bool = False):
     """Sum ``x`` over ``group`` in place; returns ``x``."""
-    dist.all_reduce(x, group=group)
-    return x
+    _reducible(x)
+    work = dist.all_reduce(x, group=group, async_op=async_op)
+    return _issued([work], lambda: x, async_op)
+
+
+def all_gather(x: torch.Tensor, group, *, gather_axis: int = 0,
+               tiled: bool = True, async_op: bool = False):
+    """Every member's ``x``, in group-rank order: concatenated along
+    ``gather_axis`` (``tiled``) or stacked on a new axis there."""
+    n = _size(group)
+    moved = _to_wire(x.movedim(gather_axis, 0))
+    out = moved.new_empty((n * moved.shape[0], *moved.shape[1:]))
+    work = dist.all_gather_into_tensor(out, moved, group=group,
+                                       async_op=async_op)
+
+    def finish():
+        y = _from_wire(out, x.dtype)
+        if not tiled:
+            return y.view(n, *x.movedim(gather_axis, 0).shape).movedim(
+                1, gather_axis + 1).movedim(0, gather_axis)
+        return y.movedim(0, gather_axis)
+
+    return _issued([work], finish, async_op)
+
+
+def reduce_scatter(x: torch.Tensor, group, *, scatter_axis: int = 0,
+                   async_op: bool = False):
+    """The sum over ``group``, of which group rank i keeps the i-th of
+    ``size`` equal blocks along ``scatter_axis`` (ZeRO's
+    reduce-scatter)."""
+    _reducible(x)
+    n = _size(group)
+    if x.shape[scatter_axis] % n:
+        raise ValueError(f"axis {scatter_axis} of {tuple(x.shape)} does not "
+                         f"split into {n} blocks")
+    moved = x.movedim(scatter_axis, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
+    work = _REDUCE_SCATTER(out, moved, group=group, async_op=async_op)
+    return _issued([work], lambda: out.movedim(0, scatter_axis), async_op)
+
+
+def _global(group, r: int) -> int:
+    return dist.get_global_rank(group, r) if group is not None else r
+
+
+def ppermute(x: torch.Tensor, group, perm: Sequence[tuple[int, int]], *,
+             async_op: bool = False):
+    """Point-to-point permutation: group rank ``src`` sends ``x`` to
+    ``dst`` for each ``(src, dst)`` of ``perm``; a rank that receives
+    nothing returns zeros, as ``lax.ppermute`` does.  One
+    ``batch_isend_irecv``.  Over a gloo group a CUDA tensor is staged
+    through the host (module docstring)."""
+    perm = [(int(a), int(b)) for a, b in perm]
+    srcs, dsts = [a for a, _ in perm], [b for _, b in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute perm {perm} repeats a source or a "
+                         "destination")
+    n = _size(group)
+    if any(not 0 <= r < n for r in srcs + dsts):
+        raise ValueError(f"ppermute perm {perm} names a rank outside a "
+                         f"group of {n}")
+    me = dist.get_rank(group)
+    staged = (x.is_cuda
+              and dist.get_backend(group) == dist.Backend.GLOO)
+    device = x.device
+    send = _to_wire(x.cpu() if staged else x)
+    recv = torch.zeros_like(send)
+    ops, local = [], False
+    for a, b in perm:
+        if a == me and b == me:
+            local = True
+        elif a == me:
+            ops.append(dist.P2POp(dist.isend, send, _global(group, b),
+                                  group))
+        elif b == me:
+            ops.append(dist.P2POp(dist.irecv, recv, _global(group, a),
+                                  group))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    if local:
+        recv.copy_(send)
+
+    def finish():
+        y = _from_wire(recv, x.dtype)
+        return y.to(device) if staged else y
+
+    return _issued(works, finish, async_op)
+
+
+def all_to_all(x: torch.Tensor, group, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Split ``x`` into ``size`` blocks along ``split_axis``, send block j
+    to group rank j, and concatenate the blocks received along
+    ``concat_axis`` in group-rank order (Ulysses' sequence <-> head
+    reshard)."""
+    n = _size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"axis {split_axis} of {tuple(x.shape)} does not "
+                         f"split into {n} blocks")
+    moved = _to_wire(x.movedim(split_axis, 0))
+    out = torch.empty_like(moved)
+    dist.all_to_all_single(out, moved, group=group)
+    blocks = _from_wire(out, x.dtype).view(
+        n, moved.shape[0] // n, *x.movedim(split_axis, 0).shape[1:])
+    blocks = blocks.movedim(1, split_axis + 1)
+    return torch.cat(blocks.unbind(0), dim=concat_axis)
 
 
 def pmean(x, group):

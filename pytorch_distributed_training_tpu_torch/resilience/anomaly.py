@@ -7,7 +7,8 @@ The rule is JAX's:
   ``|g|`` is the global norm of the raw (pre-clip) gradients: one scalar
   that any non-finite gradient poisons;
 - on a bad step the parameters, the optimizer state (its counts
-  included) and ``batch_stats`` keep their old values bit for bit, while
+  included), ``batch_stats`` and the two-tier sync's error-feedback
+  residual keep their old values bit for bit, while
   ``state.step`` still advances (the data order and the checkpoint
   cadence stay step-indexed);
 - a device-side :class:`ResilienceState` (the bad streak and the
@@ -59,8 +60,10 @@ def init_resilience_state(device=None) -> ResilienceState:
 
 
 def guarded_apply(state, loss: torch.Tensor, grads: dict,
-                  policy: AnomalyPolicy, batch_stats: dict | None = None):
-    """``state.apply_gradients(grads, batch_stats)`` behind the gate.
+                  policy: AnomalyPolicy, batch_stats: dict | None = None,
+                  grad_sync_residual=None):
+    """``state.apply_gradients(grads, batch_stats, grad_sync_residual)``
+    behind the gate.
     Returns ``(new_state, metrics)`` with the gate's metrics
     (``grad_norm``, ``skipped``, ``bad_streak``, ``skipped_total``), all
     device tensors."""
@@ -75,7 +78,8 @@ def guarded_apply(state, loss: torch.Tensor, grads: dict,
     bad = ~torch.isfinite(loss) | ~torch.isfinite(grad_norm)
     if policy.grad_norm_threshold is not None:
         bad = bad | (grad_norm > policy.grad_norm_threshold)
-    new = state.apply_gradients(grads, batch_stats=batch_stats, ok=~bad)
+    new = state.apply_gradients(grads, batch_stats=batch_stats, ok=~bad,
+                                grad_sync_residual=grad_sync_residual)
     skipped = bad.to(torch.int32)
     resilience = ResilienceState(
         bad_streak=(state.resilience.bad_streak + 1) * skipped,

@@ -10,8 +10,9 @@ is skipped.  That escalation is the host's:
 
 1. **snapshot**: every ``snapshot_every_steps`` global steps the manager
    stages a host copy of the learned state (parameters, optimizer state
-   with its counts, ``batch_stats``).  Staging waits for the state's
-   in-flight computation: that pause is its cost.
+   with its counts, ``batch_stats``, the two-tier sync's error-feedback
+   residual).  Staging waits for the state's in-flight computation: that
+   pause is its cost.
 2. **rollback**: when the device-side bad streak reaches
    ``rollback_after`` (read at the trainer's log points, where the host
    waits anyway), the snapshot is copied back into the live tensors, the
@@ -55,7 +56,7 @@ class RecoveryManager:
         self.config = config or RecoveryConfig()
         self.rollbacks = 0
         self.stage_seconds: list[float] = []   # each staging's host time
-        self._snapshot: tuple[dict, dict] | None = None
+        self._snapshot: tuple[dict, dict, object] | None = None
         self._snapshot_step: int | None = None
         self._last_stage_step: int | None = None
 
@@ -74,10 +75,13 @@ class RecoveryManager:
     def stage(self, state, global_step: int) -> None:
         t0 = time.perf_counter()
         tensors, counters = split_counters(*flatten_state(state))
+        residual = state.grad_sync_residual
         self._snapshot = (
             {n: t.detach().to("cpu", copy=True) for n, t in tensors.items()},
             {n: int(v) for n, v in counters.items()
              if not n.startswith("resilience/")},
+            residual.to("cpu", copy=True)
+            if isinstance(residual, torch.Tensor) else residual,
         )
         self._snapshot_step = global_step
         self._last_stage_step = global_step
@@ -108,11 +112,13 @@ class RecoveryManager:
         return self._restore(state)
 
     def _restore(self, state):
-        tensors, counters = self._snapshot
+        tensors, counters, residual = self._snapshot
         live = split_counters(*flatten_state(state))[0]
         with torch.no_grad():
             for name, t in live.items():
                 t.copy_(tensors[name])
+            if isinstance(residual, torch.Tensor):
+                state.grad_sync_residual.copy_(residual)
         # Reset ONLY the streak: the restored state is good by
         # construction, and a stale streak would re-trip the next check.
         # ``skipped_total`` counts the run's skips; the trainer reads it

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Data-parallel parity check: three train steps (two microbatches each)
-of a small ResNet, ViT or GPT-2 on this rank's rows of seeded global
-batches.
+of a small ResNet, ViT or GPT-2, or of GPT-2 124M, on this rank's rows of
+seeded global batches.
 
     python -m torch.distributed.run --nproc_per_node 2 \\
         -m pytorch_distributed_training_tpu_torch.tools.dp_check \\
-        --model resnet|vit|gpt2 --out OUT [--device cpu] [--backend gloo] \\
-        [--init weights.npz] [--batch 8] [--precision f32|bf16] \\
-        [--steps 3] [--checkpoint-dir D [--save-at K] [--resume]]
+        --model resnet|vit|gpt2|gpt2_124m --out OUT [--device cpu] \\
+        [--backend gloo] [--init weights.npz] [--batch 8] \\
+        [--precision f32|bf16] [--steps 3] [--accum 2] \\
+        [--checkpoint-dir D [--save-at K] [--resume]] \\
+        [--grad-sync hier|hier-bf16|hier-int8|hier-int4|hier-topk \\
+         [--grad-sync-slices S] [--grad-sync-bucket-mb auto|MB] \\
+         [--grad-sync-topk-frac F] [--grad-sync-stripe off|auto|N] \\
+         [--grad-sync-overlap on|off]]
 
 Each rank runs on its card (``LOCAL_RANK``'s) unless ``--device cpu``
 asks for the host.
@@ -38,7 +43,18 @@ ResNet (stage sizes (1, 1), BasicBlock, ``--filters`` 8, 10 classes;
 ``vit``, a ViT-B/16 cut to 2 layers of width 64 (4 heads, MLP 128, 10
 classes) at ``--image-size`` (32 gives 2 x 2 patches), adamw lr 3e-4 wd
 0.05; ``gpt2``, 2 layers of width 64, 2 heads, vocab 256, sequence 32,
-dropout 0, adamw lr 3e-4 wd 0.1.
+dropout 0, adamw lr 3e-4 wd 0.1; ``gpt2_124m``, GPT-2 124M at sequence
+1024 with ``chip_smoke.py``'s T1 recipe (adamw lr 6e-4 wd 0.1, global
+norm clip 1.0, warmup-cosine over 8 steps with 2 of warmup, the bf16
+policy unless ``--precision`` says otherwise).
+
+``--grad-sync`` and its companions are the CLI's flags: the step syncs
+through ``comm.hierarchical.GradSync`` instead of the one all-reduce,
+and the JSON adds the sync's layout and byte model, each step's time
+and the time each sync held the host (its issue and its wait, the card
+synchronized around each, the overlapped microbatch not counted), the
+residual's largest magnitude, the peak memory and the flash kernels'
+launches.
 """
 
 from __future__ import annotations
@@ -55,7 +71,9 @@ GPT2 = dict(num_layers=2, hidden_dim=64, num_heads=2, vocab_size=256,
             max_seq_len=64)
 VIT = dict(depth=2, hidden_dim=64, num_heads=4, mlp_dim=128)
 SEQ = 32
+SEQ_124M, VOCAB_124M = 1024, 50257
 STEPS, ACCUM = 3, 2       # train steps; microbatches a step
+MODELS = ("resnet", "vit", "gpt2", "gpt2_124m")
 
 
 def global_batches(kind: str, steps: int, batch: int, image_size: int,
@@ -67,9 +85,28 @@ def global_batches(kind: str, steps: int, batch: int, image_size: int,
                                      np.float32),
                  "label": rng.integers(0, 10, batch).astype(np.int32)}
                 for _ in range(steps)]
-    return [{"tokens": rng.integers(0, GPT2["vocab_size"],
-                                    (batch, SEQ)).astype(np.int32)}
+    vocab, seq = ((VOCAB_124M, SEQ_124M) if kind == "gpt2_124m"
+                  else (GPT2["vocab_size"], SEQ))
+    return [{"tokens": rng.integers(0, vocab, (batch, seq)).astype(np.int32)}
             for _ in range(steps)]
+
+
+def optimizer(kind: str):
+    """Each model's optimizer (the module docstring's)."""
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer, build_schedule,
+    )
+
+    if kind == "gpt2_124m":
+        return build_optimizer(
+            "adamw", build_schedule("warmup-cosine", 6e-4, total_steps=8,
+                                    warmup_steps=2),
+            weight_decay=0.1, grad_clip=1.0)
+    return {"resnet": lambda: build_optimizer("sgd", 0.05,
+                                              weight_decay=1e-3),
+            "vit": lambda: build_optimizer("adamw", 3e-4, weight_decay=0.05),
+            "gpt2": lambda: build_optimizer("adamw", 3e-4,
+                                            weight_decay=0.1)}[kind]()
 
 
 def build_model(kind: str, device, *, seed: int = 0, init: dict | None = None,
@@ -88,6 +125,8 @@ def build_model(kind: str, device, *, seed: int = 0, init: dict | None = None,
         model = create_model("vit_b16", num_classes=10, device=device,
                              seed=seed, cfg_overrides=VIT,
                              image_size=image_size)
+    elif kind == "gpt2_124m":
+        model = create_model("gpt2", device=device, seed=seed)
     else:
         model = create_model("gpt2", device=device, seed=seed,
                              cfg_overrides=GPT2)
@@ -108,29 +147,48 @@ def checksum(state) -> str:
 def run_steps(kind: str, model, batches: list[dict], *, accum: int,
               device, group=None, rank: int = 0, world: int = 1,
               precision: str = "f32", checkpoint=None,
-              save_at: int | None = None, resume: bool = False):
+              save_at: int | None = None, resume: bool = False,
+              grad_sync=None, figures: dict | None = None):
     """Train ``model`` on rank ``rank``'s rows of ``batches`` on
     ``device``; returns
     (losses, checksums after each step, final state).  ``checkpoint`` (a
     ``CheckpointManager``): with ``resume`` the state restores from it
     first, the batches before its step are skipped and the checksums
     start with the restored state's; the state after global step
-    ``save_at`` is committed to it."""
+    ``save_at`` is committed to it.  ``grad_sync`` (a
+    ``GradSyncConfig``) syncs through the two-tier sync; ``figures``
+    then receives its layout, the step and sync times and the residual's
+    largest magnitude after each step."""
+    import dataclasses
+    import time
+
     import torch
 
-    from pytorch_distributed_training_tpu_torch.cli.main import (
-        build_optimizer,
-    )
     from pytorch_distributed_training_tpu_torch.data.loader import rank_rows
     from pytorch_distributed_training_tpu_torch.train import (
         create_train_state, make_policy, make_train_step,
     )
 
     policy = make_policy(precision)
-    tx = {"resnet": build_optimizer("sgd", 0.05, weight_decay=1e-3),
-          "vit": build_optimizer("adamw", 3e-4, weight_decay=0.05),
-          "gpt2": build_optimizer("adamw", 3e-4, weight_decay=0.1)}[kind]
-    state = create_train_state(model, tx, policy=policy, process_group=group)
+    state = create_train_state(model, optimizer(kind), policy=policy,
+                               process_group=group)
+    sync = None
+    figures = {} if figures is None else figures
+    if grad_sync is not None:
+        from pytorch_distributed_training_tpu_torch.comm import GradSync
+
+        sync = GradSync(group, state.params, grad_sync)
+        state = dataclasses.replace(state,
+                                    grad_sync_residual=sync.init_residual())
+        figures.update(
+            n_slices=sync.n_slices, ici_size=sync.ici_size,
+            n_buckets=sync.layout.n_buckets, bucket_mb=sync.bucket_mb,
+            bucket_policy=sync.bucket_policy, stripe=sync.stripe,
+            dcn_bytes_per_sync=sync.dcn_bytes_per_sync(),
+            ici_bytes_per_sync=sync.ici_bytes_per_sync(),
+            syncs_per_step=sync.syncs_per_step(accum), sync_s=[],
+            residual_max=[])
+        sync._sync_tree = _timed(sync._sync_tree, figures["sync_s"], device)
     if resume:
         restored = checkpoint.restore_latest(state)
         if restored is None:
@@ -139,26 +197,72 @@ def run_steps(kind: str, model, batches: list[dict], *, accum: int,
         state = restored
     sums = [checksum(state)] if resume else []
     step = make_train_step(
-        kind="lm" if kind == "gpt2" else "image_classifier",
-        policy=policy, num_microbatches=accum, process_group=group)
-    losses = []
+        kind="lm" if kind.startswith("gpt2") else "image_classifier",
+        policy=policy, num_microbatches=accum, process_group=group,
+        grad_sync=sync)
+    losses, figures["step_s"] = [], []
     for b in batches[state.step:]:
         n = len(next(iter(b.values())))
         rows = rank_rows(np.arange(n), rank, world, accum)
         local = {k: torch.from_numpy(v[rows]).to(device)
                  for k, v in b.items()}
+        _sync(device)
+        t0 = time.perf_counter()
         state, metrics = step(state, local)
         losses.append(float(metrics["loss"]))
+        figures["step_s"].append(time.perf_counter() - t0)
         sums.append(checksum(state))
+        if sync is not None and sync.has_residual:
+            figures["residual_max"].append(
+                float(state.grad_sync_residual.abs().max()))
         if checkpoint is not None and state.step == save_at:
             checkpoint.save(state, wait=True)
     return losses, sums, state
 
 
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, seconds: list, device):
+    """The sync ``fn`` with the time each call keeps the host appended to
+    ``seconds``: its issue plus, when ``async_op`` defers the rest, its
+    wait (the next microbatch's compute between them is not counted);
+    the card is synchronized around each part."""
+    import time
+
+    def clock(part):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = part()
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    class Timed:
+        def __init__(self, handle, issued):
+            self.handle, self.issued = handle, issued
+
+        def wait(self):
+            out, waited = clock(self.handle.wait)
+            seconds.append(self.issued + waited)
+            return out
+
+    def timed(*a, async_op=False):
+        out, issued = clock(lambda: fn(*a, async_op=async_op))
+        if async_op:
+            return Timed(out, issued)
+        seconds.append(issued)
+        return out
+
+    return timed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("resnet", "vit", "gpt2"),
-                    required=True)
+    ap.add_argument("--model", choices=MODELS, required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", choices=("cpu", "cuda"), default=None,
                     help="default: this rank's card")
@@ -169,8 +273,19 @@ def main() -> int:
     ap.add_argument("--small-stem", action="store_true")
     ap.add_argument("--filters", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--precision", default="f32", help="f32|bf16")
+    ap.add_argument("--precision", default=None,
+                    help="f32|bf16 (default: bf16 for gpt2_124m, else f32)")
     ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--accum", type=int, default=ACCUM)
+    ap.add_argument("--grad-sync", default="flat",
+                    choices=("flat", "hier", "hier-bf16", "hier-int8",
+                             "hier-int4", "hier-topk"))
+    ap.add_argument("--grad-sync-slices", type=int, default=None)
+    ap.add_argument("--grad-sync-bucket-mb", default="auto")
+    ap.add_argument("--grad-sync-topk-frac", type=float, default=0.1)
+    ap.add_argument("--grad-sync-stripe", default="off")
+    ap.add_argument("--grad-sync-overlap", default="off",
+                    choices=("on", "off"))
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--save-at", type=int, default=None)
     ap.add_argument("--resume", action="store_true")
@@ -188,6 +303,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)
+    from pytorch_distributed_training_tpu_torch.comm import GradSyncConfig
+
+    grad_sync = None
+    if args.grad_sync != "flat":
+        bucket = args.grad_sync_bucket_mb
+        grad_sync = GradSyncConfig(
+            mode=args.grad_sync, n_slices=args.grad_sync_slices,
+            bucket_mb=bucket if bucket == "auto" else float(bucket),
+            topk_frac=args.grad_sync_topk_frac, stripe=args.grad_sync_stripe,
+            phase_overlap=args.grad_sync_overlap == "on")
+    precision = args.precision or (
+        "bf16" if args.model == "gpt2_124m" else "f32")
     device = resolve_device("cpu" if args.device == "cpu" else None)
     group = comm_init.initialize(device, backend=args.backend)
     try:
@@ -203,18 +330,31 @@ def main() -> int:
         checkpoint = (CheckpointManager(args.checkpoint_dir,
                                         process_group=group)
                       if args.checkpoint_dir else None)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        figures: dict = {}
         losses, sums, state = run_steps(
-            args.model, model, batches, accum=ACCUM, group=group,
+            args.model, model, batches, accum=args.accum, group=group,
             rank=rank, world=world, device=device,
-            precision=args.precision, checkpoint=checkpoint,
-            save_at=args.save_at, resume=args.resume)
+            precision=precision, checkpoint=checkpoint,
+            save_at=args.save_at, resume=args.resume, grad_sync=grad_sync,
+            figures=figures)
+        if device.type == "cuda":
+            from pytorch_distributed_training_tpu_torch.ops import (
+                flash_attention as fa,
+            )
+
+            figures["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            figures["flash"] = {"fwd": fa.flash_fwd.launches,
+                                "dq": fa.flash_bwd_dq.launches,
+                                "dkv": fa.flash_bwd_dkv.launches}
         os.makedirs(args.out, exist_ok=True)
         np.savez(os.path.join(args.out, f"rank{rank}.npz"), **{
             k: v.detach().cpu().numpy()
             for k, v in {**state.params, **state.batch_stats}.items()})
         with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "world": world, "losses": losses,
-                       "checksums": sums}, f)
+                       "checksums": sums, **figures}, f)
     finally:
         comm_init.shutdown()
     return 0

@@ -13,7 +13,9 @@ returns the state with the step advanced.  The step is a host integer:
 nothing reads it back from the device.  ``apply_gradients(..., ok=...)``
 is the anomaly gate's form (``resilience/anomaly.py``): every tensor it
 would update changes only where the 0-dim device bool ``ok`` holds, and
-the step advances either way.
+the step advances either way.  ``grad_sync_residual`` is the two-tier
+sync's error-feedback residual (``comm/hierarchical.py``): a new tensor
+each step, gated like the rest; it is not checkpointed (as in JAX).
 """
 
 from __future__ import annotations
@@ -44,13 +46,20 @@ class TrainState:
     # The anomaly gate's device counters (resilience/anomaly.py:
     # ResilienceState) when the policy is on; empty otherwise.
     resilience: Any = ()
+    # Error-feedback residuals of the compressed two-tier gradient sync
+    # (comm/hierarchical.py, --grad-sync hier-int8|int4|topk): this
+    # rank's quantization error that the last sync did not transmit,
+    # re-fed into the next.  Empty for every other sync mode.
+    grad_sync_residual: Any = ()
 
     def apply_gradients(self, grads: dict, batch_stats: dict | None = None,
-                        ok: torch.Tensor | None = None) -> "TrainState":
+                        ok: torch.Tensor | None = None,
+                        grad_sync_residual: Any = None) -> "TrainState":
         """One optimizer update; ``batch_stats`` (name -> tensor), when
-        given, becomes the new running statistics.  With ``ok`` (a 0-dim
-        bool device tensor) the parameters, the optimizer state and the
-        statistics change only where it holds."""
+        given, becomes the new running statistics, and
+        ``grad_sync_residual`` the new residual.  With ``ok`` (a 0-dim
+        bool device tensor) the parameters, the optimizer state, the
+        statistics and the residual change only where it holds."""
         names = list(self.params)
         params = [self.params[n] for n in names]
         # Outside autograd: the decayed-weight term reads the parameters,
@@ -68,8 +77,13 @@ class TrainState:
                     self.batch_stats[name].copy_(value)
                 else:
                     select_(ok, [value], [self.batch_stats[name]])
+        residual = self.grad_sync_residual
+        if isinstance(grad_sync_residual, torch.Tensor):
+            residual = grad_sync_residual if ok is None else torch.where(
+                ok, grad_sync_residual, residual)
         return dataclasses.replace(self, step=self.step + 1,
-                                   opt_state=opt_state)
+                                   opt_state=opt_state,
+                                   grad_sync_residual=residual)
 
 
 def create_train_state(model: nn.Module, tx: Transform, *,

@@ -40,8 +40,18 @@ state must carry ``resilience=init_resilience_state(device)``.  Under
 data parallelism the gradients are averaged before the gate, so every
 rank takes the same decision without another collective.
 
-Not yet ported: ``grad_fn`` (pipeline schedules), ``grad_sync`` (the
-explicit two-tier sync) and ``state_shardings``; they raise.
+``grad_sync`` (a ``comm.hierarchical.GradSync``, with the
+``process_group`` it syncs over) replaces that all-reduce with the
+explicit two-tier sync: the gradients go through its buckets, once per
+microbatch or once a step, the loss and metrics are averaged over the
+group, and its error-feedback residual threads through
+``state.grad_sync_residual`` (gated like the parameters).  As in JAX's
+per-device ``shard_map``, the ResNet's BatchNorms then take their
+statistics on each rank's own rows, and the new running statistics are
+averaged over the group with the metrics.
+
+Not yet ported: ``grad_fn`` (pipeline schedules) and
+``state_shardings``; they raise.
 """
 
 from __future__ import annotations
@@ -194,30 +204,53 @@ def make_train_step(
     raises.  ``process_group`` (a ``torch.distributed`` group) makes the
     step data-parallel over its ranks: ``batch`` is this rank's rows
     (``data.DataLoader`` with ``num_microbatches`` hands out JAX's
-    microbatches), the result the global batch's.  ``anomaly_policy``
+    microbatches), the result the global batch's; ``grad_sync`` syncs
+    the gradients in two tiers instead (module docstring).  ``anomaly_policy``
     gates the update (module docstring) and adds the gate's metrics."""
     _check_kind(kind)
-    _not_ported(grad_fn=grad_fn, grad_sync=grad_sync,
-                state_shardings=state_shardings)
+    _not_ported(grad_fn=grad_fn, state_shardings=state_shardings)
+    if grad_sync is not None and process_group is None:
+        raise ValueError("grad_sync syncs over a process group: pass the "
+                         "group it was built on as process_group")
     policy = policy or Policy()
 
-    def apply_update(state, loss, grads, batch_stats=None):
+    def apply_update(state, loss, grads, batch_stats=None, residual=None):
         """The one update gate every path exits through."""
         if anomaly_policy is None:
-            return state.apply_gradients(grads, batch_stats=batch_stats), {}
+            return state.apply_gradients(
+                grads, batch_stats=batch_stats,
+                grad_sync_residual=residual), {}
         return guarded_apply(state, loss, grads, anomaly_policy,
-                             batch_stats=batch_stats)
+                             batch_stats=batch_stats,
+                             grad_sync_residual=residual)
 
     sync = None
-    if process_group is not None:
-        def sync(tensors):
-            return collectives.pmean(tensors, process_group)
+    if process_group is not None and grad_sync is None:
+        def sync(tensors, carry):
+            return collectives.pmean(tensors, process_group), carry
+
+    def accumulate(fn, state, batch, has_aux=False):
+        """``(value, grads, residual)`` of ``fn`` over the microbatches,
+        synced over the group by ``grad_sync`` or by the one all-reduce
+        (residual ``None``)."""
+        if grad_sync is not None:
+            return grad_sync.accumulate_and_sync(
+                fn, state.params, batch, num_microbatches,
+                residual=state.grad_sync_residual, has_aux=has_aux)
+        value, grads = accumulate_gradients(
+            fn, state.params, batch, num_microbatches, has_aux=has_aux,
+            pass_microbatch_index=True, sync_fn=sync)
+        return value, grads, None
+
     rank = (torch.distributed.get_rank(process_group)
             if process_group is not None else 0)
     if kind == "image_classifier":
-        return _image_train_step(policy, num_microbatches,
-                                 _normalize_on(input_normalize, policy),
-                                 label_smoothing, process_group, sync, seed,
+        # Sync-BN over the group, except under the two-tier sync, whose
+        # ranks each normalize their own rows (JAX's per-device path).
+        bn_group = process_group if grad_sync is None else None
+        return _image_train_step(policy, _normalize_on(input_normalize,
+                                                       policy),
+                                 label_smoothing, bn_group, accumulate, seed,
                                  rank, apply_update)
 
     def train_step(state: TrainState, batch: dict):
@@ -231,18 +264,15 @@ def make_train_step(
                             generator=gen, lm_loss_chunk=lm_loss_chunk,
                             label_smoothing=label_smoothing)
 
-        loss, grads = accumulate_gradients(
-            fn, state.params, batch, num_microbatches,
-            pass_microbatch_index=True, sync_fn=sync,
-        )
-        state, gate = apply_update(state, loss, grads)
+        loss, grads, residual = accumulate(fn, state, batch)
+        state, gate = apply_update(state, loss, grads, residual=residual)
         return state, {"loss": loss, **gate}
 
     return train_step
 
 
-def _image_train_step(policy, num_microbatches, normalize_on,
-                      label_smoothing, group, sync, seed, rank, apply_update):
+def _image_train_step(policy, normalize_on, label_smoothing, group,
+                      accumulate, seed, rank, apply_update):
     def train_step(state: TrainState, batch: dict):
         model = state.model.train()
         drop = getattr(model, "dropout_rate", 0.0) > 0.0
@@ -262,12 +292,11 @@ def _image_train_step(policy, num_microbatches, normalize_on,
             return loss, {"accuracy": _accuracy(logits, mb["label"]),
                           "batch_stats": new_stats}
 
-        (loss, aux), grads = accumulate_gradients(
-            fn, state.params, batch, num_microbatches, has_aux=True,
-            pass_microbatch_index=True, sync_fn=sync,
-        )
+        (loss, aux), grads, residual = accumulate(fn, state, batch,
+                                                  has_aux=True)
         new_stats = aux.pop("batch_stats")
-        state, gate = apply_update(state, loss, grads, batch_stats=new_stats)
+        state, gate = apply_update(state, loss, grads, batch_stats=new_stats,
+                                   residual=residual)
         return state, {"loss": loss, **aux, **gate}
 
     return train_step

@@ -38,7 +38,8 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 def test_port_imports_with_jax_blocked():
     """Import the serving and training entry points, the ResNet path's,
-    the data-parallel path's, the ViT path's, the checkpoint and
+    the data-parallel path's (the two-tier sync's slice split, striping
+    and sync among them), the ViT path's, the checkpoint and
     resilience modules (the skip gate and recovery among them) and the
     device caches in a fresh
     interpreter where importing jax, flax or the JAX package fails."""
@@ -72,6 +73,9 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.data.lm_corpus\n"
         "import pytorch_distributed_training_tpu_torch.comm.init\n"
         "import pytorch_distributed_training_tpu_torch.comm.collectives\n"
+        "import pytorch_distributed_training_tpu_torch.comm.mesh\n"
+        "import pytorch_distributed_training_tpu_torch.comm.striping\n"
+        "import pytorch_distributed_training_tpu_torch.comm.hierarchical\n"
         "import pytorch_distributed_training_tpu_torch.parallel.sharding\n"
         "import pytorch_distributed_training_tpu_torch.utils.seeding\n"
         "import pytorch_distributed_training_tpu_torch.tools.dp_check\n"

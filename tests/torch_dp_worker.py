@@ -12,6 +12,10 @@ Run as a script, this file is one rank of a gloo group on the CPU:
     python tests/torch_dp_worker.py collectives OUT
     python tests/torch_dp_worker.py restore_error OUT  # rank 0's walk fails
     python tests/torch_dp_worker.py cache_rows OUT  # --device-cache rows
+    python tests/torch_dp_worker.py collectives4 OUT  # gather, scatter, ...
+    python tests/torch_dp_worker.py slices OUT      # split_slice_groups
+    python tests/torch_dp_worker.py bucket_sync OUT  # GradSync._sync_buckets
+    python tests/torch_dp_worker.py grad_sync_steps OUT  # --grad-sync steps
 
 Each rank writes ``OUT/rank<r>.npz``; the tests compare them with the
 one-process results on the concatenated batch.
@@ -202,6 +206,296 @@ def cache_rows(rank, world, group):
             "tokens": np.stack([w.numpy() for w in windows])}
 
 
+# --- the two-tier sync (tests/test_torch_grad_sync.py) -----------------------
+
+WIRE_DTYPES = ("float32", "bfloat16", "uint8")
+
+
+def collective_input(rank: int, dtype: str, shape=(4, 6)) -> np.ndarray:
+    """Rank ``rank``'s input of the collectives family: small integers,
+    exact in every dtype and in any order of summation."""
+    rng = np.random.default_rng(100 + rank)
+    return rng.integers(0, 9, shape).astype(np.float32)
+
+
+def _collectives4(rank: int, world: int, group) -> dict:
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.comm import collectives as c
+
+    res = {}
+    ring = [(i, (i + 1) % world) for i in range(world)]
+    for name in WIRE_DTYPES:
+        dt = getattr(torch, name)
+        x = torch.from_numpy(collective_input(rank, name)).to(dt)
+        outs = {
+            "ag0": c.all_gather(x, group),
+            "ag1": c.all_gather(x, group, gather_axis=1),
+            "ag_stack": c.all_gather(x, group, gather_axis=1, tiled=False),
+            "rs0": c.reduce_scatter(x, group),
+            "rs1": c.reduce_scatter(x.repeat(1, 2)[:, :8], group,
+                                    scatter_axis=1),
+            "perm_ring": c.ppermute(x, group, ring),
+            "perm_part": c.ppermute(x, group, [(0, 2), (3, 3)]),
+            "a2a": c.all_to_all(x, group, split_axis=0, concat_axis=1),
+            "ag_async": c.all_gather(x, group, async_op=True).wait(),
+        }
+        for k, v in outs.items():
+            res[f"{name}/{k}"] = v.float().numpy()
+    bits = torch.from_numpy(collective_input(rank, "int16")).to(
+        torch.bfloat16).view(torch.int16)
+    res["int16/ag0"] = c.all_gather(bits, group).view(
+        torch.bfloat16).float().numpy()
+    c.barrier(group)
+    return res
+
+
+SLICE_SHAPES = ((2, 2), (4, 1), (1, 4))
+
+
+def _slices(rank: int, world: int, group) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.comm import (
+        GradSync, GradSyncConfig, collectives, split_slice_groups,
+    )
+
+    res = {}
+    for s, l in SLICE_SHAPES:
+        g = split_slice_groups(group, s)
+        x = torch.tensor([float(rank)])
+        res[f"{s}x{l}"] = np.array([
+            g.n_slices, g.ici_size, g.slice_index, g.lane,
+            collectives.psum(x.clone(), g.ici).item(),
+            collectives.psum(x.clone(), g.dcn).item()])
+        res[f"{s}x{l}/ici"] = np.array(dist.get_process_group_ranks(g.ici))
+        res[f"{s}x{l}/dcn"] = np.array(dist.get_process_group_ranks(g.dcn))
+    try:
+        split_slice_groups(group, 3)
+        res["indivisible"] = np.array("")
+    except ValueError as e:
+        res["indivisible"] = np.array(str(e))
+    singles = [collectives.new_group([r]) for r in range(world)]
+    try:
+        GradSync(singles[rank], {"w": torch.zeros(8)},
+                 GradSyncConfig(mode="hier"))
+        res["trivial"] = np.array("")
+    except ValueError as e:
+        res["trivial"] = np.array(str(e))
+    collectives.barrier(group)
+    return res
+
+
+# The bucket-sync family: a layout of 3 buckets of 1024 elements (4 ranks
+# x the top-k bitmap's 8) over a 3000-element parameter.
+SYNC_TOTAL, SYNC_BUCKET_MB = 3000, 1000 * 4 / (1 << 20)
+SYNC_MODES = ("hier", "hier-bf16", "hier-int8", "hier-int4", "hier-topk")
+SYNC_VARIANTS = (("off", False), ("off", True), (2, False), (2, True))
+
+
+def sync_inputs(rank: int, n_buckets: int, elems: int, shard: int):
+    """Rank ``rank``'s local bucket sums and residual row (seeded)."""
+    rng = np.random.default_rng(1000 + rank)
+    buckets = rng.standard_normal((n_buckets, elems)).astype(np.float32)
+    resid = (rng.standard_normal((n_buckets, shard)) * 1e-2).astype(
+        np.float32)
+    return buckets, resid
+
+
+def _bucket_sync(rank: int, world: int, group) -> dict:
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.comm import (
+        GradSync, GradSyncConfig, collectives,
+    )
+
+    res = {}
+    for mode in SYNC_MODES:
+        for stripe, overlap in SYNC_VARIANTS:
+            sync = GradSync(group, {"w": torch.zeros(SYNC_TOTAL)},
+                            GradSyncConfig(mode=mode, n_slices=2,
+                                           bucket_mb=SYNC_BUCKET_MB,
+                                           stripe=stripe,
+                                           phase_overlap=overlap))
+            lay = sync.layout
+            b, r = sync_inputs(rank, lay.n_buckets, lay.bucket_elems,
+                               lay.bucket_elems // sync.ici_size)
+            out, resid = sync._sync_buckets(
+                torch.from_numpy(b),
+                torch.from_numpy(r) if sync.has_residual else ())
+            key = f"{mode}/{stripe}/{int(overlap)}"
+            res[key] = out.numpy()
+            if sync.has_residual:
+                res[key + "/resid"] = resid.numpy()
+            res[key + "/layout"] = np.array(
+                [lay.n_buckets, lay.bucket_elems, sync.stripe])
+    collectives.barrier(group)
+    return res
+
+
+# The steps family: tools/grad_sync_diag.py's tiny GPT-2 (JAX's weights
+# from the test, OUT/init.npz), adam 1e-3, bucket_mb 0.002, 2 slices.
+TINY_LM = dict(vocab_size=128, max_seq_len=16, num_layers=2, num_heads=2,
+               hidden_dim=32)
+STEP_RUNS = (  # (label, mode, accum, steps, zero the residual after step 1)
+    ("flat", "flat", 1, 1, False),
+    ("hier", "hier", 1, 1, False),
+    ("hier-bf16", "hier-bf16", 1, 1, False),
+    ("hier-int8", "hier-int8", 1, 1, False),
+    ("hier-int4", "hier-int4", 1, 1, False),
+    ("hier-topk", "hier-topk", 1, 1, False),
+    ("hier-accum4", "hier", 4, 2, False),
+    ("hier-int8-2", "hier-int8", 1, 2, False),
+    ("hier-int8-2z", "hier-int8", 1, 2, True),
+    ("hier-int4-2", "hier-int4", 1, 2, False),
+    ("hier-int4-2z", "hier-int4", 1, 2, True),
+    ("hier-topk-2", "hier-topk", 1, 2, False),
+    ("hier-topk-2z", "hier-topk", 1, 2, True),
+)
+
+
+def lm_tokens(accum: int) -> np.ndarray:
+    """``tiny_lm_setup``'s batch: 8 x max(accum, 2) rows of 16 tokens."""
+    rows = 8 * max(accum, 2)
+    return np.random.default_rng(7).integers(0, 128, (rows, 16), np.int32)
+
+
+def _tiny_state(group, init: dict, mode: str):
+    import dataclasses
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.comm import (
+        GradSync, GradSyncConfig,
+    )
+    from pytorch_distributed_training_tpu_torch.models import (
+        GPT2, GPT2Config,
+    )
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state,
+    )
+
+    model = GPT2(GPT2Config(**TINY_LM))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in init.items()})
+    state = create_train_state(model, build_optimizer(
+        "adam", 1e-3, weight_decay=0.0), process_group=group)
+    sync = None
+    if mode != "flat":
+        sync = GradSync(group, state.params, GradSyncConfig(
+            mode=mode, n_slices=2, bucket_mb=0.002))
+        assert sync.layout.n_buckets > 1
+        state = dataclasses.replace(state,
+                                    grad_sync_residual=sync.init_residual())
+    return state, sync
+
+
+def _grad_sync_steps(rank: int, world: int, group, out: str) -> dict:
+    import dataclasses
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.train import make_train_step
+
+    init = dict(np.load(os.path.join(out, "init.npz")))
+    res = {}
+    for label, mode, accum, steps, zero in STEP_RUNS:
+        state, sync = _tiny_state(group, init, mode)
+        step = make_train_step(kind="lm", num_microbatches=accum,
+                               process_group=group, grad_sync=sync)
+        tokens = lm_tokens(accum)
+        per = len(tokens) // world
+        local = {"tokens": torch.from_numpy(
+            tokens[rank * per:(rank + 1) * per]).long()}
+        for i in range(steps):
+            state, metrics = step(state, local)
+            if i == 0 and sync is not None and sync.has_residual:
+                res[f"{label}/resid1"] = state.grad_sync_residual.numpy()
+            if zero and i == 0:
+                state = dataclasses.replace(
+                    state, grad_sync_residual=torch.zeros_like(
+                        state.grad_sync_residual))
+        res[f"{label}/loss"] = np.array(float(metrics["loss"]))
+        for k, v in state.params.items():
+            res[f"{label}/p/{k}"] = v.detach().numpy()
+    res.update(_residual_resilience(rank, world, group, out))
+    collectives.barrier(group)
+    return res
+
+
+def _residual_resilience(rank: int, world: int, group, out: str) -> dict:
+    """The residual under the skip gate, a rollback and a checkpoint: a
+    shallow ResNet (float images, so ``nan_batch`` poisons the loss)
+    under hier-int8 over 2 slices."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from pytorch_distributed_training_tpu_torch.comm import (
+        GradSync, GradSyncConfig,
+    )
+    from pytorch_distributed_training_tpu_torch.resilience import (
+        AnomalyPolicy, RecoveryConfig, RecoveryManager,
+        init_resilience_state,
+    )
+    from pytorch_distributed_training_tpu_torch.resilience.faults import (
+        corrupt_batch,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_train_step,
+    )
+
+    def fresh():
+        model = dp_check.build_model("resnet", "cpu", seed=0, filters=4)
+        state = create_train_state(model, dp_check.optimizer("resnet"),
+                                   process_group=group)
+        sync = GradSync(group, state.params, GradSyncConfig(
+            mode="hier-int8", n_slices=2, bucket_mb=0.002))
+        return dataclasses.replace(
+            state, grad_sync_residual=sync.init_residual(),
+            resilience=init_resilience_state("cpu")), sync
+
+    state, sync = fresh()
+    step = make_train_step(kind="image_classifier", process_group=group,
+                           grad_sync=sync, anomaly_policy=AnomalyPolicy())
+    batches = dp_check.global_batches("resnet", 3, 8, 16, 5)
+    rows = slice(rank * 2, rank * 2 + 2)
+    local = [{k: torch.from_numpy(v[rows]) for k, v in b.items()}
+             for b in batches]
+    res = {}
+    state, _ = step(state, local[0])
+    res["gate/before"] = state.grad_sync_residual.clone().numpy()
+    state, m = step(state, corrupt_batch(local[1], "nan"))
+    res["gate/skipped"] = np.array(int(m["skipped"]))
+    res["gate/after"] = state.grad_sync_residual.numpy()
+    recovery = RecoveryManager(RecoveryConfig(rollback_after=1))
+    recovery.stage(state, 2)
+    res["rollback/staged"] = state.grad_sync_residual.clone().numpy()
+    state, _ = step(state, local[2])
+    res["rollback/moved"] = state.grad_sync_residual.clone().numpy()
+    state = recovery.observe(state, 3, bad_streak=1)
+    res["rollback/restored"] = state.grad_sync_residual.numpy()
+    ckpt = os.path.join(out, "ckpt")
+    mgr = CheckpointManager(ckpt, process_group=group)
+    mgr.save(state, wait=True)
+    mgr.close()
+    template, _ = fresh()
+    restored = CheckpointManager(ckpt, process_group=group).restore_latest(
+        template)
+    res["ckpt/restored"] = restored.grad_sync_residual.numpy()
+    res["ckpt/names"] = np.array(sorted(
+        CheckpointManager(ckpt).load_tensors(restored.step)))
+    return res
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
@@ -215,7 +509,9 @@ def main() -> int:
         rank, world = comm_init.process_index(), comm_init.process_count()
         tasks = {"syncbn": _syncbn, "collectives": _collectives,
                  "restore_error": lambda *a: _restore_error(*a, out),
-                 "cache_rows": cache_rows}
+                 "cache_rows": cache_rows, "collectives4": _collectives4,
+                 "slices": _slices, "bucket_sync": _bucket_sync,
+                 "grad_sync_steps": lambda *a: _grad_sync_steps(*a, out)}
         res = tasks[task](rank, world, group)
         os.makedirs(out, exist_ok=True)
         np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
