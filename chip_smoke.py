@@ -86,7 +86,28 @@ the port's main paths:
   pipelined bitwise serial; H2 GPT-2 124M on T1's recipe under flat and
   under ``hier-int8`` with stripe ``auto`` and the phase pipeline: ranks
   bit-identical, the step-3 losses within ``H2_INT8_LOSS_BOUND``, flash
-  #4/#5 counted, step and sync times (gloo's on one card).
+  #4/#5 counted, step and sync times (gloo's on one card);
+- sharded training (``--fsdp``, ``--tensor-parallel``, ``--zero1``,
+  ``--sequence-parallel``), 4 ranks of ``torch.distributed.run`` on the
+  one card over gloo: M0 each layout (fsdp 4, data 2 x fsdp 2, TP 2 and
+  4, ZeRO-1 flat and under ``hier-int8``, ring and Ulysses at sequence
+  2, both under TP 2 too) on the JAX package's tiny GPT-2, and fsdp 2 on
+  R4's shallow ResNet, f32 with TF32 off, against one process: the
+  first batch's loss, logits and gradients at the JAX tests'
+  tolerances, 3 steps' losses, weights (ZeRO-1's relative 1e-4) and
+  weight updates (relative 1e-2); ZeRO-1 under ``hier-int8`` is held at
+  those bounds to data parallelism under the same sync (the same
+  quantized sums), and both to one process within Adam's 2 lr a step;
+  M1 T1's recipe through the CLI under flat, ``--fsdp 4``,
+  ``--zero1``, ``--tensor-parallel 2`` and Ulysses ``--sequence-parallel
+  2``: losses against flat within ``M1_LOSS_BOUND``, the step-3
+  checkpoint's weights and Adam slots against flat's within
+  ``M1_STATE_BOUND``, each rank's state bytes within 10 % of
+  ``M1_STATE_GB``, peak memory and step time, flash #4/#5 counted; M2
+  the ``--fsdp 4`` run's step-2 checkpoint resumed under ``--zero1`` at
+  world 2 (its step-3 checkpoint within ``M1_STATE_BOUND`` of the
+  uninterrupted run's) and under ``--fsdp 4`` (bitwise).  The flash check also holds
+  the kernels at the heads a rank holds there (H 6, H 3).
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -135,6 +156,10 @@ TPU_KERNELS = {
 BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
              ("H100", 3.35e12))
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# The flash kernels at the heads a rank holds under the sharded paths:
+# label -> (batch, length, heads), causal bf16.
+SHARDED_FLASH = {"H6 (TP 2 / Ulysses 2, M1)": (4, 1024, 6),
+                 "H3 (TP 4)": (8, 1024, 3)}
 # The serving shapes of GPT-2 124M: 8 slots, 12 heads, 1024 positions,
 # head dim 64; one index per row, sentinel (1024) included.
 B, H, L, DH = 8, 12, 1024, 64
@@ -825,6 +850,10 @@ def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
               ("L197 non-causal", 4, 197, 197, 12, False, torch.bfloat16),
               ("V3 L197 non-causal", 128, 197, 197, 12, False,
                torch.bfloat16)]
+    # The heads a rank holds under the sharded paths (M1: TP 2 and
+    # Ulysses 2 at 4 rows a rank; TP 4 at 8), timed beside rows #4/#5.
+    cases += [(label, b, n, n, h, True, torch.bfloat16)
+              for label, (b, n, h) in SHARDED_FLASH.items()]
     rows = {}
     for label, batch, q_len, k_len, heads, causal, dtype in cases:
         q, k, v, do = _flash_inputs(torch, batch, q_len, k_len, heads, dtype,
@@ -897,6 +926,27 @@ def flash_kernel_phase(torch, fa, seed: int, bandwidth: float) -> dict:
                 line += (f"; #{num} {part} {ms * 1e3:.1f} us, plain "
                          f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f}"
                          f" us, bound {bms * 1e3:.2f} us ({by})")
+            del sdpa_bwd
+        if label in SHARDED_FLASH:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            bounds = flash_bound_ms(batch, q_len, k_len, heads, causal,
+                                    bandwidth)
+            sdpa_bwd = _sdpa_flash_backward(torch, qt, kt, vt,
+                                            do.transpose(1, 2), scale)
+            for part, kernel, plain, library in (
+                    ("fwd", fwd, lambda: fa.flash_fwd_plain(
+                        q, k, v, causal, scale),
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True)),
+                    ("bwd", bwd, lambda: fa.flash_bwd_plain(
+                        q, k, v, do, lse, delta, causal, scale), sdpa_bwd)):
+                ms, plain_ms, library_ms = (time_ms(torch, f)
+                                            for f in (kernel, plain, library))
+                line += (f"; #{4 if part == 'fwd' else 5} {part} "
+                         f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                         f"sdpa {library_ms * 1e3:.1f} us, bound "
+                         f"{bounds[part][0] * 1e3:.2f} us "
+                         f"({bounds[part][1]})")
             del sdpa_bwd
         print(line, flush=True)
     flash_crossover(torch, fa, gen)
@@ -1500,7 +1550,11 @@ def cli_leg(out: str, argv: list) -> int:
     plain attention calls (which must be none) and the calls of the
     collectives ``psum`` and ``pmean`` (each ``pmean`` makes one ``psum``;
     the rest are sync-BN's); exits with the CLI's code (75 when it was
-    preempted)."""
+    preempted).  Under ``CHIP_SMOKE_SHARDED=1`` (the sharded phase's M1
+    and M2) the rank joins a gloo group first (several ranks on the one
+    card, NCCL taking one a card), and OUT also gets each step's loss and
+    time (the card synchronized around the step alone), this rank's
+    bytes of parameters and optimizer slots and its peak memory."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1508,6 +1562,10 @@ def cli_leg(out: str, argv: list) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.comm import init as comm_init
+    from pytorch_distributed_training_tpu_torch.parallel.sharded import (
+        state_bytes,
+    )
     from pytorch_distributed_training_tpu_torch.ops import attention as attn
     from pytorch_distributed_training_tpu_torch.ops import (
         flash_attention as fa,
@@ -1522,16 +1580,59 @@ def cli_leg(out: str, argv: list) -> int:
     _count_calls(collectives, list(comm), comm)
     for e in entries:
         e.launches = 0
+    out = out.replace("{rank}", os.environ.get("RANK", "0"))
+    record: dict = {}
+    original = None
+    if os.environ.get("CHIP_SMOKE_SHARDED") == "1":
+        comm_init.initialize(torch.device("cuda", 0), backend="gloo")
+        record = {"losses": [], "step_s": []}
+        original = _timed_steps(torch, record)
+        torch.cuda.reset_peak_memory_stats()
     code, steps = 0, None
     try:
-        steps = cli(argv).state.step
+        trainer = cli(argv)
+        steps = trainer.state.step
+        if record:
+            record.update(state_bytes=state_bytes(trainer.state),
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     except SystemExit as e:      # the preemption exit (75)
         code = e.code
+    finally:
+        if original is not None:
+            import pytorch_distributed_training_tpu_torch.train as train
+
+            train.make_train_step = original
     with open(out, "w") as f:
         json.dump({"fwd": entries[0].launches, "dq": entries[1].launches,
                    "dkv": entries[2].launches, "plain": plain, "xla": xla,
-                   "comm": comm, "steps": steps}, f)
+                   "comm": comm, "steps": steps, **record}, f)
     return code
+
+
+def _timed_steps(torch, record: dict):
+    """Wrap the port's ``make_train_step`` so each step's loss and its
+    own time (the card synchronized before and after it) go into
+    ``record``; returns the original for restoring."""
+    import pytorch_distributed_training_tpu_torch.train as train
+
+    original = train.make_train_step
+
+    def make(**kw):
+        step = original(**kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            record["step_s"].append(time.perf_counter() - t0)
+            record["losses"].append(float(metrics["loss"]))
+            return state, metrics
+
+        return timed
+
+    train.make_train_step = make
+    return original
 
 
 def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
@@ -3237,6 +3338,469 @@ def grad_sync_phase(torch, seed: int, repo: str) -> dict:
     return {4: fwd, 5: bwd}
 
 
+# --- sharded training (--fsdp, --tensor-parallel, --zero1, SP) --------------
+
+SH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                  "chip_smoke", "sharded")
+# M0: (label, model, sharding_config kwargs, GradSyncConfig kwargs or None).
+# The tiny GPT-2 is JAX's parity model (4 heads); min_size 1 shards its
+# every leaf, as JAX's own FSDP and ZeRO-1 tests do.
+M0_RUNS = [
+    ("fsdp4", "gpt2_tiny4", dict(fsdp=4, min_size=1), None),
+    ("data2_fsdp2", "gpt2_tiny4", dict(fsdp=2, min_size=1), None),
+    ("tp2", "gpt2_tiny4", dict(tensor=2), None),
+    ("tp4", "gpt2_tiny4", dict(tensor=4), None),
+    ("zero1", "gpt2_tiny4", dict(zero1=True, min_size=1), None),
+    ("zero1_hier_int8", "gpt2_tiny4", dict(zero1=True, min_size=1),
+     dict(mode="hier-int8", n_slices=2, bucket_mb=0.05, overlap=False)),
+    ("hier_int8", "gpt2_tiny4", dict(),
+     dict(mode="hier-int8", n_slices=2, bucket_mb=0.05, overlap=False)),
+    ("ring2", "gpt2_tiny4", dict(sequence=2), None),
+    ("ulysses2", "gpt2_tiny4", dict(sequence=2, mode="ulysses"), None),
+    ("ring2_tp2", "gpt2_tiny4", dict(sequence=2, tensor=2), None),
+    ("ulysses2_tp2", "gpt2_tiny4", dict(sequence=2, tensor=2,
+                                        mode="ulysses"), None),
+    ("resnet_fsdp2", "resnet", dict(fsdp=2), None),
+]
+M0_BATCH = {"gpt2_tiny4": 8, "resnet": 32}
+# JAX's tolerances (tests/test_parallel.py): logits, loss, grads
+# (rtol, atol) by kind; ZeRO-1's relative L2 for the weights after 3 steps.
+M0_TOL = {"tp": (2e-4, 1e-5, (2e-3, 2e-5)), "fsdp": (2e-4, 1e-5, (2e-4, 1e-5)),
+          "sp": (2e-4, 1e-5, (5e-4, 1e-5))}
+M0_REL = 1e-4
+# The weight update's relative L2 against the reference (the CPU test's
+# 1e-2).  The hier-int8 runs' quantized gradients keep them from one
+# process's weights by up to Adam's 2 lr a step; ZeRO-1 under hier-int8
+# is held at M0_REL and M0_UPDATE_REL to data parallelism under the same
+# sync (M0_INT8_REF: overlap off in both, so the same quantized sums).
+M0_UPDATE_REL = 1e-2
+M0_LR = 1e-3      # gpt2_tiny4's adamw (tools/dp_check.py)
+M0_INT8_REF = "hier_int8"
+# M1: T1's recipe through the CLI at 4 ranks over gloo.  The loss bound and
+# the state predictions were written in PERF.md before the first run.
+M1_RUNS = [("flat", []), ("fsdp4", ["--fsdp", "4"]), ("zero1", ["--zero1"]),
+           ("tp2", ["--tensor-parallel", "2"]),
+           ("ulysses2", ["--sequence-parallel", "2",
+                         "--sequence-parallel-mode", "ulysses"])]
+M1_LOSS_BOUND = 0.02
+# The step-3 checkpoint against flat's (M1) and the uninterrupted run's
+# (M2): the parameters' L2 distance over the reference's step-3 update,
+# and each Adam slot leaf's relative L2 distance (the worst leaf).  The
+# bound is 3x the largest of the layouts on the H100 (TP 2's 0.084: its
+# bf16 partial sums) and under a third of what a fault gives (a data
+# group's sum left out of the small leaves' gradients: 0.82 / 0.87 on
+# the tiny GPT-2); PERF.md has the figures.
+M1_STATE_BOUND = 0.25
+M1_STATE_GB = {"flat": 1.493, "fsdp4": 0.374, "zero1": 0.747, "tp2": 0.983,
+               "ulysses2": 1.493}
+
+
+def _m0_tol(label: str):
+    if "ring" in label or "ulysses" in label:
+        return M0_TOL["sp"]
+    if "tp" in label:
+        return M0_TOL["tp"]
+    return M0_TOL["fsdp"]
+
+
+def sharded_leg(out: str, seed: int) -> int:
+    """One rank of M0 (``--sharded-leg OUT SEED``): every run of
+    ``M0_RUNS`` over the gloo group on the card, f32, TF32 off,
+    accumulation 2, 3 steps, through ``tools/dp_check.py``'s
+    ``run_steps`` (the first batch probed before the update); writes
+    ``OUT/<label>.rank<r>.json`` and rank 0's whole weights and probe
+    ``OUT/<label>.npz``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_training_tpu_torch.comm import (
+        GradSyncConfig, collectives, init as comm_init,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    group = comm_init.initialize(device, backend="gloo")
+    try:
+        rank, world = comm_init.process_index(), comm_init.process_count()
+        for label, kind, shard, sync in M0_RUNS:
+            model = dp_check.build_model(kind, device, seed=seed,
+                                         small_stem=True, filters=64,
+                                         image_size=32)
+            batches = dp_check.global_batches(kind, 3, M0_BATCH[kind], 32,
+                                              seed + 1)
+            # The probe gathers a sharded state's gradients whole; the
+            # data-parallel reference leg has no layout to gather with.
+            probe = {} if kind.startswith("gpt2") and shard else None
+            losses, sums, state = dp_check.run_steps(
+                kind, model, batches, accum=2, device=device, group=group,
+                rank=rank, world=world, probe_out=probe,
+                grad_sync=None if sync is None else GradSyncConfig(**sync),
+                sharding=dp_check.sharding_config(**shard))
+            params = dp_check.whole(state)
+            with open(os.path.join(out, f"{label}.rank{rank}.json"),
+                      "w") as f:
+                json.dump({"losses": losses, "checksums": sums}, f)
+            if rank == 0:
+                np.savez(os.path.join(out, f"{label}.npz"), **{
+                    **{f"p/{k}": v.detach().cpu().numpy()
+                       for k, v in params.items()},
+                    **{f"probe/{k}": v for k, v in (probe or {}).items()}})
+        collectives.barrier()
+    finally:
+        comm_init.shutdown()
+    return 0
+
+
+def _m0_references(torch, seed: int) -> dict:
+    """The one-process runs M0 is held to, on the card (f32, TF32 off):
+    each model on the whole batch, probed before its first update."""
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs = {}
+    try:
+        for kind in M0_BATCH:
+            model = dp_check.build_model(kind, "cuda", seed=seed,
+                                         small_stem=True, filters=64,
+                                         image_size=32)
+            batches = dp_check.global_batches(kind, 3, M0_BATCH[kind], 32,
+                                              seed + 1)
+            probe = {} if kind.startswith("gpt2") else None
+            init = {k: v.detach().cpu().numpy().copy()
+                    for k, v in model.state_dict().items()}
+            losses, _, state = dp_check.run_steps(
+                kind, model, batches, accum=2, device="cuda",
+                probe_out=probe)
+            refs[kind] = (losses, {k: v.detach().cpu().numpy() for k, v in
+                                   dp_check.whole(state).items()}, probe,
+                          init)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return refs
+
+
+def _m0_check(out: str, refs: dict) -> None:
+    import numpy as np
+
+    parts = []
+    for label, kind, shard, sync in M0_RUNS:
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(out, f"{label}.rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        check(all(x["checksums"] == ranks[0]["checksums"] for x in ranks),
+              f"M0 {label}: the 4 ranks' whole states identical after every "
+              "step")
+        got = dict(np.load(os.path.join(out, f"{label}.npz")))
+        losses, params, probe, init = refs[kind]
+        mine = ranks[0]["losses"]
+        note = ""
+        if probe and shard:
+            t_logits, t_loss, (g_rtol, g_atol) = _m0_tol(label)
+            check(abs(float(got["probe/loss"]) - float(probe["loss"]))
+                  <= t_loss * abs(float(probe["loss"])),
+                  f"M0 {label}: probe loss {float(got['probe/loss'])} vs "
+                  f"{float(probe['loss'])} (rtol {t_loss})")
+            lerr = np.abs(got["probe/logits"] - probe["logits"])
+            check(bool((lerr <= t_logits + t_logits
+                        * np.abs(probe["logits"])).all()),
+                  f"M0 {label}: logits max err {lerr.max():.3g}")
+            gworst = 0.0
+            for k, v in probe.items():
+                if not k.startswith("grad/"):
+                    continue
+                e = np.abs(got[f"probe/{k}"] - v)
+                check(bool((e <= g_atol + g_rtol * np.abs(v)).all()),
+                      f"M0 {label}: {k} max err {e.max():.3g} (rtol "
+                      f"{g_rtol}, atol {g_atol})")
+                gworst = max(gworst, float(e.max()))
+            note = (f"logits {lerr.max():.2g}, grads {gworst:.2g}, ")
+        names = sorted(params)
+        a = np.concatenate([got[f"p/{n}"].ravel() for n in names])
+        b = np.concatenate([params[n].ravel() for n in names])
+        if kind != "resnet":
+            p0 = np.concatenate([init[n].ravel() for n in names])
+            urel = float(np.linalg.norm(a - b) / np.linalg.norm(b - p0))
+        if sync is not None:
+            # Quantized gradients: the step-1 loss, each weight within
+            # Adam's 2 lr a step of one process's.
+            lerr = abs(mine[0] - losses[0])
+            werr = float(np.abs(a - b).max())
+            check(lerr <= 1e-5 * abs(losses[0])
+                  and werr <= 2 * M0_LR * len(losses),
+                  f"M0 {label}: step-1 loss {lerr:.3g} (rel 1e-5), weights "
+                  f"{werr:.3g} ({2 * M0_LR * len(losses):.3g})")
+            text = (f"{label} {note}step-1 loss {lerr:.2g}, weights "
+                    f"{werr:.2g}, update {urel:.2g} vs one process")
+            if label != M0_INT8_REF:
+                ref = np.load(os.path.join(out, f"{M0_INT8_REF}.npz"))
+                r = np.concatenate([ref[f"p/{n}"].ravel() for n in names])
+                zrel = float(np.linalg.norm(a - r) / np.linalg.norm(r))
+                zurel = float(np.linalg.norm(a - r) / np.linalg.norm(r - p0))
+                check(zrel <= M0_REL and zurel <= M0_UPDATE_REL,
+                      f"M0 {label} vs {M0_INT8_REF}: weights rel L2 "
+                      f"{zrel:.3g} ({M0_REL}), update rel L2 {zurel:.3g} "
+                      f"({M0_UPDATE_REL})")
+                text += (f"; vs {M0_INT8_REF} weights {zrel:.2g}, update "
+                         f"{zurel:.2g}")
+            parts.append(text)
+            continue
+        if kind == "resnet":
+            # D3's bounds: sync-BN's sums over the batch group against one
+            # process's.
+            lerr = max(abs(x - y) for x, y in zip(mine, losses))
+            werr = float(np.abs(a - b).max())
+            check(lerr <= 1e-4 and werr <= 1e-4,
+                  f"M0 {label}: losses {lerr:.3g}, weights {werr:.3g} (1e-4)")
+            parts.append(f"{label} losses {lerr:.2g}, weights {werr:.2g}")
+            continue
+        lrel = max(abs(x - y) / abs(y) for x, y in zip(mine, losses))
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        check(lrel <= 1e-5 and rel <= M0_REL and urel <= M0_UPDATE_REL,
+              f"M0 {label}: losses rel {lrel:.3g} (1e-5), weights rel L2 "
+              f"{rel:.3g} ({M0_REL}), update rel L2 {urel:.3g} "
+              f"({M0_UPDATE_REL})")
+        parts.append(f"{label} {note}losses {lrel:.2g}, weights {rel:.2g}, "
+                     f"update {urel:.2g}")
+    print("sharded M0 (4 ranks on one card over gloo, f32, TF32 off, 3 "
+          "steps of 2 microbatches against one process; tiny GPT-2 4 heads "
+          "and the shallow ResNet): ranks identical; " + "; ".join(parts),
+          flush=True)
+
+
+def _m1_argv(extra: list) -> list:
+    return [*T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
+            "3", *extra]
+
+
+def _m1_start(repo: str, label: str, nproc: int, extra: list):
+    """Start one CLI run of ``nproc`` gloo ranks on the card, each a
+    counted ``--cli-leg`` with its steps recorded (``_m1_wait`` reads the
+    ranks' JSON)."""
+    script = os.path.join(repo, "chip_smoke.py")
+    outs = [os.path.join(SH, f"{label}.rank{r}.json") for r in range(nproc)]
+    logs = os.path.join(SH, f"{label}_logs")
+    argv = [script, "--cli-leg", os.path.join(SH, f"{label}.rank{{rank}}"
+                                                  ".json"),
+            *_m1_argv(extra)]
+    env = dict(os.environ, CHIP_SMOKE_SHARDED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), "--log-dir", logs, "--tee", "3",
+         *argv], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True, env=env)
+    return proc, outs, argv, logs
+
+
+def _m1_wait(run, timeout: float, what: str) -> list:
+    proc, outs, argv, logs = run
+    try:
+        wait_ranks(proc, argv, timeout, logs, what)
+    finally:
+        torchrun_kill(proc)
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _state_distance(ref: str, other: str, what: str) -> tuple:
+    """The step-3 checkpoint in ``other`` against ``ref``'s (gathered
+    whole, the same names in every layout): ``(w, worst, name)``, the
+    parameters' L2 distance over ``ref``'s step-3 update (step 2 to 3)
+    and the worst Adam slot leaf's relative L2 distance, with its name
+    (``_check_distance`` holds them to ``M1_STATE_BOUND``)."""
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+
+    mgr = CheckpointManager(ref)
+    a3, a2 = mgr.load_tensors(3), mgr.load_tensors(2)
+    b3 = CheckpointManager(other).load_tensors(3)
+    check(a3.keys() == b3.keys(), f"{what}: the step-3 checkpoint holds "
+          f"the reference's tensors ({sorted(a3.keys() ^ b3.keys())[:4]})")
+    dist = step = 0.0
+    worst, worst_name = 0.0, None
+    for k, y in a3.items():
+        if not y.is_floating_point() or y.dim() == 0:
+            continue
+        y, x = y.double(), b3[k].double()
+        if k.startswith("params/"):
+            dist += float((x - y).square().sum())
+            step += float((y - a2[k].double()).square().sum())
+        elif k.startswith("opt_state/") and float(y.norm()) > 0:
+            rel = float((x - y).norm() / y.norm())
+            if rel >= worst:
+                worst, worst_name = rel, k
+    w = (dist / step) ** 0.5 if step > 0 else float("inf")
+    return w, worst, worst_name
+
+
+def _distance_text(d: tuple) -> str:
+    return f"weights {d[0]:.3g}, worst slot {d[1]:.3g} ({d[2]})"
+
+
+def _check_distance(d: tuple, what: str) -> None:
+    check(d[0] <= M1_STATE_BOUND and d[1] <= M1_STATE_BOUND,
+          f"{what}: step-3 checkpoint {_distance_text(d)} (bound "
+          f"{M1_STATE_BOUND})")
+
+
+def sharded_phase(torch, seed: int, repo: str) -> dict:
+    """Sharded training, every leg 4 torchrun ranks on the one card over
+    gloo (NCCL takes one rank a card).  M0: parity of each layout against
+    one process (``M0_RUNS``).  M1: T1's recipe through the CLI under
+    flat data parallelism, ``--fsdp 4``, ``--zero1``, ``--tensor-parallel
+    2`` and Ulysses ``--sequence-parallel 2``, 3 steps each: losses
+    against flat within ``M1_LOSS_BOUND``, the step-3 checkpoint against
+    flat's within ``M1_STATE_BOUND`` (``_state_distance``), each rank's
+    state bytes within 10 % of ``M1_STATE_GB``, peak memory and step time
+    printed, flash #4/#5 counted.  M2: M1's ``--fsdp 4`` checkpoint of
+    step 2 resumed under ``--zero1`` at world 2 (loss and step-3
+    checkpoint within the bounds) and under ``--fsdp 4`` (bitwise).  Its times are gloo's on one card.  Returns the flash
+    launches by row."""
+    import shutil
+    import statistics as st
+
+    shutil.rmtree(SH, ignore_errors=True)
+    os.makedirs(SH)
+    script = os.path.join(repo, "chip_smoke.py")
+    t0 = time.monotonic()
+    m0_out, m0_logs = os.path.join(SH, "m0"), os.path.join(SH, "m0_logs")
+    os.makedirs(m0_out)
+    m0_argv = [script, "--sharded-leg", m0_out, str(seed)]
+    proc = torchrun_logged(repo, 4, m0_argv, m0_logs)
+    try:
+        refs = _m0_references(torch, seed)
+        wait_ranks(proc, m0_argv, 240, m0_logs, "M0")
+    finally:
+        torchrun_kill(proc)
+    _m0_check(m0_out, refs)
+    print(f"sharded M0: {time.monotonic() - t0:.1f} s", flush=True)
+
+    ckpts = {label: os.path.join(SH, f"m1_{label}_ckpt")
+             for label, _ in M1_RUNS}
+    ckpt = ckpts["fsdp4"]
+    runs, fwd, bwd = {}, 0, 0
+    for label, extra in M1_RUNS:
+        t1 = time.monotonic()
+        # Every run commits step 3 (the epoch's end); flat and fsdp 4
+        # step 2 too, the references' step-3 update and M2's start.
+        extra = extra + ["--checkpoint-dir", ckpts[label]]
+        if label in ("flat", "fsdp4"):
+            extra = extra + ["--ckpt-every-steps", "2"]
+        ranks = _m1_wait(_m1_start(repo, label, 4, extra), 300,
+                         f"M1 {label}")
+        losses = ranks[0]["losses"]
+        check(len(losses) == 3 and _finite(losses)
+              and 10.0 <= losses[0] <= 12.0
+              and all(x["losses"] == losses for x in ranks),
+              f"M1 {label}: 3 equal losses on every rank, the first near "
+              f"ln 50257 = 10.8: {[x['losses'] for x in ranks]}")
+        for x in ranks:
+            check(x["fwd"] == 72 and x["dq"] == 72 and x["dkv"] == 72
+                  and not any(x["plain"].values())
+                  and not any(x["xla"].values()),
+                  f"M1 {label}: flash fwd/dq/dkv launches {x['fwd']}/"
+                  f"{x['dq']}/{x['dkv']} (72 each: 12 layers x 2 "
+                  f"microbatches x 3 steps), no plain path {x['plain']} "
+                  f"{x['xla']}")
+            fwd += x["fwd"]
+            bwd += x["dq"] + x["dkv"]
+        gb = [x["state_bytes"] / 1e9 for x in ranks]
+        want = M1_STATE_GB[label]
+        check(all(abs(g - want) <= 0.1 * want for g in gb),
+              f"M1 {label}: state {gb} GB a rank within 10 % of {want}")
+        runs[label] = ranks
+        step_ms = [st.median(x["step_s"][1:]) * 1e3 for x in ranks]
+        print(f"sharded M1 {label} (GPT-2 124M, T1's recipe through the "
+              f"CLI, bf16, L 1024, 16 = 2 x 8 rows, 4 ranks on one card "
+              f"over gloo, 3 steps): losses "
+              f"{[round(x, 5) for x in losses]}; parameters + slots a rank "
+              f"{[round(g, 4) for g in gb]} GB (predicted {want}); peak "
+              f"memory by rank {[round(x['peak_mem_gb'], 2) for x in ranks]}"
+              f" GB; step (median of steps 2-3, by rank) "
+              f"{[round(x, 1) for x in step_ms]} ms; flash fwd/dq/dkv 72 "
+              f"each a rank; {time.monotonic() - t1:.1f} s", flush=True)
+    flat = runs["flat"][0]["losses"]
+    parts, held = [], []
+    for label, ranks in runs.items():
+        if label == "flat":
+            continue
+        d1 = abs(ranks[0]["losses"][0] - flat[0])
+        d3 = abs(ranks[0]["losses"][2] - flat[2])
+        dist = _state_distance(ckpts["flat"], ckpts[label], f"M1 {label}")
+        parts.append(f"{label} {d1:.3g} / {d3:.3g}, {_distance_text(dist)}")
+        held.append((label, d1, d3, dist))
+    ratio = runs["fsdp4"][0]["state_bytes"] / runs["flat"][0]["state_bytes"]
+    print(f"sharded M1: step-1 / step-3 loss vs flat (bound "
+          f"{M1_LOSS_BOUND}), step-3 checkpoint vs flat's (bound "
+          f"{M1_STATE_BOUND}): {'; '.join(parts)}; fsdp 4 state "
+          f"{ratio:.4f} of flat's; "
+          "times are gloo's on one card, not NCCL's or NVLink's",
+          flush=True)
+    for label, d1, d3, dist in held:
+        check(d1 <= M1_LOSS_BOUND and d3 <= M1_LOSS_BOUND,
+              f"M1 {label}: step-1 / step-3 loss vs flat {d1:.3g} / "
+              f"{d3:.3g} within {M1_LOSS_BOUND}")
+        _check_distance(dist, f"M1 {label}")
+    check(ratio <= 0.30, f"M1: fsdp 4 state {ratio:.3f} of flat's (<= 0.30)")
+
+    t2 = time.monotonic()
+    legs = {}
+    for label, nproc, extra in (("m2_zero1", 2, ["--zero1"]),
+                                ("m2_fsdp4", 4, ["--fsdp", "4"])):
+        directory = os.path.join(SH, label + "_ckpt")
+        os.makedirs(directory)
+        shutil.copytree(os.path.join(ckpt, "2"), os.path.join(directory,
+                                                             "2"))
+        shutil.copy(os.path.join(ckpt, "manifest-2.json"), directory)
+        legs[label] = (_m1_start(repo, label, nproc, extra + [
+            "--checkpoint-dir", directory, "--resume"]), directory)
+    m2 = {label: _m1_wait(run, 300, f"M2 {label}")
+          for label, (run, _) in legs.items()}
+    src = runs["fsdp4"][0]["losses"][2]
+    for label, ranks in m2.items():
+        check(all(x["steps"] == 3 and len(x["losses"]) == 1 for x in ranks),
+              f"{label}: resumed at step 2, one step to 3")
+        for x in ranks:
+            check(x["fwd"] == 24 and x["dq"] == 24 and x["dkv"] == 24,
+                  f"{label}: flash launches {x['fwd']}/{x['dq']}/{x['dkv']}"
+                  " (24 each)")
+            fwd += x["fwd"]
+            bwd += x["dq"] + x["dkv"]
+    d_zero1 = abs(m2["m2_zero1"][0]["losses"][0] - src)
+    m2_dist = _state_distance(ckpt, legs["m2_zero1"][1], "M2 zero1")
+    print(f"sharded M2 (M1's --fsdp 4 checkpoint of step 2): resumed under "
+          f"--zero1 at world 2, step-3 loss {m2['m2_zero1'][0]['losses'][0]}"
+          f" vs {src} ({d_zero1:.3g}, bound {M1_LOSS_BOUND}), step-3 "
+          f"checkpoint vs the uninterrupted run's {_distance_text(m2_dist)} "
+          f"(bound {M1_STATE_BOUND}); under --fsdp 4 "
+          f"{m2['m2_fsdp4'][0]['losses'][0]} (bitwise: loss and step-3 "
+          f"checkpoint); {time.monotonic() - t2:.1f} s", flush=True)
+    check(d_zero1 <= M1_LOSS_BOUND,
+          f"M2: --fsdp 4 step 2 resumed under --zero1 at world 2, step-3 "
+          f"loss {m2['m2_zero1'][0]['losses'][0]} vs {src} ({d_zero1:.3g}, "
+          f"bound {M1_LOSS_BOUND})")
+    _check_distance(m2_dist, "M2 zero1")
+    same = m2["m2_fsdp4"][0]["losses"][0] == src
+    check(same and _leaves(legs["m2_fsdp4"][1], 3) == _leaves(ckpt, 3),
+          "M2: --fsdp 4 resumed under --fsdp 4 bitwise the uninterrupted "
+          "run (step-3 loss and step-3 checkpoint)")
+    shutil.rmtree(SH, ignore_errors=True)
+    return {4: fwd, 5: bwd}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3244,11 +3808,15 @@ def main() -> int:
                     help="(internal) OUT ARGV...: one rank of a CLI leg")
     ap.add_argument("--h1-leg", nargs=2, metavar=("OUT", "SEED"),
                     help="(internal) one rank of the grad-sync H1 leg")
+    ap.add_argument("--sharded-leg", nargs=2, metavar=("OUT", "SEED"),
+                    help="(internal) one rank of the sharded M0 leg")
     args = ap.parse_args()
     if args.cli_leg:
         return cli_leg(args.cli_leg[0], args.cli_leg[1:])
     if args.h1_leg:
         return h1_leg(args.h1_leg[0], int(args.h1_leg[1]))
+    if args.sharded_leg:
+        return sharded_leg(args.sharded_leg[0], int(args.sharded_leg[1]))
     import torch
 
     if not torch.cuda.is_available():
@@ -3339,6 +3907,9 @@ def main() -> int:
                         args.seed, repo).items():
         flash[num]["launches"] += n
     for num, n in timed("grad sync", grad_sync_phase, torch, args.seed,
+                        repo).items():
+        flash[num]["launches"] += n
+    for num, n in timed("sharded", sharded_phase, torch, args.seed,
                         repo).items():
         flash[num]["launches"] += n
     print("phases: " + ", ".join(f"{k} {v:.1f} s"

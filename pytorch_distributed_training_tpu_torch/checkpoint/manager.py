@@ -69,6 +69,18 @@ Rank 0 reads every counter as an int and broadcasts them with the
 outcome, so all ranks set the same values.  (The JAX package does not
 checkpoint its resilience counters; they restart at 0 there.)
 
+**Sharded states** (``state.shardings``, ``parallel/sharded.py``):
+every rank takes part in a save, which all-gathers each sharded tensor
+to its whole shape, and rank 0 writes the same format as above, so a
+sharded run's checkpoint is the replicated one's (the weight bridge's
+``train_state_to_jax`` reads either).  A restore checks the template's
+whole shapes, then broadcasts each whole tensor from rank 0 and every
+rank keeps its part in the template's layout, as JAX restores into the
+template's sharding: a save under ``--fsdp 4`` restores under
+``--zero1``, plain data parallelism or one process.  (A state too large
+for one host's memory would need ``torch.distributed.checkpoint``'s
+per-rank files; no configuration here is.)
+
 **Not saved:** the two-tier sync's error-feedback residual
 (``TrainState.grad_sync_residual``), as in JAX, whose restore keeps the
 template's.  A restore leaves the template's residual as it is (the
@@ -278,7 +290,14 @@ class CheckpointManager:
              wait: bool = False) -> None:
         """Stage ``state`` to host memory and commit it as ``step``
         (default ``state.step``) in the background; ``wait`` blocks until
-        it has committed.  Ranks other than 0 return at once."""
+        it has committed.  Ranks other than 0 return at once, after the
+        gather of a sharded state (collective: every rank calls it)."""
+        layout = getattr(state, "shardings", None)
+        if layout is not None:
+            tensors, scalars = flatten_state(state)
+            with torch.no_grad():
+                whole = {n: layout.gather_full(n, t)
+                         for n, t in tensors.items()}
         if self.rank != 0:
             return
         step = int(state.step) if step is None else step
@@ -295,7 +314,10 @@ class CheckpointManager:
         # The staging buffers are reused: the previous write must be done
         # reading them.
         self.wait_until_finished()
-        tensors, scalars = flatten_state(state)
+        if layout is None:
+            tensors, scalars = flatten_state(state)
+        else:
+            tensors = whole
         scalars["step"] = step
         staged = self._stage(tensors)
         self._last_saved_step = step
@@ -521,10 +543,13 @@ class CheckpointManager:
         resilience counters are optional): a config change, not
         corruption."""
         want, want_counters = split_counters(*flatten_state(template))
+        layout = getattr(template, "shardings", None)
+        shapes = {n: (tuple(t.shape) if layout is None
+                      else layout.full_shape(n, t)) for n, t in want.items()}
         tensors, counters = split_counters(tensors, scalars)
         diff = sorted(set(want) ^ set(tensors)) + sorted(
             n for n in set(want) & set(tensors)
-            if (want[n].dtype, tuple(want[n].shape))
+            if (want[n].dtype, shapes[n])
             != (tensors[n].dtype, tuple(tensors[n].shape)))
         diff += sorted(
             {n for n in set(want_counters) ^ set(counters)
@@ -622,6 +647,10 @@ class CheckpointManager:
             raise RuntimeError(f"rank 0's restore failed: {outcome[1]}")
         if outcome[0] == "none":
             return None
+        layout = getattr(template, "shardings", None)
+        if layout is not None:
+            self._scatter(template, layout, found)
+            return set_counters(template, outcome[1])
         if found is not None:
             tensors = split_counters(*flatten_state(template))[0]
             with torch.no_grad():
@@ -630,6 +659,23 @@ class CheckpointManager:
         if self.group is not None:
             replicate_state(template, self.group)
         return set_counters(template, outcome[1])
+
+    def _scatter(self, template, layout, found) -> None:
+        """Each whole tensor broadcast from rank 0, each rank keeping its
+        part in ``template``'s layout (collective)."""
+        from ..comm import collectives
+
+        tensors = split_counters(*flatten_state(template))[0]
+        with torch.no_grad():
+            for name, live in tensors.items():
+                if found is not None:
+                    whole = found[1][name].to(live.device)
+                else:
+                    whole = torch.empty(layout.full_shape(name, live),
+                                        dtype=live.dtype, device=live.device)
+                if self.group is not None:
+                    collectives.broadcast([whole], self.group)
+                live.copy_(layout.shard_full(name, live, whole))
 
     def restore_params(self) -> dict[str, torch.Tensor] | None:
         """The ``params`` of the newest checkpoint as a name → host tensor

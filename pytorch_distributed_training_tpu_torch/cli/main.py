@@ -56,9 +56,17 @@ in a row and aborts (nonzero, for ``--elastic`` to relaunch) after
 ``--max-rollbacks``; ``--inject-faults nan_batch@N,spike_batch@N:F``
 tests it.
 
-Not ported yet: tensor, pipeline and sequence parallelism, ZeRO-1 and
-FSDP, ``--pp-compress``, the MoE GPT-2, telemetry (with it the
-``grad_sync_model`` event) and elastic resizing.
+Sharded training over the process group (``--distributed``): ``--fsdp
+N`` shards parameters and optimizer slots over an ``fsdp`` axis (ZeRO-3),
+``--tensor-parallel N`` splits the transformer blocks Megatron-style,
+``--zero1`` shards the optimizer slots over ``data``, and
+``--sequence-parallel N [--sequence-parallel-mode ring|ulysses]`` splits
+each sequence over a ``sequence`` axis; ``data`` takes the rest of the
+world.  Each run prints JAX's ``mesh: {...}`` line; the combinations JAX
+refuses are refused with its messages (exit 2).
+
+Not ported yet: pipeline parallelism, ``--pp-compress``, the MoE GPT-2,
+telemetry (with it the ``grad_sync_model`` event) and elastic resizing.
 """
 
 from __future__ import annotations
@@ -125,6 +133,77 @@ def _check_grad_sync(parser: argparse.ArgumentParser, args) -> None:
             "process (torchrun)")
 
 
+def _check_sharding(parser: argparse.ArgumentParser, args) -> None:
+    """JAX's refusals of the sharding flags that need no model (the
+    head-count checks come with the model, ``_sharding``)."""
+    from ..models import model_kind
+
+    if args.zero1 and args.fsdp > 1:
+        parser.error(
+            "--zero1 shards optimizer slots over the data axis; with "
+            "--fsdp the slots are already sharded (ZeRO-3) — pick one")
+    if args.zero1 and args.tensor_parallel > 1:
+        parser.error(
+            "--zero1 composes with data parallelism only (not "
+            "--tensor-parallel/--pipeline-parallel, whose rules already "
+            "shard the optimizer slots over their axes)")
+    if args.grad_sync != "flat" and (
+            args.fsdp > 1 or args.tensor_parallel > 1
+            or args.sequence_parallel > 1):
+        parser.error(
+            f"--grad-sync {args.grad_sync} composes with data parallelism "
+            "only (not --fsdp/--tensor-parallel/--pipeline-parallel/"
+            "--sequence-parallel)")
+    if args.sequence_parallel > 1:
+        try:
+            lm = model_kind(args.model) == "lm"
+        except ValueError:
+            lm = True   # the unknown model is reported later
+        if not lm:
+            parser.error(
+                "--sequence-parallel requires a transformer LM (--model "
+                "gpt2)")
+        if args.seq_len % args.sequence_parallel:
+            parser.error(
+                f"--seq-len {args.seq_len} not divisible by "
+                f"--sequence-parallel {args.sequence_parallel}")
+
+
+def _sharded(args) -> bool:
+    return (args.fsdp > 1 or args.tensor_parallel > 1 or args.zero1
+            or args.sequence_parallel > 1)
+
+
+def _sharding(args, net, world: int):
+    """The mesh (JAX's ``MeshConfig(data=-1, fsdp, tensor, sequence)``
+    over the world) and, for a sharded run, the rules, the slot rules and
+    the head-count refusals JAX makes."""
+    from ..comm.mesh import MeshConfig, make_mesh
+    from ..parallel.sharding import DDP_RULES, ZERO1_OPT_RULES, tp_rules_for
+
+    heads = getattr(getattr(net, "cfg", None), "num_heads", None)
+    tp, sp = args.tensor_parallel, args.sequence_parallel
+    if tp > 1 and heads is not None and heads % tp:
+        build_parser().error(
+            f"--tensor-parallel {tp} needs heads ({heads}) divisible by it "
+            "(the SP attention shards heads over the tensor axis)")
+    if sp > 1 and args.sequence_parallel_mode == "ulysses" \
+            and (heads // tp) % sp:
+        build_parser().error(
+            f"--sequence-parallel-mode ulysses needs per-tensor-shard "
+            f"heads ({heads // tp}) divisible by --sequence-parallel {sp}; "
+            "use ring for this head count")
+    try:
+        mesh = make_mesh(MeshConfig(
+            data=-1, fsdp=args.fsdp, tensor=tp, sequence=sp), world=world)
+    except ValueError as e:
+        raise SystemExit(f"mesh: {e}") from None
+    print(f"mesh: {dict(mesh.shape)}")
+    rules = (tp_rules_for(args.model) if args.fsdp > 1 or tp > 1
+             else DDP_RULES)
+    return mesh, rules, ZERO1_OPT_RULES if args.zero1 else None
+
+
 def _build_grad_sync(args, state, group):
     """The ``GradSync`` of ``--grad-sync`` (None for ``flat``), its
     refusals as usage errors, and JAX's ``grad-sync:`` line."""
@@ -137,6 +216,7 @@ def _build_grad_sync(args, state, group):
     try:
         sync = GradSync(group, state.params, GradSyncConfig(
             mode=args.grad_sync, n_slices=args.grad_sync_slices,
+            zero1=args.zero1,
             bucket_mb=args.grad_sync_bucket_mb,
             topk_frac=args.grad_sync_topk_frac, stripe=args.grad_sync_stripe,
             phase_overlap=args.grad_sync_overlap == "on"))
@@ -222,6 +302,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "(bucket i's cross-node all-reduce beside bucket "
                         "i+1's reduce-scatter and bucket i-1's all-gather). "
                         "Bitwise the same gradients.")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="FSDP mesh axis size.")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="TP mesh axis size.")
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="Sequence-parallel attention shards (LM models).")
+    p.add_argument("--sequence-parallel-mode", default="ring",
+                   choices=("ring", "ulysses"),
+                   help="SP decomposition: ring (K/V rotation, any head "
+                        "count) or ulysses (all-to-all head resharding, "
+                        "needs heads divisible by shards).")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1 weight-update sharding (arXiv:2004.13336): "
+                        "params stay replicated but optimizer slots and "
+                        "the update math shard over the data axis.")
     p.add_argument("--data-dir", default="./data", help="Dataset root.")
     p.add_argument("--model", default="resnet18",
                    help="resnet18|resnet50|vit_b16|gpt2|... (the registry's "
@@ -826,10 +921,19 @@ def _train(args, overrides, device, group, rank, world):
             image_size = (args.image_size if args.dataset.startswith(
                 ("synthetic-images", "imagefolder:", "packed-images:"))
                 else int(ds[0]["image"].shape[0]))
-    if args.batch_size % (args.accum_steps * world):
+    policy = make_policy(args.precision)
+    net = create_model(args.model, num_classes=num_classes,
+                       dtype=policy.param_dtype, device=device,
+                       seed=args.seed, cfg_overrides=overrides,
+                       image_size=image_size)
+    mesh, rules, opt_rules = _sharding(args, net, world)
+    # The batch splits over the batch axes only: the ranks of one tensor
+    # or sequence group take the same rows.
+    shard, n_shards = mesh.batch_index, mesh.axes_size(("data", "fsdp"))
+    if args.batch_size % (args.accum_steps * n_shards):
         raise SystemExit(
             f"--batch-size {args.batch_size} must divide into "
-            f"--accum-steps {args.accum_steps} microbatches x {world} "
+            f"--accum-steps {args.accum_steps} microbatches x {n_shards} "
             "processes")
     faults = None
     fault_spec = args.inject_faults or os.environ.get(FAULTS_ENV)
@@ -845,13 +949,8 @@ def _train(args, overrides, device, group, rank, world):
     loader = DataLoader(ds, DataLoaderConfig(
         batch_size=args.batch_size, num_workers=args.num_workers,
         seed=args.seed,
-    ), shard_index=rank, num_shards=world,
+    ), shard_index=shard, num_shards=n_shards,
         num_microbatches=args.accum_steps)
-    policy = make_policy(args.precision)
-    net = create_model(args.model, num_classes=num_classes,
-                       dtype=policy.param_dtype, device=device,
-                       seed=args.seed, cfg_overrides=overrides,
-                       image_size=image_size)
     total_steps = args.total_steps
     if total_steps is None:
         per_epoch = args.steps_per_epoch if args.steps_per_epoch is not None \
@@ -862,7 +961,16 @@ def _train(args, overrides, device, group, rank, world):
                         warmup_steps=args.warmup_steps)
     tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay,
                          momentum=args.momentum, grad_clip=args.grad_clip)
-    state = create_train_state(net, tx, policy=policy, process_group=group)
+    if _sharded(args):
+        from ..parallel.sharded import describe
+
+        state = create_train_state(
+            net, tx, policy=policy, mesh=mesh, rules=rules,
+            opt_rules=opt_rules, sp_mode=args.sequence_parallel_mode)
+        print(describe(state.shardings), flush=True)
+    else:
+        state = create_train_state(net, tx, policy=policy,
+                                   process_group=group)
     # The residual joins the state before a restore, which keeps it.
     state, grad_sync = _build_grad_sync(args, state, group)
     # The skip gate rides the step; the recovery manager stages snapshots
@@ -909,10 +1017,11 @@ def _train(args, overrides, device, group, rank, world):
         kind=kind, policy=policy, num_microbatches=args.accum_steps,
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
         lm_loss_chunk=args.ce_chunk, input_normalize=input_normalize,
-        process_group=group, anomaly_policy=anomaly_policy,
-        grad_sync=grad_sync,
+        process_group=None if state.shardings is not None else group,
+        anomaly_policy=anomaly_policy, grad_sync=grad_sync,
+        state_shardings=state.shardings,
     )
-    cache = (_device_cache(args, ds, kind, device, rank, world)
+    cache = (_device_cache(args, ds, kind, device, shard, n_shards)
              if args.device_cache else None)
     # Preemption latch: a checkpointed run takes a synchronous step
     # checkpoint on SIGTERM and exits the code the supervisor relaunches
@@ -942,7 +1051,8 @@ def _train(args, overrides, device, group, rank, world):
         # train step fits.
         eval_step = make_eval_step(kind=kind, policy=policy,
                                    lm_loss_chunk=args.ce_chunk or 256,
-                                   input_normalize=input_normalize)
+                                   input_normalize=input_normalize,
+                                   state_shardings=state.shardings)
 
     print("training started")
     t0 = time.perf_counter()
@@ -1062,6 +1172,7 @@ def main(argv: list[str] | None = None):
     parser = build_parser()
     args = parser.parse_args(argv)
     _check_grad_sync(parser, args)
+    _check_sharding(parser, args)
     if args.elastic:
         return _run_elastic(parser, args)
     if args.ckpt_every_steps and not args.checkpoint_dir:

@@ -4,12 +4,24 @@ collectives (``comm.collectives``), the slice split of a group
 and the KV-cache codec of the quantized paged pool), striping and the
 phase pipeline (``comm.striping``) and the two-tier gradient sync
 (``comm.hierarchical``).  The names the JAX package's ``comm`` exports,
-where the port has them; the mesh constructors and the pipeline codec
-wait for the model-parallel slice."""
+where the port has them; the pipeline codec waits for the pipeline
+slice."""
 
 from .init import initialize, is_initialized, process_count, process_index, shutdown
 from .mesh import (
     AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_PIPELINE,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    BATCH_AXES,
+    MESH_AXES,
+    Mesh,
+    MeshConfig,
+    batch_shard_size,
+    make_hybrid_mesh,
+    make_mesh,
     dcn_axis_name,
     ici_axis_name,
     num_slices,
@@ -60,6 +72,18 @@ __all__ = [
     "auto_bucket_mb",
     "bucket_wire_bytes",
     "AXIS_DATA",
+    "AXIS_FSDP",
+    "AXIS_EXPERT",
+    "AXIS_PIPELINE",
+    "AXIS_SEQUENCE",
+    "AXIS_TENSOR",
+    "MESH_AXES",
+    "BATCH_AXES",
+    "Mesh",
+    "MeshConfig",
+    "make_mesh",
+    "make_hybrid_mesh",
+    "batch_shard_size",
     "psum",
     "pmean",
     "all_gather",

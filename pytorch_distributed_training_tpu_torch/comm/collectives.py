@@ -13,6 +13,18 @@ tiled as JAX's are (``tiled=True``).  ``all_gather``, ``reduce_scatter``,
 :class:`Pending` whose ``wait()`` gives the result (the pipelined bucket
 walk of ``comm/striping.py`` issues a wave's collectives that way).
 
+**Differentiable forms.**  The train step takes its gradients with
+``torch.autograd.grad`` on a functional call, so the sharded paths put
+their collectives into the graph as ``torch.autograd.Function``s, each
+with its transpose as the backward (JAX's ``shard_map`` transposes them
+the same way): ``gather_sum`` (all-gather; backward reduce-scatter, for
+a leaf gathered over ranks that compute different rows),
+``gather_slice`` (all-gather; backward this rank's slice, for ranks that
+compute the same values, the tensor group), ``all_to_all_grad`` (its
+inverse all-to-all), ``ppermute_grad`` (the inverse permutation), and
+Megatron's ``copy_to_group`` (``f``: identity, all-reduce backward) and
+``reduce_from_group`` (``g``: all-reduce, identity backward).
+
 Transport rules of the two backends:
 
 - neither gloo nor NCCL has a 16-bit integer type, so an ``int16``
@@ -265,6 +277,122 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return psum(dy.clone(), ctx.group), None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, gather_axis=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # Summed in f32 and rounded once to the operand's dtype.
+        out = reduce_scatter(dy.float(), ctx.group, scatter_axis=ctx.dim)
+        return out.to(dy.dtype), None, None
+
+
+class _GatherSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return all_gather(x, group, gather_axis=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (dy.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
+                .contiguous(), None, None)
+
+
+def gather_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather ``x`` along ``dim`` over ``group`` (tiled); the
+    backward reduce-scatters the cotangent: each member's rows add into
+    the gathered leaf's gradient (FSDP's gather at use)."""
+    return _GatherSum.apply(x, group, dim)
+
+
+def gather_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather ``x`` along ``dim`` over ``group``; the backward keeps
+    this rank's slice of the cotangent.  For a group whose members
+    compute the same values from the gathered tensor (a tensor group
+    using a leaf it does not consume sharded): summing their identical
+    cotangents would count the gradient once a member."""
+    return _GatherSlice.apply(x, group, dim)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return psum(dy.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``: the identity, whose backward sums the cotangent
+    over ``group`` (in front of a column-parallel layer)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: the sum over ``group``, whose backward is the
+    identity (after a row-parallel layer)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return all_to_all(x, group, split_axis=split_axis,
+                          concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        split_axis, concat_axis = ctx.axes
+        return all_to_all(dy.contiguous(), ctx.group,
+                          split_axis=concat_axis,
+                          concat_axis=split_axis), None, None, None
+
+
+def all_to_all_grad(x: torch.Tensor, group, *, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    """``all_to_all`` whose backward is the inverse all-to-all (split
+    along ``concat_axis``, concatenate along ``split_axis``)."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return ppermute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inverse = [(b, a) for a, b in ctx.perm]
+        return ppermute(dy.contiguous(), ctx.group, inverse), None, None
+
+
+def ppermute_grad(x: torch.Tensor, group,
+                  perm: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """``ppermute`` whose backward sends each cotangent back along the
+    inverse permutation."""
+    return _PPermute.apply(x, group, [(int(a), int(b)) for a, b in perm])
 
 
 def broadcast(tensors: list[torch.Tensor], group, *, src: int = 0) -> None:

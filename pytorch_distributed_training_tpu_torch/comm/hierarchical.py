@@ -31,8 +31,17 @@ The group splits into slices as ``comm/mesh.py::split_slice_groups``
 says: the nodes of a torchrun launch, or an explicit ``n_slices``.  The
 sync runs on each rank's own gradients (JAX runs the forward and backward
 per device inside a ``shard_map`` for the same reason), and the loss and
-aux values are averaged over the group.  ZeRO-1 (``zero1``) waits for the
-sharded optimizer.
+aux values are averaged over the group.
+
+ZeRO-1 (``zero1``, JAX's ``GradSyncConfig(zero1=True)``) syncs once a
+step, after the accumulation (``overlap`` is forced off, as in JAX, so
+the compressed hop quantizes the same sums).  JAX then skips the
+trailing ICI all-gather and hands each device its scattered columns of
+the buckets.  The port's ZeRO-1 slots keep JAX's per-leaf largest-dim
+layout (``parallel/sharding.py::ZERO1_OPT_RULES``), not the buckets', so
+the sync keeps its ICI all-gather and the sharded step takes each
+rank's slot slices of the whole mean (``parallel/sharded.py::
+scatter_grads``): the same values, no f32 bytes across the DCN.
 """
 
 from __future__ import annotations
@@ -89,8 +98,8 @@ class GradSyncConfig:
     (off: once after the accumulation).  ``topk_frac`` is the
     transmitted fraction of ``hier-topk``.  ``stripe`` (``"off"``,
     ``"auto"`` or a lane count) and ``phase_overlap`` are the transport
-    transforms of ``comm/striping.py``.  ``zero1`` is refused by
-    ``GradSync`` until the sharded optimizer exists."""
+    transforms of ``comm/striping.py``.  ``zero1`` (ZeRO-1's
+    step, module docstring) implies ``overlap=False``."""
 
     mode: str = "hier"
     axis: str = AXIS_DATA
@@ -147,10 +156,6 @@ class GradSync:
                 "means the one data-parallel all-reduce — don't construct "
                 "a GradSync"
             )
-        if config.zero1:
-            raise NotImplementedError(
-                "zero1 needs the sharded optimizer state (ROADMAP.md "
-                "Queue 1 item 9), which the port does not have yet")
         self.config = config
         self.group = group
         dist = torch.distributed
@@ -184,7 +189,7 @@ class GradSync:
         self.layout = _BucketLayout.build(
             params, bucket_mb=self.bucket_mb, divisor=self.axis_size * pack
         )
-        self.overlap = config.overlap
+        self.overlap = config.overlap and not config.zero1
         self._device = next(iter(params.values())).device
 
     # ---- residual state (error feedback) -------------------------------
@@ -355,7 +360,6 @@ class GradSync:
             self.layout.padded, self.n_slices, self.ici_size,
             self.config.mode, n_buckets=self.layout.n_buckets,
             topk_frac=self.config.topk_frac, stripe=self.stripe,
-            zero1=self.config.zero1,
         )
 
     @property

@@ -252,6 +252,55 @@ def vit_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
     return tree
 
 
+# --- leaf paths -----------------------------------------------------------
+
+
+def jax_leaf_paths(names) -> dict[str, str]:
+    """The flax param path (``/``-joined, what the JAX package's
+    ``parallel/sharding.py`` matches its rules against) of each of the
+    port's parameter ``names`` of one model: the name maps above, read
+    backwards."""
+    names = list(names)
+    family = _family(names)
+    kind = ("Bottleneck" if any(".conv2." in k or ".bn2." in k
+                                for k in names) else "BasicBlock")
+    out = {}
+    for name in names:
+        *mods, leaf = name.split(".")
+        if family == "resnet":
+            if mods[0] == "stem":
+                path = [mods[1]]
+            elif mods[0] == "blocks":
+                inner = re.sub(r"^conv(\d+)$", r"Conv_\1", mods[2])
+                inner = re.sub(r"^bn(\d+)$", r"BatchNorm_\1", inner)
+                path = [f"{kind}_{mods[1]}", inner]
+            else:
+                path = mods
+            out[name] = "/".join(
+                path + ["kernel" if leaf == "weight" else leaf])
+            continue
+        if mods and mods[0] == "blocks":
+            mods = [f"block_{mods[1]}", *mods[2:]]
+        norm = bool(mods) and re.fullmatch(r"ln\d*|ln_final", mods[-1])
+        if leaf == "weight":
+            leaf = "scale" if norm else "kernel"
+        out[name] = "/".join([*mods, leaf])
+    return out
+
+
+def jax_leaf_dims(path: str, ndim: int) -> tuple[int, ...]:
+    """For each dim of a port parameter whose flax path is ``path``, the
+    dim of the flax leaf it is (``_from_flax_leaf``'s transposes read
+    backwards): a dense kernel (out, in) is flax's (in, out), a conv
+    kernel OIHW is HWIO, everything else keeps its dims."""
+    if path.endswith("kernel"):
+        if ndim == 2:
+            return (1, 0)
+        if ndim == 4:
+            return (3, 2, 0, 1)
+    return tuple(range(ndim))
+
+
 # --- whole training states ----------------------------------------------
 
 

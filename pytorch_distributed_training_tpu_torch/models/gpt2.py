@@ -10,6 +10,15 @@ Training: dropout draws its masks from an explicit generator that the
 train step hands down (never from the global RNG), and ``remat`` runs
 each block under ``torch.utils.checkpoint``.  Dense blocks only: the MoE
 variant (``num_experts > 0``) is not ported yet.
+
+Tensor and sequence parallelism (a ``parallel`` context set by
+``parallel/sharded.py::configure_model``): a block whose ``mlp_up`` /
+``mlp_down`` hold their tensor shards runs Megatron's MLP (``f``, the
+column-parallel up projection and GELU on the rank's hidden units, the
+row-parallel down projection without its bias, ``g``, the bias); the
+attention is ``models/layers.py``'s.  Under a sequence group the model
+takes this rank's L/n positions of each row and embeds them at their
+global positions (``wpe`` rows ``i*L/n ..``).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..comm.collectives import copy_to_group, reduce_from_group
 from ..utils.device import resolve_device
 from .layers import SelfAttention, new_kv_blocks, new_kv_cache
 
@@ -74,6 +84,8 @@ def _site_generator(seed, device):
 
 
 class Block(nn.Module):
+    parallel = None   # parallel/sharded.py::configure_model
+
     def __init__(self, cfg: GPT2Config, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -83,6 +95,7 @@ class Block(nn.Module):
         self.ln2 = nn.LayerNorm(d, eps=LN_EPS, **kw)
         self.mlp_up = nn.Linear(d, d * cfg.mlp_ratio, **kw)
         self.mlp_down = nn.Linear(d * cfg.mlp_ratio, d, **kw)
+        self.mlp_ratio = cfg.mlp_ratio
         self.dropout_rate = cfg.dropout_rate
 
     def forward(self, x, *, cache=None, positions=None, attn_mask=None,
@@ -96,7 +109,17 @@ class Block(nn.Module):
             attn_mask=attn_mask, block_table=block_table,
         )
         x = x + dropout(y, self.dropout_rate, gen)
-        y = self.mlp_down(F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh"))
+        y = self.ln2(x)
+        if self.mlp_up.weight.shape[0] < self.mlp_down.weight.shape[0] * \
+                self.mlp_ratio:
+            # Tensor shards of the MLP (module docstring).
+            group = self.parallel.tp_group
+            y = F.gelu(self.mlp_up(copy_to_group(y, group)),
+                       approximate="tanh")
+            y = reduce_from_group(F.linear(y, self.mlp_down.weight),
+                                  group) + self.mlp_down.bias
+        else:
+            y = self.mlp_down(F.gelu(self.mlp_up(y), approximate="tanh"))
         return x + dropout(y, self.dropout_rate, gen)
 
 
@@ -122,6 +145,8 @@ class GPT2(nn.Module):
     ``max_seq_len`` are idle: their position-embedding gather is clipped
     and their output is garbage the caller discards.
     """
+
+    parallel = None   # parallel/sharded.py::configure_model
 
     def __init__(self, cfg: GPT2Config, *, device=None, dtype=None):
         super().__init__()
@@ -226,7 +251,10 @@ class GPT2(nn.Module):
         if cache is None:
             if positions is not None or block_table is not None:
                 raise ValueError("positions and block_table need a KV cache")
-            pos = self.wpe[:l][None]
+            off = 0
+            if self.parallel is not None and self.parallel.sp_size > 1:
+                off = self.parallel.sp_index * l
+            pos = self.wpe[off:off + l][None]
         else:
             if positions is None:
                 raise ValueError("a KV cache needs positions")

@@ -42,7 +42,22 @@ sentinel.  Block num_blocks is the scratch block: every write through a
 sentinel entry or past the table span lands there, and no read reaches
 it, because reads go through the table clamped to the real blocks.
 
-The tensor- and sequence-parallel paths are not ported yet.
+**Tensor and sequence parallelism** (the full-sequence forward, with a
+``parallel`` context from ``parallel/sharded.py::configure_model``).
+Under tensor parallelism the ``qkv`` weight and bias this module holds
+are its rank's column shard, laid out by head (q, k and v of heads
+``t*H/tp .. (t+1)*H/tp - 1``), and ``proj``'s weight its row shard: the
+input goes through Megatron's ``f`` (identity, all-reduce backward), the
+rank attends over its local heads, projects them without the bias, and
+``g`` (the all-reduce) sums the partial projections before the bias is
+added once.  The head-major ViT layouts take the same path as "auto"
+there (both compute the same function).  Under sequence parallelism the
+input holds this rank's L/n positions and the attention core is ring
+attention or Ulysses over the sequence group (``parallel/
+ring_attention.py``, ``parallel/ulysses.py``); both compose with tensor
+parallelism, each rank of a sequence group carrying its tensor shard of
+the heads.  A module whose weights are whole (no tensor shard) runs the
+plain path whatever the context says.
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..comm.collectives import copy_to_group, reduce_from_group
 from ..comm.compress import quantize_kv
 from ..ops.attention import SoftmaxLowp, dot_product_attention
 from ..ops.decode_attention import decode_attention, decode_attention_multi
@@ -117,7 +133,11 @@ class SelfAttention(nn.Module):
 
     ``attn_layout`` ("auto", "bhld", "bhld2") picks the activation layout
     of the non-causal full-sequence forward; the causal and cached paths
-    always take "auto"'s, as in the JAX package."""
+    always take "auto"'s, as in the JAX package.  ``parallel`` (set by
+    ``parallel/sharded.py::configure_model``) turns on the tensor- and
+    sequence-parallel forward (module docstring)."""
+
+    parallel = None
 
     def __init__(self, hidden_dim: int, num_heads: int, *, causal: bool = True,
                  attn_layout: str = "auto", device=None, dtype=None):
@@ -148,6 +168,10 @@ class SelfAttention(nn.Module):
         (chunks wider than the fused kernels) reads it."""
         b, l, d = x.shape
         h = self.num_heads
+        if cache is None and self.parallel is not None:
+            if positions is not None:
+                raise ValueError("positions need a KV cache")
+            return self._parallel_forward(x)
         if cache is None and not self.causal and self.attn_layout != "auto":
             if positions is not None:
                 raise ValueError("positions need a KV cache")
@@ -181,6 +205,41 @@ class SelfAttention(nn.Module):
             else:
                 out = _slot_attend(q, k, v, positions, cache, attn_mask)
         return self.proj(out.reshape(b, l, d))
+
+
+    def _parallel_forward(self, x):
+        """The full-sequence forward under ``self.parallel``: local heads
+        under a tensor shard of ``qkv``/``proj``, the ring or Ulysses core
+        under a sequence group (module docstring)."""
+        b, l, d = x.shape
+        par = self.parallel
+        tp = self.qkv.weight.shape[0] < 3 * d
+        if tp:
+            x = copy_to_group(x, par.tp_group)
+        qkv = self.qkv(x)
+        h = qkv.shape[-1] // (3 * (d // self.num_heads))
+        q, k, v = qkv.view(b, l, 3, h, d // self.num_heads).unbind(2)
+        if par.sp_size > 1:
+            if par.sp_mode == "ring":
+                from ..parallel.ring_attention import ring_self_attention
+
+                out = ring_self_attention(q, k, v, par, causal=self.causal)
+            elif par.sp_mode == "ulysses":
+                from ..parallel.ulysses import ulysses_attention
+
+                out = ulysses_attention(q, k, v, par, causal=self.causal)
+            else:
+                raise ValueError(
+                    f"unknown sp_mode {par.sp_mode!r} (ring|ulysses)")
+        else:
+            out = dot_product_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=self.causal)
+        out = out.reshape(b, l, -1)
+        if not tp:
+            return self.proj(out)
+        y = reduce_from_group(torch.nn.functional.linear(
+            out, self.proj.weight), par.tp_group)
+        return y + self.proj.bias
 
 
 def _qkv_to_heads(x, weight, bias, num_heads: int):

@@ -74,7 +74,12 @@ def guarded_apply(state, loss: torch.Tensor, grads: dict,
             "device))")
     from ..train.optim import global_norm   # (train imports this module)
 
-    grad_norm = global_norm(list(grads.values()))
+    names = list(grads)
+    groups = (state.shardings.norm_groups(names)
+              if state.shardings is not None else None)
+    # The norm of the whole gradient on every rank (sharded leaves'
+    # squares summed over their groups), so every rank takes one decision.
+    grad_norm = global_norm([grads[n] for n in names], groups)
     bad = ~torch.isfinite(loss) | ~torch.isfinite(grad_norm)
     if policy.grad_norm_threshold is not None:
         bad = bad | (grad_norm > policy.grad_norm_threshold)

@@ -12,7 +12,9 @@ seeded global batches.
         [--grad-sync hier|hier-bf16|hier-int8|hier-int4|hier-topk \\
          [--grad-sync-slices S] [--grad-sync-bucket-mb auto|MB] \\
          [--grad-sync-topk-frac F] [--grad-sync-stripe off|auto|N] \\
-         [--grad-sync-overlap on|off]]
+         [--grad-sync-overlap on|off]] \\
+        [--fsdp N] [--tensor-parallel N] [--zero1] \\
+        [--sequence-parallel N [--sequence-parallel-mode ring|ulysses]]
 
 Each rank runs on its card (``LOCAL_RANK``'s) unless ``--device cpu``
 asks for the host.
@@ -48,6 +50,19 @@ dropout 0, adamw lr 3e-4 wd 0.1; ``gpt2_124m``, GPT-2 124M at sequence
 norm clip 1.0, warmup-cosine over 8 steps with 2 of warmup, the bf16
 policy unless ``--precision`` says otherwise).
 
+``gpt2_tiny4`` is the JAX package's tiny GPT-2 of its parallel tests (2
+layers, width 64, 4 heads, vocab 128, sequence 32), adamw lr 1e-3 wd
+0.1: four heads, which tensor parallelism of 4 can split.
+
+The sharding flags are the CLI's (``--fsdp``, ``--tensor-parallel``,
+``--zero1``, ``--sequence-parallel``, ``--sequence-parallel-mode``): the
+state is sharded over the mesh they give (``data`` takes the rest of
+the world), each rank takes its batch group's rows (``BATCH_AXES``), the
+checksums hash the gathered whole state, and the JSON adds the mesh
+and each rank's bytes of parameters and optimizer slots.  ``probe`` (a
+function: ``run_steps``'s ``probe_out``) gives the first batch's loss,
+logits and mean gradients before any update, gathered whole.
+
 ``--grad-sync`` and its companions are the CLI's flags: the step syncs
 through ``comm.hierarchical.GradSync`` instead of the one all-reduce,
 and the JSON adds the sync's layout and byte model, each step's time
@@ -73,7 +88,9 @@ VIT = dict(depth=2, hidden_dim=64, num_heads=4, mlp_dim=128)
 SEQ = 32
 SEQ_124M, VOCAB_124M = 1024, 50257
 STEPS, ACCUM = 3, 2       # train steps; microbatches a step
-MODELS = ("resnet", "vit", "gpt2", "gpt2_124m")
+GPT2_TINY4 = dict(num_layers=2, hidden_dim=64, num_heads=4, vocab_size=128,
+                  max_seq_len=32)
+MODELS = ("resnet", "vit", "gpt2", "gpt2_124m", "gpt2_tiny4")
 
 
 def global_batches(kind: str, steps: int, batch: int, image_size: int,
@@ -85,8 +102,9 @@ def global_batches(kind: str, steps: int, batch: int, image_size: int,
                                      np.float32),
                  "label": rng.integers(0, 10, batch).astype(np.int32)}
                 for _ in range(steps)]
-    vocab, seq = ((VOCAB_124M, SEQ_124M) if kind == "gpt2_124m"
-                  else (GPT2["vocab_size"], SEQ))
+    vocab, seq = {"gpt2_124m": (VOCAB_124M, SEQ_124M),
+                  "gpt2_tiny4": (GPT2_TINY4["vocab_size"], SEQ)}.get(
+        kind, (GPT2["vocab_size"], SEQ))
     return [{"tokens": rng.integers(0, vocab, (batch, seq)).astype(np.int32)}
             for _ in range(steps)]
 
@@ -106,7 +124,9 @@ def optimizer(kind: str):
                                               weight_decay=1e-3),
             "vit": lambda: build_optimizer("adamw", 3e-4, weight_decay=0.05),
             "gpt2": lambda: build_optimizer("adamw", 3e-4,
-                                            weight_decay=0.1)}[kind]()
+                                            weight_decay=0.1),
+            "gpt2_tiny4": lambda: build_optimizer("adamw", 1e-3,
+                                                  weight_decay=0.1)}[kind]()
 
 
 def build_model(kind: str, device, *, seed: int = 0, init: dict | None = None,
@@ -127,6 +147,9 @@ def build_model(kind: str, device, *, seed: int = 0, init: dict | None = None,
                              image_size=image_size)
     elif kind == "gpt2_124m":
         model = create_model("gpt2", device=device, seed=seed)
+    elif kind == "gpt2_tiny4":
+        model = create_model("gpt2", device=device, seed=seed,
+                             cfg_overrides=GPT2_TINY4)
     else:
         model = create_model("gpt2", device=device, seed=seed,
                              cfg_overrides=GPT2)
@@ -136,19 +159,98 @@ def build_model(kind: str, device, *, seed: int = 0, init: dict | None = None,
     return model
 
 
+def whole(state) -> dict:
+    """Every parameter and running statistic, whole (a sharded state's
+    gathered: collective)."""
+    layout = state.shardings
+    out = {}
+    for n, t in state.params.items():
+        out[n] = t if layout is None else layout.gather_full(f"params/{n}", t)
+    return {**out, **state.batch_stats}
+
+
 def checksum(state) -> str:
     """SHA-256 over every parameter and running statistic, in order."""
     h = hashlib.sha256()
-    for t in [*state.params.values(), *state.batch_stats.values()]:
+    for t in whole(state).values():
         h.update(t.detach().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def sharding_config(fsdp: int = 1, tensor: int = 1, sequence: int = 1,
+                    mode: str = "ring", zero1: bool = False,
+                    min_size: int | None = None) -> dict | None:
+    """The sharding flags as ``run_steps``'s ``sharding`` (None: plain
+    data parallelism); ``min_size`` replaces the rules' ``MIN_FSDP_SIZE``
+    (1, as JAX's own parity tests set it, shards a small model's every
+    leaf)."""
+    if fsdp == tensor == sequence == 1 and not zero1:
+        return None
+    return dict(fsdp=fsdp, tensor=tensor, sequence=sequence, mode=mode,
+                zero1=zero1, min_size=min_size)
+
+
+def probe(kind: str, state, batch: dict, *, policy, accum: int = 1) -> dict:
+    """The loss, the logits and the mean gradients of ``batch`` (this
+    rank's part) at ``state``, before any update, whole: the sharded
+    step's loss and sync without its update (collective)."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.parallel.grad_accum import (
+        accumulate_gradients,
+    )
+    from pytorch_distributed_training_tpu_torch.train import step as step_lib
+
+    layout, model = state.shardings, state.model.train()
+    names = list(state.params)
+
+    def fn(params, mb):
+        return step_lib._lm_loss(model, params, mb["tokens"], policy=policy,
+                                 generator=None, lm_loss_chunk=None,
+                                 label_smoothing=0.0, layout=layout)
+
+    sync = layout.sync_fn(names) if layout is not None else None
+    loss, grads = accumulate_gradients(fn, state.params, batch, 1,
+                                       sync_fn=sync)
+    out = {"loss": loss.detach().float().cpu().numpy()}
+    for n, g in grads.items():
+        if layout is not None:
+            g = layout.gather_full(f"opt_state/grad/{n}", g)
+        out[f"grad/{n}"] = g.detach().float().cpu().numpy()
+    with torch.no_grad():
+        tokens = batch["tokens"]
+        if layout is not None and layout.sp_size > 1:
+            ll = tokens.shape[1] // layout.sp_size
+            tokens = tokens[:, layout.sp_index * ll:
+                            (layout.sp_index + 1) * ll]
+        logits = torch.func.functional_call(
+            model, policy.cast_to_compute(state.params), (tokens,))
+        if layout is not None:
+            from pytorch_distributed_training_tpu_torch.comm import (
+                collectives,
+            )
+
+            for axes, dim in ((("sequence",), 1), (("data", "fsdp"), 0)):
+                group = layout.mesh.group(axes)
+                if group is not None:
+                    logits = collectives.all_gather(logits.contiguous(),
+                                                    group, gather_axis=dim)
+            # The ranks' rows back in the global order (rank_rows dealt
+            # each microbatch's rows over the batch group).
+            n = layout.mesh.axes_size(("data", "fsdp"))
+            rest = logits.shape[1:]
+            logits = logits.reshape(n, accum, -1, *rest).transpose(
+                0, 1).reshape(-1, *rest)
+    out["logits"] = logits.float().cpu().numpy()
+    return out
 
 
 def run_steps(kind: str, model, batches: list[dict], *, accum: int,
               device, group=None, rank: int = 0, world: int = 1,
               precision: str = "f32", checkpoint=None,
               save_at: int | None = None, resume: bool = False,
-              grad_sync=None, figures: dict | None = None):
+              grad_sync=None, figures: dict | None = None,
+              sharding: dict | None = None, probe_out: dict | None = None):
     """Train ``model`` on rank ``rank``'s rows of ``batches`` on
     ``device``; returns
     (losses, checksums after each step, final state).  ``checkpoint`` (a
@@ -158,25 +260,64 @@ def run_steps(kind: str, model, batches: list[dict], *, accum: int,
     ``save_at`` is committed to it.  ``grad_sync`` (a
     ``GradSyncConfig``) syncs through the two-tier sync; ``figures``
     then receives its layout, the step and sync times and the residual's
-    largest magnitude after each step."""
+    largest magnitude after each step.  ``sharding``
+    (``sharding_config``) shards the state over the mesh it gives;
+    ``figures`` then receives the mesh and this rank's state bytes, and
+    ``probe_out`` (a dict) the first batch's ``probe``.  The batch rows
+    are dealt over the batch axes (the one-process run: ``rank`` 0 of
+    ``world`` 1)."""
     import dataclasses
     import time
 
     import torch
 
     from pytorch_distributed_training_tpu_torch.data.loader import rank_rows
+    from pytorch_distributed_training_tpu_torch.parallel.sharded import (
+        state_bytes,
+    )
     from pytorch_distributed_training_tpu_torch.train import (
         create_train_state, make_policy, make_train_step,
     )
 
     policy = make_policy(precision)
-    state = create_train_state(model, optimizer(kind), policy=policy,
-                               process_group=group)
-    sync = None
     figures = {} if figures is None else figures
+    mesh = None
+    if sharding is not None:
+        from pytorch_distributed_training_tpu_torch.comm.mesh import (
+            MeshConfig, make_mesh,
+        )
+        from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+            DDP_RULES, ZERO1_OPT_RULES, tp_rules_for,
+        )
+
+        mesh = make_mesh(MeshConfig(
+            data=-1, fsdp=sharding["fsdp"], tensor=sharding["tensor"],
+            sequence=sharding["sequence"]), world=world, rank=rank)
+        rules = (tp_rules_for("gpt2" if kind.startswith("gpt2") else kind)
+                 if sharding["fsdp"] > 1 or sharding["tensor"] > 1
+                 else DDP_RULES)
+        opt_rules = ZERO1_OPT_RULES if sharding["zero1"] else None
+        if sharding.get("min_size") is not None:
+            rules = dataclasses.replace(rules,
+                                        min_fsdp_size=sharding["min_size"])
+            if opt_rules is not None:
+                opt_rules = dataclasses.replace(
+                    opt_rules, min_fsdp_size=sharding["min_size"])
+        state = create_train_state(
+            model, optimizer(kind), policy=policy, mesh=mesh, rules=rules,
+            opt_rules=opt_rules, sp_mode=sharding["mode"])
+        rank, world = mesh.batch_index, mesh.axes_size(("data", "fsdp"))
+    else:
+        state = create_train_state(model, optimizer(kind), policy=policy,
+                                   process_group=group)
+    figures.update(mesh=None if mesh is None else mesh.shape,
+                   state_bytes=state_bytes(state))
+    sync = None
     if grad_sync is not None:
         from pytorch_distributed_training_tpu_torch.comm import GradSync
 
+        if sharding is not None and sharding["zero1"]:
+            grad_sync = dataclasses.replace(grad_sync, zero1=True)
         sync = GradSync(group, state.params, grad_sync)
         state = dataclasses.replace(state,
                                     grad_sync_residual=sync.init_residual())
@@ -198,14 +339,18 @@ def run_steps(kind: str, model, batches: list[dict], *, accum: int,
     sums = [checksum(state)] if resume else []
     step = make_train_step(
         kind="lm" if kind.startswith("gpt2") else "image_classifier",
-        policy=policy, num_microbatches=accum, process_group=group,
-        grad_sync=sync)
+        policy=policy, num_microbatches=accum,
+        process_group=group if mesh is None else None,
+        grad_sync=sync, state_shardings=state.shardings)
     losses, figures["step_s"] = [], []
     for b in batches[state.step:]:
         n = len(next(iter(b.values())))
         rows = rank_rows(np.arange(n), rank, world, accum)
         local = {k: torch.from_numpy(v[rows]).to(device)
                  for k, v in b.items()}
+        if probe_out is not None and not probe_out:
+            probe_out.update(probe(kind, state, local, policy=policy,
+                                   accum=accum))
         _sync(device)
         t0 = time.perf_counter()
         state, metrics = step(state, local)
@@ -286,6 +431,12 @@ def main() -> int:
     ap.add_argument("--grad-sync-stripe", default="off")
     ap.add_argument("--grad-sync-overlap", default="off",
                     choices=("on", "off"))
+    ap.add_argument("--fsdp", type=int, default=1)
+    ap.add_argument("--tensor-parallel", type=int, default=1)
+    ap.add_argument("--sequence-parallel", type=int, default=1)
+    ap.add_argument("--sequence-parallel-mode", default="ring",
+                    choices=("ring", "ulysses"))
+    ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--save-at", type=int, default=None)
     ap.add_argument("--resume", action="store_true")
@@ -338,7 +489,10 @@ def main() -> int:
             rank=rank, world=world, device=device,
             precision=precision, checkpoint=checkpoint,
             save_at=args.save_at, resume=args.resume, grad_sync=grad_sync,
-            figures=figures)
+            figures=figures, sharding=sharding_config(
+                args.fsdp, args.tensor_parallel, args.sequence_parallel,
+                args.sequence_parallel_mode, args.zero1))
+        params = whole(state)
         if device.type == "cuda":
             from pytorch_distributed_training_tpu_torch.ops import (
                 flash_attention as fa,
@@ -350,8 +504,7 @@ def main() -> int:
                                 "dkv": fa.flash_bwd_dkv.launches}
         os.makedirs(args.out, exist_ok=True)
         np.savez(os.path.join(args.out, f"rank{rank}.npz"), **{
-            k: v.detach().cpu().numpy()
-            for k, v in {**state.params, **state.batch_stats}.items()})
+            k: v.detach().cpu().numpy() for k, v in params.items()})
         with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "world": world, "losses": losses,
                        "checksums": sums, **figures}, f)

@@ -52,8 +52,10 @@ Schedule = Callable[[int], float]
 @dataclasses.dataclass
 class Transform:
     """optax.GradientTransformation: ``init`` and ``update``.
-    ``update(updates, state, params, ok=None)``: ``ok``, a 0-dim bool
-    device tensor, gates the state's advance (module docstring)."""
+    ``update(updates, state, params, ok=None, groups=None)``: ``ok``, a
+    0-dim bool device tensor, gates the state's advance (module
+    docstring); ``groups`` are the tensors' shard groups, for the global
+    norm (``global_norm``)."""
 
     init: Callable[[list], Any]
     update: Callable[..., tuple[list, Any]]
@@ -115,30 +117,47 @@ def chain(*transforms: Transform) -> Transform:
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(updates, state, params, ok=None):
+    def update(updates, state, params, ok=None, groups=None):
         new_state = []
         for t, s in zip(transforms, state):
-            updates, s = t.update(updates, s, params, ok=ok)
+            updates, s = t.update(updates, s, params, ok=ok, groups=groups)
             new_state.append(s)
         return updates, tuple(new_state)
 
     return Transform(init, update)
 
 
-def global_norm(tensors: list) -> torch.Tensor:
+def global_norm(tensors: list, groups: list | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32, on the device:
     the tensors' own norms in a few multi-tensor launches, then the norm
-    of those."""
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(tensors, dtype=torch.float32)))
+    of those.  ``groups`` (one per tensor, None where the tensor is
+    whole on every rank) names the process group a sharded tensor is
+    split over: its squares are summed over that group, so the result is
+    the norm of the whole gradient on every rank, never a rank's local
+    one (which would clip, and gate, differently on each rank)."""
+    norms = torch._foreach_norm(tensors, dtype=torch.float32)
+    if groups is None or all(g is None for g in groups):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from ..comm.collectives import psum
+
+    by_group: dict = {}
+    for n, g in zip(norms, groups):
+        by_group.setdefault(g, []).append(n)
+    total = None
+    for g, ns in by_group.items():
+        sq = torch.stack(ns).square().sum()
+        if g is not None:
+            sq = psum(sq, g)
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
     """optax's rule: below ``max_norm`` the updates pass unchanged, else
     each becomes ``(u / norm) * max_norm``.  The norm stays on the device;
     the choice is a ``where``, not a host branch."""
-    def update(updates, state, params, ok=None):
-        norm = global_norm(updates)
+    def update(updates, state, params, ok=None, groups=None):
+        norm = global_norm(updates, groups)
         keep = norm < max_norm
         return [torch.where(keep, u, (u / norm.to(u.dtype)) * max_norm)
                 for u in updates], state
@@ -148,7 +167,7 @@ def clip_by_global_norm(max_norm: float) -> Transform:
 
 def add_decayed_weights(weight_decay: float) -> Transform:
     """updates + weight_decay * params (coupled L2 when placed first)."""
-    def update(updates, state, params, ok=None):
+    def update(updates, state, params, ok=None, groups=None):
         if weight_decay == 0.0:
             return updates, state
         return torch._foreach_add(updates, params, alpha=weight_decay), state
@@ -175,7 +194,7 @@ def scale_by_adam() -> Transform:
         return AdamState(0, [torch.zeros_like(p) for p in params],
                          [torch.zeros_like(p) for p in params])
 
-    def update(updates, state, params, ok=None):
+    def update(updates, state, params, ok=None, groups=None):
         if ok is None:
             torch._foreach_mul_(state.mu, b1)
             torch._foreach_add_(state.mu, updates, alpha=1.0 - b1)
@@ -216,7 +235,7 @@ def trace(decay: float) -> Transform:
     def init(params):
         return [torch.zeros_like(p) for p in params]
 
-    def update(updates, state, params, ok=None):
+    def update(updates, state, params, ok=None, groups=None):
         if ok is not None:
             trace_ = torch._foreach_mul(state, decay)
             torch._foreach_add_(trace_, updates)
@@ -244,7 +263,7 @@ def scale_by_learning_rate(lr: float | Schedule) -> Transform:
     schedule = lr if callable(lr) else (lambda count: lr)
     tables: dict = {}
 
-    def update(updates, state, params, ok=None):
+    def update(updates, state, params, ok=None, groups=None):
         if ok is None:
             step = -float(schedule(state.count))
             state.count += 1

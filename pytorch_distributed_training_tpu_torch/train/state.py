@@ -16,6 +16,15 @@ would update changes only where the 0-dim device bool ``ok`` holds, and
 the step advances either way.  ``grad_sync_residual`` is the two-tier
 sync's error-feedback residual (``comm/hierarchical.py``): a new tensor
 each step, gated like the rest; it is not checkpointed (as in JAX).
+
+Sharded state (``create_train_state(mesh=, rules=, opt_rules=)``, JAX's
+``create_train_state(mesh=, rules=, opt_rules=)``): each rank keeps its
+shard of each sharded parameter and slot (``parallel/sharded.py``), the
+model's own parameters become those shards, and ``state.shardings``
+holds the layout (``infer_state_shardings`` builds it), which
+``apply_gradients`` follows: the update runs on the shards (or on the
+slice of a replicated parameter its slots cover, then all-gathered),
+and the clip's global norm sums over the shard groups.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_norm import master_affine_params
-from ..parallel.sharding import replicate_state
+from ..parallel.sharding import DDP_RULES, replicate_state
 from .optim import Transform, select_
 from .policy import Policy
 
@@ -51,6 +60,9 @@ class TrainState:
     # rank's quantization error that the last sync did not transmit,
     # re-fed into the next.  Empty for every other sync mode.
     grad_sync_residual: Any = ()
+    # The sharded layout (parallel/sharded.py::ShardedLayout), None when
+    # the state is replicated.
+    shardings: Any = None
 
     def apply_gradients(self, grads: dict, batch_stats: dict | None = None,
                         ok: torch.Tensor | None = None,
@@ -62,16 +74,23 @@ class TrainState:
         statistics and the residual change only where it holds."""
         names = list(self.params)
         params = [self.params[n] for n in names]
+        groups = finish = None
+        if self.shardings is not None:
+            groups = self.shardings.norm_groups(names)
+            params, finish = self.shardings.update_views(names, params)
         # Outside autograd: the decayed-weight term reads the parameters,
         # and an in-place moment update would otherwise join the graph.
         with torch.no_grad():
             updates, opt_state = self.tx.update(
-                [grads[n] for n in names], self.opt_state, params, ok=ok
+                [grads[n] for n in names], self.opt_state, params, ok=ok,
+                groups=groups,
             )
             if ok is None:
                 torch._foreach_add_(params, updates)
             else:
                 select_(ok, torch._foreach_add(params, updates), params)
+            if finish is not None:
+                finish()
             for name, value in (batch_stats or {}).items():
                 if ok is None:
                     self.batch_stats[name].copy_(value)
@@ -86,22 +105,58 @@ class TrainState:
                                    grad_sync_residual=residual)
 
 
+def infer_state_shardings(model: nn.Module, mesh, *, rules=DDP_RULES,
+                          opt_rules=None, sp_mode: str = "ring"):
+    """The sharded layout of ``model``'s training state on ``mesh`` (a
+    ``comm.mesh.Mesh``): ``rules`` place the parameters, ``opt_rules``
+    (default the same) the optimizer slots, as JAX's
+    ``infer_state_shardings``; counts, the gate's counters and the
+    running statistics stay replicated.  The step keeps the state in it
+    (``make_train_step(state_shardings=...)``)."""
+    from ..parallel.sharded import build_layout
+
+    return build_layout(model, mesh, rules=rules, opt_rules=opt_rules,
+                        sp_mode=sp_mode)
+
+
 def create_train_state(model: nn.Module, tx: Transform, *,
                        policy: Policy | None = None,
-                       process_group: Any = None) -> TrainState:
+                       process_group: Any = None, mesh: Any = None,
+                       rules=DDP_RULES, opt_rules=None,
+                       sp_mode: str = "ring") -> TrainState:
     """Cast ``model``'s parameters to the policy's parameter dtype (its
     buffers, the running statistics, stay f32) and wrap them with a fresh
     optimizer state; with a ``process_group``, rank 0's state replaces
-    every rank's."""
+    every rank's.
+
+    With a ``mesh`` the state is sharded (module docstring): rank 0's
+    parameters and statistics are broadcast over the world, each rank
+    keeps its shards of them (the model's parameters become the shards),
+    the optimizer slots are created at their own layout's shapes, and
+    ``state.shardings`` is the layout.  ``sp_mode`` ("ring"/"ulysses")
+    is the attention core a ``sequence`` axis runs."""
     policy = policy or Policy()
     for p in model.parameters():
         p.data = p.data.to(policy.param_dtype)
+    layout = None
+    if mesh is not None:
+        from ..comm import collectives
+        from ..parallel.sharded import shard_model, slot_templates
+
+        layout = infer_state_shardings(model, mesh, rules=rules,
+                                       opt_rules=opt_rules, sp_mode=sp_mode)
+        if mesh.size > 1:
+            collectives.broadcast([*model.parameters(), *model.buffers()],
+                                  None)
+        shard_model(model, layout)
     params = dict(model.named_parameters())
-    state = TrainState(step=0, params=params,
-                       opt_state=tx.init(list(params.values())),
+    slots = (list(params.values()) if layout is None
+             else slot_templates(layout, params))
+    state = TrainState(step=0, params=params, opt_state=tx.init(slots),
                        model=model, tx=tx,
                        batch_stats=dict(model.named_buffers()),
-                       keep=frozenset(master_affine_params(model)))
-    if process_group is not None:
+                       keep=frozenset(master_affine_params(model)),
+                       shardings=layout)
+    if process_group is not None and layout is None:
         replicate_state(state, process_group)
     return state

@@ -50,8 +50,25 @@ per-device ``shard_map``, the ResNet's BatchNorms then take their
 statistics on each rank's own rows, and the new running statistics are
 averaged over the group with the metrics.
 
-Not yet ported: ``grad_fn`` (pipeline schedules) and
-``state_shardings``; they raise.
+``state_shardings`` (the layout of a sharded state,
+``train.state.infer_state_shardings``; ``state.shardings``) runs the
+sharded step of ``parallel/sharded.py``: ``batch`` is this rank's rows
+(``BATCH_AXES``: the ranks of one tensor or sequence group take the
+same rows, whole), the model gathers its sharded leaves where it uses
+them, the gradients come back reduce-scattered to the shards and are
+then summed over the data, fsdp and sequence ranks (one flat collective
+per reduce group), and the update keeps the state in its layout.  Under
+a ``sequence`` axis each rank feeds the model its L/n positions of the
+rows and its loss is the sum over those positions of the next-token CE
+divided by the rows' B·(L-1) targets, so the sequence ranks' losses sum
+to the rows' mean (``--ce-chunk`` included).  Dropout masks are seeded
+by the batch and sequence index, never the tensor index, so a tensor
+group's replicated activations draw the same masks.  The ResNet's
+sync-BN group is the batch group.  ZeRO-1 under the two-tier sync
+(``grad_sync`` with ``zero1``) takes the sync's whole mean and keeps
+each rank's slot slices of it.
+
+Not yet ported: ``grad_fn`` (pipeline schedules); it raises.
 """
 
 from __future__ import annotations
@@ -134,14 +151,15 @@ def _accuracy(logits, labels):
     return (logits.argmax(-1) == labels).float().mean()
 
 
-def _lm_head_matrix(params: dict, policy: Policy) -> torch.Tensor:
+def _lm_head_matrix(params: dict, policy: Policy,
+                    layout=None) -> torch.Tensor:
     """The (V, D) LM-head matrix in compute dtype: the untied head's weight
     when present, else the tied token embedding.  ``lm_head`` must win the
     check: ``wte`` exists in both configurations.  A cast of its own, as in
-    the JAX step."""
-    if "lm_head.weight" in params:
-        return params["lm_head.weight"].to(policy.compute_dtype)
-    return params["wte"].to(policy.compute_dtype)
+    the JAX step; under a sharded ``layout``, gathered whole."""
+    name = "lm_head.weight" if "lm_head.weight" in params else "wte"
+    w = params[name].to(policy.compute_dtype)
+    return w if layout is None else layout.gather(name, w)
 
 
 def dropout_generator(seed: int, step: int, microbatch: int,
@@ -157,24 +175,55 @@ def dropout_generator(seed: int, step: int, microbatch: int,
 
 
 def _lm_loss(model, params, tokens, *, policy, generator, lm_loss_chunk,
-             label_smoothing):
+             label_smoothing, layout=None):
+    """Next-token CE of ``tokens``' rows.  Under a sharded ``layout`` with
+    a sequence axis the model sees this rank's L/n positions and the
+    loss is their share of the rows' mean (module docstring)."""
     cparams = policy.cast_to_compute(params)
+    inputs, targets = tokens, tokens[:, 1:]
+    n_valid = length = tokens.shape[1]
+    share = None
+    if layout is not None and layout.sp_size > 1:
+        ll = length // layout.sp_size
+        off = layout.sp_index * ll
+        inputs = tokens[:, off:off + ll]
+        targets = tokens[:, off + 1:off + ll + 1]
+        share = targets.shape[1] / (length - 1)
+    n_valid = targets.shape[1]
     if lm_loss_chunk:
         # The head matmul runs inside the chunked, checkpointed loss, so
         # the (B, L, vocab) logits are never resident.
         hidden = torch.func.functional_call(
-            model, cparams, (tokens,),
+            model, cparams, (inputs,),
             {"return_hidden": True, "generator": generator},
         )
-        return chunked_lm_cross_entropy(
-            hidden[:, :-1], _lm_head_matrix(params, policy), tokens[:, 1:],
-            chunk_size=lm_loss_chunk, label_smoothing=label_smoothing,
+        loss = chunked_lm_cross_entropy(
+            hidden[:, :n_valid], _lm_head_matrix(params, policy, layout),
+            targets, chunk_size=lm_loss_chunk,
+            label_smoothing=label_smoothing,
         )
-    logits = torch.func.functional_call(
-        model, cparams, (tokens,), {"generator": generator}
-    )
-    return cross_entropy_loss(logits[:, :-1], tokens[:, 1:],
-                              label_smoothing=label_smoothing)
+    else:
+        logits = torch.func.functional_call(
+            model, cparams, (inputs,), {"generator": generator}
+        )
+        loss = cross_entropy_loss(logits[:, :n_valid], targets,
+                                  label_smoothing=label_smoothing)
+    return loss if share is None else loss * share
+
+
+def _updater(anomaly_policy):
+    """The one update gate every path exits through: ``(state, loss,
+    grads, batch_stats, residual) -> (state, gate metrics)``."""
+    def apply_update(state, loss, grads, batch_stats=None, residual=None):
+        if anomaly_policy is None:
+            return state.apply_gradients(
+                grads, batch_stats=batch_stats,
+                grad_sync_residual=residual), {}
+        return guarded_apply(state, loss, grads, anomaly_policy,
+                             batch_stats=batch_stats,
+                             grad_sync_residual=residual)
+
+    return apply_update
 
 
 def make_train_step(
@@ -208,21 +257,19 @@ def make_train_step(
     the gradients in two tiers instead (module docstring).  ``anomaly_policy``
     gates the update (module docstring) and adds the gate's metrics."""
     _check_kind(kind)
-    _not_ported(grad_fn=grad_fn, state_shardings=state_shardings)
+    _not_ported(grad_fn=grad_fn)
+    if state_shardings is not None:
+        return _sharded_train_step(
+            state_shardings, kind=kind, policy=policy or Policy(),
+            num_microbatches=num_microbatches, seed=seed,
+            label_smoothing=label_smoothing, lm_loss_chunk=lm_loss_chunk,
+            grad_sync=grad_sync, anomaly_policy=anomaly_policy,
+            input_normalize=input_normalize)
     if grad_sync is not None and process_group is None:
         raise ValueError("grad_sync syncs over a process group: pass the "
                          "group it was built on as process_group")
     policy = policy or Policy()
-
-    def apply_update(state, loss, grads, batch_stats=None, residual=None):
-        """The one update gate every path exits through."""
-        if anomaly_policy is None:
-            return state.apply_gradients(
-                grads, batch_stats=batch_stats,
-                grad_sync_residual=residual), {}
-        return guarded_apply(state, loss, grads, anomaly_policy,
-                             batch_stats=batch_stats,
-                             grad_sync_residual=residual)
+    apply_update = _updater(anomaly_policy)
 
     sync = None
     if process_group is not None and grad_sync is None:
@@ -302,16 +349,74 @@ def _image_train_step(policy, normalize_on, label_smoothing, group,
     return train_step
 
 
+def _sharded_train_step(layout, *, kind, policy, num_microbatches, seed,
+                        label_smoothing, lm_loss_chunk, grad_sync,
+                        anomaly_policy, input_normalize):
+    """The train step of a sharded state (module docstring)."""
+    from ..comm.mesh import BATCH_AXES
+
+    mesh = layout.mesh
+    drop_rank = layout.dropout_rank
+    if layout.sp_size > 1 and kind != "lm":
+        raise ValueError("sequence parallelism shards a token sequence: "
+                         "kind='lm' only")
+    zero1 = grad_sync is not None and grad_sync.config.zero1
+    if grad_sync is not None and not zero1:
+        raise ValueError("a sharded state syncs its own gradients; the "
+                         "two-tier sync joins it only as ZeRO-1 "
+                         "(GradSyncConfig(zero1=True))")
+
+    apply_update = _updater(anomaly_policy)
+
+    def accumulate(fn, state, batch, has_aux=False):
+        names = list(state.params)
+        if zero1:
+            value, grads, residual = grad_sync.accumulate_and_sync(
+                fn, state.params, batch, num_microbatches,
+                residual=state.grad_sync_residual, has_aux=has_aux)
+            return value, layout.scatter_grads(names, grads), residual
+        value, grads = accumulate_gradients(
+            fn, state.params, batch, num_microbatches, has_aux=has_aux,
+            pass_microbatch_index=True, sync_fn=layout.sync_fn(names))
+        return value, grads, None
+
+    if kind == "image_classifier":
+        normalize_on = _normalize_on(input_normalize, policy)
+        bn_group = mesh.group(BATCH_AXES)
+        return _image_train_step(policy, normalize_on, label_smoothing,
+                                 bn_group, accumulate, seed, drop_rank,
+                                 apply_update)
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.model.train()
+        drop = model.cfg.dropout_rate > 0.0
+
+        def fn(params, mb, i):
+            gen = (dropout_generator(seed, state.step, i, drop_rank)
+                   if drop and seed is not None else None)
+            return _lm_loss(model, params, mb["tokens"], policy=policy,
+                            generator=gen, lm_loss_chunk=lm_loss_chunk,
+                            label_smoothing=label_smoothing, layout=layout)
+
+        loss, grads, residual = accumulate(fn, state, batch)
+        state, gate = apply_update(state, loss, grads, residual=residual)
+        return state, {"loss": loss, **gate}
+
+    return train_step
+
+
 def make_eval_step(
     *,
     kind: str = "lm",
     policy: Policy | None = None,
     lm_loss_chunk: int | None = None,
     input_normalize: tuple | None = None,
+    state_shardings: Any = None,
 ) -> Callable[[TrainState, dict], dict]:
     """``(state, batch) → {"loss"}`` (image classifiers: ``{"loss",
     "accuracy"}``, on the running statistics): no dropout, no
-    gradients."""
+    gradients.  Under ``state_shardings`` every rank evaluates the whole
+    batch; a sequence axis splits the positions and sums the shares."""
     _check_kind(kind)
     policy = policy or Policy()
     normalize_on = _normalize_on(input_normalize, policy)
@@ -329,7 +434,12 @@ def make_eval_step(
                     "accuracy": _accuracy(logits, batch["label"])}
         loss = _lm_loss(model, state.params, batch["tokens"], policy=policy,
                         generator=None, lm_loss_chunk=lm_loss_chunk,
-                        label_smoothing=0.0)
+                        label_smoothing=0.0, layout=state_shardings)
+        if state_shardings is not None and state_shardings.sp_size > 1:
+            from ..comm.mesh import AXIS_SEQUENCE
+
+            loss = collectives.psum(
+                loss.float(), state_shardings.mesh.group(AXIS_SEQUENCE))
         return {"loss": loss}
 
     return eval_step

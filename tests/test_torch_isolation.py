@@ -39,7 +39,8 @@ def test_no_source_file_imports_jax_or_the_reference():
 def test_port_imports_with_jax_blocked():
     """Import the serving and training entry points, the ResNet path's,
     the data-parallel path's (the two-tier sync's slice split, striping
-    and sync among them), the ViT path's, the checkpoint and
+    and sync among them), the sharded paths' (the mesh, the placement
+    rules and layout, ring attention and Ulysses), the ViT path's, the checkpoint and
     resilience modules (the skip gate and recovery among them) and the
     device caches in a fresh
     interpreter where importing jax, flax or the JAX package fails."""
@@ -77,6 +78,10 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.comm.striping\n"
         "import pytorch_distributed_training_tpu_torch.comm.hierarchical\n"
         "import pytorch_distributed_training_tpu_torch.parallel.sharding\n"
+        "import pytorch_distributed_training_tpu_torch.parallel.sharded\n"
+        "import pytorch_distributed_training_tpu_torch.parallel."
+        "ring_attention\n"
+        "import pytorch_distributed_training_tpu_torch.parallel.ulysses\n"
         "import pytorch_distributed_training_tpu_torch.utils.seeding\n"
         "import pytorch_distributed_training_tpu_torch.tools.dp_check\n"
         "import pytorch_distributed_training_tpu_torch.models.vit\n"

@@ -16,6 +16,9 @@ Run as a script, this file is one rank of a gloo group on the CPU:
     python tests/torch_dp_worker.py slices OUT      # split_slice_groups
     python tests/torch_dp_worker.py bucket_sync OUT  # GradSync._sync_buckets
     python tests/torch_dp_worker.py grad_sync_steps OUT  # --grad-sync steps
+    python tests/torch_dp_worker.py sharded OUT     # FSDP/TP/ZeRO-1/SP (4)
+    python tests/torch_dp_worker.py sharded2 OUT    # the same at 2, ckpts
+    python tests/torch_dp_worker.py sp_attention OUT  # ring, Ulysses
 
 Each rank writes ``OUT/rank<r>.npz``; the tests compare them with the
 one-process results on the concatenated batch.
@@ -496,6 +499,361 @@ def _residual_resilience(rank: int, world: int, group, out: str) -> dict:
     return res
 
 
+# --- sharded training (tests/test_torch_parallel.py) -------------------------
+
+TINY4 = dict(vocab_size=128, max_seq_len=32, num_layers=2, num_heads=4,
+             hidden_dim=64)
+SHARD_SEQ, SHARD_BATCH, SHARD_STEPS, SHARD_ACCUM, SHARD_LR = 32, 8, 2, 2, 3e-4
+CLIP = 1e-3   # fires at the tiny model's gradient norm (~1)
+# label -> (mesh sizes, options).  "min1": the rules at min_fsdp_size 1,
+# as JAX's own FSDP and ZeRO-1 tests set them, so the tiny leaves shard.
+SHARDED_CASES = {
+    "fsdp4": (dict(fsdp=4), dict(min1=True)),
+    "data2_fsdp2": (dict(fsdp=2), dict(min1=True)),
+    "tp2": (dict(tensor=2), {}),
+    "tp4": (dict(tensor=4), {}),
+    "fsdp2_tp2": (dict(fsdp=2, tensor=2), dict(min1=True)),
+    "zero1": (dict(), dict(zero1=True, min1=True)),
+    "zero1_hier": (dict(), dict(zero1=True, min1=True, sync="hier")),
+    "zero1_hier_int8": (dict(), dict(zero1=True, min1=True,
+                                     sync="hier-int8")),
+    "ring2": (dict(sequence=2), {}),
+    "ulysses2": (dict(sequence=2), dict(mode="ulysses")),
+    "ring4": (dict(sequence=4), {}),
+    "ring2_tp2": (dict(sequence=2, tensor=2), {}),
+    "ulysses2_tp2": (dict(sequence=2, tensor=2), dict(mode="ulysses")),
+    "ring2_chunk": (dict(sequence=2), dict(chunk=8)),
+    "clip_fsdp2": (dict(fsdp=2), dict(min1=True, clip=CLIP)),
+    "clip_tp2": (dict(tensor=2), dict(clip=CLIP)),
+}
+SHARDED2_CASES = {
+    "fsdp2": (dict(fsdp=2), dict(min1=True)),
+    "tp2": (dict(tensor=2), {}),
+    "ulysses2": (dict(sequence=2), dict(mode="ulysses")),
+}
+
+
+def shard_tokens() -> np.ndarray:
+    """The parity runs' global batches: SHARD_STEPS x (8, 32) tokens."""
+    rng = np.random.default_rng(11)
+    return rng.integers(0, 128, (SHARD_STEPS, SHARD_BATCH, SHARD_SEQ),
+                        np.int32)
+
+
+def _sharded_state(init: dict, mesh_sizes: dict, opts: dict, *,
+                   dropout: float = 0.0, world: int = 4):
+    """A tiny GPT-2 from ``init`` on the mesh of ``mesh_sizes``, its
+    layout's rules as the CLI picks them, and the step's options."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        build_optimizer,
+    )
+    from pytorch_distributed_training_tpu_torch.comm.mesh import (
+        MeshConfig, make_mesh,
+    )
+    from pytorch_distributed_training_tpu_torch.models import (
+        GPT2, GPT2Config,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        DDP_RULES, ZERO1_OPT_RULES, tp_rules_for,
+    )
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state,
+    )
+
+    model = GPT2(GPT2Config(**TINY4, dropout_rate=dropout))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in init.items()})
+    mesh = make_mesh(MeshConfig(data=-1, **mesh_sizes), world=world)
+    rules = (tp_rules_for("gpt2") if mesh.shape["fsdp"] > 1
+             or mesh.shape["tensor"] > 1 else DDP_RULES)
+    opt_rules = ZERO1_OPT_RULES if opts.get("zero1") else None
+    if opts.get("min1"):
+        rules = dataclasses.replace(rules, min_fsdp_size=1)
+        if opt_rules is not None:
+            opt_rules = dataclasses.replace(opt_rules, min_fsdp_size=1)
+    tx = build_optimizer("adamw", SHARD_LR, weight_decay=0.1,
+                         grad_clip=opts.get("clip"))
+    state = create_train_state(model, tx, mesh=mesh, rules=rules,
+                               opt_rules=opt_rules,
+                               sp_mode=opts.get("mode", "ring"))
+    return state, mesh
+
+
+def _sharded_run(label, mesh_sizes, opts, init, tokens, world, res,
+                 ckpt=None):
+    """One case: the probe, then SHARD_STEPS steps; rank 0 keeps the
+    gathered results, every rank its gate norm and state bytes."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.comm import GradSync
+    from pytorch_distributed_training_tpu_torch.comm import GradSyncConfig
+    from pytorch_distributed_training_tpu_torch.parallel.sharded import (
+        state_bytes,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        shard_batch,
+    )
+    from pytorch_distributed_training_tpu_torch.resilience import (
+        AnomalyPolicy, init_resilience_state,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+    from pytorch_distributed_training_tpu_torch.train import (
+        make_policy, make_train_step,
+    )
+
+    state, mesh = _sharded_state(init, mesh_sizes, opts, world=world)
+    sync = None
+    if opts.get("sync"):
+        sync = GradSync(None if world == 1 else
+                        torch.distributed.group.WORLD, state.params,
+                        GradSyncConfig(mode=opts["sync"], n_slices=2,
+                                       zero1=True, bucket_mb=0.002))
+        state = dataclasses.replace(state,
+                                    grad_sync_residual=sync.init_residual())
+    gate = AnomalyPolicy() if opts.get("clip") else None
+    if gate is not None:
+        state = dataclasses.replace(state,
+                                    resilience=init_resilience_state("cpu"))
+    step = make_train_step(kind="lm", num_microbatches=SHARD_ACCUM,
+                           lm_loss_chunk=opts.get("chunk"),
+                           grad_sync=sync, anomaly_policy=gate,
+                           state_shardings=state.shardings)
+    res[f"{label}/bytes"] = np.array(state_bytes(state))
+    losses, norms = [], []
+    for i, b in enumerate(tokens):
+        local = shard_batch({"tokens": torch.from_numpy(b).long()}, mesh,
+                            num_microbatches=SHARD_ACCUM)
+        if i == 0:
+            probe = dp_check.probe("gpt2", state, local,
+                                   policy=make_policy("f32"),
+                                   accum=SHARD_ACCUM)
+            for k, v in probe.items():
+                res[f"{label}/probe/{k}"] = v
+        state, m = step(state, local)
+        losses.append(float(m["loss"]))
+        if gate is not None:
+            norms.append(float(m["grad_norm"]))
+        if ckpt is not None and state.step == 1:
+            ckpt(state)
+    res[f"{label}/loss"] = np.array(losses)
+    if norms:
+        res[f"{label}/grad_norm"] = np.array(norms)
+    for k, v in dp_check.whole(state).items():
+        res[f"{label}/p/{k}"] = v.detach().numpy()
+    return state, mesh
+
+
+def _sharded(rank: int, world: int, group, out: str, cases: dict) -> dict:
+    init = dict(np.load(os.path.join(out, "init.npz")))
+    tokens = shard_tokens()
+    res: dict = {}
+    for label, (mesh_sizes, opts) in cases.items():
+        _sharded_run(label, mesh_sizes, opts, init, tokens, world, res)
+    if world == 4:
+        res.update(_dropout_tp(init, tokens))
+        res.update(_image_fsdp_tp(rank, world, out))
+    else:
+        res.update(_ckpt_layouts(init, tokens, world, out))
+    return res
+
+
+def _dropout_tp(init, tokens) -> dict:
+    """GPT-2 with dropout 0.1 under tensor 2: each rank's replicated
+    leaves after the steps (the ranks of a tensor group must agree)."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        shard_batch,
+    )
+    from pytorch_distributed_training_tpu_torch.train import make_train_step
+
+    state, mesh = _sharded_state(init, dict(tensor=2), {}, dropout=0.1)
+    step = make_train_step(kind="lm", num_microbatches=SHARD_ACCUM, seed=5,
+                           state_shardings=state.shardings)
+    for b in tokens:
+        local = shard_batch({"tokens": torch.from_numpy(b).long()}, mesh,
+                            num_microbatches=SHARD_ACCUM)
+        state, m = step(state, local)
+    return {f"dropout/{n}": t.detach().numpy()
+            for n, t in state.params.items()
+            if not state.shardings.params[n].sharded}
+
+
+# The image runs' sizes: the ViT at 32 px (2 x 2 patches), as
+# test_torch_dp.py runs it; at 16 px its one patch and class token leave
+# the key projection a gradient near rounding noise, which Adam turns
+# into steps of up to lr.
+IMAGE_SIZE = {"resnet": 16, "vit": 32}
+
+
+def _image_fsdp_tp(rank: int, world: int, out: str) -> dict:
+    """The shallow ResNet under data 2 x fsdp 2 (min size 1: every conv
+    sharded) and the small ViT under tensor 2, 2 steps each from the
+    JAX package's weights (``OUT/<kind>_init.npz``), gathered, with the
+    one-process run beside them."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.comm.mesh import (
+        MeshConfig, make_mesh,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        FSDP_RULES, shard_batch, tp_rules_for,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_train_step,
+    )
+
+    res = {}
+    runs = {"resnet_fsdp": ("resnet", dict(fsdp=2),
+                            dataclasses.replace(FSDP_RULES, min_fsdp_size=1)),
+            "vit_tp2": ("vit", dict(tensor=2), tp_rules_for("vit_b16"))}
+    for label, (kind, sizes, rules) in runs.items():
+        size = IMAGE_SIZE[kind]
+        batches = dp_check.global_batches(kind, 2, 8, size, 3)
+        init = dict(np.load(os.path.join(out, f"{kind}_init.npz")))
+        for sharded in (False, True):
+            model = dp_check.build_model(kind, "cpu", init=init,
+                                         image_size=size)
+            tx = dp_check.optimizer(kind)
+            if sharded:
+                mesh = make_mesh(MeshConfig(data=-1, **sizes), world=world)
+                state = create_train_state(model, tx, mesh=mesh, rules=rules)
+                step = make_train_step(kind="image_classifier",
+                                       num_microbatches=2,
+                                       state_shardings=state.shardings)
+            else:
+                state = create_train_state(model, tx)
+                step = make_train_step(kind="image_classifier",
+                                       num_microbatches=2)
+            losses = []
+            for b in batches:
+                b = {k: torch.from_numpy(v) for k, v in b.items()}
+                if sharded:
+                    b = shard_batch(b, mesh, num_microbatches=2)
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+            tag = f"{label}/{'sharded' if sharded else 'one'}"
+            res[f"{tag}/loss"] = np.array(losses)
+            for k, v in dp_check.whole(state).items():
+                res[f"{tag}/p/{k}"] = v.detach().numpy()
+    return res
+
+
+def _ckpt_layouts(init, tokens, world, out) -> dict:
+    """Train 1 step under fsdp 2 and save; restore into fsdp 2, zero1 and
+    plain data-parallel templates and take step 2 in each."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        shard_batch,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+    from pytorch_distributed_training_tpu_torch.train import make_train_step
+
+    group = torch.distributed.group.WORLD
+    ckpt = os.path.join(out, "ckpt")
+    mgr = CheckpointManager(ckpt, process_group=group)
+    res: dict = {}
+    _sharded_run("ckpt_src", dict(fsdp=2), dict(min1=True), init, tokens,
+                 world, res, ckpt=lambda s: mgr.save(s, wait=True))
+    mgr.close()
+    for label, sizes, opts in (("fsdp2", dict(fsdp=2), dict(min1=True)),
+                               ("zero1", dict(), dict(zero1=True,
+                                                      min1=True)),
+                               ("dp", None, {})):
+        if sizes is None:
+            # Plain data parallelism: the replicated state, no layout.
+            from pytorch_distributed_training_tpu_torch.cli.main import (
+                build_optimizer,
+            )
+            from pytorch_distributed_training_tpu_torch.data.loader import (
+                rank_rows,
+            )
+            from pytorch_distributed_training_tpu_torch.models import (
+                GPT2, GPT2Config,
+            )
+            from pytorch_distributed_training_tpu_torch.train import (
+                create_train_state,
+            )
+
+            model = GPT2(GPT2Config(**TINY4))
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in init.items()})
+            state = create_train_state(model, build_optimizer(
+                "adamw", SHARD_LR, weight_decay=0.1), process_group=group)
+            step_kw = dict(process_group=group)
+            rank = torch.distributed.get_rank()
+            local = {"tokens": torch.from_numpy(rank_rows(
+                tokens[1], rank, world, SHARD_ACCUM)).long()}
+        else:
+            state, mesh = _sharded_state(init, sizes, opts, world=world)
+            local = shard_batch({"tokens": torch.from_numpy(
+                tokens[1]).long()}, mesh, num_microbatches=SHARD_ACCUM)
+            step_kw = dict(state_shardings=state.shardings)
+        state = CheckpointManager(ckpt, process_group=group).restore_latest(
+            state)
+        res[f"resume/{label}/step"] = np.array(state.step)
+        step = make_train_step(kind="lm", num_microbatches=SHARD_ACCUM,
+                               **step_kw)
+        state, m = step(state, local)
+        res[f"resume/{label}/loss"] = np.array(float(m["loss"]))
+        for k, v in dp_check.whole(state).items():
+            res[f"resume/{label}/p/{k}"] = v.detach().numpy()
+    return res
+
+
+SP_SHAPE = (2, 16, 4, 8)   # (B, L, H, D), L split over 4 sequence ranks
+
+
+def sp_inputs(seed: int = 4):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(SP_SHAPE).astype(np.float32)
+            for _ in range(4)]   # q, k, v, the cotangent
+
+
+def _sp_attention(rank: int, world: int, group) -> dict:
+    """Ring and Ulysses over a sequence axis of 4 (the world), causal and
+    not: each rank's output and q/k/v gradients, gathered whole."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.comm.mesh import (
+        MeshConfig, make_mesh,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel import (
+        configure_model, ring_self_attention, ulysses_attention,
+    )
+
+    mesh = make_mesh(MeshConfig(data=1, sequence=world), world=world)
+    par = configure_model(torch.nn.Module(), mesh)
+    ll = SP_SHAPE[1] // world
+    q, k, v, dy = (torch.from_numpy(x[:, rank * ll:(rank + 1) * ll].copy())
+                   for x in sp_inputs())
+    res = {}
+    for mode, fn in (("ring", ring_self_attention),
+                     ("ulysses", ulysses_attention)):
+        for causal in (False, True):
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            out = fn(qq, kk, vv, par, causal=causal)
+            grads = torch.autograd.grad(out, (qq, kk, vv), dy)
+            for name, t in (("out", out), ("dq", grads[0]),
+                            ("dk", grads[1]), ("dv", grads[2])):
+                res[f"{mode}/{causal}/{name}"] = collectives.all_gather(
+                    t.detach().contiguous(), group, gather_axis=1).numpy()
+    return res
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
@@ -511,7 +869,10 @@ def main() -> int:
                  "restore_error": lambda *a: _restore_error(*a, out),
                  "cache_rows": cache_rows, "collectives4": _collectives4,
                  "slices": _slices, "bucket_sync": _bucket_sync,
-                 "grad_sync_steps": lambda *a: _grad_sync_steps(*a, out)}
+                 "grad_sync_steps": lambda *a: _grad_sync_steps(*a, out),
+                 "sharded": lambda *a: _sharded(*a, out, SHARDED_CASES),
+                 "sharded2": lambda *a: _sharded(*a, out, SHARDED2_CASES),
+                 "sp_attention": _sp_attention}
         res = tasks[task](rank, world, group)
         os.makedirs(out, exist_ok=True)
         np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
