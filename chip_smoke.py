@@ -107,7 +107,24 @@ the port's main paths:
   the ``--fsdp 4`` run's step-2 checkpoint resumed under ``--zero1`` at
   world 2 (its step-3 checkpoint within ``M1_STATE_BOUND`` of the
   uninterrupted run's) and under ``--fsdp 4`` (bitwise).  The flash check also holds
-  the kernels at the heads a rank holds there (H 6, H 3).
+  the kernels at the heads a rank holds there (H 6, H 3);
+- pipeline parallelism (``--pipeline-parallel``), 4 ranks of one
+  ``torch.distributed.run`` on the one card over gloo (``--pipeline-leg``):
+  P0 every schedule (gpipe, 1f1b, interleaved) at PP 4 and PP 2 x data
+  2, ``--pp-compress`` bf16 and int8 under each, stripe 2, and PP 2 x
+  fsdp 2, x TP 2 and x ring SP 2 on the JAX package's pipeline-test
+  GPT-2, f32 with TF32 off, against one process (loss, every gradient
+  and 3 steps at the JAX tests' tolerances; the compressed runs within
+  JAX's band; stripe 2 bitwise stripe 1); P1 T1's recipe through the
+  CLI in the same torchrun, flat, then PP 4 with 8 microbatches under
+  gpipe, gpipe ``--remat``, 1f1b, interleaved (3 chunks) and 1f1b
+  ``--pp-compress int8``, PP 2 x data 2 1f1b, and flat again: step-3
+  losses within ``P1_LOSS_BOUND`` of flat's, step-3 checkpoints within
+  ``M1_STATE_BOUND`` of flat's, flash #4/#5 counted exactly, state
+  bytes, peak memory and step times a rank; P2 the 1f1b run's step-2
+  checkpoint resumed under PP 4 (bitwise), PP 2 x data 2 and flat at
+  world 1 (step-3 losses and checkpoints held to the 1f1b run's).  The flash check holds the kernels at the
+  pipeline's microbatch (B 2, H 12).
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -159,7 +176,9 @@ PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # The flash kernels at the heads a rank holds under the sharded paths:
 # label -> (batch, length, heads), causal bf16.
 SHARDED_FLASH = {"H6 (TP 2 / Ulysses 2, M1)": (4, 1024, 6),
-                 "H3 (TP 4)": (8, 1024, 3)}
+                 "H3 (TP 4)": (8, 1024, 3),
+                 # The pipeline's microbatch (P1: 16 rows in 8).
+                 "B2 H12 (PP 4 x 8 microbatches, P1)": (2, 1024, 12)}
 # The serving shapes of GPT-2 124M: 8 slots, 12 heads, 1024 positions,
 # head dim 64; one index per row, sentinel (1024) included.
 B, H, L, DH = 8, 12, 1024, 64
@@ -1550,11 +1569,7 @@ def cli_leg(out: str, argv: list) -> int:
     plain attention calls (which must be none) and the calls of the
     collectives ``psum`` and ``pmean`` (each ``pmean`` makes one ``psum``;
     the rest are sync-BN's); exits with the CLI's code (75 when it was
-    preempted).  Under ``CHIP_SMOKE_SHARDED=1`` (the sharded phase's M1
-    and M2) the rank joins a gloo group first (several ranks on the one
-    card, NCCL taking one a card), and OUT also gets each step's loss and
-    time (the card synchronized around the step alone), this rank's
-    bytes of parameters and optimizer slots and its peak memory."""
+    preempted)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1562,10 +1577,6 @@ def cli_leg(out: str, argv: list) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.comm import collectives
-    from pytorch_distributed_training_tpu_torch.comm import init as comm_init
-    from pytorch_distributed_training_tpu_torch.parallel.sharded import (
-        state_bytes,
-    )
     from pytorch_distributed_training_tpu_torch.ops import attention as attn
     from pytorch_distributed_training_tpu_torch.ops import (
         flash_attention as fa,
@@ -1581,31 +1592,15 @@ def cli_leg(out: str, argv: list) -> int:
     for e in entries:
         e.launches = 0
     out = out.replace("{rank}", os.environ.get("RANK", "0"))
-    record: dict = {}
-    original = None
-    if os.environ.get("CHIP_SMOKE_SHARDED") == "1":
-        comm_init.initialize(torch.device("cuda", 0), backend="gloo")
-        record = {"losses": [], "step_s": []}
-        original = _timed_steps(torch, record)
-        torch.cuda.reset_peak_memory_stats()
     code, steps = 0, None
     try:
-        trainer = cli(argv)
-        steps = trainer.state.step
-        if record:
-            record.update(state_bytes=state_bytes(trainer.state),
-                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        steps = cli(argv).state.step
     except SystemExit as e:      # the preemption exit (75)
         code = e.code
-    finally:
-        if original is not None:
-            import pytorch_distributed_training_tpu_torch.train as train
-
-            train.make_train_step = original
     with open(out, "w") as f:
         json.dump({"fwd": entries[0].launches, "dq": entries[1].launches,
                    "dkv": entries[2].launches, "plain": plain, "xla": xla,
-                   "comm": comm, "steps": steps, **record}, f)
+                   "comm": comm, "steps": steps}, f)
     return code
 
 
@@ -3582,62 +3577,50 @@ def _m1_argv(extra: list) -> list:
             "3", *extra]
 
 
-def _m1_start(repo: str, label: str, nproc: int, extra: list):
-    """Start one CLI run of ``nproc`` gloo ranks on the card, each a
-    counted ``--cli-leg`` with its steps recorded (``_m1_wait`` reads the
-    ranks' JSON)."""
-    script = os.path.join(repo, "chip_smoke.py")
-    outs = [os.path.join(SH, f"{label}.rank{r}.json") for r in range(nproc)]
-    logs = os.path.join(SH, f"{label}_logs")
-    argv = [script, "--cli-leg", os.path.join(SH, f"{label}.rank{{rank}}"
-                                                  ".json"),
-            *_m1_argv(extra)]
-    env = dict(os.environ, CHIP_SMOKE_SHARDED="1")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(nproc), "--log-dir", logs, "--tee", "3",
-         *argv], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, start_new_session=True, env=env)
-    return proc, outs, argv, logs
-
-
-def _m1_wait(run, timeout: float, what: str) -> list:
-    proc, outs, argv, logs = run
-    try:
-        wait_ranks(proc, argv, timeout, logs, what)
-    finally:
-        torchrun_kill(proc)
-    ranks = []
-    for path in outs:
-        with open(path) as f:
-            ranks.append(json.load(f))
-    return ranks
-
-
-def _state_distance(ref: str, other: str, what: str) -> tuple:
-    """The step-3 checkpoint in ``other`` against ``ref``'s (gathered
-    whole, the same names in every layout): ``(w, worst, name)``, the
-    parameters' L2 distance over ``ref``'s step-3 update (step 2 to 3)
-    and the worst Adam slot leaf's relative L2 distance, with its name
-    (``_check_distance`` holds them to ``M1_STATE_BOUND``)."""
+def _ref_steps(ref: str) -> tuple:
+    """``ref``'s committed steps 3 and 2 (``_state_distance``'s
+    reference, loaded once for every run held to it)."""
     from pytorch_distributed_training_tpu_torch.checkpoint import (
         CheckpointManager,
     )
 
     mgr = CheckpointManager(ref)
-    a3, a2 = mgr.load_tensors(3), mgr.load_tensors(2)
-    b3 = CheckpointManager(other).load_tensors(3)
+    return mgr.load_tensors(3), mgr.load_tensors(2)
+
+
+def _state_distance(ref: tuple, other: str, what: str) -> tuple:
+    """The step-3 checkpoint in ``other`` against the reference's
+    (``_ref_steps``; gathered whole, a pipelined GPT-2's stage tensors
+    merged and split into the reference's layout):
+    ``(w, worst, name)``, the parameters' L2 distance over the
+    reference's step-3 update (step 2 to 3) and the worst Adam slot
+    leaf's relative L2 distance, with its name (``_check_distance`` holds
+    them to ``M1_STATE_BOUND``)."""
+    from pytorch_distributed_training_tpu_torch.checkpoint import (
+        CheckpointManager,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.gpt2_pipeline \
+        import relayout_checkpoint
+
+    a3, a2 = ref
+    b3 = relayout_checkpoint(CheckpointManager(other).load_tensors(3), {
+        k: tuple(v.shape) for k, v in a3.items()})
     check(a3.keys() == b3.keys(), f"{what}: the step-3 checkpoint holds "
           f"the reference's tensors ({sorted(a3.keys() ^ b3.keys())[:4]})")
+    import torch
+
+    # The f64 sums on the card when there is one: a GPT-2 124M state is
+    # 1.5 GB of f32.
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
     dist = step = 0.0
     worst, worst_name = 0.0, None
     for k, y in a3.items():
         if not y.is_floating_point() or y.dim() == 0:
             continue
-        y, x = y.double(), b3[k].double()
+        y, x = y.to(dev, torch.float64), b3[k].to(dev, torch.float64)
         if k.startswith("params/"):
             dist += float((x - y).square().sum())
-            step += float((y - a2[k].double()).square().sum())
+            step += float((y - a2[k].to(dev, torch.float64)).square().sum())
         elif k.startswith("opt_state/") and float(y.norm()) > 0:
             rel = float((x - y).norm() / y.norm())
             if rel >= worst:
@@ -3667,8 +3650,11 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
     state bytes within 10 % of ``M1_STATE_GB``, peak memory and step time
     printed, flash #4/#5 counted.  M2: M1's ``--fsdp 4`` checkpoint of
     step 2 resumed under ``--zero1`` at world 2 (loss and step-3
-    checkpoint within the bounds) and under ``--fsdp 4`` (bitwise).  Its times are gloo's on one card.  Returns the flash
-    launches by row."""
+    checkpoint within the bounds) and under ``--fsdp 4`` (bitwise).  M1's
+    runs and M2's ``--fsdp 4`` resume run one after another in one
+    torchrun, M2's ``--zero1`` resume in a torchrun of 2 (``cli_runs``
+    both).  Its times are gloo's on one card.  Returns
+    the flash launches by row."""
     import shutil
     import statistics as st
 
@@ -3691,16 +3677,31 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
     ckpts = {label: os.path.join(SH, f"m1_{label}_ckpt")
              for label, _ in M1_RUNS}
     ckpt = ckpts["fsdp4"]
+    # M1's runs and M2's --fsdp 4 resume in one 4-rank torchrun, one
+    # after another (``cli_runs``); every run commits step 3 (the epoch's
+    # end), flat and fsdp 4 step 2 too, the references' step-3 update and
+    # M2's start.
+    spec = [dict(label=label, argv=_m1_argv(
+        extra + ["--checkpoint-dir", ckpts[label]]
+        + (["--ckpt-every-steps", "2"] if label in ("flat", "fsdp4")
+           else []))) for label, extra in M1_RUNS]
+    m2_fsdp4 = os.path.join(SH, "m2_fsdp4_ckpt")
+    spec.append(dict(label="m2_fsdp4", copy=[ckpt, 2, m2_fsdp4],
+                     argv=_m1_argv(["--fsdp", "4", "--checkpoint-dir",
+                                    m2_fsdp4, "--resume"])))
+    spec_path = os.path.join(SH, "m1.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    m1_logs = os.path.join(SH, "m1_logs")
+    m1_argv = [script, "--cli-runs-leg", SH, spec_path]
+    proc = torchrun_logged(repo, 4, m1_argv, m1_logs)
+    try:
+        wait_ranks(proc, m1_argv, 600, m1_logs, "M1")
+    finally:
+        torchrun_kill(proc)
     runs, fwd, bwd = {}, 0, 0
     for label, extra in M1_RUNS:
-        t1 = time.monotonic()
-        # Every run commits step 3 (the epoch's end); flat and fsdp 4
-        # step 2 too, the references' step-3 update and M2's start.
-        extra = extra + ["--checkpoint-dir", ckpts[label]]
-        if label in ("flat", "fsdp4"):
-            extra = extra + ["--ckpt-every-steps", "2"]
-        ranks = _m1_wait(_m1_start(repo, label, 4, extra), 300,
-                         f"M1 {label}")
+        ranks = _run_ranks(SH, label)
         losses = ranks[0]["losses"]
         check(len(losses) == 3 and _finite(losses)
               and 10.0 <= losses[0] <= 12.0
@@ -3731,17 +3732,19 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
               f"memory by rank {[round(x['peak_mem_gb'], 2) for x in ranks]}"
               f" GB; step (median of steps 2-3, by rank) "
               f"{[round(x, 1) for x in step_ms]} ms; flash fwd/dq/dkv 72 "
-              f"each a rank; {time.monotonic() - t1:.1f} s", flush=True)
+              f"each a rank; {ranks[0]['seconds']:.1f} s", flush=True)
     flat = runs["flat"][0]["losses"]
     parts, held = [], []
+    flat_ref = _ref_steps(ckpts["flat"])
     for label, ranks in runs.items():
         if label == "flat":
             continue
         d1 = abs(ranks[0]["losses"][0] - flat[0])
         d3 = abs(ranks[0]["losses"][2] - flat[2])
-        dist = _state_distance(ckpts["flat"], ckpts[label], f"M1 {label}")
+        dist = _state_distance(flat_ref, ckpts[label], f"M1 {label}")
         parts.append(f"{label} {d1:.3g} / {d3:.3g}, {_distance_text(dist)}")
         held.append((label, d1, d3, dist))
+    del flat_ref
     ratio = runs["fsdp4"][0]["state_bytes"] / runs["flat"][0]["state_bytes"]
     print(f"sharded M1: step-1 / step-3 loss vs flat (bound "
           f"{M1_LOSS_BOUND}), step-3 checkpoint vs flat's (bound "
@@ -3757,18 +3760,21 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
     check(ratio <= 0.30, f"M1: fsdp 4 state {ratio:.3f} of flat's (<= 0.30)")
 
     t2 = time.monotonic()
-    legs = {}
-    for label, nproc, extra in (("m2_zero1", 2, ["--zero1"]),
-                                ("m2_fsdp4", 4, ["--fsdp", "4"])):
-        directory = os.path.join(SH, label + "_ckpt")
-        os.makedirs(directory)
-        shutil.copytree(os.path.join(ckpt, "2"), os.path.join(directory,
-                                                             "2"))
-        shutil.copy(os.path.join(ckpt, "manifest-2.json"), directory)
-        legs[label] = (_m1_start(repo, label, nproc, extra + [
-            "--checkpoint-dir", directory, "--resume"]), directory)
-    m2 = {label: _m1_wait(run, 300, f"M2 {label}")
-          for label, (run, _) in legs.items()}
+    directory = os.path.join(SH, "m2_zero1_ckpt")
+    m2_spec = os.path.join(SH, "m2.json")
+    with open(m2_spec, "w") as f:
+        json.dump([dict(label="m2_zero1", copy=[ckpt, 2, directory],
+                        argv=_m1_argv(["--zero1", "--checkpoint-dir",
+                                       directory, "--resume"]))], f)
+    m2_logs = os.path.join(SH, "m2_logs")
+    m2_argv = [script, "--cli-runs-leg", SH, m2_spec]
+    proc = torchrun_logged(repo, 2, m2_argv, m2_logs)
+    try:
+        wait_ranks(proc, m2_argv, 300, m2_logs, "M2 zero1")
+    finally:
+        torchrun_kill(proc)
+    m2 = {"m2_zero1": _run_ranks(SH, "m2_zero1", 2),
+          "m2_fsdp4": _run_ranks(SH, "m2_fsdp4")}
     src = runs["fsdp4"][0]["losses"][2]
     for label, ranks in m2.items():
         check(all(x["steps"] == 3 and len(x["losses"]) == 1 for x in ranks),
@@ -3780,7 +3786,7 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
             fwd += x["fwd"]
             bwd += x["dq"] + x["dkv"]
     d_zero1 = abs(m2["m2_zero1"][0]["losses"][0] - src)
-    m2_dist = _state_distance(ckpt, legs["m2_zero1"][1], "M2 zero1")
+    m2_dist = _state_distance(_ref_steps(ckpt), directory, "M2 zero1")
     print(f"sharded M2 (M1's --fsdp 4 checkpoint of step 2): resumed under "
           f"--zero1 at world 2, step-3 loss {m2['m2_zero1'][0]['losses'][0]}"
           f" vs {src} ({d_zero1:.3g}, bound {M1_LOSS_BOUND}), step-3 "
@@ -3794,10 +3800,622 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
           f"bound {M1_LOSS_BOUND})")
     _check_distance(m2_dist, "M2 zero1")
     same = m2["m2_fsdp4"][0]["losses"][0] == src
-    check(same and _leaves(legs["m2_fsdp4"][1], 3) == _leaves(ckpt, 3),
+    check(same and _leaves(m2_fsdp4, 3) == _leaves(ckpt, 3),
           "M2: --fsdp 4 resumed under --fsdp 4 bitwise the uninterrupted "
           "run (step-3 loss and step-3 checkpoint)")
     shutil.rmtree(SH, ignore_errors=True)
+    return {4: fwd, 5: bwd}
+
+
+# The pipeline phase: P0 parity of each pipelined layout against
+# one process, P1 T1's recipe through the CLI under the three schedules,
+# P2 a PP 4 checkpoint resumed in other layouts.
+PP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke", "pipeline")
+# JAX's pipeline-test GPT-2 (tests/test_pipeline.py:99-100), 8 layers for
+# interleaved at PP 4 (4 stages x 2 chunks).
+P0_CFG = dict(vocab_size=128, max_seq_len=32, num_layers=4, num_heads=4,
+              hidden_dim=32)
+P0_BATCH, P0_SEQ, P0_MICRO, P0_LR, P0_STEPS = 8, 32, 4, 1e-3, 3
+# (label, schedule, stages, chunks, layers, --pp-compress, stripe, the
+# other mesh axes, width); data takes the rest of the 4 ranks.  PP x FSDP
+# runs at JAX's width for it (tests/test_pipeline.py's 256), where the big
+# kernels reach MIN_FSDP_SIZE.
+P0_RUNS = [
+    ("gpipe_pp4", "gpipe", 4, 1, 4, "none", 1, {}, 32),
+    ("1f1b_pp4", "1f1b", 4, 1, 4, "none", 1, {}, 32),
+    ("interleaved_pp4", "interleaved", 4, 2, 8, "none", 1, {}, 32),
+    ("gpipe_pp2d2", "gpipe", 2, 1, 4, "none", 1, {}, 32),
+    ("1f1b_pp2d2", "1f1b", 2, 1, 4, "none", 1, {}, 32),
+    ("interleaved_pp2d2", "interleaved", 2, 2, 4, "none", 1, {}, 32),
+    *[(f"{s}_{m}", s, 2, 2 if s == "interleaved" else 1, 4, m, 1, {}, 32)
+      for s in ("gpipe", "1f1b", "interleaved") for m in ("bf16", "int8")],
+    *[(f"{s}_int8_stripe2", s, 2, 2 if s == "interleaved" else 1, 4,
+       "int8", 2, {}, 32) for s in ("gpipe", "1f1b", "interleaved")],
+    *[(f"{s}_pp2_fsdp2", s, 2, 1, 4, "none", 1, {"fsdp": 2}, 256)
+      for s in ("gpipe", "1f1b")],
+    *[(f"{s}_pp2_tp2", s, 2, 1, 4, "none", 1, {"tensor": 2}, 32)
+      for s in ("gpipe", "1f1b")],
+    ("gpipe_pp2_ring2", "gpipe", 2, 1, 4, "none", 1, {"sequence": 2}, 32),
+]
+# JAX's tolerances (tests/test_pipeline.py): loss, gradients, three steps;
+# the compressed runs within JAX's int8 / bf16 band of the uncompressed
+# step (test_pp_compress_int8_matches_uncompressed).
+P0_LOSS_RTOL, P0_GRAD_TOL, P0_BAND = 1e-5, (2e-4, 1e-5), 5e-3
+# P1: T1's recipe (no accumulation: the pipeline owns microbatching).
+P1_RUNS = [
+    ("flat", ["--accum-steps", "2", "--ckpt-every-steps", "2"]),
+    ("gpipe", ["--pipeline-parallel", "4", "--pipeline-microbatches", "8"]),
+    ("gpipe_remat", ["--pipeline-parallel", "4",
+                     "--pipeline-microbatches", "8", "--remat"]),
+    ("1f1b", ["--pipeline-parallel", "4", "--pipeline-microbatches", "8",
+              "--pipeline-schedule", "1f1b", "--ckpt-every-steps", "2"]),
+    ("interleaved", ["--pipeline-parallel", "4", "--pipeline-microbatches",
+                     "8", "--pipeline-schedule", "interleaved",
+                     "--pipeline-chunks", "3"]),
+    ("1f1b_int8", ["--pipeline-parallel", "4", "--pipeline-microbatches",
+                   "8", "--pipeline-schedule", "1f1b", "--pp-compress",
+                   "int8"]),
+    ("1f1b_pp2d2", ["--pipeline-parallel", "2", "--pipeline-schedule",
+                    "1f1b"]),
+    ("flat_again", ["--accum-steps", "2"]),
+]
+# Flash launches a rank over 3 steps: (fwd, dq = dkv).  GPipe runs its
+# stage's layers on the M ticks that carry a microbatch (a bubble tick
+# passes its arrival on) and backpropagates them (remat: the forward
+# again); 1F1B runs each microbatch's forward twice (the tick and the
+# recompute) and its backward once.
+P1_FLASH = {"flat": (72, 72), "gpipe": (72, 72), "gpipe_remat": (144, 72),
+            "1f1b": (144, 72), "interleaved": (144, 72),
+            "1f1b_int8": (144, 72), "1f1b_pp2d2": (144, 72),
+            "flat_again": (72, 72), "resume_pp4": (48, 24),
+            "resume_pp2d2": (48, 24)}
+P1_LOSS_BOUND = 0.02          # M1's
+P1_TOKENS = 16 * 1024         # a step's global tokens
+
+
+def _p0_model(torch, seed: int, layers: int, width: int):
+    from pytorch_distributed_training_tpu_torch.models import (
+        GPT2, GPT2Config,
+    )
+
+    model = GPT2(GPT2Config(**{**P0_CFG, "num_layers": layers,
+                               "hidden_dim": width}), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def _p0_batches(seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed + 1).integers(
+        0, 128, (P0_STEPS, P0_BATCH, P0_SEQ))
+
+
+def _p0_references(torch, seed: int) -> dict:
+    """One process on the card (f32, TF32 off) for each depth: the first
+    batch's loss and gradients, and three adamw steps of 4 microbatches
+    (losses, whole weights)."""
+    from pytorch_distributed_training_tpu_torch.ops.losses import (
+        cross_entropy_loss,
+    )
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_train_step, optim,
+    )
+
+    batches = _p0_batches(seed)
+    refs = {}
+    for layers, width in sorted({(r[4], r[8]) for r in P0_RUNS}):
+        model = _p0_model(torch, seed, layers, width)
+        params = dict(model.named_parameters())
+        t0 = torch.from_numpy(batches[0]).cuda()
+        logits = torch.func.functional_call(model, params, (t0,))
+        loss = cross_entropy_loss(logits[:, :-1], t0[:, 1:])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        init = {n: p.detach().cpu().numpy().copy()
+                for n, p in params.items()}
+        state = create_train_state(model, optim.adamw(P0_LR,
+                                                      weight_decay=0.1))
+        step = make_train_step(kind="lm", num_microbatches=P0_MICRO)
+        losses = []
+        for b in batches:
+            state, m = step(state, {"tokens": torch.from_numpy(b).cuda()})
+            losses.append(float(m["loss"]))
+        refs[layers, width] = dict(
+            loss=float(loss.detach()), losses=losses, init=init,
+            grads={n: g.cpu().numpy() for n, g in zip(params, grads)},
+            params={n: p.detach().cpu().numpy()
+                    for n, p in state.params.items()})
+    return refs
+
+
+def _p0_leg(torch, seed: int, out: str, rank: int) -> None:
+    """P0 on this rank: every run of ``P0_RUNS`` (the first batch's loss
+    and gradients, then three steps), rank 0 writing the whole gradients
+    and weights under the plain model's names."""
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.comm.mesh import (
+        MeshConfig, make_mesh,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.gpt2_pipeline import (
+        PipelinedGPT2, make_pipeline_grad_fn, to_plain,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        shard_batch,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_train_step, optim,
+    )
+
+    batches = _p0_batches(seed)
+    for label, sched, S, V, layers, mode, stripe, axes, width in P0_RUNS:
+        plain = _p0_model(torch, seed, layers, width)
+        mesh = make_mesh(MeshConfig(data=-1, pipeline=S, **axes), world=4)
+        pp = PipelinedGPT2(plain.cfg, mesh, num_microbatches=P0_MICRO,
+                           schedule=sched, num_chunks=V, pp_compress=mode,
+                           pp_stripe=stripe, device="cuda")
+        pp.load_plain(dict(plain.named_parameters()))
+        state = create_train_state(pp, optim.adamw(P0_LR, weight_decay=0.1),
+                                   mesh=mesh, rules=pp.rules())
+
+        def local(b):
+            return shard_batch({"tokens": torch.from_numpy(b).cuda()}, mesh,
+                               num_microbatches=P0_MICRO)
+
+        loss, grads = pp.value_and_grad(state.params,
+                                        local(batches[0])["tokens"])
+        grads = to_plain({n: state.shardings.gather_full(f"params/{n}", g)
+                          for n, g in grads.items()})
+        step = make_train_step(kind="lm", grad_fn=make_pipeline_grad_fn(pp))
+        losses, sums = [], []
+        for b in batches:
+            state, m = step(state, local(b))
+            losses.append(float(m["loss"]))
+            sums.append(dp_check.checksum(state))
+        params = to_plain(dp_check.whole(state))
+        with open(os.path.join(out, f"{label}.rank{rank}.json"), "w") as f:
+            json.dump({"loss": float(loss), "losses": losses,
+                       "checksums": sums}, f)
+        if rank == 0:
+            np.savez(os.path.join(out, f"{label}.npz"), **{
+                **{f"g/{k}": v.cpu().numpy() for k, v in grads.items()},
+                **{f"p/{k}": v.detach().cpu().numpy()
+                   for k, v in params.items()}})
+
+
+def cli_runs(torch, out: str, runs: list, rank: int) -> None:
+    """Several CLI legs in turn in this rank's process, the gloo group it
+    joined kept across them (the CLI's own shutdown held off): the
+    records ``cli_leg`` writes, one ``OUT/<label>.rank<r>.json`` a run
+    (flash launches, plain calls, collectives, the steps' losses and
+    times with the card synchronized around each, state bytes, peak
+    memory, the run's seconds).  ``runs``: ``{"label", "argv", "copy"}``,
+    ``copy`` a ``[directory, step, target]`` whose committed step rank 0
+    copies into ``target`` before the run (a resume).  One process start
+    and one CUDA context for all of them."""
+    import gc
+    import shutil
+
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.comm import init as comm_init
+    from pytorch_distributed_training_tpu_torch.ops import attention as attn
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.sharded import (
+        state_bytes,
+    )
+    import pytorch_distributed_training_tpu_torch.train as train
+
+    entries = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plain = {"flash_fwd_plain": 0, "_bwd_tiles": 0, "flash_bwd_plain": 0}
+    xla = {"_xla_attention": 0, "_xla_attention_remat": 0}
+    comm = {"psum": 0, "pmean": 0}
+    _count_calls(fa, list(plain), plain)
+    _count_calls(attn, list(xla), xla)
+    _count_calls(collectives, list(comm), comm)
+    shutdown, comm_init.shutdown = comm_init.shutdown, lambda: None
+    original = train.make_train_step
+    try:
+        for run in runs:
+            if run.get("copy") and rank == 0:
+                src, step, target = run["copy"]
+                shutil.rmtree(target, ignore_errors=True)
+                os.makedirs(target)
+                shutil.copytree(os.path.join(src, str(step)),
+                                os.path.join(target, str(step)))
+                shutil.copy(os.path.join(src, f"manifest-{step}.json"),
+                            target)
+            collectives.barrier()
+            for e in entries:
+                e.launches = 0
+            for d in (plain, xla, comm):
+                d.update({k: 0 for k in d})
+            record = {"losses": [], "step_s": []}
+            _timed_steps(torch, record)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            trainer = cli(run["argv"])
+            record.update(
+                steps=trainer.state.step, fwd=entries[0].launches,
+                dq=entries[1].launches, dkv=entries[2].launches,
+                plain=dict(plain), xla=dict(xla), comm=dict(comm),
+                state_bytes=state_bytes(trainer.state),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                seconds=time.monotonic() - t0)
+            train.make_train_step = original
+            del trainer
+            with open(os.path.join(out, f"{run['label']}.rank{rank}.json"),
+                      "w") as f:
+                json.dump(record, f)
+    finally:
+        train.make_train_step = original
+        comm_init.shutdown = shutdown
+
+
+def cli_runs_leg(out: str, spec: str) -> int:
+    """One rank of a torchrun of several CLI legs on the card
+    (``--cli-runs-leg OUT SPEC``, ``SPEC`` a JSON list for ``cli_runs``),
+    each rank in a gloo group (several ranks on the one card)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_training_tpu_torch.comm import init as comm_init
+
+    torch.set_num_threads(1)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    comm_init.initialize(device, backend="gloo")
+    try:
+        with open(spec) as f:
+            cli_runs(torch, out, json.load(f), comm_init.process_index())
+    finally:
+        comm_init.shutdown()
+    return 0
+
+
+def _p1_ckpt(label: str) -> str:
+    return os.path.join(PP_DIR, f"p1_{label}_ckpt")
+
+
+def _p1_runs() -> list:
+    """P1's and P2's multi-rank runs for ``cli_runs``: each of
+    ``P1_RUNS`` but the last committing step 3 (flat and 1f1b step 2
+    too: the references' step-3 update, P2's start), then the 1f1b
+    run's step-2 checkpoint resumed under PP 4 and PP 2 x data 2."""
+    ckpt = _p1_ckpt("1f1b")
+    runs = []
+    for label, extra in P1_RUNS:
+        if label != "flat_again":
+            extra = extra + ["--checkpoint-dir", _p1_ckpt(label)]
+        runs.append(dict(label=label, argv=[
+            *T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
+            "3", "--accum-steps", "1", *extra]))
+    for label, stages in (("resume_pp4", "4"), ("resume_pp2d2", "2")):
+        directory = os.path.join(PP_DIR, f"{label}_ckpt")
+        runs.append(dict(label=label, copy=[ckpt, 2, directory], argv=[
+            *T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
+            "3", "--accum-steps", "1", "--pipeline-parallel", stages,
+            "--pipeline-schedule", "1f1b", "--checkpoint-dir", directory,
+            "--resume"]))
+    return runs
+
+
+def pipeline_leg(out: str, seed: int) -> int:
+    """One rank of the pipeline phase's 4-rank torchrun (``--pipeline-leg
+    OUT SEED``), gloo on the one card: P0 (f32, TF32 off), then P1 and
+    P2's multi-rank legs (``cli_runs`` of ``OUT/p1.json``)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_training_tpu_torch.comm import (
+        collectives, init as comm_init,
+    )
+
+    torch.set_num_threads(1)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    comm_init.initialize(device, backend="gloo")
+    try:
+        rank = comm_init.process_index()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.monotonic()
+        _p0_leg(torch, seed, os.path.join(out, "p0"), rank)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        collectives.barrier()
+        with open(os.path.join(out, f"p0.rank{rank}.json"), "w") as f:
+            json.dump({"seconds": time.monotonic() - t0}, f)
+        with open(os.path.join(out, "p1.json")) as f:
+            cli_runs(torch, os.path.join(out, "p1"), json.load(f), rank)
+        collectives.barrier()
+    finally:
+        comm_init.shutdown()
+    return 0
+
+
+def _rel_l2(a: dict, b: dict, names) -> float:
+    import numpy as np
+
+    x = np.concatenate([a[n].ravel() for n in names])
+    y = np.concatenate([b[n].ravel() for n in names])
+    return float(np.linalg.norm(x - y) / np.linalg.norm(y))
+
+
+def _p0_check(out: str, refs: dict) -> None:
+    """Each P0 run against one process: ranks identical after every
+    step; uncompressed runs at JAX's tolerances (loss, every gradient, 3
+    steps' losses) with the weights at M0's relative L2 and update
+    bounds; compressed runs within JAX's band of one process (loss and
+    step losses 5e-3, gradient relative L2 5e-2, weights Adam's 2 lr a
+    step); stripe 2 bitwise stripe 1."""
+    import numpy as np
+
+    parts = []
+    for label, sched, S, V, layers, mode, stripe, axes, width in P0_RUNS:
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(out, f"{label}.rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        check(all(x["checksums"] == ranks[0]["checksums"]
+                  and x["losses"] == ranks[0]["losses"]
+                  and x["loss"] == ranks[0]["loss"] for x in ranks),
+              f"P0 {label}: the 4 ranks' losses and whole states identical")
+        got = dict(np.load(os.path.join(out, f"{label}.npz")))
+        ref = refs[layers, width]
+        names = sorted(ref["grads"])
+        g = {n: got[f"g/{n}"] for n in names}
+        p = {n: got[f"p/{n}"] for n in names}
+        loss, losses = ranks[0]["loss"], ranks[0]["losses"]
+        gerr = max(float(np.abs(g[n] - ref["grads"][n]).max())
+                   for n in names)
+        grel = _rel_l2(g, ref["grads"], names)
+        wrel = _rel_l2(p, ref["params"], names)
+        urel = float(np.linalg.norm(np.concatenate(
+            [(p[n] - ref["params"][n]).ravel() for n in names]))
+            / np.linalg.norm(np.concatenate(
+                [(ref["params"][n] - ref["init"][n]).ravel()
+                 for n in names])))
+        lerr = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+        if stripe > 1:
+            one = f"{sched}_{mode}"
+            base = dict(np.load(os.path.join(out, f"{one}.npz")))
+            with open(os.path.join(out, f"{one}.rank0.json")) as f:
+                b0 = json.load(f)
+            check(b0["losses"] == losses and b0["loss"] == loss
+                  and all(np.array_equal(base[k], got[k]) for k in got),
+                  f"P0 {label}: bitwise stripe 1's loss, gradients and "
+                  "weights")
+            parts.append(f"{label} bitwise {one}")
+            continue
+        if mode == "none":
+            rtol, atol = P0_GRAD_TOL
+            check(abs(loss - ref["loss"]) <= P0_LOSS_RTOL * abs(ref["loss"]),
+                  f"P0 {label}: loss {loss} vs {ref['loss']}")
+            for n in names:
+                e = np.abs(g[n] - ref["grads"][n])
+                check(bool((e <= atol + rtol * np.abs(ref["grads"][n])).all()),
+                      f"P0 {label}: gradient {n} max err {e.max():.3g} "
+                      f"(rtol {rtol}, atol {atol})")
+            lrel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref["losses"]))
+            check(lrel <= P0_LOSS_RTOL and wrel <= M0_REL
+                  and urel <= M0_UPDATE_REL,
+                  f"P0 {label}: 3 steps' losses rel {lrel:.3g} "
+                  f"({P0_LOSS_RTOL}), weights rel L2 {wrel:.3g} ({M0_REL}),"
+                  f" update rel L2 {urel:.3g} ({M0_UPDATE_REL})")
+        else:
+            werr = max(float(np.abs(p[n] - ref["params"][n]).max())
+                       for n in names)
+            check(abs(loss - ref["loss"]) <= P0_BAND and lerr <= P0_BAND
+                  and grel <= 10 * P0_BAND
+                  and werr <= 2 * P0_LR * P0_STEPS,
+                  f"P0 {label}: loss {abs(loss - ref['loss']):.3g}, steps' "
+                  f"losses {lerr:.3g} (band {P0_BAND}), gradient rel L2 "
+                  f"{grel:.3g} ({10 * P0_BAND}), weights {werr:.3g} "
+                  f"({2 * P0_LR * P0_STEPS})")
+        parts.append(f"{label} loss {abs(loss - ref['loss']):.2g}, grads "
+                     f"{gerr:.2g} (rel L2 {grel:.2g}), steps {lerr:.2g}, "
+                     f"weights rel L2 {wrel:.2g}, update {urel:.2g}")
+    print("pipeline P0 (tiny GPT-2: 4 layers (8 for interleaved at PP 4), "
+          "width 32 (256 under fsdp), 4 heads, vocab 128, L 32, batch 8 = 4 "
+          "microbatches; 4 gloo ranks on one card, f32, TF32 off; against "
+          "one process): ranks identical; " + "; ".join(parts), flush=True)
+
+
+def _run_ranks(out: str, label: str, n: int = 4) -> list:
+    """The ``n`` ranks' records of a ``cli_runs`` run."""
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out, f"{label}.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _bubble(label: str) -> str:
+    from pytorch_distributed_training_tpu_torch.parallel.pipeline_schedule \
+        import make_interleaved_schedule
+
+    if label == "interleaved":
+        return f"{make_interleaved_schedule(4, 3, 8).bubble_fraction():.4f}"
+    s, m = (2, 4) if label.endswith("pp2d2") else (4, 8)
+    return f"{(s - 1) / (m + s - 1):.4f}"
+
+
+def _pp_bytes(label: str) -> int:
+    from pytorch_distributed_training_tpu_torch.comm.compress import (
+        pp_boundary_bytes_per_step,
+    )
+
+    sched = ("gpipe" if label.startswith("gpipe") else "interleaved"
+             if label == "interleaved" else "1f1b")
+    s, m = (2, 4) if label.endswith("pp2d2") else (4, 8)
+    return pp_boundary_bytes_per_step(
+        schedule=sched, num_stages=s, num_microbatches=m,
+        microbatch_rows=16 // m, seq_len=1024, hidden=768, act_itemsize=2,
+        mode="int8" if label.endswith("int8") else "none",
+        num_chunks=3 if label == "interleaved" else 1)
+
+
+def pipeline_phase(torch, seed: int, repo: str) -> dict:
+    """Pipeline parallelism, every multi-rank leg 4 torchrun ranks on the
+    one card over gloo (NCCL takes one rank a card), in one launch
+    (``pipeline_leg``).  P0: parity of each layout (``P0_RUNS``) against
+    one process.  P1: T1's recipe through the CLI, flat, then PP 4 with 8
+    microbatches under gpipe, gpipe --remat, 1f1b, interleaved (3 chunks)
+    and 1f1b --pp-compress int8, then PP 2 x data 2 1f1b, then flat
+    again (its ends the ABBA pair for the times): each pipelined step-3
+    loss within ``P1_LOSS_BOUND`` of flat's and step-3 checkpoint within
+    ``M1_STATE_BOUND`` (``_state_distance``), every rank's loss the same,
+    the flash launches exact; state bytes, peak memory and step times
+    printed.  P2: the 1f1b run's step-2 checkpoint resumed under PP 4
+    (bitwise: loss and step-3 checkpoint), PP 2 x data 2 and flat at
+    world 1 (this process), step-3 losses and checkpoints within the
+    bounds of the 1f1b run's.  Returns the
+    flash launches by row (#4 forward, #5 backward)."""
+    import shutil
+    import statistics as st
+
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+
+    shutil.rmtree(PP_DIR, ignore_errors=True)
+    os.makedirs(PP_DIR)
+    out, logs = os.path.join(PP_DIR, "legs"), os.path.join(PP_DIR, "logs")
+    for part in ("p0", "p1"):
+        os.makedirs(os.path.join(out, part))
+    t0 = time.monotonic()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        refs = _p0_references(torch, seed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with open(os.path.join(out, "p1.json"), "w") as f:
+        json.dump(_p1_runs(), f)
+    argv = [os.path.join(repo, "chip_smoke.py"), "--pipeline-leg", out,
+            str(seed)]
+    proc = torchrun_logged(repo, 4, argv, logs)
+    try:
+        wait_ranks(proc, argv, 600, logs, "pipeline legs")
+    finally:
+        torchrun_kill(proc)
+    _p0_check(os.path.join(out, "p0"), refs)
+    with open(os.path.join(out, "p0.rank0.json")) as f:
+        print(f"pipeline P0: {json.load(f)['seconds']:.1f} s; P0 + P1 + "
+              f"P2's 4-rank legs {time.monotonic() - t0:.1f} s", flush=True)
+
+    fwd = bwd = 0
+    runs = {}
+    for label in [lb for lb, _ in P1_RUNS] + ["resume_pp4", "resume_pp2d2"]:
+        ranks = _run_ranks(os.path.join(out, "p1"), label)
+        want_f, want_b = P1_FLASH[label]
+        for x in ranks:
+            check(x["fwd"] == want_f and x["dq"] == want_b
+                  and x["dkv"] == want_b and not any(x["plain"].values())
+                  and not any(x["xla"].values()),
+                  f"P1 {label}: flash fwd/dq/dkv {x['fwd']}/{x['dq']}/"
+                  f"{x['dkv']} a rank ({want_f}/{want_b}/{want_b}), no plain "
+                  f"path {x['plain']} {x['xla']}")
+            fwd += x["fwd"]
+            bwd += x["dq"] + x["dkv"]
+        losses = ranks[0]["losses"]
+        n = 1 if label.startswith("resume") else 3
+        check(len(losses) == n and _finite(losses)
+              and all(x["losses"] == losses for x in ranks),
+              f"P1 {label}: {n} equal finite losses on every rank: "
+              f"{[x['losses'] for x in ranks]}")
+        runs[label] = ranks
+    flat = runs["flat"][0]["losses"]
+    check(10.0 <= flat[0] <= 12.0, f"P1 flat: first loss {flat[0]} near "
+          "ln 50257 = 10.8")
+    flat_ms = [st.median(r[0]["step_s"][1:]) * 1e3
+               for r in (runs["flat"], runs["flat_again"])]
+    flat_ref = _ref_steps(_p1_ckpt("flat"))
+    held = []
+    for label, ranks in runs.items():
+        if label.startswith("resume"):
+            continue
+        losses = ranks[0]["losses"]
+        step_ms = max(st.median(x["step_s"][1:]) for x in ranks) * 1e3
+        d3 = abs(losses[2] - flat[2])
+        extra = ""
+        if not label.startswith("flat"):
+            dist = _state_distance(flat_ref, _p1_ckpt(label), f"P1 {label}")
+            held.append((label, losses[2], d3, dist))
+            extra = (f"; step-3 checkpoint vs flat's {_distance_text(dist)}"
+                     f"; analytic bubble {_bubble(label)}; boundary bytes a "
+                     f"step {_pp_bytes(label)}")
+        print(f"pipeline P1 {label} (GPT-2 124M, T1's recipe through the "
+              f"CLI, bf16, L 1024, 16 rows, 4 ranks on one card over gloo, "
+              f"3 steps): losses {[round(x, 5) for x in losses]} (step 3 "
+              f"vs flat {d3:.3g}); parameters + slots a rank "
+              f"{[round(x['state_bytes'] / 1e9, 4) for x in ranks]} GB; "
+              f"peak memory by rank "
+              f"{[round(x['peak_mem_gb'], 2) for x in ranks]} GB; step "
+              f"(median of steps 2-3, slowest rank) {step_ms:.1f} ms, "
+              f"{P1_TOKENS / step_ms * 1e3:.0f} tokens/s (flat "
+              f"{flat_ms[0]:.1f} / {flat_ms[1]:.1f} ms at the two ends); "
+              f"flash fwd/dq/dkv {ranks[0]['fwd']}/{ranks[0]['dq']}/"
+              f"{ranks[0]['dkv']} a rank{extra}", flush=True)
+    del flat_ref
+    for label, loss, d3, dist in held:
+        check(d3 <= P1_LOSS_BOUND,
+              f"P1 {label}: step-3 loss {loss} vs flat {flat[2]} ({d3:.3g}, "
+              f"bound {P1_LOSS_BOUND})")
+        _check_distance(dist, f"P1 {label}")
+
+    ckpt = _p1_ckpt("1f1b")
+    src = runs["1f1b"][0]["losses"][2]
+    same = runs["resume_pp4"][0]["losses"][0] == src
+    check(same and _leaves(os.path.join(PP_DIR, "resume_pp4_ckpt"), 3)
+          == _leaves(ckpt, 3),
+          "P2: PP 4 1f1b step 2 resumed under PP 4 bitwise the "
+          "uninterrupted run (step-3 loss and step-3 checkpoint)")
+    src_ref = _ref_steps(ckpt)
+    d_pp2 = abs(runs["resume_pp2d2"][0]["losses"][0] - src)
+    dist_pp2 = _state_distance(src_ref, os.path.join(
+        PP_DIR, "resume_pp2d2_ckpt"), "P2 PP 2 x data 2")
+    check(d_pp2 <= P1_LOSS_BOUND,
+          f"P2: resumed under PP 2 x data 2, step-3 loss "
+          f"{runs['resume_pp2d2'][0]['losses'][0]} vs {src} ({d_pp2:.3g})")
+    _check_distance(dist_pp2, "P2 PP 2 x data 2")
+    flat_dir = os.path.join(PP_DIR, "resume_flat_ckpt")
+    os.makedirs(flat_dir)
+    shutil.copytree(os.path.join(ckpt, "2"), os.path.join(flat_dir, "2"))
+    shutil.copy(os.path.join(ckpt, "manifest-2.json"), flat_dir)
+    record: dict = {"losses": [], "step_s": []}
+    original = _timed_steps(torch, record)
+    try:
+        trainer = cli([*T1_RECIPE, *TRAIN_COMMON, "--steps-per-epoch", "3",
+                       "--checkpoint-dir", flat_dir, "--resume"])
+    finally:
+        import pytorch_distributed_training_tpu_torch.train as train
+
+        train.make_train_step = original
+    check(trainer.state.step == 3 and len(record["losses"]) == 1,
+          "P2 flat: resumed at step 2, one step to 3")
+    d_flat = abs(record["losses"][0] - src)
+    dist_flat = _state_distance(src_ref, flat_dir, "P2 flat")
+    del src_ref
+    check(d_flat <= P1_LOSS_BOUND,
+          f"P2: resumed flat at world 1, step-3 loss {record['losses'][0]} "
+          f"vs {src} ({d_flat:.3g}, bound {P1_LOSS_BOUND})")
+    _check_distance(dist_flat, "P2 flat")
+    print(f"pipeline P2 (P1's PP 4 1f1b checkpoint of step 2): resumed under "
+          f"PP 4 bitwise (loss {src}, step-3 checkpoint); under PP 2 x data "
+          f"2 step-3 loss {runs['resume_pp2d2'][0]['losses'][0]} "
+          f"({d_pp2:.3g}), checkpoint {_distance_text(dist_pp2)}; flat at "
+          f"world 1 {record['losses'][0]} ({d_flat:.3g}), checkpoint "
+          f"{_distance_text(dist_flat)} (bounds {P1_LOSS_BOUND}, "
+          f"{M1_STATE_BOUND}); the phase {time.monotonic() - t0:.1f} s; "
+          "times are gloo's on one card", flush=True)
+    del trainer
+    shutil.rmtree(PP_DIR, ignore_errors=True)
     return {4: fwd, 5: bwd}
 
 
@@ -3810,6 +4428,10 @@ def main() -> int:
                     help="(internal) one rank of the grad-sync H1 leg")
     ap.add_argument("--sharded-leg", nargs=2, metavar=("OUT", "SEED"),
                     help="(internal) one rank of the sharded M0 leg")
+    ap.add_argument("--pipeline-leg", nargs=2, metavar=("OUT", "SEED"),
+                    help="(internal) one rank of the pipeline phase's legs")
+    ap.add_argument("--cli-runs-leg", nargs=2, metavar=("OUT", "SPEC"),
+                    help="(internal) one rank of several CLI legs in turn")
     args = ap.parse_args()
     if args.cli_leg:
         return cli_leg(args.cli_leg[0], args.cli_leg[1:])
@@ -3817,6 +4439,10 @@ def main() -> int:
         return h1_leg(args.h1_leg[0], int(args.h1_leg[1]))
     if args.sharded_leg:
         return sharded_leg(args.sharded_leg[0], int(args.sharded_leg[1]))
+    if args.pipeline_leg:
+        return pipeline_leg(args.pipeline_leg[0], int(args.pipeline_leg[1]))
+    if args.cli_runs_leg:
+        return cli_runs_leg(*args.cli_runs_leg)
     import torch
 
     if not torch.cuda.is_available():
@@ -3910,6 +4536,9 @@ def main() -> int:
                         repo).items():
         flash[num]["launches"] += n
     for num, n in timed("sharded", sharded_phase, torch, args.seed,
+                        repo).items():
+        flash[num]["launches"] += n
+    for num, n in timed("pipeline", pipeline_phase, torch, args.seed,
                         repo).items():
         flash[num]["launches"] += n
     print("phases: " + ", ".join(f"{k} {v:.1f} s"

@@ -79,7 +79,12 @@ rank keeps its part in the template's layout, as JAX restores into the
 template's sharding: a save under ``--fsdp 4`` restores under
 ``--zero1``, plain data parallelism or one process.  (A state too large
 for one host's memory would need ``torch.distributed.checkpoint``'s
-per-rank files; no configuration here is.)
+per-rank files; no configuration here is.)  The pipelined GPT-2 saves
+its stacked stage tensors whole (``(S, ...)``, gathered over the
+pipeline group); a restore into another stage layout, into the plain
+model (world 1 included), or from the plain model's checkpoint into a
+pipelined one merges and splits them on rank 0 before the template
+check (``parallel/gpt2_pipeline.py::relayout_checkpoint``).
 
 **Not saved:** the two-tier sync's error-feedback residual
 (``TrainState.grad_sync_residual``), as in JAX, whose restore keeps the
@@ -200,6 +205,26 @@ def _set_counts(tree: Any, path: str, names: list[str],
         return tuple(_set_counts(item, f"{path}/{i}", names, counts)
                      for i, item in enumerate(tree))
     return tree    # a list of per-parameter tensors
+
+
+def _whole_shapes(state) -> dict:
+    """Each tensor entry's whole (logical) shape, by checkpoint name."""
+    want = split_counters(*flatten_state(state))[0]
+    layout = getattr(state, "shardings", None)
+    return {n: (tuple(t.shape) if layout is None
+                else layout.full_shape(n, t)) for n, t in want.items()}
+
+
+def _relayout(tensors: dict, template) -> dict:
+    """A GPT-2 checkpoint saved under another pipeline stage layout (or
+    the plain model's) in ``template``'s
+    (``parallel/gpt2_pipeline.py::relayout_checkpoint``); any other
+    checkpoint as it is."""
+    if "params/wte" not in tensors:
+        return tensors
+    from ..parallel.gpt2_pipeline import relayout_checkpoint
+
+    return relayout_checkpoint(tensors, _whole_shapes(template))
 
 
 def _host_bytes(t: torch.Tensor):
@@ -543,9 +568,7 @@ class CheckpointManager:
         resilience counters are optional): a config change, not
         corruption."""
         want, want_counters = split_counters(*flatten_state(template))
-        layout = getattr(template, "shardings", None)
-        shapes = {n: (tuple(t.shape) if layout is None
-                      else layout.full_shape(n, t)) for n, t in want.items()}
+        shapes = _whole_shapes(template)
         tensors, counters = split_counters(tensors, scalars)
         diff = sorted(set(want) ^ set(tensors)) + sorted(
             n for n in set(want) & set(tensors)
@@ -571,9 +594,10 @@ class CheckpointManager:
         errors: list[str] = []
         for step in steps:
             try:
-                tensors, scalars, manifest = self._load(step)
+                saved, scalars, manifest = self._load(step)
+                tensors = _relayout(saved, template)
                 self._match(step, tensors, scalars, template)
-                self._verify(step, manifest, tensors)
+                self._verify(step, manifest, saved)
             except CheckpointCorrupted as e:
                 # Checksum-proven bit-rot: independent evidence the disk
                 # bytes changed, so the step is safe to drop — it must

@@ -65,8 +65,20 @@ each sequence over a ``sequence`` axis; ``data`` takes the rest of the
 world.  Each run prints JAX's ``mesh: {...}`` line; the combinations JAX
 refuses are refused with its messages (exit 2).
 
-Not ported yet: pipeline parallelism, ``--pp-compress``, the MoE GPT-2,
-telemetry (with it the ``grad_sync_model`` event) and elastic resizing.
+Pipeline parallelism (GPT-2, ``--distributed``): ``--pipeline-parallel
+S [--pipeline-schedule gpipe|1f1b|interleaved] [--pipeline-microbatches
+M] [--pipeline-chunks V] [--pp-compress none|bf16|int8]`` splits the
+block stack into S stages over a ``pipeline`` axis
+(``parallel/gpt2_pipeline.py``); ``--remat`` checkpoints GPipe's ticks,
+``--grad-sync-stripe`` stripes the compressed stage hops, and the run
+prints the stage-boundary byte model (``pp_compress_model:``) and names
+the stages and the schedule in its summaries.  ``data`` takes the rest
+of the world, and ``--fsdp``, ``--tensor-parallel`` and ring
+``--sequence-parallel`` (GPipe) compose with it as in JAX.
+
+Not ported yet: the MoE GPT-2, telemetry (with it the
+``grad_sync_model`` and ``pp_compress_model`` events) and elastic
+resizing.
 """
 
 from __future__ import annotations
@@ -86,6 +98,10 @@ def _check_grad_sync(parser: argparse.ArgumentParser, args) -> None:
     """The JAX CLI's flag checks of --grad-sync and its companions, as
     usage errors (exit 2), before anything is built.  Parses the stripe
     and the bucket size in place."""
+    if args.pp_compress != "none" and args.pipeline_parallel <= 1:
+        parser.error(
+            "--pp-compress compresses pipeline stage-boundary payloads; "
+            "it needs --pipeline-parallel > 1")
     flat = args.grad_sync == "flat"
     if flat and args.grad_sync_slices is not None:
         parser.error(
@@ -93,11 +109,13 @@ def _check_grad_sync(parser: argparse.ArgumentParser, args) -> None:
             "pass --grad-sync hier|hier-bf16|hier-int8|hier-int4|hier-topk "
             "with it (the flat all-reduce has no slice parameter to "
             "simulate)")
-    if flat and str(args.grad_sync_stripe) != "off":
+    if flat and args.pp_compress == "none" \
+            and str(args.grad_sync_stripe) != "off":
         parser.error(
-            "--grad-sync-stripe lanes the explicit two-tier sync's DCN hop; "
-            "the flat all-reduce has no DCN hop to stripe — pass a "
-            "--grad-sync mode with it")
+            "--grad-sync-stripe lanes the explicit two-tier sync's DCN hop "
+            "(and --pp-compress stage boundaries); the flat all-reduce has "
+            "no DCN hop to stripe — pass a --grad-sync mode or "
+            "--pp-compress with it")
     if flat and args.grad_sync_overlap != "off":
         parser.error(
             "--grad-sync-overlap pipelines the explicit two-tier sync's "
@@ -142,14 +160,15 @@ def _check_sharding(parser: argparse.ArgumentParser, args) -> None:
         parser.error(
             "--zero1 shards optimizer slots over the data axis; with "
             "--fsdp the slots are already sharded (ZeRO-3) — pick one")
-    if args.zero1 and args.tensor_parallel > 1:
+    if args.zero1 and (args.tensor_parallel > 1
+                       or args.pipeline_parallel > 1):
         parser.error(
             "--zero1 composes with data parallelism only (not "
             "--tensor-parallel/--pipeline-parallel, whose rules already "
             "shard the optimizer slots over their axes)")
     if args.grad_sync != "flat" and (
             args.fsdp > 1 or args.tensor_parallel > 1
-            or args.sequence_parallel > 1):
+            or args.pipeline_parallel > 1 or args.sequence_parallel > 1):
         parser.error(
             f"--grad-sync {args.grad_sync} composes with data parallelism "
             "only (not --fsdp/--tensor-parallel/--pipeline-parallel/"
@@ -163,21 +182,59 @@ def _check_sharding(parser: argparse.ArgumentParser, args) -> None:
             parser.error(
                 "--sequence-parallel requires a transformer LM (--model "
                 "gpt2)")
+        if args.pipeline_parallel > 1 and (
+                args.pipeline_schedule != "gpipe"
+                or args.sequence_parallel_mode != "ring"):
+            parser.error(
+                "--sequence-parallel composes with --pipeline-parallel "
+                "only as ring SP under --pipeline-schedule gpipe (the "
+                "branch-free tick loop; collectives inside the manual "
+                "schedules' cond-gated stage bodies are unsound — see "
+                "parallel/gpt2_pipeline.py)")
         if args.seq_len % args.sequence_parallel:
             parser.error(
                 f"--seq-len {args.seq_len} not divisible by "
                 f"--sequence-parallel {args.sequence_parallel}")
+    if args.pipeline_parallel > 1:
+        _check_pipeline(parser, args)
+
+
+def _check_pipeline(parser: argparse.ArgumentParser, args) -> None:
+    """JAX's refusals under --pipeline-parallel that need no model (the
+    layer and embedding checks come with it, ``_pipelined``)."""
+    from ..models import model_kind
+
+    try:
+        lm = model_kind(args.model) == "lm"
+    except ValueError:
+        lm = True   # the unknown model is reported later
+    if not lm:
+        parser.error(
+            "--pipeline-parallel requires a transformer LM (--model gpt2)")
+    if args.fsdp > 1 and args.tensor_parallel > 1:
+        parser.error(
+            "--fsdp and --tensor-parallel do not combine under "
+            "--pipeline-parallel (both split the same matmul dims)")
+    if args.ce_chunk is not None:
+        parser.error(
+            "--ce-chunk is not wired through the pipelined model "
+            "(PipelinedGPT2 has no hidden-state output)")
+    if args.accum_steps > 1 and args.pipeline_schedule != "gpipe":
+        parser.error(
+            "--accum-steps does not compose with --pipeline-schedule "
+            f"{args.pipeline_schedule} (the schedule owns microbatching; "
+            "size --pipeline-microbatches instead)")
 
 
 def _sharded(args) -> bool:
     return (args.fsdp > 1 or args.tensor_parallel > 1 or args.zero1
-            or args.sequence_parallel > 1)
+            or args.sequence_parallel > 1 or args.pipeline_parallel > 1)
 
 
 def _sharding(args, net, world: int):
-    """The mesh (JAX's ``MeshConfig(data=-1, fsdp, tensor, sequence)``
-    over the world) and, for a sharded run, the rules, the slot rules and
-    the head-count refusals JAX makes."""
+    """The mesh (JAX's ``MeshConfig(data=-1, fsdp, tensor, pipeline,
+    sequence)`` over the world) and, for a sharded run, the rules, the
+    slot rules and the head-count refusals JAX makes."""
     from ..comm.mesh import MeshConfig, make_mesh
     from ..parallel.sharding import DDP_RULES, ZERO1_OPT_RULES, tp_rules_for
 
@@ -195,13 +252,60 @@ def _sharding(args, net, world: int):
             "use ring for this head count")
     try:
         mesh = make_mesh(MeshConfig(
-            data=-1, fsdp=args.fsdp, tensor=tp, sequence=sp), world=world)
+            data=-1, fsdp=args.fsdp, tensor=tp,
+            pipeline=args.pipeline_parallel, sequence=sp), world=world)
     except ValueError as e:
         raise SystemExit(f"mesh: {e}") from None
     print(f"mesh: {dict(mesh.shape)}")
     rules = (tp_rules_for(args.model) if args.fsdp > 1 or tp > 1
              else DDP_RULES)
     return mesh, rules, ZERO1_OPT_RULES if args.zero1 else None
+
+
+def _pipelined(args, net, mesh, policy):
+    """``--pipeline-parallel``: the pipelined GPT-2 of ``net``'s config and
+    weights (JAX's ``PipelinedGPT2``), its refusals as usage errors."""
+    from ..comm.striping import resolve_channel_stripe
+    from ..parallel.gpt2_pipeline import pipelined_gpt2
+
+    try:
+        return pipelined_gpt2(
+            net, mesh,
+            num_microbatches=(args.pipeline_microbatches
+                              or 2 * args.pipeline_parallel),
+            compute_dtype=policy.compute_dtype,
+            # --remat maps to the per-tick checkpoint: the stage body
+            # calls the blocks directly, past GPT2Config.remat.
+            remat_ticks=args.remat, schedule=args.pipeline_schedule,
+            num_chunks=args.pipeline_chunks, pp_compress=args.pp_compress,
+            pp_stripe=resolve_channel_stripe(args.grad_sync_stripe))
+    except ValueError as e:
+        build_parser().error(str(e))
+
+
+def _print_pp_model(args, net, policy) -> None:
+    """The stage-boundary byte model and every input it takes, on one
+    line (JAX's ``pp_compress_model`` record; telemetry is not ported)."""
+    import json
+
+    import torch
+
+    from ..comm.compress import pp_boundary_bytes_per_step
+
+    fields = dict(
+        schedule=args.pipeline_schedule, num_stages=args.pipeline_parallel,
+        num_microbatches=net.num_microbatches,
+        microbatch_rows=args.batch_size // net.num_microbatches,
+        seq_len=args.seq_len, hidden=net.cfg.hidden_dim,
+        act_itemsize=torch.empty((), dtype=policy.compute_dtype)
+        .element_size(),
+        mode=args.pp_compress,
+        num_chunks=(args.pipeline_chunks
+                    if args.pipeline_schedule == "interleaved" else 1))
+    print("pp_compress_model: " + json.dumps({
+        **fields,
+        "pp_boundary_bytes_per_step": pp_boundary_bytes_per_step(**fields)}),
+        flush=True)
 
 
 def _build_grad_sync(args, state, group):
@@ -296,7 +400,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Multi-path striping of the --grad-sync cross-node "
                         "hop (comm/striping.py): 'auto' uses min(ranks a "
                         "node, 4) lanes' links, 'off' one, or a lane count. "
-                        "Bitwise the same gradients.")
+                        "Bitwise the same gradients. Also stripes the "
+                        "--pp-compress stage-boundary hops.")
     p.add_argument("--grad-sync-overlap", default="off", choices=("on", "off"),
                    help="Pipeline the --grad-sync phases over the buckets "
                         "(bucket i's cross-node all-reduce beside bucket "
@@ -317,6 +422,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ZeRO-1 weight-update sharding (arXiv:2004.13336): "
                         "params stay replicated but optimizer slots and "
                         "the update math shard over the data axis.")
+    p.add_argument("--pipeline-parallel", type=int, default=1,
+                   help="Pipeline stages (GPT-2 only).")
+    p.add_argument("--pipeline-schedule", default="gpipe",
+                   choices=("gpipe", "1f1b", "interleaved"),
+                   help="gpipe (autograd backward) | 1f1b (forward/backward "
+                        "interleaving: live activations bounded by stages, "
+                        "not microbatches; per-stage recompute is built in, "
+                        "so --remat adds nothing) | interleaved (multi-chunk "
+                        "1F1B: --pipeline-chunks model chunks per stage "
+                        "divide the bubble by ~V). Microbatching belongs to "
+                        "--pipeline-microbatches, not --accum-steps.")
+    p.add_argument("--pipeline-microbatches", type=int, default=None,
+                   help="Microbatches per pipeline step (default 2x "
+                        "stages).")
+    p.add_argument("--pipeline-chunks", type=int, default=2,
+                   help="Model chunks per stage (interleaved schedule "
+                        "only).")
+    p.add_argument("--pp-compress", default="none",
+                   choices=("none", "bf16", "int8"),
+                   help="Compress the pipeline stage-boundary hops "
+                        "(--pipeline-parallel): bf16 halves them; int8 "
+                        "quarters them with per-token scales and "
+                        "error-feedback residuals carried through the tick "
+                        "loop (comm/compress.py). All three schedules.")
     p.add_argument("--data-dir", default="./data", help="Dataset root.")
     p.add_argument("--model", default="resnet18",
                    help="resnet18|resnet50|vit_b16|gpt2|... (the registry's "
@@ -821,6 +950,15 @@ def run_train(args, overrides: dict, device=None):
         comm_init.shutdown()
 
 
+def _loader_microbatches(args) -> int:
+    """The row-wise microbatches a rank's batch holds, JAX's: the
+    accumulation slices, each cut into the pipeline's microbatches."""
+    if args.pipeline_parallel <= 1:
+        return args.accum_steps
+    return args.accum_steps * (args.pipeline_microbatches
+                               or 2 * args.pipeline_parallel)
+
+
 def _device_cache(args, ds, kind, device, rank, world):
     """The JAX CLI's ``--device-cache`` branch: the token stream (LM) or
     the uint8 records (images) uploaded to ``device``, each rank drawing
@@ -835,7 +973,7 @@ def _device_cache(args, ds, kind, device, rank, world):
             "--device-cache is single-host (each host would need its own "
             "shard); use the streaming loader for multi-host runs")
     shard = dict(device=device, seed=args.seed, rank=rank, world=world,
-                 num_microbatches=args.accum_steps)
+                 num_microbatches=_loader_microbatches(args))
     if kind == "lm":
         src, lo, hi = ds, None, None
         if isinstance(src, Subset):
@@ -927,14 +1065,21 @@ def _train(args, overrides, device, group, rank, world):
                        seed=args.seed, cfg_overrides=overrides,
                        image_size=image_size)
     mesh, rules, opt_rules = _sharding(args, net, world)
-    # The batch splits over the batch axes only: the ranks of one tensor
-    # or sequence group take the same rows.
+    # The batch splits over the batch axes only: the ranks of one tensor,
+    # sequence or pipeline group take the same rows.
     shard, n_shards = mesh.batch_index, mesh.axes_size(("data", "fsdp"))
-    if args.batch_size % (args.accum_steps * n_shards):
+    n_micro = _loader_microbatches(args)
+    if args.pipeline_parallel > 1:
+        net = _pipelined(args, net, mesh, policy)
+        # The stage axis over ``pipeline``, and FSDP's or TP's splits.
+        rules = net.rules()
+    if args.batch_size % (n_micro * n_shards):
         raise SystemExit(
             f"--batch-size {args.batch_size} must divide into "
             f"--accum-steps {args.accum_steps} microbatches x {n_shards} "
-            "processes")
+            "processes"
+            + (f" x {net.num_microbatches} pipeline microbatches"
+               if args.pipeline_parallel > 1 else ""))
     faults = None
     fault_spec = args.inject_faults or os.environ.get(FAULTS_ENV)
     if fault_spec:
@@ -950,7 +1095,7 @@ def _train(args, overrides, device, group, rank, world):
         batch_size=args.batch_size, num_workers=args.num_workers,
         seed=args.seed,
     ), shard_index=shard, num_shards=n_shards,
-        num_microbatches=args.accum_steps)
+        num_microbatches=n_micro)
     total_steps = args.total_steps
     if total_steps is None:
         per_epoch = args.steps_per_epoch if args.steps_per_epoch is not None \
@@ -1013,13 +1158,21 @@ def _train(args, overrides, device, group, rank, world):
                 resume_skip_steps = state.step - start_epoch * per_epoch_steps
             print(f"resumed from step {state.step} (epoch {start_epoch}, "
                   f"skipping {resume_skip_steps} consumed batches)")
+    pipeline_grad_fn = None
+    if args.pipeline_parallel > 1:
+        from ..parallel.gpt2_pipeline import make_pipeline_grad_fn
+
+        pipeline_grad_fn = make_pipeline_grad_fn(
+            net, label_smoothing=args.label_smoothing,
+            accum_steps=args.accum_steps)
+        _print_pp_model(args, net, policy)
     step_fn = make_train_step(
         kind=kind, policy=policy, num_microbatches=args.accum_steps,
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
         lm_loss_chunk=args.ce_chunk, input_normalize=input_normalize,
         process_group=None if state.shardings is not None else group,
         anomaly_policy=anomaly_policy, grad_sync=grad_sync,
-        state_shardings=state.shardings,
+        state_shardings=state.shardings, grad_fn=pipeline_grad_fn,
     )
     cache = (_device_cache(args, ds, kind, device, shard, n_shards)
              if args.device_cache else None)
@@ -1048,9 +1201,12 @@ def _train(args, overrides, device, group, rank, world):
             batch_size=eval_bs, num_workers=0, shuffle=False))
         # LM eval always chunks the CE: the eval batch is not split by
         # --accum-steps, so its full logits could outgrow a config whose
-        # train step fits.
+        # train step fits.  (Not the pipelined model's, as in JAX: its
+        # eval batch is the train batch the pipeline already fits.)
+        eval_chunk = (args.ce_chunk if args.pipeline_parallel > 1
+                      else args.ce_chunk or 256)
         eval_step = make_eval_step(kind=kind, policy=policy,
-                                   lm_loss_chunk=args.ce_chunk or 256,
+                                   lm_loss_chunk=eval_chunk,
                                    input_normalize=input_normalize,
                                    state_shardings=state.shardings)
 
@@ -1071,7 +1227,12 @@ def _train(args, overrides, device, group, rank, world):
             if skip or args.steps_per_epoch is not None:
                 batches = itertools.islice(batches, skip,
                                            args.steps_per_epoch)
-            logger.log(trainer.run_epoch(batches, epoch=epoch))
+            summary = trainer.run_epoch(batches, epoch=epoch)
+            if args.pipeline_parallel > 1:
+                summary = {**summary,
+                           "pipeline_stages": args.pipeline_parallel,
+                           "pipeline_schedule": args.pipeline_schedule}
+            logger.log(summary)
             if ckpt_mgr is not None:
                 # Async: staging is enqueued now, the write overlaps the
                 # eval and the next epoch; the finally below commits the

@@ -3,9 +3,9 @@ collectives (``comm.collectives``), the slice split of a group
 (``comm.mesh``), the codecs (``comm.compress``: the gradient-sync codecs
 and the KV-cache codec of the quantized paged pool), striping and the
 phase pipeline (``comm.striping``) and the two-tier gradient sync
-(``comm.hierarchical``).  The names the JAX package's ``comm`` exports,
-where the port has them; the pipeline codec waits for the pipeline
-slice."""
+(``comm.hierarchical``), and the pipeline stage-boundary codec
+(``comm.compress.boundary_permute``).  The names the JAX package's
+``comm`` exports, where the port has them."""
 
 from .init import initialize, is_initialized, process_count, process_index, shutdown
 from .mesh import (
@@ -28,12 +28,19 @@ from .mesh import (
     split_slice_groups,
     stripe_lane_perm,
 )
-from .compress import auto_bucket_mb, bucket_wire_bytes
+from .compress import (
+    PP_COMPRESS_MODES,
+    auto_bucket_mb,
+    boundary_permute,
+    bucket_wire_bytes,
+    pp_boundary_bytes_per_step,
+)
 from .hierarchical import GRAD_SYNC_MODES, GradSync, GradSyncConfig
 from .striping import (
     STRIPE_CHOICES,
     ici_bytes_per_sync,
     pipelined_sync,
+    resolve_channel_stripe,
     resolve_stripe,
     split_stripes,
     striped_dcn_hop,
@@ -62,6 +69,7 @@ __all__ = [
     "stripe_lane_perm",
     "STRIPE_CHOICES",
     "resolve_stripe",
+    "resolve_channel_stripe",
     "split_stripes",
     "striped_dcn_hop",
     "pipelined_sync",
@@ -71,6 +79,9 @@ __all__ = [
     "GRAD_SYNC_MODES",
     "auto_bucket_mb",
     "bucket_wire_bytes",
+    "PP_COMPRESS_MODES",
+    "boundary_permute",
+    "pp_boundary_bytes_per_step",
     "AXIS_DATA",
     "AXIS_FSDP",
     "AXIS_EXPERT",

@@ -32,8 +32,12 @@ Every codec is bit-exact with the JAX one:
 - top-k keeps, on a tie of magnitudes, the lower index (``lax.top_k``'s
   order; ``torch.topk`` promises none, so the port sorts stably).
 
-The pipeline stage-boundary codec (``--pp-compress``) waits for the
-pipeline schedules.
+**Pipeline stage boundaries** (``--pp-compress``).  The payload is a
+(mb, L, D) activation block or its cotangent and a row is a token: bf16
+(sent as its 16-bit pattern) or int8 with an f32 scale per token and an
+error-feedback residual the engines carry through their tick loops
+(``boundary_permute``); ``pp_boundary_bytes_per_step`` is JAX's byte
+model of a step's hops.
 """
 
 from __future__ import annotations
@@ -333,3 +337,176 @@ def auto_bucket_mb(
     if phase_overlap:
         mb = min(mb, max(total_mb / _MIN_OVERLAP_DEPTH, 1e-3))
     return math.ceil(min(mb, total_mb) * 1000) / 1000
+
+
+# ---------------------------------------------------------------------- #
+# pipeline stage-boundary codec (--pp-compress)
+# ---------------------------------------------------------------------- #
+
+# Stage-boundary payload modes (--pp-compress).
+PP_COMPRESS_MODES = ("none", "bf16", "int8")
+
+
+def _check_pp_mode(mode: str) -> None:
+    if mode not in PP_COMPRESS_MODES:
+        raise ValueError(
+            f"pp-compress mode {mode!r} not in {PP_COMPRESS_MODES}")
+
+
+def boundary_has_residual(mode: str) -> bool:
+    """Whether the boundary codec carries error-feedback state through the
+    tick loop (int8 does; bf16's rounding runs stateless, as on the
+    grad-sync ladder)."""
+    _check_pp_mode(mode)
+    return mode == "int8"
+
+
+def _rows2d(x: torch.Tensor) -> torch.Tensor:
+    """(..., D) → (rows, D): the per-token row view the quantizers take."""
+    return x.reshape(-1, x.shape[-1])
+
+
+def _striped_ppermute(x: torch.Tensor, group, perm, stripe: int):
+    """``ppermute`` of ``x`` as ``stripe`` concurrent permutes of slices
+    of its last axis (the same src → dst hops, the payload split into
+    that many transfers in flight); the slices concatenate back, so the
+    result is bitwise one ``ppermute``.  ``stripe <= 1``, or a payload
+    narrower than the lane count, is the single permute.  ``group`` None
+    is a ring of one rank: the hop is to itself."""
+    from .collectives import ppermute
+    from .striping import split_stripes
+
+    if group is None:
+        return x
+    parts = split_stripes(x, stripe) if stripe > 1 else [x]
+    if len(parts) == 1:
+        return ppermute(x, group, perm)
+    pending = [ppermute(p, group, perm, async_op=True) for p in parts]
+    return torch.cat([p.wait() for p in pending], dim=-1)
+
+
+def _wire_permute(x: torch.Tensor, group, perm, stripe: int, codec: str,
+                  payload=None):
+    """One compressed hop of ``x`` along ``perm``: the encoded payload is
+    what crosses.  ``none``: ``x`` itself; ``bf16``: ``x`` rounded to
+    bf16 and sent as its 16-bit pattern (JAX bitcasts to u16 so that no
+    compiler widens the wire; here the integer view moves as bytes),
+    widened to f32; ``int8``: the per-token int8 payload (striped) and its
+    f32 scale column (one permute), decoded to f32.  ``payload``: int8's
+    ``(q, scale)`` of ``x`` when the caller has encoded it already."""
+    if codec == "none":
+        return _striped_ppermute(x, group, perm, stripe)
+    if codec == "bf16":
+        wire = x.to(torch.bfloat16).view(torch.int16)
+        got = _striped_ppermute(wire, group, perm, stripe)
+        return got.view(torch.bfloat16).float()
+    from .collectives import ppermute
+
+    q, scale = (payload if payload is not None
+                else encode_int8(_rows2d(x.float())))
+    qp = _striped_ppermute(q, group, perm, stripe)
+    sp = scale if group is None else ppermute(scale, group, perm)
+    return decode_int8(qp, sp).reshape(x.shape)
+
+
+class _BoundaryPermute(torch.autograd.Function):
+    """The differentiable compressed hop: the backward sends the cotangent
+    along the inverse edges through the same (stateless) codec, so a
+    compressed boundary stays compressed in the GPipe backward too (JAX's
+    ``_permute_int8`` / ``_permute_bf16`` custom vjps; ``none`` is the
+    plain ``ppermute`` transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group, perm, stripe, codec, payload=None):
+        ctx.group, ctx.perm, ctx.stripe, ctx.codec = group, perm, stripe, codec
+        return _wire_permute(x, group, perm, stripe, codec, payload)
+
+    @staticmethod
+    def backward(ctx, ct):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        if ctx.codec != "none":
+            ct = ct.float()
+        out = _wire_permute(ct.contiguous(), ctx.group, inverse, ctx.stripe,
+                            ctx.codec)
+        return out.to(ct.dtype), None, None, None, None, None
+
+
+def boundary_permute(y: torch.Tensor, resid, group, perm, mode: str,
+                     stripe: int = 1):
+    """Compressed ``ppermute`` of one stage-boundary activation over
+    ``group``: ``(received, new_resid)``.
+
+    ``resid`` is the int8 mode's error-feedback state the caller carries
+    through its tick loop (``()`` for the stateless modes); it re-feeds
+    values and is never differentiated (detached).  ``stripe`` splits the
+    wire payload into that many concurrent permutes (``--grad-sync-stripe``
+    applied to the stage edge): value-exact on every mode, the same
+    residuals and the same wire bytes."""
+    _check_pp_mode(mode)
+    perm = tuple((int(a), int(b)) for a, b in perm)
+    stripe = max(int(stripe), 1)
+    if mode == "none":
+        return _BoundaryPermute.apply(y, group, perm, stripe, "none"), resid
+    if mode == "bf16":
+        out = _BoundaryPermute.apply(y, group, perm, stripe, "bf16")
+        return out.to(y.dtype), resid
+    # One encoding: its local decode measures the residual, and the same
+    # (q, scale) crosses the wire.
+    err = y.float() + resid.detach()
+    q, scale = encode_int8(_rows2d(err.detach()))
+    new_resid = err.detach() - decode_int8(q, scale).reshape(err.shape)
+    out = _BoundaryPermute.apply(err, group, perm, stripe, "int8",
+                                 (q, scale))
+    return out.to(y.dtype), new_resid
+
+
+def boundary_payload_bytes(rows: int, cols: int, mode: str,
+                           act_itemsize: int = 4) -> int:
+    """Wire bytes of ONE stage-boundary payload ((rows, cols) with batch x
+    sequence flattened into rows) under ``--pp-compress mode``; int8 adds
+    an f32 scale per token."""
+    _check_pp_mode(mode)
+    if mode == "none":
+        return rows * cols * act_itemsize
+    if mode == "bf16":
+        return rows * cols * 2
+    return rows * (cols + 4)
+
+
+def pp_boundary_bytes_per_step(
+    *,
+    schedule: str,
+    num_stages: int,
+    num_microbatches: int,
+    microbatch_rows: int,
+    seq_len: int,
+    hidden: int,
+    act_itemsize: int = 4,
+    mode: str = "none",
+    num_chunks: int = 1,
+) -> int:
+    """Analytic hop payload bytes per train step across ALL stage
+    boundaries, JAX's model: the ring's S edges, the wrap edge included
+    (it carries bytes stage 0 ignores, but they cross all the same).
+
+    ``microbatch_rows`` is the GLOBAL rows of a microbatch: with the batch
+    split D ways there are D rings of 1/D-sized payloads, so the total
+    does not depend on the split.  Each direction (activations forward,
+    cotangents backward) moves one payload per edge per tick: GPipe runs
+    M+S-1 ticks each way (the autodiff backward transposes every forward
+    hop); 1F1B runs 2(M+S-1) ticks and interleaved the table's T, both
+    directions hopping every tick."""
+    S, M = num_stages, num_microbatches
+    payload = boundary_payload_bytes(microbatch_rows * seq_len, hidden, mode,
+                                     act_itemsize)
+    if schedule == "gpipe":
+        per_edge = 2 * (M + S - 1)
+    elif schedule == "1f1b":
+        per_edge = 2 * (2 * (M + S - 1))
+    elif schedule == "interleaved":
+        from ..parallel.pipeline_schedule import make_interleaved_schedule
+
+        per_edge = 2 * make_interleaved_schedule(S, num_chunks, M).T
+    else:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    return S * per_edge * payload

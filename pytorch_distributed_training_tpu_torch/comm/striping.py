@@ -24,8 +24,8 @@ the serial schedule.
 
 :func:`ici_bytes_per_sync` is the within-node byte model, the ICI-side
 complement of ``comm.hierarchical.dcn_bytes_per_sync``.
-``resolve_channel_stripe`` (the pipeline stage edge) waits for the
-pipeline schedules.
+:func:`resolve_channel_stripe` reads the same flag for the pipeline's
+point-to-point stage edge (``--pp-compress``'s hops).
 """
 
 from __future__ import annotations
@@ -65,6 +65,20 @@ def resolve_stripe(stripe, *, ici_size: int, n_slices: int) -> int:
                 "slice-boundary crossing edges to stripe across"
             )
     return 1 if n_slices <= 1 else max(1, n)
+
+
+def resolve_channel_stripe(stripe) -> int:
+    """A ``--grad-sync-stripe`` value for a POINT-TO-POINT channel (the
+    pipeline stage edge): no lane rotation bounds the count there, so
+    ``"auto"`` is the cap and any explicit ``N >= 1`` is taken."""
+    if stripe in (None, "off", "1", 1):
+        return 1
+    if stripe == "auto":
+        return _AUTO_STRIPE_CAP
+    n = int(stripe)
+    if n < 1:
+        raise ValueError(f"stripe lane count must be >= 1, got {n}")
+    return n
 
 
 def split_stripes(x: torch.Tensor, n_stripes: int) -> list[torch.Tensor]:

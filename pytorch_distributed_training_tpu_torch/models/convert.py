@@ -25,6 +25,12 @@ init, compare the two models on the same inputs, and map the port's
 parameters back (``gpt2_params_to_jax``) to compare weights after the
 same training steps leaf by leaf.
 
+The pipelined GPT-2 (``parallel/gpt2_pipeline.py``) maps too: JAX's
+``{"outer": {wte, wpe, ln_final}, "stages": {"layer_j": block}}`` with
+stage leaves ``(S, ...)`` or ``(S, V, ...)`` becomes the port's
+``wte``/``wpe``/``ln_final.*`` and ``stages.layer_j.<block parameter>``,
+kernels transposed on their last two dims.
+
 ``train_state_from_jax`` / ``train_state_to_jax`` carry a whole training
 state across: the JAX ``CheckpointManager.restore_latest`` arrays
 (``step``, ``params``, optax's ``opt_state``, ``batch_stats``) into a
@@ -47,7 +53,10 @@ def _t(x) -> torch.Tensor:
 
 
 def _dense(tree: Mapping, prefix: str, out: dict) -> None:
-    out[f"{prefix}.weight"] = _t(tree["kernel"]).t().contiguous()
+    """A flax ``Dense`` (kernel (..., in, out), stage axes in front for
+    the pipelined tree) as ``nn.Linear``'s (..., out, in) weight."""
+    out[f"{prefix}.weight"] = _t(tree["kernel"]).transpose(-1, -2) \
+        .contiguous()
     if "bias" in tree:
         out[f"{prefix}.bias"] = _t(tree["bias"])
 
@@ -57,23 +66,33 @@ def _layer_norm(tree: Mapping, prefix: str, out: dict) -> None:
     out[f"{prefix}.bias"] = _t(tree["bias"])
 
 
+def _block_from_jax(blk: Mapping, p: str, out: dict) -> None:
+    if "attn" not in blk:
+        raise NotImplementedError(
+            f"{p} is not a dense block (MoE is not yet ported)")
+    _layer_norm(blk["ln1"], f"{p}.ln1", out)
+    _dense(blk["attn"]["qkv"], f"{p}.attn.qkv", out)
+    _dense(blk["attn"]["proj"], f"{p}.attn.proj", out)
+    _layer_norm(blk["ln2"], f"{p}.ln2", out)
+    _dense(blk["mlp_up"], f"{p}.mlp_up", out)
+    _dense(blk["mlp_down"], f"{p}.mlp_down", out)
+
+
 def gpt2_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """Map a flax GPT-2 param tree to ``GPT2.state_dict()`` keys (f32)."""
+    """Map a flax GPT-2 param tree to ``GPT2.state_dict()`` keys (f32); a
+    pipelined tree (``{"outer", "stages"}``) to ``PipelinedGPT2``'s."""
+    if "stages" in tree:
+        outer = tree["outer"]
+        out = {"wte": _t(outer["wte"]), "wpe": _t(outer["wpe"])}
+        for j in range(len(tree["stages"])):
+            _block_from_jax(tree["stages"][f"layer_{j}"],
+                            f"stages.layer_{j}", out)
+        _layer_norm(outer["ln_final"], "ln_final", out)
+        return out
     out = {"wte": _t(tree["wte"]), "wpe": _t(tree["wpe"])}
     layer = 0
     while f"block_{layer}" in tree:
-        blk = tree[f"block_{layer}"]
-        p = f"blocks.{layer}"
-        if "attn" not in blk:
-            raise NotImplementedError(
-                f"block_{layer} is not a dense block (MoE is not yet ported)"
-            )
-        _layer_norm(blk["ln1"], f"{p}.ln1", out)
-        _dense(blk["attn"]["qkv"], f"{p}.attn.qkv", out)
-        _dense(blk["attn"]["proj"], f"{p}.attn.proj", out)
-        _layer_norm(blk["ln2"], f"{p}.ln2", out)
-        _dense(blk["mlp_up"], f"{p}.mlp_up", out)
-        _dense(blk["mlp_down"], f"{p}.mlp_down", out)
+        _block_from_jax(tree[f"block_{layer}"], f"blocks.{layer}", out)
         layer += 1
     _layer_norm(tree["ln_final"], "ln_final", out)
     if "lm_head" in tree:
@@ -88,9 +107,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def gpt2_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
     """The inverse of ``gpt2_params_from_jax``: ``GPT2.state_dict()`` (or
     a name → tensor mapping of the same keys) as the flax GPT-2 param
-    tree of f32 numpy arrays."""
+    tree of f32 numpy arrays; ``PipelinedGPT2``'s names as JAX's
+    pipelined tree."""
     def dense(prefix):
-        out = {"kernel": _np(params[f"{prefix}.weight"]).T.copy()}
+        out = {"kernel": np.ascontiguousarray(
+            np.swapaxes(_np(params[f"{prefix}.weight"]), -1, -2))}
         if f"{prefix}.bias" in params:
             out["bias"] = _np(params[f"{prefix}.bias"])
         return out
@@ -99,18 +120,27 @@ def gpt2_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
         return {"scale": _np(params[f"{prefix}.weight"]),
                 "bias": _np(params[f"{prefix}.bias"])}
 
+    def block(p):
+        return {"ln1": layer_norm(f"{p}.ln1"),
+                "attn": {"qkv": dense(f"{p}.attn.qkv"),
+                         "proj": dense(f"{p}.attn.proj")},
+                "ln2": layer_norm(f"{p}.ln2"),
+                "mlp_up": dense(f"{p}.mlp_up"),
+                "mlp_down": dense(f"{p}.mlp_down")}
+
+    if "stages.layer_0.ln1.weight" in params:
+        stages = {}
+        while f"stages.layer_{len(stages)}.ln1.weight" in params:
+            stages[f"layer_{len(stages)}"] = block(
+                f"stages.layer_{len(stages)}")
+        return {"outer": {"wte": _np(params["wte"]),
+                          "wpe": _np(params["wpe"]),
+                          "ln_final": layer_norm("ln_final")},
+                "stages": stages}
     tree = {"wte": _np(params["wte"]), "wpe": _np(params["wpe"])}
     layer = 0
     while f"blocks.{layer}.ln1.weight" in params:
-        p = f"blocks.{layer}"
-        tree[f"block_{layer}"] = {
-            "ln1": layer_norm(f"{p}.ln1"),
-            "attn": {"qkv": dense(f"{p}.attn.qkv"),
-                     "proj": dense(f"{p}.attn.proj")},
-            "ln2": layer_norm(f"{p}.ln2"),
-            "mlp_up": dense(f"{p}.mlp_up"),
-            "mlp_down": dense(f"{p}.mlp_down"),
-        }
+        tree[f"block_{layer}"] = block(f"blocks.{layer}")
         layer += 1
     tree["ln_final"] = layer_norm("ln_final")
     if "lm_head.weight" in params:
@@ -262,6 +292,7 @@ def jax_leaf_paths(names) -> dict[str, str]:
     backwards."""
     names = list(names)
     family = _family(names)
+    pipelined = any(n.startswith("stages.") for n in names)
     kind = ("Bottleneck" if any(".conv2." in k or ".bn2." in k
                                 for k in names) else "BasicBlock")
     out = {}
@@ -281,6 +312,8 @@ def jax_leaf_paths(names) -> dict[str, str]:
             continue
         if mods and mods[0] == "blocks":
             mods = [f"block_{mods[1]}", *mods[2:]]
+        elif pipelined and (not mods or mods[0] != "stages"):
+            mods = ["outer", *mods]
         norm = bool(mods) and re.fullmatch(r"ln\d*|ln_final", mods[-1])
         if leaf == "weight":
             leaf = "scale" if norm else "kernel"
@@ -291,8 +324,12 @@ def jax_leaf_paths(names) -> dict[str, str]:
 def jax_leaf_dims(path: str, ndim: int) -> tuple[int, ...]:
     """For each dim of a port parameter whose flax path is ``path``, the
     dim of the flax leaf it is (``_from_flax_leaf``'s transposes read
-    backwards): a dense kernel (out, in) is flax's (in, out), a conv
-    kernel OIHW is HWIO, everything else keeps its dims."""
+    backwards): a dense kernel (out, in) is flax's (in, out) (behind a
+    pipelined leaf's stage axes too), a conv kernel OIHW is HWIO,
+    everything else keeps its dims."""
+    if path.startswith("stages/") and path.endswith("kernel"):
+        lead = ndim - 2
+        return (*range(lead), lead + 1, lead)
     if path.endswith("kernel"):
         if ndim == 2:
             return (1, 0)
@@ -306,7 +343,7 @@ def jax_leaf_dims(path: str, ndim: int) -> tuple[int, ...]:
 
 def _family(names) -> str:
     names = set(names)
-    if "wte" in names:
+    if "wte" in names or "stages" in names:
         return "gpt2"
     if "patch_embed" in names or "patch_embed.weight" in names:
         return "vit"
@@ -344,24 +381,32 @@ def train_state_from_jax(arrays: Mapping, state):
     ``ScaleByAdamState`` is (count, mu, nu), ``TraceState`` (trace,),
     ``ScaleByScheduleState`` (count,), and the stateless transforms (and
     a constant rate's ``ScaleState``) are empty.  The port's rate counter
-    under a constant rate, which optax does not keep, is the step."""
+    under a constant rate, which optax does not keep, is the step.  A
+    sharded state (``state.shardings``: the pipelined GPT-2's, say) keeps
+    its part of each whole array."""
     from ..train.optim import AdamState, CountState
 
     family = _family(arrays["params"])
     names = list(state.params)
     step = int(np.asarray(arrays["step"]))
+    layout = state.shardings
 
-    def fill(targets: dict, source: Mapping, what: str) -> None:
+    def fill(targets: dict, source: Mapping, what: str,
+             placements: dict | None = None) -> None:
         if set(targets) != set(source):
             diff = sorted(set(targets) ^ set(source))
             raise ValueError(f"{what}: {len(diff)} names differ "
                              f"(first: {diff[0]})")
         with torch.no_grad():
             for n, t in targets.items():
-                t.copy_(source[n])
+                src = source[n]
+                if placements is not None:
+                    src = placements[n].shard(src)
+                t.copy_(src)
 
     def slots(tree, live: list, what: str) -> None:
-        fill(dict(zip(names, live)), _tree_to_named(tree, family), what)
+        fill(dict(zip(names, live)), _tree_to_named(tree, family), what,
+             None if layout is None else layout.slots)
 
     def walk(port, jax_node, path: str):
         jax_node = tuple(jax_node)   # a chain's tuple, a namedtuple
@@ -395,7 +440,7 @@ def train_state_from_jax(arrays: Mapping, state):
                                  if n not in state.params}, "batch_stats")
     else:
         fill(state.params, _tree_to_named(arrays["params"], family),
-             "params")
+             "params", None if layout is None else layout.params)
         fill(state.batch_stats, {}, "batch_stats")
     return dataclasses.replace(state, step=step, opt_state=opt_state)
 
@@ -407,14 +452,23 @@ def train_state_to_jax(state, *, scheduled: bool = True) -> dict:
     same order: ``jax.tree_util.tree_unflatten`` of the optax state's
     structure over its leaves rebuilds optax's state).  ``scheduled``:
     False for a constant rate, whose optax state (``ScaleState``) holds
-    no count."""
+    no count.  A sharded state is gathered whole first (collective: every
+    rank calls it)."""
     from ..train.optim import AdamState, CountState
 
     family = _family(state.params)
     names = list(state.params)
+    layout = state.shardings
+
+    def whole(live: list, prefix: str) -> list:
+        if layout is None:
+            return live
+        return [layout.gather_full(f"{prefix}/{n}", t)
+                for n, t in zip(names, live)]
 
     def tree(live: list) -> dict:
-        return _named_to_tree(dict(zip(names, live)), family)
+        return _named_to_tree(dict(zip(names, whole(live, "opt_state/x"))),
+                              family)
 
     def walk(port):
         if isinstance(port, tuple):
@@ -432,6 +486,8 @@ def train_state_to_jax(state, *, scheduled: bool = True) -> dict:
         params, stats = resnet_params_to_jax(
             {**state.params, **state.batch_stats})
     else:
-        params, stats = _named_to_tree(state.params, family), {}
+        params = _named_to_tree(dict(zip(names, whole(
+            list(state.params.values()), "params"))), family)
+        stats = {}
     return {"step": np.asarray(state.step, np.int32), "params": params,
             "opt_state": walk(state.opt_state), "batch_stats": stats}

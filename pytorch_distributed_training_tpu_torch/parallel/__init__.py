@@ -1,10 +1,19 @@
 """Parallelism of the port: gradient accumulation, data-parallel
 replication, the placement rules (``sharding``) and the sharded state
 they lay out (``sharded``: FSDP, tensor parallelism, ZeRO-1, sequence
-parallelism), ring attention and Ulysses (pipeline parallelism is a
-later slice)."""
+parallelism), ring attention and Ulysses, and pipeline parallelism
+(``pipeline_schedule``'s tables, ``pipeline``'s GPipe, 1F1B and
+interleaved engines, ``gpt2_pipeline``'s pipelined GPT-2)."""
 
+from .gpt2_pipeline import (
+    PipelinedGPT2, make_pipeline_grad_fn, pipelined_rules, pp_fsdp_rules,
+    pp_tp_rules,
+)
 from .grad_accum import accumulate_gradients
+from .pipeline import (
+    pipeline_forward, pipeline_train_1f1b, pipeline_train_interleaved,
+)
+from .pipeline_schedule import make_interleaved_schedule
 from .ring_attention import ring_attention, ring_self_attention
 from .sharded import ShardedLayout, configure_model
 from .sharding import (
@@ -20,4 +29,8 @@ __all__ = [
     "tp_rules_for", "infer_params_sharding", "shard_params",
     "batch_sharding", "shard_batch", "ShardedLayout", "configure_model",
     "ring_attention", "ring_self_attention", "ulysses_attention",
+    "PipelinedGPT2", "make_pipeline_grad_fn", "pipelined_rules",
+    "pp_fsdp_rules", "pp_tp_rules", "pipeline_forward",
+    "pipeline_train_1f1b", "pipeline_train_interleaved",
+    "make_interleaved_schedule",
 ]

@@ -1,6 +1,7 @@
 """Sharded training state: FSDP (``--fsdp``), tensor parallelism
-(``--tensor-parallel``), ZeRO-1 (``--zero1``) and sequence parallelism
-(``--sequence-parallel``) over a port :class:`~..comm.mesh.Mesh`.
+(``--tensor-parallel``), ZeRO-1 (``--zero1``), sequence parallelism
+(``--sequence-parallel``) and the pipelined GPT-2's stages
+(``--pipeline-parallel``) over a port :class:`~..comm.mesh.Mesh`.
 
 JAX places every leaf with a ``PartitionSpec`` and GSPMD derives the
 collectives.  Here the placement is ``parallel/sharding.py``'s (the same
@@ -17,6 +18,14 @@ rules, the same decisions) and :class:`ShardedLayout` carries it out:
   the slots independently of the parameters (ZeRO-1: replicated
   parameters, slots over ``data``).  Counts, the anomaly gate's state and
   ``batch_stats`` stay replicated.
+- **Pipeline stages** (``parallel/gpt2_pipeline.py``).  A stage leaf's
+  stage axis (dim 0) is split over ``pipeline``: each rank keeps its
+  stage, and nothing gathers it at use (the leaf is consumed where it
+  lies).  Under PP x FSDP or PP x TP a stage leaf is split on a second
+  dim as well (``Placement.stage``: the stage split first, then the
+  fsdp or tensor split); its shards' group, for the norm, spans both
+  axes, and a checkpoint gathers both.  The pipeline engines combine
+  their own gradients, so the step's ``sync_fn`` is not used.
 - **Gather at use** (FSDP, and a tensor-sharded leaf the layer does not
   consume sharded, such as ``wte`` at a vocab the tensor axis divides).
   ``install_gather_hooks`` puts a forward pre-hook on each *unit* of the
@@ -60,7 +69,8 @@ import torch
 
 from ..comm import collectives
 from ..comm.mesh import (
-    AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE, AXIS_TENSOR, BATCH_AXES,
+    AXIS_DATA, AXIS_FSDP, AXIS_PIPELINE, AXIS_SEQUENCE, AXIS_TENSOR,
+    BATCH_AXES,
 )
 from .sharding import P, infer_params_sharding, spec_axes
 
@@ -105,12 +115,21 @@ def configure_model(model, mesh, sp_mode: str = "ring"):
     return ctx
 
 
+def spec_axis_names(spec: P) -> set:
+    """Every mesh axis a spec names, on any dim."""
+    return {a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """One leaf's layout on this rank: its whole ``shape``, the ``dim``
     its ``axes`` split ``n`` ways (None: replicated), this rank's
     ``index`` over them, and ``blocks`` (> 1: the dim is ``blocks``
-    equal blocks, each split ``n`` ways, the QKV's by-head layout)."""
+    equal blocks, each split ``n`` ways, the QKV's by-head layout).
+    ``stage``: a pipelined stage leaf split on two dims, its stage axis
+    (dim 0) over ``pipeline`` beside the split above (``fsdp`` or
+    ``tensor``), is this placement of dim 0, applied first."""
 
     shape: tuple
     dim: int | None = None
@@ -118,9 +137,16 @@ class Placement:
     n: int = 1
     index: int = 0
     blocks: int = 1
+    stage: "Placement | None" = None
 
     @classmethod
     def of(cls, spec: P, shape, mesh, blocks: int = 1) -> "Placement":
+        spec = tuple(spec)
+        if (spec and spec[0] == AXIS_PIPELINE
+                and any(e is not None for e in spec[1:])):
+            return dataclasses.replace(
+                cls.of(P(None, *spec[1:]), shape, mesh, blocks),
+                stage=cls.of(P(AXIS_PIPELINE), shape, mesh))
         dim, axes = spec_axes(spec)
         if dim is None:
             return cls(tuple(shape))
@@ -132,17 +158,26 @@ class Placement:
         return self.dim is not None and self.n > 1
 
     @property
+    def group_axes(self) -> tuple:
+        """Every axis the leaf is split over (its shards' group)."""
+        return (self.stage.axes if self.stage else ()) + self.axes
+
+    @property
     def local_shape(self) -> tuple:
         if not self.sharded:
             return self.shape
         s = list(self.shape)
         s[self.dim] //= self.n
+        if self.stage is not None:
+            s[0] //= self.stage.n
         return tuple(s)
 
     def shard(self, full: torch.Tensor, index: int | None = None):
         """Shard ``index`` (default this rank's) of the whole tensor."""
         if not self.sharded:
             return full
+        if self.stage is not None:
+            full = self.stage.shard(full)
         i = self.index if index is None else index
         x = full.movedim(self.dim, 0)
         rest = x.shape[1:]
@@ -187,7 +222,9 @@ class ShardedLayout:
         self.sp_mode = sp_mode
         self.params = {
             n: Placement.of(param_specs[n], shapes[n], mesh,
-                            3 if n in consumed and _BY_HEAD.search(n) else 1)
+                            3 if n in consumed and _BY_HEAD.search(n)
+                            and AXIS_TENSOR in spec_axis_names(
+                                param_specs[n]) else 1)
             for n in self.names}
         self.slots = {}
         for n in self.names:
@@ -234,7 +271,7 @@ class ShardedLayout:
     def norm_groups(self, names) -> list:
         """For each of ``names``, the group its gradient (in the slot
         layout) is sharded over, None where it is whole."""
-        return [self.mesh.group(self.slots[n].axes)
+        return [self.mesh.group(self.slots[n].group_axes)
                 if self.slots[n].sharded else None for n in names]
 
     # ---- gather at use ---------------------------------------------------
@@ -386,10 +423,13 @@ class ShardedLayout:
         p = self.placement_of(ckpt_name, t)
         if p is None or not p.sharded:
             return t
-        gathered = collectives.all_gather(t.detach().contiguous(),
-                                          self.mesh.group(p.axes),
-                                          gather_axis=p.dim)
-        return p.unshard(gathered)
+        gathered = p.unshard(collectives.all_gather(
+            t.detach().contiguous(), self.mesh.group(p.axes),
+            gather_axis=p.dim))
+        if p.stage is not None:
+            gathered = collectives.all_gather(
+                gathered.contiguous(), self.mesh.group(p.stage.axes))
+        return gathered
 
     def shard_full(self, ckpt_name: str, live: torch.Tensor,
                    full: torch.Tensor) -> torch.Tensor:
@@ -453,8 +493,11 @@ def build_layout(model, mesh, *, rules, opt_rules=None,
                   else infer_params_sharding(shapes, mesh, opt_rules))
     tp_aware = any(hasattr(type(m), "parallel") for m in model.modules())
     consumed = frozenset(
-        n for n in shapes if tp_aware and TP_CONSUMED.search(n)
-        and AXIS_TENSOR in spec_axes(specs[n])[1])
+        n for n in shapes if (tp_aware and TP_CONSUMED.search(n)
+                              and AXIS_TENSOR in spec_axis_names(specs[n]))
+        # A pipeline stage's leaves are its rank's own: the pipeline's
+        # stage body gathers what it needs (parallel/gpt2_pipeline.py).
+        or AXIS_PIPELINE in spec_axis_names(specs[n]))
     return ShardedLayout(mesh, shapes, specs, slot_specs, consumed, sp_mode)
 
 
@@ -484,6 +527,7 @@ def describe(layout: ShardedLayout) -> str:
     axes = {a: s for a, s in layout.mesh.shape.items() if s > 1}
     sharded = sum(p.sharded for p in layout.params.values())
     slots = sum(s.sharded for s in layout.slots.values())
+    tp = sum(AXIS_TENSOR in layout.params[n].axes for n in layout.consumed)
     return (f"sharding: {axes or {'data': 1}} | {sharded}/{len(layout.names)} "
             f"parameters sharded, {slots} slot sets sharded, "
-            f"{len(layout.consumed)} consumed by tensor-parallel layers")
+            f"{tp} consumed by tensor-parallel layers")

@@ -68,7 +68,13 @@ sync-BN group is the batch group.  ZeRO-1 under the two-tier sync
 (``grad_sync`` with ``zero1``) takes the sync's whole mean and keeps
 each rank's slot slices of it.
 
-Not yet ported: ``grad_fn`` (pipeline schedules); it raises.
+``grad_fn`` (``(state, batch, rng) -> (loss, aux, grads)``) replaces the
+loss and backward for a path that owns its own schedule: the pipelined
+GPT-2 (``parallel/gpt2_pipeline.py::make_pipeline_grad_fn``), whose
+gradients come back already combined over its mesh.  ``rng`` is the
+step's ``(seed, step)`` (None without ``seed``); microbatching belongs to
+the schedule, not ``num_microbatches``.  The gate, the clip and the
+optimizer stay the step's.
 """
 
 from __future__ import annotations
@@ -84,12 +90,6 @@ from ..parallel.grad_accum import accumulate_gradients
 from ..resilience.anomaly import guarded_apply
 from .policy import Policy
 from .state import TrainState
-
-
-def _not_ported(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(f"{name} is not yet ported")
 
 
 def _check_kind(kind: str) -> None:
@@ -255,9 +255,11 @@ def make_train_step(
     (``data.DataLoader`` with ``num_microbatches`` hands out JAX's
     microbatches), the result the global batch's; ``grad_sync`` syncs
     the gradients in two tiers instead (module docstring).  ``anomaly_policy``
-    gates the update (module docstring) and adds the gate's metrics."""
+    gates the update (module docstring) and adds the gate's metrics.
+    ``grad_fn`` overrides the loss and backward (module docstring)."""
     _check_kind(kind)
-    _not_ported(grad_fn=grad_fn)
+    if grad_fn is not None:
+        return _grad_fn_step(grad_fn, seed, _updater(anomaly_policy))
     if state_shardings is not None:
         return _sharded_train_step(
             state_shardings, kind=kind, policy=policy or Policy(),
@@ -314,6 +316,17 @@ def make_train_step(
         loss, grads, residual = accumulate(fn, state, batch)
         state, gate = apply_update(state, loss, grads, residual=residual)
         return state, {"loss": loss, **gate}
+
+    return train_step
+
+
+def _grad_fn_step(grad_fn, seed, apply_update):
+    """The step of a path that owns its loss and backward (``grad_fn``)."""
+    def train_step(state: TrainState, batch: dict):
+        rng = None if seed is None else (seed, state.step)
+        loss, aux, grads = grad_fn(state, batch, rng)
+        state, gate = apply_update(state, loss, grads)
+        return state, {"loss": loss, **aux, **gate}
 
     return train_step
 

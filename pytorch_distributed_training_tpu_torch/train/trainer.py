@@ -10,7 +10,9 @@ enqueued, never waited for.  The epoch summary has the JAX trainer's keys:
 rolling_examples_per_sec, loss``, then the step's other metrics as read at
 the last log point (an image classifier's ``accuracy``).  Under data
 parallelism the batch a rank holds is its share of the global one:
-examples count the global batch, as the JAX trainer's global arrays do.
+examples count the global batch, as the JAX trainer's global arrays do
+(a sharded state's batch axes, the ranks that hold different rows: fewer
+than the world when tensor, sequence or pipeline ranks share rows).
 
 The resilience hooks are the JAX trainer's, in its order within a step:
 the fault plane (``faults.on_step``) before the step dispatches; then,
@@ -36,6 +38,7 @@ import time
 from typing import Any, Callable, Iterable
 
 from ..comm.init import process_count
+from ..comm.mesh import BATCH_AXES
 from ..data.loader import prefetch_to_device, to_device
 from ..resilience.preemption import Preempted
 from ..utils.profiling import StepTimer
@@ -88,7 +91,9 @@ class Trainer:
         losses: list[float] = []
         timer = StepTimer()
         batch_size = 0
-        world = process_count()
+        layout = self.state.shardings
+        world = (process_count() if layout is None
+                 else layout.mesh.axes_size(BATCH_AXES))
         metrics: dict | None = None
         last_metrics: dict = {}
         step_idx = -1

@@ -40,7 +40,9 @@ def test_port_imports_with_jax_blocked():
     """Import the serving and training entry points, the ResNet path's,
     the data-parallel path's (the two-tier sync's slice split, striping
     and sync among them), the sharded paths' (the mesh, the placement
-    rules and layout, ring attention and Ulysses), the ViT path's, the checkpoint and
+    rules and layout, ring attention and Ulysses), the pipeline's (the
+    schedule tables, the engines and the pipelined GPT-2), the ViT path's,
+    the checkpoint and
     resilience modules (the skip gate and recovery among them) and the
     device caches in a fresh
     interpreter where importing jax, flax or the JAX package fails."""
@@ -82,6 +84,11 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.parallel."
         "ring_attention\n"
         "import pytorch_distributed_training_tpu_torch.parallel.ulysses\n"
+        "import pytorch_distributed_training_tpu_torch.parallel."
+        "pipeline_schedule\n"
+        "import pytorch_distributed_training_tpu_torch.parallel.pipeline\n"
+        "import pytorch_distributed_training_tpu_torch.parallel."
+        "gpt2_pipeline\n"
         "import pytorch_distributed_training_tpu_torch.utils.seeding\n"
         "import pytorch_distributed_training_tpu_torch.tools.dp_check\n"
         "import pytorch_distributed_training_tpu_torch.models.vit\n"
