@@ -23,7 +23,12 @@ the port's main paths:
   routed to the flash kernels that port one TPU tiling, with the flash
   launch counts checked exactly and no attention outside the kernels; a
   small f32 model trains three steps on the card and on the host from the
-  same weights and must agree;
+  same weights and must agree; T6 the MoE GPT-2 (``gpt2_moe``: 124M
+  widths, 8 experts in every odd block, 322,634,544 parameters) on T1's
+  recipe, 3 steps in the CLI's scatter dispatch (flash #4/#5 counted
+  exactly, the drop rate a fraction; tokens/s, step time, peak memory)
+  and two steps of the same batches in einsum mode, its losses, drop
+  rates and update of the MoE leaves held to scatter's;
 - image classification, which runs none of the kernels (convolutions,
   pooling and the head are cuDNN/cuBLAS calls, the norms the port's
   BatchNorm functions): R1 the reference's own run through the CLI
@@ -84,9 +89,10 @@ the port's main paths:
   within 1e-5, weights within 10x the JAX package's tolerances, the
   error-feedback residual non-zero) and ``hier-int8`` striped and
   pipelined bitwise serial; H2 GPT-2 124M on T1's recipe under flat and
-  under ``hier-int8`` with stripe ``auto`` and the phase pipeline: ranks
-  bit-identical, the step-3 losses within ``H2_INT8_LOSS_BOUND``, flash
-  #4/#5 counted, step and sync times (gloo's on one card);
+  under ``hier-int8`` with stripe ``auto`` and the phase pipeline, H1
+  and H2 in one torchrun (``--grad-sync-leg``): ranks bit-identical, the step-3 losses
+  within ``H2_INT8_LOSS_BOUND``, flash #4/#5 counted, step and sync
+  times (gloo's on one card);
 - sharded training (``--fsdp``, ``--tensor-parallel``, ``--zero1``,
   ``--sequence-parallel``), 4 ranks of ``torch.distributed.run`` on the
   one card over gloo: M0 each layout (fsdp 4, data 2 x fsdp 2, TP 2 and
@@ -106,8 +112,14 @@ the port's main paths:
   ``M1_STATE_GB``, peak memory and step time, flash #4/#5 counted; M2
   the ``--fsdp 4`` run's step-2 checkpoint resumed under ``--zero1`` at
   world 2 (its step-3 checkpoint within ``M1_STATE_BOUND`` of the
-  uninterrupted run's) and under ``--fsdp 4`` (bitwise).  The flash check also holds
-  the kernels at the heads a rank holds there (H 6, H 3);
+  uninterrupted run's) and under ``--fsdp 4`` (bitwise); E0 JAX's tiny
+  MoE GPT-2 under expert 4, data 2 x expert 2, expert 2 x tensor 2 and
+  data 4 at a capacity that drops tokens (routed over the global batch),
+  f32 with TF32 off, against one process at M0's tolerances.  M0, E0,
+  M1 and M2's ``--fsdp 4`` resume run in one torchrun
+  (``--sharded-leg``).
+  The flash check also holds the kernels at the heads a rank holds
+  there (H 6, H 3);
 - pipeline parallelism (``--pipeline-parallel``), 4 ranks of one
   ``torch.distributed.run`` on the one card over gloo (``--pipeline-leg``):
   P0 every schedule (gpipe, 1f1b, interleaved) at PP 4 and PP 2 x data
@@ -116,15 +128,18 @@ the port's main paths:
   GPT-2, f32 with TF32 off, against one process (loss, every gradient
   and 3 steps at the JAX tests' tolerances; the compressed runs within
   JAX's band; stripe 2 bitwise stripe 1); P1 T1's recipe through the
-  CLI in the same torchrun, flat, then PP 4 with 8 microbatches under
-  gpipe, gpipe ``--remat``, 1f1b, interleaved (3 chunks) and 1f1b
-  ``--pp-compress int8``, PP 2 x data 2 1f1b, and flat again: step-3
+  CLI in the same torchrun, PP 4 with 8 microbatches under gpipe,
+  gpipe ``--remat``, 1f1b, interleaved (3 chunks) and 1f1b
+  ``--pp-compress int8``, PP 2 x data 2 1f1b, and flat again (the
+  sharded phase's M1 flat run, the same run, is the first flat): step-3
   losses within ``P1_LOSS_BOUND`` of flat's, step-3 checkpoints within
   ``M1_STATE_BOUND`` of flat's, flash #4/#5 counted exactly, state
   bytes, peak memory and step times a rank; P2 the 1f1b run's step-2
   checkpoint resumed under PP 4 (bitwise), PP 2 x data 2 and flat at
-  world 1 (step-3 losses and checkpoints held to the 1f1b run's).  The flash check holds the kernels at the
-  pipeline's microbatch (B 2, H 12).
+  world 1 (step-3 losses and checkpoints held to the 1f1b run's); P3
+  GPipe x MoE, ``gpt2_moe`` on T1's recipe at PP 2 x data 2 against
+  T6's scatter run, step-3 loss within ``P1_LOSS_BOUND``.  The flash check holds
+  the kernels at the pipeline's microbatch (B 2, H 12).
 
 Each phase prints its lines; any failed check ends the run with a
 traceback and a non-zero exit.  The last lines are the kernel table
@@ -137,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -1140,6 +1156,114 @@ def training_phase(torch, fa, seed: int, figures: dict) -> dict:
     return launches
 
 
+# T6: T1's recipe with the MoE GPT-2 (this slice's main path): GPT-2 124M
+# widths, 8 experts in every odd block, capacity factor 1.25, the CLI's
+# scatter dispatch, 3 steps; then two steps of the same batches in
+# einsum mode.  Both select the same experts (a one-hot einsum adds zeros
+# only), so einsum's losses are held to scatter's at 1e-4 (the first 0
+# in each of this leg's chip runs, PERF.md), its drop rates exactly, and
+# its update of the MoE leaves over the two steps (the warmup's first
+# rate is 0) to scatter's within T6_UPDATE_BOUND (relative L2): an
+# einsum that dropped the combine or picked other experts moves them
+# apart by ~1 (Adam's early steps are about lr times the gradient's
+# sign), where bf16 rounding flips only the signs of near-zero
+# gradients.
+T6_ARGV = [*T1_RECIPE, "--model", "gpt2_moe"]
+T6_PARAMS = 322_634_544
+T6_EINSUM_BOUND = 1e-4
+T6_UPDATE_BOUND = 0.25
+T6_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke", "t6")
+
+
+def _update_rel_l2(a: list, b: list) -> float:
+    """The relative L2 distance of run ``a``'s update from run ``b``'s
+    (``cli_runs``' ``grab``: the leaves before the first step, the same
+    start, and after the same step)."""
+    num = den = 0.0
+    for name, b0 in b[0].items():
+        check(bool((a[0][name] == b0).all()), f"T6: {name} starts the same")
+        du, dv = a[1][name] - b0, b[1][name] - b0
+        num += float((du - dv).norm()) ** 2
+        den += float(dv.norm()) ** 2
+    return (num / den) ** 0.5
+
+
+def moe_train_phase(torch, seed: int, carry: dict) -> dict:
+    """T6 through the CLI on the card (module docstring of the phase
+    list), two ``cli_runs`` in this process: scatter 3 steps, einsum 2
+    steps on the same batches.  Exact flash #4/#5 launches (12 layers x
+    2 microbatches a step), no plain attention, ``gpt2_moe`` at
+    ``T6_PARAMS``, the first loss near ln 50257 (+ 0.01 aux), the drop
+    rates fractions; einsum held to scatter (``T6_EINSUM_BOUND``, the
+    drop rates exactly, ``T6_UPDATE_BOUND``); tokens/s, step time and
+    peak memory printed.  Scatter's losses go to P3
+    (``carry["t6"]``).  Returns the launches by row."""
+    import shutil
+
+    shutil.rmtree(T6_DIR, ignore_errors=True)
+    os.makedirs(T6_DIR)
+    runs = [dict(label=label, grab=[".moe.", 2], argv=[
+        *T6_ARGV, "--steps-per-epoch", str(steps), *extra, *TRAIN_COMMON,
+        "--seed", str(seed)]) for label, steps, extra in (
+            ("scatter", 3, []),
+            ("einsum", 2, ["--model-overrides", "moe_dispatch=einsum"]))]
+    records = cli_runs(torch, T6_DIR, runs, 0)
+    shutil.rmtree(T6_DIR, ignore_errors=True)
+    fwd = bwd = 0
+    for run in runs:
+        label = run["label"]
+        r = records[label]
+        steps = int(run["argv"][run["argv"].index("--steps-per-epoch") + 1])
+        want = 12 * 2 * steps
+        launched = [r["fwd"], r["dq"], r["dkv"]]
+        check(r["steps"] == steps and launched == [want] * 3
+              and not any(r["plain"].values()) and not any(r["xla"].values()),
+              f"T6 {label}: {steps} steps, flash fwd/dq/dkv {launched} "
+              f"({want} each), no plain attention {r['plain']} {r['xla']}")
+        fwd += r["fwd"]
+        bwd += r["dq"] + r["dkv"]
+        check(r["dispatch"] == label and r["params"] == T6_PARAMS,
+              f"T6 {label}: gpt2_moe with {T6_PARAMS} parameters "
+              f"({r['params']}), dispatch {r['dispatch']}")
+        losses, drops = r["losses"], r["drops"]
+        check(_finite(losses) and 10.0 <= losses[0] <= 12.0
+              and len(drops) == steps and all(0.0 <= d <= 1.0 for d in drops),
+              f"T6 {label}: losses {losses}, the first near ln 50257 "
+              f"(+ 0.01 aux), drop rates {drops} in [0, 1]")
+    sc, ei = records["scatter"], records["einsum"]
+    step_ms = statistics.median(sc["step_s"][1:]) * 1e3
+    d = max(abs(x - y) for x, y in zip(ei["losses"], sc["losses"]))
+    update = _update_rel_l2(ei["grab"], sc["grab"])
+    n_leaves = len(sc["grab"][0])
+    del records, sc["grab"], ei["grab"]
+    print(f"train T6 (#4/#5; gpt2_moe, {T6_PARAMS} parameters, E 8, cf "
+          f"1.25, bf16, L 1024, 16 = 2 x 8 rows, adamw 6e-4, scatter, 3 "
+          f"steps): losses {[round(x, 5) for x in sc['losses']]}, drop "
+          f"rates {[round(x, 4) for x in sc['drops']]}, step (median of "
+          f"steps 2-3) {step_ms:.1f} ms, {16 * 1024 / step_ms * 1e3:.0f} "
+          f"tokens/s, peak memory {sc['peak_mem_gb']:.2f} GB, flash "
+          f"fwd/dq/dkv 72 each; einsum mode on the first 2 batches: "
+          f"losses {ei['losses']} vs scatter's {sc['losses'][:2]} (at most "
+          f"{d:.3g}, bound {T6_EINSUM_BOUND}), drop rates {ei['drops']} vs "
+          f"{sc['drops'][:2]} (exact), update of the {n_leaves} MoE leaves "
+          f"over the 2 steps vs scatter's: relative L2 {update:.3g} (bound "
+          f"{T6_UPDATE_BOUND}); step {ei['step_s'][1] * 1e3:.1f} ms (the "
+          f"second), peak memory {ei['peak_mem_gb']:.2f} GB", flush=True)
+    check(d <= T6_EINSUM_BOUND, f"T6: einsum's losses vs scatter's {d:.3g} "
+          f"within {T6_EINSUM_BOUND}")
+    check(ei["drops"] == sc["drops"][:2], f"T6: einsum's drop rates "
+          f"{ei['drops']} are scatter's {sc['drops'][:2]}")
+    check(update <= T6_UPDATE_BOUND, f"T6: einsum's update of the MoE "
+          f"leaves vs scatter's {update:.3g} within {T6_UPDATE_BOUND}")
+    carry["t6"] = sc["losses"]
+    # The 322 M-parameter state's blocks go back to the card for the
+    # later phases' ranks.
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {4: fwd, 5: bwd}
+
+
 def train_parity_phase(torch, fa, seed: int) -> None:
     """Three f32 training steps of a small GPT-2 (2 layers, hidden 128, 2
     heads of 64, vocab 512, seq 256, batch 4, accumulation 2, adam) on the
@@ -1604,24 +1728,39 @@ def cli_leg(out: str, argv: list) -> int:
     return code
 
 
-def _timed_steps(torch, record: dict):
-    """Wrap the port's ``make_train_step`` so each step's loss and its
-    own time (the card synchronized before and after it) go into
-    ``record``; returns the original for restoring."""
+def _timed_steps(torch, record: dict, grab: list | None = None):
+    """Wrap the port's ``make_train_step`` so each step's loss, its MoE
+    drop rate where the model has one (``record["drops"]``) and its own
+    time (the card synchronized before and after it) go into ``record``;
+    with ``grab`` ``[fragment, k]``, the parameters whose names hold the
+    fragment, copied to the host before the first step and after the
+    k-th (``record["grab"]``, outside the timed spans).  Returns the
+    original for restoring."""
     import pytorch_distributed_training_tpu_torch.train as train
 
     original = train.make_train_step
+
+    def grabbed(state) -> dict:
+        return {n: p.detach().to("cpu", torch.float32, copy=True)
+                for n, p in state.params.items() if grab[0] in n}
 
     def make(**kw):
         step = original(**kw)
 
         def timed(state, batch):
+            if grab and "grab" not in record:
+                record["grab"] = [grabbed(state)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
             record["step_s"].append(time.perf_counter() - t0)
             record["losses"].append(float(metrics["loss"]))
+            if "moe_drop_rate" in metrics:
+                record.setdefault("drops", []).append(
+                    float(metrics["moe_drop_rate"]))
+            if grab and len(record["step_s"]) == grab[1]:
+                record["grab"].append(grabbed(state))
             return state, metrics
 
         return timed
@@ -2822,9 +2961,9 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
     under ``--elastic --max-restarts 1``: a rollback, an abort, the
     supervisor's relaunch failing the same way (a subprocess, beside
     DC4).  DC4 DC1's cached command preempted by ``sigterm@4`` under
-    step checkpoints every 2 and resumed, cuDNN held to its
-    deterministic algorithms: bitwise on the uninterrupted cached run at
-    step 100.  Returns DC3's and G1's flash launches by row."""
+    step checkpoints every 2 and resumed (epoch-end checkpoints), cuDNN
+    held to its deterministic algorithms: bitwise on the uninterrupted
+    cached run at step 100.  Returns DC3's and G1's flash launches by row."""
     import shutil
 
     import numpy as np
@@ -2969,14 +3108,16 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
     ref_dir, run_dir = os.path.join(DC, "ref"), os.path.join(DC, "dc4")
     dc1_run(ref_dir)
     dc4 = R1_ARGV + seed_argv + ["--device-cache", "--checkpoint-dir",
-                                 run_dir, "--ckpt-every-steps", "2",
-                                 "--inject-faults", "sigterm@4"]
+                                 run_dir]
     try:
-        cli(dc4)
+        cli(dc4 + ["--ckpt-every-steps", "2", "--inject-faults",
+                   "sigterm@4"])
         code = 0
     except SystemExit as e:
         code = e.code
     check(code == 75, f"DC4: preempted run exit {code}, expected 75")
+    # The resumed run commits the epochs' ends only, as the reference
+    # does (a save every 2 steps of R1 bounds the run by its writes).
     trainer = cli(dc4 + ["--resume"])
     check(trainer.state.step == 100, "DC4: resumed to step 100")
     reruns = iter(range(1 << 30))
@@ -3035,29 +3176,75 @@ H1_BUCKET_MB, H1_BATCH, H1_LR = 0.05, 8, 3e-4
 H2_INT8_LOSS_BOUND = 2e-2
 H2_ARGS = ["--model", "gpt2_124m", "--batch", "16", "--accum", "2",
            "--steps", "3", "--device", "cuda", "--backend", "gloo"]
+H2_RUNS = (("flat", []), ("hier-int8", [
+    "--grad-sync", "hier-int8", "--grad-sync-slices", "2",
+    "--grad-sync-stripe", "auto", "--grad-sync-overlap", "on"]))
 
 
-def h1_leg(out: str, seed: int) -> int:
-    """One rank of H1 (``--h1-leg OUT SEED``): every run of ``H1_RUNS``
-    over the gloo group on the card, ``tools/dp_check.py``'s 2-layer
-    GPT-2 in f32 with TF32 off, accumulation 2, 3 steps; writes
-    ``OUT/<label>.rank<r>.json`` (losses, checksums, the residual's
-    largest magnitude) and rank 0's weights ``OUT/<label>.npz``."""
-    import numpy as np
+def grad_sync_leg(out: str, seed: int) -> int:
+    """One rank of the grad-sync phase's torchrun (``--grad-sync-leg OUT
+    SEED``), gloo on the one card: H1's runs (``h1_runs``), then H2's
+    (``h2_runs``), in one group."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_training_tpu_torch.comm import init as comm_init
+
+    torch.set_num_threads(1)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    group = comm_init.initialize(device, backend="gloo")
+    try:
+        h1_runs(torch, os.path.join(out, "h1"), seed, device, group)
+        h2_runs(out, seed)
+    finally:
+        comm_init.shutdown()
+    return 0
+
+
+def h2_runs(out: str, seed: int) -> None:
+    """H2 on this rank: ``tools/dp_check.py`` for each of ``H2_RUNS`` in
+    turn, in the group this process joined (``group_kept``), each
+    writing ``OUT/h2_<label>/rank<r>.json``; the flash counts start at 0
+    for each."""
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+
+    argv = sys.argv
+    try:
+        with group_kept():
+            for label, extra in H2_RUNS:
+                for e in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+                    e.launches = 0
+                sys.argv = ["dp_check", *H2_ARGS, "--seed", str(seed),
+                            "--out", os.path.join(out, f"h2_{label}"),
+                            *extra]
+                dp_check.main()
+                collectives.barrier()
+    finally:
+        sys.argv = argv
+
+
+def h1_runs(torch, out: str, seed: int, device, group) -> None:
+    """H1 on this rank: every run of ``H1_RUNS`` over ``group``,
+    ``tools/dp_check.py``'s 2-layer GPT-2 in f32 with TF32 off (restored
+    after), accumulation 2, 3 steps; writes ``OUT/<label>.rank<r>.json``
+    (losses, checksums, the residual's largest magnitude) and rank 0's
+    weights ``OUT/<label>.npz``."""
+    import numpy as np
+
     from pytorch_distributed_training_tpu_torch.comm import (
         GradSyncConfig, collectives, init as comm_init,
     )
     from pytorch_distributed_training_tpu_torch.tools import dp_check
 
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_num_threads(1)
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    group = comm_init.initialize(device, backend="gloo")
     try:
         rank, world = comm_init.process_index(), comm_init.process_count()
         batches = dp_check.global_batches("gpt2", dp_check.STEPS, H1_BATCH,
@@ -3083,8 +3270,8 @@ def h1_leg(out: str, seed: int) -> int:
                     for k, v in state.params.items()})
         collectives.barrier(group)
     finally:
-        comm_init.shutdown()
-    return 0
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
 
 
 def torchrun_logged(repo: str, nproc: int, argv: list, log_dir: str):
@@ -3256,34 +3443,22 @@ def grad_sync_phase(torch, seed: int, repo: str) -> dict:
     os.makedirs(GS)
     script = os.path.join(repo, "chip_smoke.py")
     t0 = time.monotonic()
-    h1_out, h1_logs = os.path.join(GS, "h1"), os.path.join(GS, "h1_logs")
+    h1_out, logs = os.path.join(GS, "h1"), os.path.join(GS, "logs")
     os.makedirs(h1_out)
-    h1_argv = [script, "--h1-leg", h1_out, str(seed)]
-    proc = torchrun_logged(repo, 4, h1_argv, h1_logs)
+    argv = [script, "--grad-sync-leg", GS, str(seed)]
+    proc = torchrun_logged(repo, 4, argv, logs)
     try:
         grad_sync_codecs(torch, seed)
-        wait_ranks(proc, h1_argv, 240, h1_logs, "H1")
+        wait_ranks(proc, argv, 600, logs, "H1 + H2")
     finally:
         torchrun_kill(proc)
-    _h1_check(h1_out)
-    print(f"grad sync H1: {time.monotonic() - t0:.1f} s since it started",
+    print(f"grad sync H1 + H2 torchrun: {time.monotonic() - t0:.1f} s",
           flush=True)
+    _h1_check(h1_out)
 
     runs = {}
-    for label, extra in (("flat", []), ("hier-int8", [
-            "--grad-sync", "hier-int8", "--grad-sync-slices", "2",
-            "--grad-sync-stripe", "auto", "--grad-sync-overlap", "on"])):
-        t0 = time.monotonic()
-        out, logs = os.path.join(GS, f"h2_{label}"), os.path.join(
-            GS, f"h2_{label}_logs")
-        argv = ["-m", DP_CHECK, *H2_ARGS, "--seed", str(seed), "--out", out,
-                *extra]
-        proc = torchrun_logged(repo, 4, argv, logs)
-        try:
-            wait_ranks(proc, argv, 300, logs, f"H2 {label}")
-        finally:
-            torchrun_kill(proc)
-        ranks = _h2_ranks(out)
+    for label, _ in H2_RUNS:
+        ranks = _h2_ranks(os.path.join(GS, f"h2_{label}"))
         check(all(x["checksums"] == ranks[0]["checksums"]
                   and x["losses"] == ranks[0]["losses"] for x in ranks),
               f"H2 {label}: the 4 ranks bit-identical after every step")
@@ -3313,7 +3488,7 @@ def grad_sync_phase(torch, seed: int, repo: str) -> dict:
                      f"step; analytic bytes a sync: DCN "
                      f"{first['dcn_bytes_per_sync']}, ICI "
                      f"{first['ici_bytes_per_sync']}")
-        print(line + f"; {time.monotonic() - t0:.1f} s", flush=True)
+        print(line, flush=True)
     diff = abs(runs["hier-int8"][0]["losses"][-1]
                - runs["flat"][0]["losses"][-1])
     check(diff <= H2_INT8_LOSS_BOUND,
@@ -3337,6 +3512,9 @@ def grad_sync_phase(torch, seed: int, repo: str) -> dict:
 
 SH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                   "chip_smoke", "sharded")
+# M1's flat run's checkpoints, kept for P1 (the same run: T1's recipe at 4
+# ranks committing steps 2 and 3); removed by the pipeline phase.
+M1_FLAT_CKPT = os.path.join(os.path.dirname(SH), "m1_flat_ckpt")
 # M0: (label, model, sharding_config kwargs, GradSyncConfig kwargs or None).
 # The tiny GPT-2 is JAX's parity model (4 heads); min_size 1 shards its
 # every leaf, as JAX's own FSDP and ZeRO-1 tests do.
@@ -3388,6 +3566,20 @@ M1_LOSS_BOUND = 0.02
 M1_STATE_BOUND = 0.25
 M1_STATE_GB = {"flat": 1.493, "fsdp4": 0.374, "zero1": 0.747, "tp2": 0.983,
                "ulysses2": 1.493}
+# E0: JAX's expert-parallel test model (tests/test_moe.py:127-130), f32,
+# TF32 off, 3 adamw steps of 2 microbatches against one process at M0's
+# tolerances and learning rate (at JAX's test's 1e-2 Adam turns the
+# rounding noise of near-zero gradients into weight steps of up to lr:
+# weights 3.7e-5 to 7.4e-5 from one process, within 3x of M0_REL).  (label, mesh axes or None for plain data parallelism,
+# dispatch, capacity factor); dp4_drop's capacity drops tokens, which
+# holds the routing over the global batch.
+E0_CFG = dict(vocab_size=128, max_seq_len=16, num_layers=2, num_heads=2,
+              hidden_dim=32, num_experts=4)
+E0_RUNS = [("ep4", dict(expert=4), "einsum", 1.25),
+           ("d2e2", dict(expert=2), "einsum", 1.25),
+           ("e2t2", dict(expert=2, tensor=2), "einsum", 1.25),
+           ("dp4_drop", None, "scatter", 0.5)]
+E0_BATCH, E0_STEPS, E0_LR = 8, 3, M0_LR
 
 
 def _m0_tol(label: str):
@@ -3399,12 +3591,13 @@ def _m0_tol(label: str):
 
 
 def sharded_leg(out: str, seed: int) -> int:
-    """One rank of M0 (``--sharded-leg OUT SEED``): every run of
-    ``M0_RUNS`` over the gloo group on the card, f32, TF32 off,
-    accumulation 2, 3 steps, through ``tools/dp_check.py``'s
-    ``run_steps`` (the first batch probed before the update); writes
-    ``OUT/<label>.rank<r>.json`` and rank 0's whole weights and probe
-    ``OUT/<label>.npz``."""
+    """One rank of the sharded phase's 4-rank torchrun (``--sharded-leg
+    OUT SEED``), gloo on the one card.  M0: every run of ``M0_RUNS``, f32,
+    TF32 off, accumulation 2, 3 steps, through ``tools/dp_check.py``'s
+    ``run_steps`` (the first batch probed before the update), writing
+    ``OUT/m0/<label>.rank<r>.json`` and rank 0's whole weights and probe
+    ``OUT/m0/<label>.npz``; then E0 (``_expert_legs``, into ``OUT/e``);
+    then M1's CLI runs (``cli_runs`` of ``OUT/m1.json``)."""
     import numpy as np
     import torch
 
@@ -3414,12 +3607,15 @@ def sharded_leg(out: str, seed: int) -> int:
     )
     from pytorch_distributed_training_tpu_torch.tools import dp_check
 
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     group = comm_init.initialize(device, backend="gloo")
+    m1_out, out = out, os.path.join(out, "m0")
     try:
         rank, world = comm_init.process_index(), comm_init.process_count()
         for label, kind, shard, sync in M0_RUNS:
@@ -3446,9 +3642,168 @@ def sharded_leg(out: str, seed: int) -> int:
                        for k, v in params.items()},
                     **{f"probe/{k}": v for k, v in (probe or {}).items()}})
         collectives.barrier()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        _expert_legs(torch, seed, os.path.join(m1_out, "e"), group, rank,
+                     world)
+        with open(os.path.join(m1_out, "m1.json")) as f:
+            cli_runs(torch, m1_out, json.load(f), rank)
+        collectives.barrier()
     finally:
         comm_init.shutdown()
     return 0
+
+
+def moe_steps(torch, *, cfg, axes, dispatch, cf, batches, accum, lr,
+              precision, seed, group=None, rank=0, world=1) -> dict:
+    """Train the MoE GPT-2 (``gpt2_moe`` with ``cfg`` over it, drawn from
+    ``seed`` on the card) on rank ``rank``'s rows of ``batches``: plain
+    data parallelism over ``group`` when ``axes`` is None, else the
+    sharded state on the mesh of ``axes`` (the ``gpt2_moe`` rules: the
+    expert leaves over ``expert`` and ``tensor``), one process without a
+    group.  Returns the losses, drop rates, step times (card
+    synchronized), state bytes a rank, peak memory and the whole
+    parameters."""
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.comm.mesh import (
+        MeshConfig, make_mesh,
+    )
+    from pytorch_distributed_training_tpu_torch.data.loader import rank_rows
+    from pytorch_distributed_training_tpu_torch.models import create_model
+    from pytorch_distributed_training_tpu_torch.parallel.sharded import (
+        state_bytes,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        shard_batch, tp_rules_for,
+    )
+    from pytorch_distributed_training_tpu_torch.tools import dp_check
+    from pytorch_distributed_training_tpu_torch.train import (
+        create_train_state, make_policy, make_train_step, optim,
+    )
+
+    policy = make_policy(precision)
+    model = create_model("gpt2_moe", device="cuda", seed=seed, cfg_overrides={
+        **cfg, "moe_dispatch": dispatch, "moe_capacity_factor": cf})
+    tx = optim.adamw(lr, weight_decay=0.1)
+    mesh = None
+    if axes is not None:
+        mesh = make_mesh(MeshConfig(data=-1, **axes), world=world)
+        state = create_train_state(model, tx, policy=policy, mesh=mesh,
+                                   rules=tp_rules_for("gpt2_moe"))
+        kw = dict(state_shardings=state.shardings)
+    else:
+        state = create_train_state(model, tx, policy=policy,
+                                   process_group=group)
+        kw = dict(process_group=group)
+    step = make_train_step(kind="lm", policy=policy, num_microbatches=accum,
+                           **kw)
+    torch.cuda.reset_peak_memory_stats()
+    rec: dict = {"losses": [], "drops": [], "step_s": []}
+    for b in batches:
+        local = (shard_batch({"tokens": b}, mesh, num_microbatches=accum)
+                 if mesh is not None else
+                 {"tokens": rank_rows(b, rank, world, accum)})
+        local = {"tokens": torch.from_numpy(np.asarray(
+            local["tokens"])).long().cuda()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        rec["losses"].append(float(m["loss"]))
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["drops"].append(float(m["moe_drop_rate"]))
+    rec["state_bytes"] = state_bytes(state)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["params"] = {k: v.detach().float().cpu().numpy().copy()
+                     for k, v in dp_check.whole(state).items()}
+    return rec
+
+
+def _e0_batches(seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed + 7).integers(
+        0, E0_CFG["vocab_size"], (E0_STEPS, E0_BATCH, E0_CFG["max_seq_len"]))
+
+
+def _expert_legs(torch, seed: int, out: str, group, rank: int,
+                 world: int) -> None:
+    """E0 (f32, TF32 off) on this rank: ``OUT/<label>.rank<r>.json``
+    (losses, drop rates, step times, state bytes, peak memory), rank 0's
+    weights ``OUT/<label>.npz``."""
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for label, axes, dispatch, cf in E0_RUNS:
+            rec = moe_steps(torch, cfg=E0_CFG, axes=axes, dispatch=dispatch,
+                            cf=cf, batches=_e0_batches(seed), accum=2,
+                            lr=E0_LR, precision="f32", seed=seed,
+                            group=group, rank=rank, world=world)
+            params = rec.pop("params")
+            with open(os.path.join(out, f"e0_{label}.rank{rank}.json"),
+                      "w") as f:
+                json.dump(rec, f)
+            if rank == 0:
+                np.savez(os.path.join(out, f"e0_{label}.npz"), **params)
+            collectives.barrier()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _e0_references(torch, seed: int) -> dict:
+    """One process for each (dispatch, cf) of E0 on the whole batch."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = {}
+    try:
+        for _, _, dispatch, cf in E0_RUNS:
+            if (dispatch, cf) not in refs:
+                refs[(dispatch, cf)] = moe_steps(
+                    torch, cfg=E0_CFG, axes=None, dispatch=dispatch, cf=cf,
+                    batches=_e0_batches(seed), accum=2, lr=E0_LR,
+                    precision="f32", seed=seed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return refs
+
+
+def _expert_check(out: str, refs: dict) -> None:
+    """E0 against one process."""
+    import numpy as np
+
+    parts = []
+    for label, axes, dispatch, cf in E0_RUNS:
+        ranks = _run_ranks(out, f"e0_{label}")
+        ref = refs[(dispatch, cf)]
+        mine = ranks[0]
+        check(all(x["losses"] == mine["losses"] for x in ranks),
+              f"E0 {label}: every rank's losses the same")
+        got = dict(np.load(os.path.join(out, f"e0_{label}.npz")))
+        names = sorted(ref["params"])
+        a = np.concatenate([got[n].ravel() for n in names])
+        b = np.concatenate([ref["params"][n].ravel() for n in names])
+        lrel = max(abs(x - y) / abs(y) for x, y in zip(mine["losses"],
+                                                        ref["losses"]))
+        derr = max(abs(x - y) for x, y in zip(mine["drops"], ref["drops"]))
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        check(lrel <= 1e-5 and derr <= 1e-6 and rel <= M0_REL,
+              f"E0 {label}: losses rel {lrel:.3g} (1e-5), drop rates "
+              f"{derr:.3g} (1e-6), weights rel L2 {rel:.3g} ({M0_REL})")
+        if cf < 1.0:
+            check(min(mine["drops"]) > 0, f"E0 {label}: tokens dropped "
+                  f"({mine['drops']})")
+        parts.append(f"{label} ({dispatch}, cf {cf}) losses {lrel:.2g}, "
+                     f"drop rates {[round(x, 4) for x in mine['drops']]}, "
+                     f"weights {rel:.2g}, state a rank "
+                     f"{mine['state_bytes']} B")
+    print("sharded E0 (the tiny MoE GPT-2 of JAX's test: 2 layers, width "
+          "32, 2 heads, vocab 128, L 16, E 4; 4 ranks on one card over gloo,"
+          " f32, TF32 off, 3 adamw steps of 2 microbatches against one "
+          "process): " + "; ".join(parts), flush=True)
 
 
 def _m0_references(torch, seed: int) -> dict:
@@ -3639,66 +3994,21 @@ def _check_distance(d: tuple, what: str) -> None:
           f"{M1_STATE_BOUND})")
 
 
-def sharded_phase(torch, seed: int, repo: str) -> dict:
-    """Sharded training, every leg 4 torchrun ranks on the one card over
-    gloo (NCCL takes one rank a card).  M0: parity of each layout against
-    one process (``M0_RUNS``).  M1: T1's recipe through the CLI under
-    flat data parallelism, ``--fsdp 4``, ``--zero1``, ``--tensor-parallel
-    2`` and Ulysses ``--sequence-parallel 2``, 3 steps each: losses
-    against flat within ``M1_LOSS_BOUND``, the step-3 checkpoint against
-    flat's within ``M1_STATE_BOUND`` (``_state_distance``), each rank's
-    state bytes within 10 % of ``M1_STATE_GB``, peak memory and step time
-    printed, flash #4/#5 counted.  M2: M1's ``--fsdp 4`` checkpoint of
-    step 2 resumed under ``--zero1`` at world 2 (loss and step-3
-    checkpoint within the bounds) and under ``--fsdp 4`` (bitwise).  M1's
-    runs and M2's ``--fsdp 4`` resume run one after another in one
-    torchrun, M2's ``--zero1`` resume in a torchrun of 2 (``cli_runs``
-    both).  Its times are gloo's on one card.  Returns
-    the flash launches by row."""
-    import shutil
+def _m1_check(refs, e_refs, m0_out, e_out, ckpts, t0) -> tuple:
+    """The sharded phase's checks of M0, E0 and M1 (``sharded_phase``'s
+    docstring) on the torchrun's records; returns (M1's records by
+    label, flash #4 launches, #5 launches)."""
     import statistics as st
 
-    shutil.rmtree(SH, ignore_errors=True)
-    os.makedirs(SH)
-    script = os.path.join(repo, "chip_smoke.py")
-    t0 = time.monotonic()
-    m0_out, m0_logs = os.path.join(SH, "m0"), os.path.join(SH, "m0_logs")
-    os.makedirs(m0_out)
-    m0_argv = [script, "--sharded-leg", m0_out, str(seed)]
-    proc = torchrun_logged(repo, 4, m0_argv, m0_logs)
-    try:
-        refs = _m0_references(torch, seed)
-        wait_ranks(proc, m0_argv, 240, m0_logs, "M0")
-    finally:
-        torchrun_kill(proc)
     _m0_check(m0_out, refs)
-    print(f"sharded M0: {time.monotonic() - t0:.1f} s", flush=True)
-
-    ckpts = {label: os.path.join(SH, f"m1_{label}_ckpt")
-             for label, _ in M1_RUNS}
-    ckpt = ckpts["fsdp4"]
-    # M1's runs and M2's --fsdp 4 resume in one 4-rank torchrun, one
-    # after another (``cli_runs``); every run commits step 3 (the epoch's
-    # end), flat and fsdp 4 step 2 too, the references' step-3 update and
-    # M2's start.
-    spec = [dict(label=label, argv=_m1_argv(
-        extra + ["--checkpoint-dir", ckpts[label]]
-        + (["--ckpt-every-steps", "2"] if label in ("flat", "fsdp4")
-           else []))) for label, extra in M1_RUNS]
-    m2_fsdp4 = os.path.join(SH, "m2_fsdp4_ckpt")
-    spec.append(dict(label="m2_fsdp4", copy=[ckpt, 2, m2_fsdp4],
-                     argv=_m1_argv(["--fsdp", "4", "--checkpoint-dir",
-                                    m2_fsdp4, "--resume"])))
-    spec_path = os.path.join(SH, "m1.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    m1_logs = os.path.join(SH, "m1_logs")
-    m1_argv = [script, "--cli-runs-leg", SH, spec_path]
-    proc = torchrun_logged(repo, 4, m1_argv, m1_logs)
-    try:
-        wait_ranks(proc, m1_argv, 600, m1_logs, "M1")
-    finally:
-        torchrun_kill(proc)
+    _expert_check(e_out, e_refs)
+    with open(os.path.join(SH, "flat.rank0.json")) as f:
+        m1_seconds = sum(json.load(open(os.path.join(SH, f"{lb}.rank0.json"))
+                         )["seconds"] for lb, _ in M1_RUNS + [("m2_fsdp4",
+                                                               None)])
+    print(f"sharded M0 + E0 + M1 torchrun: "
+          f"{time.monotonic() - t0:.1f} s (M1's CLI runs {m1_seconds:.1f} s"
+          ")", flush=True)
     runs, fwd, bwd = {}, 0, 0
     for label, extra in M1_RUNS:
         ranks = _run_ranks(SH, label)
@@ -3758,7 +4068,65 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
               f"{d3:.3g} within {M1_LOSS_BOUND}")
         _check_distance(dist, f"M1 {label}")
     check(ratio <= 0.30, f"M1: fsdp 4 state {ratio:.3f} of flat's (<= 0.30)")
+    return runs, fwd, bwd
 
+
+def sharded_phase(torch, seed: int, repo: str, carry: dict) -> dict:
+    """Sharded training, every leg 4 torchrun ranks on the one card over
+    gloo (NCCL takes one rank a card).  M0: parity of each layout against
+    one process (``M0_RUNS``).  M1: T1's recipe through the CLI under
+    flat data parallelism, ``--fsdp 4``, ``--zero1``, ``--tensor-parallel
+    2`` and Ulysses ``--sequence-parallel 2``, 3 steps each: losses
+    against flat within ``M1_LOSS_BOUND``, the step-3 checkpoint against
+    flat's within ``M1_STATE_BOUND`` (``_state_distance``), each rank's
+    state bytes within 10 % of ``M1_STATE_GB``, peak memory and step time
+    printed, flash #4/#5 counted.  M2: M1's ``--fsdp 4`` checkpoint of
+    step 2 resumed under ``--zero1`` at world 2 (loss and step-3
+    checkpoint within the bounds) and under ``--fsdp 4`` (bitwise).  M1's
+    runs and M2's ``--fsdp 4`` resume run one after another in one
+    torchrun, M2's ``--zero1`` resume in a torchrun of 2 (``cli_runs``
+    both) while M0, E0 and M1 are checked (``_m1_check``).  E0 (``_expert_check``): the MoE GPT-2 under expert
+    parallelism.  M0, E0, M1 and M2's ``--fsdp 4`` resume share one
+    4-rank torchrun (``sharded_leg``).  M1's flat run and its checkpoint
+    stay for P1 (``carry["m1_flat"]``, ``M1_FLAT_CKPT``).  Its times are
+    gloo's on one card.  Returns the flash launches by row."""
+    import shutil
+
+    shutil.rmtree(SH, ignore_errors=True)
+    os.makedirs(SH)
+    script = os.path.join(repo, "chip_smoke.py")
+    t0 = time.monotonic()
+    m0_out, e_out = os.path.join(SH, "m0"), os.path.join(SH, "e")
+    os.makedirs(m0_out)
+    os.makedirs(e_out)
+    ckpts = {label: os.path.join(SH, f"m1_{label}_ckpt")
+             for label, _ in M1_RUNS}
+    ckpt = ckpts["fsdp4"]
+    # M0, E0, then M1's runs and M2's --fsdp 4 resume, in one 4-rank
+    # torchrun (``sharded_leg``; the CLI runs one after another by
+    # ``cli_runs``); every M1 run commits step 3 (the epoch's end), flat
+    # and fsdp 4 step 2 too, the references' step-3 update and M2's
+    # start.
+    spec = [dict(label=label, argv=_m1_argv(
+        extra + ["--checkpoint-dir", ckpts[label]]
+        + (["--ckpt-every-steps", "2"] if label in ("flat", "fsdp4")
+           else []))) for label, extra in M1_RUNS]
+    m2_fsdp4 = os.path.join(SH, "m2_fsdp4_ckpt")
+    spec.append(dict(label="m2_fsdp4", copy=[ckpt, 2, m2_fsdp4],
+                     argv=_m1_argv(["--fsdp", "4", "--checkpoint-dir",
+                                    m2_fsdp4, "--resume"])))
+    with open(os.path.join(SH, "m1.json"), "w") as f:
+        json.dump(spec, f)
+    logs = os.path.join(SH, "logs")
+    argv = [script, "--sharded-leg", SH, str(seed)]
+    proc = torchrun_logged(repo, 4, argv, logs)
+    try:
+        refs = _m0_references(torch, seed)
+        e_refs = _e0_references(torch, seed)
+        wait_ranks(proc, argv, 900, logs, "M0 + E0 + M1")
+    finally:
+        torchrun_kill(proc)
+    # M2's --zero1 resume at world 2 runs while M0, E0 and M1 are checked.
     t2 = time.monotonic()
     directory = os.path.join(SH, "m2_zero1_ckpt")
     m2_spec = os.path.join(SH, "m2.json")
@@ -3770,6 +4138,8 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
     m2_argv = [script, "--cli-runs-leg", SH, m2_spec]
     proc = torchrun_logged(repo, 2, m2_argv, m2_logs)
     try:
+        runs, fwd, bwd = _m1_check(refs, e_refs, m0_out, e_out, ckpts, t0)
+        del refs, e_refs
         wait_ranks(proc, m2_argv, 300, m2_logs, "M2 zero1")
     finally:
         torchrun_kill(proc)
@@ -3793,7 +4163,8 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
           f"checkpoint vs the uninterrupted run's {_distance_text(m2_dist)} "
           f"(bound {M1_STATE_BOUND}); under --fsdp 4 "
           f"{m2['m2_fsdp4'][0]['losses'][0]} (bitwise: loss and step-3 "
-          f"checkpoint); {time.monotonic() - t2:.1f} s", flush=True)
+          f"checkpoint); {time.monotonic() - t2:.1f} s since the --zero1 "
+          "resume's launch (M0, E0 and M1 checked meanwhile)", flush=True)
     check(d_zero1 <= M1_LOSS_BOUND,
           f"M2: --fsdp 4 step 2 resumed under --zero1 at world 2, step-3 "
           f"loss {m2['m2_zero1'][0]['losses'][0]} vs {src} ({d_zero1:.3g}, "
@@ -3803,6 +4174,9 @@ def sharded_phase(torch, seed: int, repo: str) -> dict:
     check(same and _leaves(m2_fsdp4, 3) == _leaves(ckpt, 3),
           "M2: --fsdp 4 resumed under --fsdp 4 bitwise the uninterrupted "
           "run (step-3 loss and step-3 checkpoint)")
+    shutil.rmtree(M1_FLAT_CKPT, ignore_errors=True)
+    shutil.move(ckpts["flat"], M1_FLAT_CKPT)
+    carry["m1_flat"] = runs["flat"]
     shutil.rmtree(SH, ignore_errors=True)
     return {4: fwd, 5: bwd}
 
@@ -3843,8 +4217,9 @@ P0_RUNS = [
 # step (test_pp_compress_int8_matches_uncompressed).
 P0_LOSS_RTOL, P0_GRAD_TOL, P0_BAND = 1e-5, (2e-4, 1e-5), 5e-3
 # P1: T1's recipe (no accumulation: the pipeline owns microbatching).
+# Its flat reference is M1's flat run (``carry["m1_flat"]``, the same
+# run), and "flat_again" closes the ABBA pair for the times.
 P1_RUNS = [
-    ("flat", ["--accum-steps", "2", "--ckpt-every-steps", "2"]),
     ("gpipe", ["--pipeline-parallel", "4", "--pipeline-microbatches", "8"]),
     ("gpipe_remat", ["--pipeline-parallel", "4",
                      "--pipeline-microbatches", "8", "--remat"]),
@@ -3865,12 +4240,21 @@ P1_RUNS = [
 # passes its arrival on) and backpropagates them (remat: the forward
 # again); 1F1B runs each microbatch's forward twice (the tick and the
 # recompute) and its backward once.
-P1_FLASH = {"flat": (72, 72), "gpipe": (72, 72), "gpipe_remat": (144, 72),
+P1_FLASH = {"gpipe": (72, 72), "gpipe_remat": (144, 72),
             "1f1b": (144, 72), "interleaved": (144, 72),
             "1f1b_int8": (144, 72), "1f1b_pp2d2": (144, 72),
             "flat_again": (72, 72), "resume_pp4": (48, 24),
             "resume_pp2d2": (48, 24)}
 P1_LOSS_BOUND = 0.02          # M1's
+# P3: GPipe x MoE through the CLI, gpt2_moe on T1's recipe: PP 2 x data 2
+# (4 microbatches of 2 rows a data rank, each routing its own rows, as
+# JAX's pipeline does) against T6's one-process scatter run (the same
+# batches, each microbatch of 8 rows routed whole, as a flat data-4 run
+# routes them: its step-3 loss sat 0.0012 from T6's, PERF.md), step-3
+# loss within M1's bound.  PP 4 is refused: 12 / 4 = 3 layers a stage
+# is odd.
+P3_RUNS = [("moe_pp2d2", ["--pipeline-parallel", "2"])]
+P3_FLASH = {"moe_pp2d2": (72, 72)}
 P1_TOKENS = 16 * 1024         # a step's global tokens
 
 
@@ -3985,22 +4369,39 @@ def _p0_leg(torch, seed: int, out: str, rank: int) -> None:
                    for k, v in params.items()}})
 
 
-def cli_runs(torch, out: str, runs: list, rank: int) -> None:
-    """Several CLI legs in turn in this rank's process, the gloo group it
-    joined kept across them (the CLI's own shutdown held off): the
-    records ``cli_leg`` writes, one ``OUT/<label>.rank<r>.json`` a run
-    (flash launches, plain calls, collectives, the steps' losses and
-    times with the card synchronized around each, state bytes, peak
-    memory, the run's seconds).  ``runs``: ``{"label", "argv", "copy"}``,
-    ``copy`` a ``[directory, step, target]`` whose committed step rank 0
-    copies into ``target`` before the run (a resume).  One process start
-    and one CUDA context for all of them."""
+@contextlib.contextmanager
+def group_kept():
+    """The port's ``comm.init.shutdown`` held off inside: a gloo group
+    joined once (``comm.init.initialize`` returns it to every later
+    caller) serves several runs of the CLI or ``tools/dp_check.py`` in
+    one process; the caller shuts it down."""
+    from pytorch_distributed_training_tpu_torch.comm import init as comm_init
+
+    shutdown, comm_init.shutdown = comm_init.shutdown, lambda: None
+    try:
+        yield
+    finally:
+        comm_init.shutdown = shutdown
+
+
+def cli_runs(torch, out: str, runs: list, rank: int) -> dict:
+    """Several CLI legs in turn in this process, a gloo group it joined
+    kept across them (``group_kept``; with no group, as T6 runs, they
+    simply follow each other): the records ``cli_leg`` writes, one
+    ``OUT/<label>.rank<r>.json`` a run (flash launches, plain calls,
+    collectives, the steps' losses, drop rates and times with the card
+    synchronized around each, state bytes, this rank's parameters, the
+    model's ``moe_dispatch``, peak memory, the run's seconds).  ``runs``:
+    ``{"label", "argv", "copy", "grab"}``, ``copy`` a ``[directory,
+    step, target]`` whose committed step rank 0 copies into ``target``
+    before the run (a resume), ``grab`` ``_timed_steps``' (the returned
+    record's, not the file's).  One process start and one CUDA context
+    for all of them.  Returns the records by label."""
     import gc
     import shutil
 
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.comm import collectives
-    from pytorch_distributed_training_tpu_torch.comm import init as comm_init
     from pytorch_distributed_training_tpu_torch.ops import attention as attn
     from pytorch_distributed_training_tpu_torch.ops import (
         flash_attention as fa,
@@ -4014,48 +4415,59 @@ def cli_runs(torch, out: str, runs: list, rank: int) -> None:
     plain = {"flash_fwd_plain": 0, "_bwd_tiles": 0, "flash_bwd_plain": 0}
     xla = {"_xla_attention": 0, "_xla_attention_remat": 0}
     comm = {"psum": 0, "pmean": 0}
-    _count_calls(fa, list(plain), plain)
-    _count_calls(attn, list(xla), xla)
-    _count_calls(collectives, list(comm), comm)
-    shutdown, comm_init.shutdown = comm_init.shutdown, lambda: None
+    counted = ((fa, _count_calls(fa, list(plain), plain)),
+               (attn, _count_calls(attn, list(xla), xla)),
+               (collectives, _count_calls(collectives, list(comm), comm)))
     original = train.make_train_step
+    records = {}
     try:
-        for run in runs:
-            if run.get("copy") and rank == 0:
-                src, step, target = run["copy"]
-                shutil.rmtree(target, ignore_errors=True)
-                os.makedirs(target)
-                shutil.copytree(os.path.join(src, str(step)),
-                                os.path.join(target, str(step)))
-                shutil.copy(os.path.join(src, f"manifest-{step}.json"),
-                            target)
-            collectives.barrier()
-            for e in entries:
-                e.launches = 0
-            for d in (plain, xla, comm):
-                d.update({k: 0 for k in d})
-            record = {"losses": [], "step_s": []}
-            _timed_steps(torch, record)
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.monotonic()
-            trainer = cli(run["argv"])
-            record.update(
-                steps=trainer.state.step, fwd=entries[0].launches,
-                dq=entries[1].launches, dkv=entries[2].launches,
-                plain=dict(plain), xla=dict(xla), comm=dict(comm),
-                state_bytes=state_bytes(trainer.state),
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                seconds=time.monotonic() - t0)
-            train.make_train_step = original
-            del trainer
-            with open(os.path.join(out, f"{run['label']}.rank{rank}.json"),
-                      "w") as f:
-                json.dump(record, f)
+        with group_kept():
+            for run in runs:
+                if run.get("copy") and rank == 0:
+                    src, step, target = run["copy"]
+                    shutil.rmtree(target, ignore_errors=True)
+                    os.makedirs(target)
+                    shutil.copytree(os.path.join(src, str(step)),
+                                    os.path.join(target, str(step)))
+                    shutil.copy(os.path.join(src, f"manifest-{step}.json"),
+                                target)
+                if torch.distributed.is_initialized():
+                    collectives.barrier()
+                for e in entries:
+                    e.launches = 0
+                for d in (plain, xla, comm):
+                    d.update({k: 0 for k in d})
+                record = {"losses": [], "step_s": []}
+                _timed_steps(torch, record, run.get("grab"))
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.monotonic()
+                trainer = cli(run["argv"])
+                record.update(
+                    steps=trainer.state.step, fwd=entries[0].launches,
+                    dq=entries[1].launches, dkv=entries[2].launches,
+                    plain=dict(plain), xla=dict(xla), comm=dict(comm),
+                    state_bytes=state_bytes(trainer.state),
+                    params=sum(p.numel()
+                               for p in trainer.state.params.values()),
+                    dispatch=getattr(trainer.state.model.cfg,
+                                     "moe_dispatch", None),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    seconds=time.monotonic() - t0)
+                train.make_train_step = original
+                del trainer
+                grab = record.pop("grab", None)
+                with open(os.path.join(
+                        out, f"{run['label']}.rank{rank}.json"), "w") as f:
+                    json.dump(record, f)
+                records[run["label"]] = {**record, "grab": grab}
     finally:
         train.make_train_step = original
-        comm_init.shutdown = shutdown
+        for module, originals in counted:
+            for name, fn in originals.items():
+                setattr(module, name, fn)
+    return records
 
 
 def cli_runs_leg(out: str, spec: str) -> int:
@@ -4080,14 +4492,16 @@ def cli_runs_leg(out: str, spec: str) -> int:
 
 
 def _p1_ckpt(label: str) -> str:
+    if label == "flat":
+        return M1_FLAT_CKPT
     return os.path.join(PP_DIR, f"p1_{label}_ckpt")
 
 
 def _p1_runs() -> list:
-    """P1's and P2's multi-rank runs for ``cli_runs``: each of
-    ``P1_RUNS`` but the last committing step 3 (flat and 1f1b step 2
-    too: the references' step-3 update, P2's start), then the 1f1b
-    run's step-2 checkpoint resumed under PP 4 and PP 2 x data 2."""
+    """P1's, P2's and P3's multi-rank runs for ``cli_runs``: each of
+    ``P1_RUNS`` but the last committing step 3 (1f1b step 2 too: P2's
+    start), then the 1f1b run's step-2 checkpoint resumed under PP 4 and
+    PP 2 x data 2, then ``P3_RUNS``."""
     ckpt = _p1_ckpt("1f1b")
     runs = []
     for label, extra in P1_RUNS:
@@ -4103,6 +4517,10 @@ def _p1_runs() -> list:
             "3", "--accum-steps", "1", "--pipeline-parallel", stages,
             "--pipeline-schedule", "1f1b", "--checkpoint-dir", directory,
             "--resume"]))
+    for label, extra in P3_RUNS:
+        runs.append(dict(label=label, argv=[
+            *T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
+            "3", "--accum-steps", "1", "--model", "gpt2_moe", *extra]))
     return runs
 
 
@@ -4229,7 +4647,7 @@ def _p0_check(out: str, refs: dict) -> None:
 
 
 def _run_ranks(out: str, label: str, n: int = 4) -> list:
-    """The ``n`` ranks' records of a ``cli_runs`` run."""
+    """The ``n`` ranks' records of a run (``cli_runs``, the E0 legs)."""
     ranks = []
     for r in range(n):
         with open(os.path.join(out, f"{label}.rank{r}.json")) as f:
@@ -4262,22 +4680,24 @@ def _pp_bytes(label: str) -> int:
         num_chunks=3 if label == "interleaved" else 1)
 
 
-def pipeline_phase(torch, seed: int, repo: str) -> dict:
+def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
     """Pipeline parallelism, every multi-rank leg 4 torchrun ranks on the
     one card over gloo (NCCL takes one rank a card), in one launch
     (``pipeline_leg``).  P0: parity of each layout (``P0_RUNS``) against
     one process.  P1: T1's recipe through the CLI, flat, then PP 4 with 8
     microbatches under gpipe, gpipe --remat, 1f1b, interleaved (3 chunks)
     and 1f1b --pp-compress int8, then PP 2 x data 2 1f1b, then flat
-    again (its ends the ABBA pair for the times): each pipelined step-3
+    again (M1's flat run, ``carry["m1_flat"]``, and this one are the
+    ABBA pair's ends for the times): each pipelined step-3
     loss within ``P1_LOSS_BOUND`` of flat's and step-3 checkpoint within
     ``M1_STATE_BOUND`` (``_state_distance``), every rank's loss the same,
     the flash launches exact; state bytes, peak memory and step times
     printed.  P2: the 1f1b run's step-2 checkpoint resumed under PP 4
     (bitwise: loss and step-3 checkpoint), PP 2 x data 2 and flat at
     world 1 (this process), step-3 losses and checkpoints within the
-    bounds of the 1f1b run's.  Returns the
-    flash launches by row (#4 forward, #5 backward)."""
+    bounds of the 1f1b run's.  P3: GPipe x MoE (``P3_RUNS``) in the same
+    torchrun.  Returns the flash launches by row (#4 forward, #5
+    backward)."""
     import shutil
     import statistics as st
 
@@ -4289,18 +4709,19 @@ def pipeline_phase(torch, seed: int, repo: str) -> dict:
     for part in ("p0", "p1"):
         os.makedirs(os.path.join(out, part))
     t0 = time.monotonic()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        refs = _p0_references(torch, seed)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     with open(os.path.join(out, "p1.json"), "w") as f:
         json.dump(_p1_runs(), f)
     argv = [os.path.join(repo, "chip_smoke.py"), "--pipeline-leg", out,
             str(seed)]
     proc = torchrun_logged(repo, 4, argv, logs)
     try:
+        # P0's references while the ranks start.
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            refs = _p0_references(torch, seed)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
         wait_ranks(proc, argv, 600, logs, "pipeline legs")
     finally:
         torchrun_kill(proc)
@@ -4310,7 +4731,7 @@ def pipeline_phase(torch, seed: int, repo: str) -> dict:
               f"P2's 4-rank legs {time.monotonic() - t0:.1f} s", flush=True)
 
     fwd = bwd = 0
-    runs = {}
+    runs = {"flat": carry.pop("m1_flat")}
     for label in [lb for lb, _ in P1_RUNS] + ["resume_pp4", "resume_pp2d2"]:
         ranks = _run_ranks(os.path.join(out, "p1"), label)
         want_f, want_b = P1_FLASH[label]
@@ -4415,8 +4836,56 @@ def pipeline_phase(torch, seed: int, repo: str) -> dict:
           f"{M1_STATE_BOUND}); the phase {time.monotonic() - t0:.1f} s; "
           "times are gloo's on one card", flush=True)
     del trainer
+    moe_f, moe_b = _p3_check(os.path.join(out, "p1"), carry.pop("t6"))
     shutil.rmtree(PP_DIR, ignore_errors=True)
-    return {4: fwd, 5: bwd}
+    shutil.rmtree(M1_FLAT_CKPT, ignore_errors=True)
+    return {4: fwd + moe_f, 5: bwd + moe_b}
+
+
+def _p3_check(out: str, t6: list) -> tuple:
+    """P3's runs: exact flash launches, equal finite losses on every rank
+    near ln 50257, the PP 2 x data 2 step-3 loss within ``P1_LOSS_BOUND``
+    of T6's scatter run's (``t6``, its losses); returns the flash
+    launches (#4, #5)."""
+    fwd = bwd = 0
+    runs = {}
+    for label, _ in P3_RUNS:
+        ranks = _run_ranks(out, label)
+        want_f, want_b = P3_FLASH[label]
+        for x in ranks:
+            check(x["fwd"] == want_f and x["dq"] == want_b
+                  and x["dkv"] == want_b and not any(x["plain"].values())
+                  and not any(x["xla"].values()),
+                  f"P3 {label}: flash fwd/dq/dkv {x['fwd']}/{x['dq']}/"
+                  f"{x['dkv']} a rank ({want_f}/{want_b}/{want_b}), no plain "
+                  f"path {x['plain']} {x['xla']}")
+            fwd += x["fwd"]
+            bwd += x["dq"] + x["dkv"]
+        losses = ranks[0]["losses"]
+        check(len(losses) == 3 and _finite(losses)
+              and 10.0 <= losses[0] <= 12.0
+              and all(x["losses"] == losses for x in ranks),
+              f"P3 {label}: 3 equal finite losses on every rank, the first "
+              f"near ln 50257: {[x['losses'] for x in ranks]}")
+        runs[label] = ranks
+        step_ms = max(statistics.median(x["step_s"][1:]) for x in ranks) * 1e3
+        print(f"pipeline P3 {label} (gpt2_moe, T1's recipe through the CLI, "
+              f"bf16, L 1024, 16 rows, 4 ranks on one card over gloo, 3 "
+              f"steps): losses {[round(x, 5) for x in losses]}; parameters "
+              f"+ slots a rank "
+              f"{[round(x['state_bytes'] / 1e9, 4) for x in ranks]} GB; "
+              f"peak memory by rank "
+              f"{[round(x['peak_mem_gb'], 2) for x in ranks]} GB; step "
+              f"(median of steps 2-3, slowest rank) {step_ms:.1f} ms; flash "
+              f"fwd/dq/dkv {ranks[0]['fwd']}/{ranks[0]['dq']}/"
+              f"{ranks[0]['dkv']} a rank; {ranks[0]['seconds']:.1f} s",
+              flush=True)
+    d3 = abs(runs["moe_pp2d2"][0]["losses"][2] - t6[2])
+    print(f"pipeline P3: PP 2 x data 2 step-3 loss vs T6's scatter run "
+          f"{t6[2]:.5f}: {d3:.3g} (bound {P1_LOSS_BOUND})", flush=True)
+    check(d3 <= P1_LOSS_BOUND, f"P3: PP 2 x data 2 step-3 loss vs T6's "
+          f"{d3:.3g} within {P1_LOSS_BOUND}")
+    return fwd, bwd
 
 
 def main() -> int:
@@ -4424,10 +4893,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cli-leg", nargs=argparse.REMAINDER,
                     help="(internal) OUT ARGV...: one rank of a CLI leg")
-    ap.add_argument("--h1-leg", nargs=2, metavar=("OUT", "SEED"),
-                    help="(internal) one rank of the grad-sync H1 leg")
+    ap.add_argument("--grad-sync-leg", nargs=2, metavar=("OUT", "SEED"),
+                    help="(internal) one rank of the grad-sync H1 and H2 "
+                    "legs")
     ap.add_argument("--sharded-leg", nargs=2, metavar=("OUT", "SEED"),
-                    help="(internal) one rank of the sharded M0 leg")
+                    help="(internal) one rank of the sharded phase's legs")
     ap.add_argument("--pipeline-leg", nargs=2, metavar=("OUT", "SEED"),
                     help="(internal) one rank of the pipeline phase's legs")
     ap.add_argument("--cli-runs-leg", nargs=2, metavar=("OUT", "SPEC"),
@@ -4435,8 +4905,9 @@ def main() -> int:
     args = ap.parse_args()
     if args.cli_leg:
         return cli_leg(args.cli_leg[0], args.cli_leg[1:])
-    if args.h1_leg:
-        return h1_leg(args.h1_leg[0], int(args.h1_leg[1]))
+    if args.grad_sync_leg:
+        return grad_sync_leg(args.grad_sync_leg[0],
+                             int(args.grad_sync_leg[1]))
     if args.sharded_leg:
         return sharded_leg(args.sharded_leg[0], int(args.sharded_leg[1]))
     if args.pipeline_leg:
@@ -4519,6 +4990,10 @@ def main() -> int:
     for num, n in timed("training", training_phase, torch, fa, args.seed,
                         figures).items():
         flash[num]["launches"] = n
+    carry: dict = {}
+    for num, n in timed("moe", moe_train_phase, torch, args.seed,
+                        carry).items():
+        flash[num]["launches"] += n
     timed("image", image_phase, torch, args.seed, repo, figures)
     for num, n in timed("dp", dp_phase, torch, args.seed, repo,
                         figures).items():
@@ -4535,11 +5010,11 @@ def main() -> int:
     for num, n in timed("grad sync", grad_sync_phase, torch, args.seed,
                         repo).items():
         flash[num]["launches"] += n
-    for num, n in timed("sharded", sharded_phase, torch, args.seed,
-                        repo).items():
+    for num, n in timed("sharded", sharded_phase, torch, args.seed, repo,
+                        carry).items():
         flash[num]["launches"] += n
-    for num, n in timed("pipeline", pipeline_phase, torch, args.seed,
-                        repo).items():
+    for num, n in timed("pipeline", pipeline_phase, torch, args.seed, repo,
+                        carry).items():
         flash[num]["launches"] += n
     print("phases: " + ", ".join(f"{k} {v:.1f} s"
                                  for k, v in seconds.items()), flush=True)

@@ -334,8 +334,13 @@ def _build_grad_sync(args, state, group):
         state, grad_sync_residual=sync.init_residual()), sync
 
 
+# Config fields that take a string (JAX CLI's ``_STRING_OVERRIDE_KEYS``).
+_STRING_OVERRIDE_KEYS = frozenset({"moe_dispatch"})
+
+
 def _parse_overrides(text: str | None) -> dict:
-    """``"num_layers=2,hidden_dim=64"`` → dict of int/float/bool values."""
+    """``"num_layers=2,hidden_dim=64"`` → dict of int/float/bool values
+    (strings for ``_STRING_OVERRIDE_KEYS``)."""
     overrides: dict = {}
     for item in (text or "").split(","):
         if not item.strip():
@@ -353,10 +358,12 @@ def _parse_overrides(text: str | None) -> dict:
             try:
                 overrides[k] = float(v)
             except ValueError:
-                raise ValueError(
-                    f"--model-overrides value for {k!r} must be "
-                    f"int/float/bool, got {v!r}"
-                ) from None
+                if k not in _STRING_OVERRIDE_KEYS:
+                    raise ValueError(
+                        f"--model-overrides value for {k!r} must be "
+                        f"int/float/bool, got {v!r}"
+                    ) from None
+                overrides[k] = v
     return overrides
 
 
@@ -1060,6 +1067,11 @@ def _train(args, overrides, device, group, rank, world):
                 ("synthetic-images", "imagefolder:", "packed-images:"))
                 else int(ds[0]["image"].shape[0]))
     policy = make_policy(args.precision)
+    if args.model == "gpt2_moe" or int(overrides.get("num_experts", 0)) > 0:
+        # The CLI's mesh has no expert axis, so the scatter dispatch (no
+        # (T, E, C) one-hots) is JAX's choice; an explicit
+        # --model-overrides moe_dispatch=einsum wins.
+        overrides.setdefault("moe_dispatch", "scatter")
     net = create_model(args.model, num_classes=num_classes,
                        dtype=policy.param_dtype, device=device,
                        seed=args.seed, cfg_overrides=overrides,

@@ -67,13 +67,17 @@ def _layer_norm(tree: Mapping, prefix: str, out: dict) -> None:
 
 
 def _block_from_jax(blk: Mapping, p: str, out: dict) -> None:
-    if "attn" not in blk:
-        raise NotImplementedError(
-            f"{p} is not a dense block (MoE is not yet ported)")
+    """A dense block, or an MoE block (``moe``: the router a Dense, the
+    (E, D, F) / (E, F, D) expert leaves as they are)."""
     _layer_norm(blk["ln1"], f"{p}.ln1", out)
     _dense(blk["attn"]["qkv"], f"{p}.attn.qkv", out)
     _dense(blk["attn"]["proj"], f"{p}.attn.proj", out)
     _layer_norm(blk["ln2"], f"{p}.ln2", out)
+    if "moe" in blk:
+        _dense(blk["moe"]["router"], f"{p}.moe.router", out)
+        out[f"{p}.moe.w_up"] = _t(blk["moe"]["w_up"])
+        out[f"{p}.moe.w_down"] = _t(blk["moe"]["w_down"])
+        return
     _dense(blk["mlp_up"], f"{p}.mlp_up", out)
     _dense(blk["mlp_down"], f"{p}.mlp_down", out)
 
@@ -121,12 +125,18 @@ def gpt2_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
                 "bias": _np(params[f"{prefix}.bias"])}
 
     def block(p):
-        return {"ln1": layer_norm(f"{p}.ln1"),
-                "attn": {"qkv": dense(f"{p}.attn.qkv"),
-                         "proj": dense(f"{p}.attn.proj")},
-                "ln2": layer_norm(f"{p}.ln2"),
-                "mlp_up": dense(f"{p}.mlp_up"),
-                "mlp_down": dense(f"{p}.mlp_down")}
+        out = {"ln1": layer_norm(f"{p}.ln1"),
+               "attn": {"qkv": dense(f"{p}.attn.qkv"),
+                        "proj": dense(f"{p}.attn.proj")},
+               "ln2": layer_norm(f"{p}.ln2")}
+        if f"{p}.moe.w_up" in params:
+            out["moe"] = {"router": dense(f"{p}.moe.router"),
+                          "w_up": _np(params[f"{p}.moe.w_up"]),
+                          "w_down": _np(params[f"{p}.moe.w_down"])}
+        else:
+            out["mlp_up"] = dense(f"{p}.mlp_up")
+            out["mlp_down"] = dense(f"{p}.mlp_down")
+        return out
 
     if "stages.layer_0.ln1.weight" in params:
         stages = {}

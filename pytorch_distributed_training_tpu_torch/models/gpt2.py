@@ -8,8 +8,14 @@ LayerNorm uses flax's epsilon, 1e-6.
 
 Training: dropout draws its masks from an explicit generator that the
 train step hands down (never from the global RNG), and ``remat`` runs
-each block under ``torch.utils.checkpoint``.  Dense blocks only: the MoE
-variant (``num_experts > 0``) is not ported yet.
+each block under ``torch.utils.checkpoint``.
+
+The MoE variant (``num_experts > 0``, ``models/moe.py``): every odd block
+(``i % 2 == 1``) is a ``MoeBlock``.  ``forward(..., return_moe=True)``
+returns ``(out, moe)``, ``moe`` holding the sum of the MoE layers' aux
+losses and the mean of their drop rates (``moe_aux_loss``,
+``moe_drop_rate``; JAX sows them).  As in JAX, MoE is a training path:
+decoding with a KV cache and sequence parallelism refuse it.
 
 Tensor and sequence parallelism (a ``parallel`` context set by
 ``parallel/sharded.py::configure_model``): a block whose ``mlp_up`` /
@@ -49,6 +55,9 @@ class GPT2Config:
     dropout_rate: float = 0.0
     tie_embeddings: bool = True
     num_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    # Token -> expert-buffer formulation (models/moe.py): einsum | scatter.
+    moe_dispatch: str = "einsum"
     # Rematerialize each block in the backward (JAX ``nn.remat``): only the
     # block inputs are saved; the forward reruns inside the backward.
     remat: bool = False
@@ -126,7 +135,8 @@ class Block(nn.Module):
 def _block_call(block, params, x, dropout_seed):
     """One block as a function of its parameters: under remat the
     backward's recompute then runs on the tensors the forward ran on (the
-    step's compute-dtype copies), not on the module's own parameters."""
+    step's compute-dtype copies), not on the module's own parameters.
+    An MoE block returns ``(x, aux, drop_rate)``."""
     return torch.func.functional_call(
         block, params, (x,), {"dropout_seed": dropout_seed}
     )
@@ -150,16 +160,13 @@ class GPT2(nn.Module):
 
     def __init__(self, cfg: GPT2Config, *, device=None, dtype=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "GPT-2 MoE (num_experts > 0) is not yet ported"
-            )
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_dim, **kw))
         self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.hidden_dim, **kw))
         self.blocks = nn.ModuleList(
-            Block(cfg, **kw) for _ in range(cfg.num_layers)
+            _moe_block(cfg, **kw) if is_moe_layer(cfg, i) else Block(cfg, **kw)
+            for i in range(cfg.num_layers)
         )
         self.ln_final = nn.LayerNorm(cfg.hidden_dim, eps=LN_EPS, **kw)
         self.lm_head = (
@@ -184,6 +191,14 @@ class GPT2(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif hasattr(m, "init_experts"):
+                m.init_experts(generator)
+
+    def _refuse_moe_decode(self):
+        if self.cfg.num_experts > 0:
+            raise ValueError(
+                "decode mode supports the dense single-device attention "
+                "path (no MoE, no sp_mesh)")
 
     def new_cache(self, batch: int, length: int):
         """Zeroed per-layer KV caches for ``batch`` rows of ``length``
@@ -193,6 +208,7 @@ class GPT2(nn.Module):
                 f"cache length {length} outside 1..{self.cfg.max_seq_len} "
                 "(the model's position table bounds the cache)"
             )
+        self._refuse_moe_decode()
         cfg = self.cfg
         return [
             new_kv_cache(
@@ -213,6 +229,7 @@ class GPT2(nn.Module):
                 f"num_blocks ({num_blocks}) and block_size ({block_size}) "
                 "must be >= 1"
             )
+        self._refuse_moe_decode()
         cfg = self.cfg
         return [
             new_kv_blocks(
@@ -225,9 +242,11 @@ class GPT2(nn.Module):
 
     def forward(self, tokens, *, cache=None, positions=None, attn_mask=None,
                 block_table=None, return_hidden: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                return_moe: bool = False):
         """``return_hidden=True`` skips the LM head and returns the final
         hidden states (B, L, D) in the model dtype (``head`` applies it).
+        ``return_moe=True`` returns ``(out, moe)`` (module docstring).
 
         In training mode with ``dropout_rate > 0``, ``generator`` (a CPU
         ``torch.Generator``) is required: every dropout site draws its own
@@ -236,6 +255,13 @@ class GPT2(nn.Module):
         ``torch.utils.checkpoint`` (non-reentrant)."""
         cfg = self.cfg
         b, l = tokens.shape
+        if cfg.num_experts > 0:
+            if cache is not None:
+                self._refuse_moe_decode()
+            if self.parallel is not None and self.parallel.sp_size > 1:
+                raise ValueError(
+                    "sequence-parallel attention supports dense GPT-2 only "
+                    "(MoE blocks are not SP-wired)")
         drop = self.training and cfg.dropout_rate > 0.0 and cache is None
         if drop and generator is None:
             raise ValueError(
@@ -262,21 +288,29 @@ class GPT2(nn.Module):
             pos = self.wpe[cols.clamp(0, cfg.max_seq_len - 1)]
         x = dropout(self.wte[tokens] + pos, cfg.dropout_rate,
                     _site_generator(seeds[0], tokens.device))
+        auxes, drops = [], []
         for i, block in enumerate(self.blocks):
             if remat:
                 x = checkpoint(_block_call, block,
                                dict(block.named_parameters()), x,
                                seeds[i + 1], use_reentrant=False)
-                continue
-            x = block(
-                x, cache=None if cache is None else cache[i],
-                positions=positions, attn_mask=attn_mask,
-                block_table=block_table, dropout_seed=seeds[i + 1],
-            )
+            elif is_moe_layer(cfg, i):
+                x = block(x, dropout_seed=seeds[i + 1])
+            else:
+                x = block(
+                    x, cache=None if cache is None else cache[i],
+                    positions=positions, attn_mask=attn_mask,
+                    block_table=block_table, dropout_seed=seeds[i + 1],
+                )
+            if is_moe_layer(cfg, i):
+                x, aux, drop_rate = x
+                auxes.append(aux)
+                drops.append(drop_rate)
         x = self.ln_final(x)
-        if return_hidden:
-            return x
-        return self.head(x)
+        out = x if return_hidden else self.head(x)
+        if not return_moe:
+            return out
+        return out, moe_summary(auxes, drops, x.device)
 
     def head(self, x):
         """LM head over final hidden states: logits computed in the model
@@ -286,6 +320,27 @@ class GPT2(nn.Module):
         else:
             logits = self.lm_head(x)
         return logits.float()
+
+
+def is_moe_layer(cfg: GPT2Config, i: int) -> bool:
+    """Whether block ``i`` is an MoE block: every odd one, with experts."""
+    return cfg.num_experts > 0 and i % 2 == 1
+
+
+def _moe_block(cfg: GPT2Config, **kw):
+    from .moe import MoeBlock
+
+    return MoeBlock(cfg, **kw)
+
+
+def moe_summary(auxes: list, drops: list, device) -> dict:
+    """The step's MoE values (JAX ``train/step.py``'s ``_forward``): the
+    sum of the layers' aux losses and the mean of their drop rates (both
+    0 without MoE layers)."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_aux_loss": sum(auxes, zero),
+            "moe_drop_rate": (sum(drops, zero) / len(drops)) if drops
+            else zero}
 
 
 def _make(defaults: dict, cfg_overrides, device, dtype, seed) -> GPT2:

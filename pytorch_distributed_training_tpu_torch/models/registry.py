@@ -1,6 +1,7 @@
 """Model registry: the same names as the JAX package's
-``models/registry.py``.  GPT-2 (dense), the ResNets and the ViTs are
-ported; the MoE GPT-2 raises."""
+``models/registry.py``: the GPT-2s (``gpt2_moe`` is GPT-2 124M with 8
+experts in every odd block, ``models/moe.py``), the ResNets and the
+ViTs."""
 
 from __future__ import annotations
 
@@ -8,8 +9,14 @@ from .gpt2 import gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl
 from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
 from .vit import vit_b16, vit_l16, vit_s16
 
+def _gpt2_moe(cfg_overrides: dict | None = None, **kw):
+    """GPT-2 with Switch-style MoE MLPs in every odd block."""
+    return gpt2_124m({"num_experts": 8, **(cfg_overrides or {})}, **kw)
+
+
 _LM_FACTORIES = {
     "gpt2": gpt2_124m,
+    "gpt2_moe": _gpt2_moe,
     "gpt2_medium": gpt2_medium,
     "gpt2_large": gpt2_large,
     "gpt2_xl": gpt2_xl,
@@ -26,9 +33,7 @@ _VIT_FACTORIES = {
     "vit_b16": vit_b16,
     "vit_l16": vit_l16,
 }
-_NOT_YET_PORTED = {"gpt2_moe"}
-MODEL_NAMES = sorted({*_LM_FACTORIES, *_IMAGE_FACTORIES, *_VIT_FACTORIES,
-                      *_NOT_YET_PORTED})
+MODEL_NAMES = sorted({*_LM_FACTORIES, *_IMAGE_FACTORIES, *_VIT_FACTORIES})
 
 
 def model_kind(name: str) -> str:
@@ -49,8 +54,6 @@ def create_model(name: str, *, num_classes: int | None = None, dtype=None,
     other models take any size).  ``device`` defaults to CUDA
     (``utils.device``)."""
     model_kind(name)
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"model {name!r} is not yet ported")
     if name in _VIT_FACTORIES:
         return _VIT_FACTORIES[name](
             1000 if num_classes is None else num_classes, cfg_overrides,

@@ -44,7 +44,17 @@ parallel block); **PP x ring SP** under GPipe (each rank its L/n
 positions, ring attention in the stage body).  A leaf split over
 ``pipeline`` and another axis is ``Placement.stage``'s two-dim layout.
 
-Not ported: MoE blocks (raise, as ``models/gpt2.py`` does).
+**PP x MoE** (JAX's ``gpt2_pipeline.py:559-664``), under GPipe only: a
+stage's odd layers are MoE blocks (each stage holds an even number of
+layers, so local parity is global parity), the stage body returns its
+MoE layers' aux loss and drop-rate sum, and ``pipeline_forward`` sums
+them over valid ticks.  Each data rank routes its own microbatch rows,
+as JAX's ``shard_map`` over the batch-sharded microbatches does.  The
+objective gains ``aux_loss_weight`` times the aux loss summed over the
+MoE layers and averaged over the microbatches; the drop rate is the mean
+over (layer, microbatch).  JAX's refusals are kept: another schedule,
+an odd number of layers a stage, and tensor, sequence or fsdp axes (and
+an expert axis here).
 """
 
 from __future__ import annotations
@@ -57,9 +67,12 @@ from torch import nn
 
 from ..comm.compress import PP_COMPRESS_MODES
 from ..comm.mesh import (
-    AXIS_FSDP, AXIS_PIPELINE, AXIS_SEQUENCE, AXIS_TENSOR,
+    AXIS_EXPERT, AXIS_FSDP, AXIS_PIPELINE, AXIS_SEQUENCE, AXIS_TENSOR,
 )
-from ..models.gpt2 import LN_EPS, Block, GPT2Config, dropout, _site_generator
+from ..models.gpt2 import (
+    LN_EPS, Block, GPT2Config, _moe_block, _site_generator, dropout,
+    is_moe_layer,
+)
 from ..ops.losses import cross_entropy_loss
 from .pipeline import (
     _combine_accumulators, _Ring, fold_seed, pipeline_forward,
@@ -255,45 +268,49 @@ def pp_tp_rules(num_chunks: int = 0) -> ShardingRules:
 
 def make_pipeline_grad_fn(model: "PipelinedGPT2",
                           label_smoothing: float = 0.0,
-                          accum_steps: int = 1):
+                          accum_steps: int = 1,
+                          aux_loss_weight: float = 0.01):
     """The adapter for ``make_train_step(grad_fn=...)``: ``(state, batch,
     rng) -> (loss, aux, grads)`` with ``rng`` the step's ``(seed, step)``
     (None: no dropout).  ``accum_steps > 1`` (GPipe only, as the JAX CLI
     allows it there) runs that many pipeline passes over row slices of
-    the batch and averages their losses and gradients."""
+    the batch and averages their losses, gradients and ``aux`` (the MoE
+    model's ``moe_drop_rate``; its aux loss, weighted by
+    ``aux_loss_weight``, is in the loss)."""
     if accum_steps > 1 and model.schedule != "gpipe":
         raise ValueError("--accum-steps does not compose with "
                          f"--pipeline-schedule {model.schedule}")
 
     def grad_fn(state, batch, rng):
-        tokens = batch["tokens"]
-        if accum_steps == 1:
-            loss, grads = model.value_and_grad(
-                state.params, tokens, rng=rng,
-                label_smoothing=label_smoothing)
-            return loss, {}, grads
-        loss, grads = None, None
-        for i, part in enumerate(tokens.chunk(accum_steps)):
-            rng_i = None if rng is None else (*rng, i)
-            li, gi = model.value_and_grad(state.params, part, rng=rng_i,
-                                          label_smoothing=label_smoothing)
+        loss = grads = stats = None
+        for i, part in enumerate(batch["tokens"].chunk(accum_steps)):
+            rng_i = None if rng is None or accum_steps == 1 else (*rng, i)
+            li, gi, si = model.value_grad_and_stats(
+                state.params, part, rng=rng_i,
+                label_smoothing=label_smoothing,
+                aux_loss_weight=aux_loss_weight)
             if grads is None:
-                loss, grads = li, {n: g.float() for n, g in gi.items()}
+                loss, grads, stats = li, {n: g.float() for n, g in
+                                          gi.items()}, si
             else:
                 loss = loss + li
+                stats = {k: v + si[k] for k, v in stats.items()}
                 for n, g in gi.items():
                     grads[n].add_(g)
         inv = 1.0 / accum_steps
-        return loss * inv, {}, {n: (g * inv).to(state.params[n].dtype)
-                                for n, g in grads.items()}
+        return (loss * inv, {k: v * inv for k, v in stats.items()},
+                {n: (g * inv).to(state.params[n].dtype)
+                 for n, g in grads.items()})
 
     return grad_fn
 
 
-def _stacked_block(cfg: GPT2Config, lead: tuple, device) -> Block:
-    """A ``Block`` whose every parameter carries the stage axes ``lead``
-    in front (the stage body calls it on slices)."""
-    block = Block(cfg, device="meta")
+def _stacked_block(cfg: GPT2Config, lead: tuple, device, moe: bool):
+    """A ``Block`` (an ``MoeBlock`` with ``moe``) whose every parameter
+    carries the stage axes ``lead`` in front (the stage body calls it on
+    slices)."""
+    block = _moe_block(cfg, device="meta") if moe else Block(cfg,
+                                                             device="meta")
     for mod in block.modules():
         for leaf, p in list(mod._parameters.items()):
             mod._parameters[leaf] = nn.Parameter(
@@ -325,9 +342,11 @@ class PipelinedGPT2(nn.Module):
         if pp_compress not in PP_COMPRESS_MODES:
             raise ValueError(
                 f"pp_compress {pp_compress!r} not in {PP_COMPRESS_MODES}")
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "GPT-2 MoE (num_experts > 0) is not yet ported")
+        if cfg.num_experts and schedule != "gpipe":
+            # The MoE stage's aux values are summed per tick; only GPipe's
+            # tick loop hosts that (JAX's refusal).
+            raise ValueError(
+                "MoE blocks compose with --pipeline-schedule gpipe only")
         if not cfg.tie_embeddings:
             raise ValueError("pipelined GPT-2 requires tied embeddings")
         self.cfg = cfg
@@ -363,6 +382,20 @@ class PipelinedGPT2(nn.Module):
                 raise ValueError(
                     f"mlp dim ({cfg.hidden_dim * cfg.mlp_ratio}) not "
                     f"divisible by the tensor axis ({self.tp})")
+        if cfg.num_experts:
+            per_stage = cfg.num_layers // self.num_stages
+            if per_stage % 2:
+                raise ValueError(
+                    f"MoE x PP needs an even number of layers per stage "
+                    f"(got {per_stage}: {cfg.num_layers} layers / "
+                    f"{self.num_stages} stages) so every stage has the "
+                    "same dense/MoE alternation")
+            if (self.tp > 1 or self.sp > 1 or self.fsdp > 1
+                    or mesh.shape[AXIS_EXPERT] > 1):
+                raise ValueError(
+                    "MoE x PP composes with plain GPipe only (no "
+                    "tensor/sequence/fsdp/expert axes: the stage body runs "
+                    "the MoE layer on its rank's rows alone)")
         self.num_microbatches = num_microbatches
         self.compute_dtype = compute_dtype
         self.axis_name = axis_name
@@ -377,7 +410,8 @@ class PipelinedGPT2(nn.Module):
         self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, d,
                                             device=device))
         self.stages = nn.ModuleDict({f"layer_{j}": _stacked_block(
-            cfg, lead, device) for j in range(self.per)})
+            cfg, lead, device, is_moe_layer(cfg, j))
+            for j in range(self.per)})
         self.ln_final = nn.LayerNorm(d, eps=LN_EPS, device=device)
         self._lead = len(lead)
         # The stage leaves ``fsdp`` splits, by the dim it splits.
@@ -468,13 +502,20 @@ class PipelinedGPT2(nn.Module):
                 t = gather_sum(t, group, self.fsdp_dims[n] - self._lead)
             return t
 
+        moe = self.cfg.num_experts > 0
+
         def stage_fn(params, x, seed=None):
+            stats = []
             for j in range(self.per):
                 block = self.stages[f"layer_{j}"]
                 p = {k: leaf(n, params[n]) for n, k in names[j]}
                 x = torch.func.functional_call(
                     block, p, (x,), {"dropout_seed": fold_seed(seed, j)})
-            return x
+                if is_moe_layer(self.cfg, j):
+                    x, aux, drop_rate = x
+                    stats.append(torch.stack([aux, drop_rate]))
+            # The MoE stage's (aux loss, drop-rate sum) over its layers.
+            return (x, sum(stats[1:], stats[0])) if moe else x
 
         return stage_fn
 
@@ -526,14 +567,25 @@ class PipelinedGPT2(nn.Module):
         gradients are averaged over the batch axes, the outer ones summed
         over the pipeline group, each in its parameter's dtype.  ``rng``:
         the step's ``(seed, step)`` for dropout."""
+        return self.value_grad_and_stats(
+            params, tokens, rng=rng, label_smoothing=label_smoothing)[:2]
+
+    def value_grad_and_stats(self, params: dict, tokens: torch.Tensor, *,
+                             rng=None, label_smoothing: float = 0.0,
+                             aux_loss_weight: float = 0.01):
+        """``value_and_grad`` and the step's extra metrics: the MoE
+        model's ``moe_drop_rate`` (its loss then includes
+        ``aux_loss_weight`` times the aux loss, module docstring), none
+        for the dense one."""
         micro = self._micro(tokens)
         seed = self._base_seed(rng)
         outer, stage = self._split(params)
         first_fn = self._first_fn()
+        stats: dict = {}
         if self.schedule == "gpipe":
-            loss, (sgrads, ograds) = self._gpipe(
+            loss, (sgrads, ograds), stats = self._gpipe(
                 outer, stage, micro, first_fn, self._stage_fn(), seed,
-                label_smoothing)
+                label_smoothing, aux_loss_weight)
         else:
             engine, kw = pipeline_train_1f1b, {}
             if self.schedule == "interleaved":
@@ -547,10 +599,10 @@ class PipelinedGPT2(nn.Module):
                 boundary_stripe=self.pp_stripe, fsdp_dims=self.fsdp_dims,
                 **kw)
         grads = {**sgrads, **ograds}
-        return loss, {n: grads[n].to(params[n].dtype) for n in params}
+        return loss, {n: grads[n].to(params[n].dtype) for n in params}, stats
 
     def _gpipe(self, outer, stage, micro, first_fn, stage_fn, seed,
-               label_smoothing):
+               label_smoothing, aux_loss_weight):
         """GPipe: autograd through ``pipeline_forward``; the head and the
         CE run on the last stage over the whole batch (JAX's ``_forward``
         and the step's loss).  Under a ``sequence`` axis each rank runs
@@ -578,13 +630,19 @@ class PipelinedGPT2(nn.Module):
                     x = torch.zeros((M, *first_fn(outer, inputs[0]).shape),
                                     dtype=self.compute_dtype,
                                     device=micro.device)
-            y, anchor = pipeline_forward(
+            moe = self.cfg.num_experts > 0
+            y, anchor, *aux = pipeline_forward(
                 stage_fn, stage, x, self.mesh, axis_name=self.axis_name,
                 remat_ticks=self.remat_ticks, seed=seed,
                 boundary_compress=self.pp_compress,
-                boundary_stripe=self.pp_stripe)
+                boundary_stripe=self.pp_stripe, with_aux=moe)
             objective = anchor
             loss = torch.zeros((), dtype=torch.float32, device=x.device)
+            if moe:
+                # This stage's share of the aux loss (summed over its MoE
+                # layers, averaged over the microbatches).
+                aux_share = aux_loss_weight * aux[0][0] / M
+                objective = objective + aux_share
             if ring.last:
                 logits = self._logits(outer, y.reshape(-1, *y.shape[2:]))
                 n_valid = targets.shape[-1]
@@ -596,10 +654,28 @@ class PipelinedGPT2(nn.Module):
             grads = torch.autograd.grad(objective, leaves, allow_unused=True)
         grads = {n: torch.zeros_like(p, dtype=torch.float32) if g is None
                  else g.float() for n, p, g in zip(names, leaves, grads)}
+        if moe:
+            loss = loss + aux_share.detach()
         sgrads, ograds, loss = _combine_accumulators(
             ring, {n: grads[n] for n in stage}, {n: grads[n] for n in outer},
             loss.detach(), fsdp_dims=self.fsdp_dims)
-        return loss, (sgrads, ograds)
+        stats = {}
+        if moe:
+            stats["moe_drop_rate"] = self._moe_drop_rate(ring, aux[0][1], M)
+        return loss, (sgrads, ograds), stats
+
+    def _moe_drop_rate(self, ring, drop_sum, M: int) -> torch.Tensor:
+        """The mean drop rate over (MoE layer, microbatch) of the whole
+        model and the batch axes, from this stage's sum."""
+        axes = ring.reduce_axes + (self.axis_name,)
+        total = drop_sum.detach().float().reshape(1)
+        group = self.mesh.group(axes)
+        if group is not None:
+            from ..comm.collectives import psum
+
+            total = psum(total.clone(), group)
+        n_moe = self.cfg.num_layers // 2
+        return (total / (ring.n_batch * n_moe * M)).reshape(())
 
     # ---- evaluation ------------------------------------------------------
 
@@ -623,10 +699,11 @@ class PipelinedGPT2(nn.Module):
                    for v in range(self.num_chunks)]
                   if self.schedule == "interleaved" else [stage])
         for chunk in chunks:
-            x, _ = pipeline_forward(
+            x = pipeline_forward(
                 stage_fn, chunk, x, self.mesh, axis_name=self.axis_name,
                 boundary_compress=self.pp_compress,
-                boundary_stripe=self.pp_stripe, replicate=True)
+                boundary_stripe=self.pp_stripe, replicate=True,
+                with_aux=self.cfg.num_experts > 0)[0]
         x = x.reshape(-1, *x.shape[2:])
         if return_hidden:
             return self._hidden(outer, x)

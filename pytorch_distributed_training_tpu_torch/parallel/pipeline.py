@@ -217,9 +217,10 @@ def pipeline_forward(
     boundary_compress: str = "none",
     boundary_stripe: int = 1,
     replicate: bool = False,
+    with_aux: bool = False,
 ):
     """Run (M, mb, ...) ``microbatches`` through the S pipelined stages:
-    ``(outputs, anchor)``.
+    ``(outputs, anchor)``, with ``with_aux`` ``(outputs, anchor, aux)``.
 
     ``stage_fn(params, x, seed)`` is one stage on this rank's slice
     ``params`` (``{k: leaf[0]}`` of ``stage_params``, whose leaves are
@@ -234,7 +235,12 @@ def pipeline_forward(
     docstring), on the last stage with the loss, elsewhere alone.
     ``remat_ticks`` runs each tick's stage call under
     ``torch.utils.checkpoint``.  ``boundary_compress`` (``--pp-compress``)
-    compresses every hop, the backward's cotangent hops included."""
+    compresses every hop, the backward's cotangent hops included.
+    ``with_aux``: ``stage_fn`` returns ``(y, aux)``, ``aux`` a tensor of
+    scalars (the MoE stage's aux loss and drop-rate sum), summed here over
+    this rank's valid ticks only (a bubble tick's values must not count),
+    as JAX's GPipe accumulates them in its scan carry; the caller sums
+    them over the stages."""
     ring = _Ring(mesh, axis_name)
     S, s = ring.S, ring.s
     M = microbatches.shape[0]
@@ -246,6 +252,7 @@ def pipeline_forward(
              if residual else ())
     tie = next(iter(params.values())).reshape(-1)[0]
     outputs: list = [None] * M
+    aux = None
 
     def call(x, key):
         return stage_fn(params, x, key)
@@ -266,12 +273,17 @@ def pipeline_forward(
             if m < 0 and residual:
                 with torch.no_grad():
                     value = call(x, None)
+                if with_aux:
+                    value = value[0]
             y = value + (x + tie) * 0
         elif remat_ticks and torch.is_grad_enabled():
             y = checkpoint(call, x, fold_seed(seed, m, s),
                            use_reentrant=False)
         else:
             y = call(x, fold_seed(seed, m, s))
+        if with_aux and 0 <= m < M:
+            y, tick_aux = y
+            aux = tick_aux if aux is None else aux + tick_aux
         if ring.last and m >= 0:
             outputs[m] = y
         cur, resid = boundary_permute(y, resid, ring.group, ring.next,
@@ -280,7 +292,7 @@ def pipeline_forward(
     out = torch.stack(outputs) if ring.last else None
     if replicate:
         out = _from_last(out, microbatches, ring)
-    return out, anchor
+    return (out, anchor, aux) if with_aux else (out, anchor)
 
 
 @torch.no_grad()

@@ -22,10 +22,18 @@ rules, the same decisions) and :class:`ShardedLayout` carries it out:
   stage axis (dim 0) is split over ``pipeline``: each rank keeps its
   stage, and nothing gathers it at use (the leaf is consumed where it
   lies).  Under PP x FSDP or PP x TP a stage leaf is split on a second
-  dim as well (``Placement.stage``: the stage split first, then the
+  dim as well (``Placement.outer``: the stage split first, then the
   fsdp or tensor split); its shards' group, for the norm, spans both
   axes, and a checkpoint gathers both.  The pipeline engines combine
   their own gradients, so the step's ``sync_fn`` is not used.
+- **Experts** (``models/moe.py``).  ``moe.w_up`` (E, D, F) and
+  ``moe.w_down`` (E, F, D) lie over ``expert`` on dim 0 and, under a
+  ``tensor`` axis, over ``tensor`` on F (``P(expert, None, tensor)``,
+  ``P(expert, tensor, None)``: the expert split is ``Placement.outer``,
+  as a stage leaf's).  The MoE layer consumes its rank's experts and
+  tensor shard where they lie, so nothing gathers them; their gradients
+  are summed over the batch axes only, as every other leaf's (the
+  expert ranks hold the same rows).
 - **Gather at use** (FSDP, and a tensor-sharded leaf the layer does not
   consume sharded, such as ``wte`` at a vocab the tensor axis divides).
   ``install_gather_hooks`` puts a forward pre-hook on each *unit* of the
@@ -69,16 +77,18 @@ import torch
 
 from ..comm import collectives
 from ..comm.mesh import (
-    AXIS_DATA, AXIS_FSDP, AXIS_PIPELINE, AXIS_SEQUENCE, AXIS_TENSOR,
-    BATCH_AXES,
+    AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_PIPELINE, AXIS_SEQUENCE,
+    AXIS_TENSOR, BATCH_AXES,
 )
-from .sharding import P, infer_params_sharding, spec_axes
+from .sharding import P, infer_params_sharding, spec_axes, spec_dims
 
 # Leaves the tensor-parallel layers consume as their rank's shard
 # (models/layers.py, models/gpt2.py): column-parallel QKV and MLP up,
 # row-parallel proj and MLP down.
 TP_CONSUMED = re.compile(r"(^|\.)(attn\.qkv\.(weight|bias)|attn\.proj\.weight"
                          r"|mlp_up\.(weight|bias)|mlp_down\.weight)$")
+# The MoE layer's expert leaves: consumed where they lie, on any axis.
+_EXPERTS = re.compile(r"(^|\.)moe\.w_(up|down)$")
 _BY_HEAD = re.compile(r"(^|\.)attn\.qkv\.(weight|bias)$")
 # Axes a gradient is summed over: the ranks that see different data.
 _DATA_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE)
@@ -99,7 +109,11 @@ class ModelParallel:
 
 def configure_model(model, mesh, sp_mode: str = "ring"):
     """Hand ``model``'s parallel-aware modules their :class:`ModelParallel`
-    (None when the mesh has no tensor or sequence axis); returns it."""
+    (None when the mesh has no tensor or sequence axis), and its MoE
+    layers their expert x tensor group (``models/moe.py``); returns the
+    former."""
+    from ..models.moe import MoeMlp, MoeParallel
+
     tp, sp = mesh.shape[AXIS_TENSOR], mesh.shape[AXIS_SEQUENCE]
     if sp_mode not in ("ring", "ulysses"):
         raise ValueError(f"unknown sp_mode {sp_mode!r} (ring|ulysses)")
@@ -109,8 +123,12 @@ def configure_model(model, mesh, sp_mode: str = "ring"):
             tp_group=mesh.group(AXIS_TENSOR), tp_size=tp,
             sp_group=mesh.group(AXIS_SEQUENCE), sp_size=sp,
             sp_index=mesh.coords[AXIS_SEQUENCE], sp_mode=sp_mode)
+    moe = MoeParallel(group=mesh.group((AXIS_EXPERT, AXIS_TENSOR)),
+                      ep_index=mesh.coords[AXIS_EXPERT])
     for m in model.modules():
-        if hasattr(type(m), "parallel"):
+        if isinstance(m, MoeMlp):
+            m.parallel = moe if moe.group is not None else None
+        elif hasattr(type(m), "parallel"):
             m.parallel = ctx
     return ctx
 
@@ -127,9 +145,10 @@ class Placement:
     its ``axes`` split ``n`` ways (None: replicated), this rank's
     ``index`` over them, and ``blocks`` (> 1: the dim is ``blocks``
     equal blocks, each split ``n`` ways, the QKV's by-head layout).
-    ``stage``: a pipelined stage leaf split on two dims, its stage axis
-    (dim 0) over ``pipeline`` beside the split above (``fsdp`` or
-    ``tensor``), is this placement of dim 0, applied first."""
+    ``outer``: a leaf split on two dims, its leading dim over
+    ``pipeline`` (a stage leaf) or ``expert`` (an expert leaf) beside the
+    split above (``fsdp`` or ``tensor``), is this placement of dim 0,
+    applied first."""
 
     shape: tuple
     dim: int | None = None
@@ -137,16 +156,27 @@ class Placement:
     n: int = 1
     index: int = 0
     blocks: int = 1
-    stage: "Placement | None" = None
+    outer: "Placement | None" = None
 
     @classmethod
     def of(cls, spec: P, shape, mesh, blocks: int = 1) -> "Placement":
         spec = tuple(spec)
-        if (spec and spec[0] == AXIS_PIPELINE
-                and any(e is not None for e in spec[1:])):
-            return dataclasses.replace(
-                cls.of(P(None, *spec[1:]), shape, mesh, blocks),
-                stage=cls.of(P(AXIS_PIPELINE), shape, mesh))
+        dims = spec_dims(spec)
+        if len(dims) > 1:
+            # Axes of size 1 split nothing; two live dims are the
+            # outer-then-inner layout.
+            live = [(d, a) for d, a in dims if mesh.axes_size(a) > 1]
+            if len(live) > 1:
+                if live[0][0] != 0 or spec[0] not in (AXIS_PIPELINE,
+                                                      AXIS_EXPERT):
+                    raise NotImplementedError(
+                        f"spec {spec}: only the leading pipeline or expert "
+                        "dim nests another split")
+                return dataclasses.replace(
+                    cls.of(P(None, *spec[1:]), shape, mesh, blocks),
+                    outer=cls.of(P(spec[0]), shape, mesh))
+            spec = tuple(spec[d] if any(d == dd for dd, _ in live) else None
+                         for d in range(len(spec)))
         dim, axes = spec_axes(spec)
         if dim is None:
             return cls(tuple(shape))
@@ -160,7 +190,7 @@ class Placement:
     @property
     def group_axes(self) -> tuple:
         """Every axis the leaf is split over (its shards' group)."""
-        return (self.stage.axes if self.stage else ()) + self.axes
+        return (self.outer.axes if self.outer else ()) + self.axes
 
     @property
     def local_shape(self) -> tuple:
@@ -168,16 +198,16 @@ class Placement:
             return self.shape
         s = list(self.shape)
         s[self.dim] //= self.n
-        if self.stage is not None:
-            s[0] //= self.stage.n
+        if self.outer is not None:
+            s[0] //= self.outer.n
         return tuple(s)
 
     def shard(self, full: torch.Tensor, index: int | None = None):
         """Shard ``index`` (default this rank's) of the whole tensor."""
         if not self.sharded:
             return full
-        if self.stage is not None:
-            full = self.stage.shard(full)
+        if self.outer is not None:
+            full = self.outer.shard(full)
         i = self.index if index is None else index
         x = full.movedim(self.dim, 0)
         rest = x.shape[1:]
@@ -426,9 +456,9 @@ class ShardedLayout:
         gathered = p.unshard(collectives.all_gather(
             t.detach().contiguous(), self.mesh.group(p.axes),
             gather_axis=p.dim))
-        if p.stage is not None:
+        if p.outer is not None:
             gathered = collectives.all_gather(
-                gathered.contiguous(), self.mesh.group(p.stage.axes))
+                gathered.contiguous(), self.mesh.group(p.outer.axes))
         return gathered
 
     def shard_full(self, ckpt_name: str, live: torch.Tensor,
@@ -497,7 +527,10 @@ def build_layout(model, mesh, *, rules, opt_rules=None,
                               and AXIS_TENSOR in spec_axis_names(specs[n]))
         # A pipeline stage's leaves are its rank's own: the pipeline's
         # stage body gathers what it needs (parallel/gpt2_pipeline.py).
-        or AXIS_PIPELINE in spec_axis_names(specs[n]))
+        or AXIS_PIPELINE in spec_axis_names(specs[n])
+        # The MoE layer runs its rank's experts and tensor shard.
+        or (_EXPERTS.search(n) and spec_axis_names(specs[n])
+            & {AXIS_EXPERT, AXIS_TENSOR}))
     return ShardedLayout(mesh, shapes, specs, slot_specs, consumed, sp_mode)
 
 

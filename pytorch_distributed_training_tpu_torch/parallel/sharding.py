@@ -266,37 +266,46 @@ def infer_params_sharding(shapes: dict, mesh,
     return out
 
 
+def _entry_axes(entry) -> tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_dims(spec: P) -> list[tuple[int, tuple[str, ...]]]:
+    """``(dim, axes)`` of every dim ``spec`` shards, in dim order, each
+    dim's axes in mesh order."""
+    return [(i, tuple(sorted(_entry_axes(e), key=MESH_AXES.index)))
+            for i, e in enumerate(spec) if e is not None]
+
+
 def spec_axes(spec: P) -> tuple[int | None, tuple[str, ...]]:
     """``(dim, axes)`` of a spec that shards at most one dim (``(None,
-    ())`` for replication); the port's sharded paths take no other."""
-    sharded = [(i, e) for i, e in enumerate(spec) if e is not None]
-    if not sharded:
+    ())`` for replication).  A leaf sharded on two dims (the expert
+    leaves under expert x tensor, a pipeline stage leaf under PP x FSDP
+    or PP x TP) is ``parallel/sharded.py``'s ``Placement.outer`` layout,
+    its leading dim's split applied first."""
+    dims = spec_dims(spec)
+    if not dims:
         return None, ()
-    if len(sharded) > 1:
-        raise NotImplementedError(
-            f"spec {spec} shards {len(sharded)} dims; the port's sharded "
-            "paths shard one dim a leaf (the expert axis is a later slice)")
-    dim, entry = sharded[0]
-    axes = entry if isinstance(entry, tuple) else (entry,)
-    return dim, tuple(sorted(axes, key=MESH_AXES.index))
+    if len(dims) > 1:
+        raise ValueError(
+            f"spec {spec} shards {len(dims)} dims; take it as a "
+            "Placement (parallel/sharded.py)")
+    return dims[0]
 
 
 def shard_params(params: dict, mesh,
                  rules: ShardingRules = DDP_RULES) -> dict[str, torch.Tensor]:
     """This rank's shard of each of ``params`` (full tensors) under
-    ``rules``: the contiguous block of its index over the spec's axes
-    (``parallel/sharded.py`` lays the tensor-consumed QKV out by head
-    instead)."""
+    ``rules``: the contiguous block of its index over each sharded dim's
+    axes (``parallel/sharded.py`` lays the tensor-consumed QKV out by
+    head instead)."""
     specs = infer_params_sharding(
         {n: tuple(t.shape) for n, t in params.items()}, mesh, rules)
     out = {}
     for name, t in params.items():
-        dim, axes = spec_axes(specs[name])
-        if dim is None:
-            out[name] = t
-            continue
-        n, i = mesh.axes_size(axes), mesh.axes_index(axes)
-        out[name] = t.chunk(n, dim)[i]
+        for dim, axes in spec_dims(specs[name]):
+            t = t.chunk(mesh.axes_size(axes), dim)[mesh.axes_index(axes)]
+        out[name] = t
     return out
 
 

@@ -68,6 +68,16 @@ sync-BN group is the batch group.  ZeRO-1 under the two-tier sync
 (``grad_sync`` with ``zero1``) takes the sync's whole mean and keeps
 each rank's slot slices of it.
 
+The MoE GPT-2 (``models/moe.py``) adds ``aux_loss_weight`` (0.01, as
+in JAX) times its layers' summed load-balancing loss to each
+microbatch's objective, and its ``moe_drop_rate`` to the metrics; both
+are averaged over the microbatches and the group like the loss (the
+reported loss includes the aux term, as JAX's does).  Its routing spans
+the ranks JAX's global batch spans: the data-parallel group, or the
+sharded mesh's batch group; under the two-tier sync each rank routes
+its own rows, as JAX's per-device ``shard_map`` does.  The eval step,
+whose batch every rank holds whole, routes it on each rank alone.
+
 ``grad_fn`` (``(state, batch, rng) -> (loss, aux, grads)``) replaces the
 loss and backward for a path that owns its own schedule: the pipelined
 GPT-2 (``parallel/gpt2_pipeline.py::make_pipeline_grad_fn``), whose
@@ -175,10 +185,12 @@ def dropout_generator(seed: int, step: int, microbatch: int,
 
 
 def _lm_loss(model, params, tokens, *, policy, generator, lm_loss_chunk,
-             label_smoothing, layout=None):
+             label_smoothing, layout=None, aux_loss_weight=None):
     """Next-token CE of ``tokens``' rows.  Under a sharded ``layout`` with
     a sequence axis the model sees this rank's L/n positions and the
-    loss is their share of the rows' mean (module docstring)."""
+    loss is their share of the rows' mean (module docstring).  With
+    ``aux_loss_weight`` (training an MoE model) it returns ``(loss +
+    weight * aux, {"moe_drop_rate"})``."""
     cparams = policy.cast_to_compute(params)
     inputs, targets = tokens, tokens[:, 1:]
     n_valid = length = tokens.shape[1]
@@ -190,13 +202,17 @@ def _lm_loss(model, params, tokens, *, policy, generator, lm_loss_chunk,
         targets = tokens[:, off + 1:off + ll + 1]
         share = targets.shape[1] / (length - 1)
     n_valid = targets.shape[1]
+    moe = aux_loss_weight is not None and model.cfg.num_experts > 0
+    extra = {"return_moe": True} if moe else {}
     if lm_loss_chunk:
         # The head matmul runs inside the chunked, checkpointed loss, so
         # the (B, L, vocab) logits are never resident.
         hidden = torch.func.functional_call(
             model, cparams, (inputs,),
-            {"return_hidden": True, "generator": generator},
+            {"return_hidden": True, "generator": generator, **extra},
         )
+        if moe:
+            hidden, stats = hidden
         loss = chunked_lm_cross_entropy(
             hidden[:, :n_valid], _lm_head_matrix(params, policy, layout),
             targets, chunk_size=lm_loss_chunk,
@@ -204,11 +220,45 @@ def _lm_loss(model, params, tokens, *, policy, generator, lm_loss_chunk,
         )
     else:
         logits = torch.func.functional_call(
-            model, cparams, (inputs,), {"generator": generator}
+            model, cparams, (inputs,), {"generator": generator, **extra}
         )
+        if moe:
+            logits, stats = logits
         loss = cross_entropy_loss(logits[:, :n_valid], targets,
                                   label_smoothing=label_smoothing)
-    return loss if share is None else loss * share
+    loss = loss if share is None else loss * share
+    if moe:
+        return (loss + aux_loss_weight * stats["moe_aux_loss"],
+                {"moe_drop_rate": stats["moe_drop_rate"]})
+    return loss
+
+
+def _lm_fn(model, state, *, seed, rank, policy, lm_loss_chunk,
+           label_smoothing, aux_loss_weight, route_group, layout=None):
+    """``(fn, has_aux)``: the LM loss of one microbatch as accumulation
+    calls it, the MoE model's routed over ``route_group`` (module
+    docstring)."""
+    drop = model.cfg.dropout_rate > 0.0
+    moe = model.cfg.num_experts > 0
+    if moe:
+        from ..models.moe import set_moe_routing
+
+        set_moe_routing(model, route_group)
+
+    def fn(params, mb, i):
+        gen = (dropout_generator(seed, state.step, i, rank)
+               if drop and seed is not None else None)
+        return _lm_loss(model, params, mb["tokens"], policy=policy,
+                        generator=gen, lm_loss_chunk=lm_loss_chunk,
+                        label_smoothing=label_smoothing, layout=layout,
+                        aux_loss_weight=aux_loss_weight if moe else None)
+
+    return fn, moe
+
+
+def _lm_step_result(value, has_aux):
+    """``(loss, extra metrics)`` of an accumulated LM value."""
+    return value if has_aux else (value, {})
 
 
 def _updater(anomaly_policy):
@@ -240,6 +290,7 @@ def make_train_step(
     state_shardings: Any = None,
     input_normalize: tuple | None = None,
     process_group: Any = None,
+    aux_loss_weight: float = 0.01,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``(state, batch) → (state, metrics)``.  ``kind="lm"``: ``batch =
     {"tokens": (B, L)}``, next-token CE, metrics ``{"loss"}``.
@@ -256,7 +307,8 @@ def make_train_step(
     microbatches), the result the global batch's; ``grad_sync`` syncs
     the gradients in two tiers instead (module docstring).  ``anomaly_policy``
     gates the update (module docstring) and adds the gate's metrics.
-    ``grad_fn`` overrides the loss and backward (module docstring)."""
+    ``grad_fn`` overrides the loss and backward (module docstring).
+    ``aux_loss_weight`` scales an MoE model's load-balancing loss."""
     _check_kind(kind)
     if grad_fn is not None:
         return _grad_fn_step(grad_fn, seed, _updater(anomaly_policy))
@@ -266,7 +318,7 @@ def make_train_step(
             num_microbatches=num_microbatches, seed=seed,
             label_smoothing=label_smoothing, lm_loss_chunk=lm_loss_chunk,
             grad_sync=grad_sync, anomaly_policy=anomaly_policy,
-            input_normalize=input_normalize)
+            input_normalize=input_normalize, aux_loss_weight=aux_loss_weight)
     if grad_sync is not None and process_group is None:
         raise ValueError("grad_sync syncs over a process group: pass the "
                          "group it was built on as process_group")
@@ -302,20 +354,17 @@ def make_train_step(
                                  label_smoothing, bn_group, accumulate, seed,
                                  rank, apply_update)
 
+    route_group = process_group if grad_sync is None else None
+
     def train_step(state: TrainState, batch: dict):
-        model = state.model.train()
-        drop = model.cfg.dropout_rate > 0.0
-
-        def fn(params, mb, i):
-            gen = (dropout_generator(seed, state.step, i, rank)
-                   if drop and seed is not None else None)
-            return _lm_loss(model, params, mb["tokens"], policy=policy,
-                            generator=gen, lm_loss_chunk=lm_loss_chunk,
-                            label_smoothing=label_smoothing)
-
-        loss, grads, residual = accumulate(fn, state, batch)
+        fn, has_aux = _lm_fn(
+            state.model.train(), state, seed=seed, rank=rank, policy=policy,
+            lm_loss_chunk=lm_loss_chunk, label_smoothing=label_smoothing,
+            aux_loss_weight=aux_loss_weight, route_group=route_group)
+        value, grads, residual = accumulate(fn, state, batch, has_aux)
+        loss, extra = _lm_step_result(value, has_aux)
         state, gate = apply_update(state, loss, grads, residual=residual)
-        return state, {"loss": loss, **gate}
+        return state, {"loss": loss, **extra, **gate}
 
     return train_step
 
@@ -364,7 +413,7 @@ def _image_train_step(policy, normalize_on, label_smoothing, group,
 
 def _sharded_train_step(layout, *, kind, policy, num_microbatches, seed,
                         label_smoothing, lm_loss_chunk, grad_sync,
-                        anomaly_policy, input_normalize):
+                        anomaly_policy, input_normalize, aux_loss_weight):
     """The train step of a sharded state (module docstring)."""
     from ..comm.mesh import BATCH_AXES
 
@@ -400,20 +449,18 @@ def _sharded_train_step(layout, *, kind, policy, num_microbatches, seed,
                                  bn_group, accumulate, seed, drop_rank,
                                  apply_update)
 
+    route_group = None if zero1 else mesh.group(BATCH_AXES)
+
     def train_step(state: TrainState, batch: dict):
-        model = state.model.train()
-        drop = model.cfg.dropout_rate > 0.0
-
-        def fn(params, mb, i):
-            gen = (dropout_generator(seed, state.step, i, drop_rank)
-                   if drop and seed is not None else None)
-            return _lm_loss(model, params, mb["tokens"], policy=policy,
-                            generator=gen, lm_loss_chunk=lm_loss_chunk,
-                            label_smoothing=label_smoothing, layout=layout)
-
-        loss, grads, residual = accumulate(fn, state, batch)
+        fn, has_aux = _lm_fn(
+            state.model.train(), state, seed=seed, rank=drop_rank,
+            policy=policy, lm_loss_chunk=lm_loss_chunk,
+            label_smoothing=label_smoothing, aux_loss_weight=aux_loss_weight,
+            route_group=route_group, layout=layout)
+        value, grads, residual = accumulate(fn, state, batch, has_aux)
+        loss, extra = _lm_step_result(value, has_aux)
         state, gate = apply_update(state, loss, grads, residual=residual)
-        return state, {"loss": loss, **gate}
+        return state, {"loss": loss, **extra, **gate}
 
     return train_step
 
@@ -445,6 +492,12 @@ def make_eval_step(
                                     keep=state.keep, new_stats=None)
             return {"loss": cross_entropy_loss(logits, batch["label"]),
                     "accuracy": _accuracy(logits, batch["label"])}
+        if model.cfg.num_experts > 0:
+            from ..models.moe import set_moe_routing
+
+            # Every rank holds the whole eval batch: it routes it alone,
+            # not over the batch group the train step set.
+            set_moe_routing(model, None)
         loss = _lm_loss(model, state.params, batch["tokens"], policy=policy,
                         generator=None, lm_loss_chunk=lm_loss_chunk,
                         label_smoothing=0.0, layout=state_shardings)

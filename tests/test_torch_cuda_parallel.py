@@ -20,7 +20,9 @@ from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     _xla_attention,
 )
-from pytorch_distributed_training_tpu_torch.parallel import ring_attention
+from pytorch_distributed_training_tpu_torch.parallel.ring_attention import (
+    _hop,
+)
 from pytorch_distributed_training_tpu_torch.parallel.sharded import Placement
 
 pytestmark = pytest.mark.cuda
@@ -68,7 +70,7 @@ def test_ring_fold_of_two_shards_is_full_attention(dev, causal):
         lsum = torch.zeros((2, 4, 16), device=dev)
         for hop in range(2):
             src = (rank + hop) % 2
-            o, m, lsum = ring_attention._hop(
+            o, m, lsum = _hop(
                 qs, k[:, src * 16:(src + 1) * 16], v[:, src * 16:
                                                     (src + 1) * 16],
                 o, m, lsum, rank * 16, src * 16, causal, scale)

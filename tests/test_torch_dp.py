@@ -53,6 +53,7 @@ from tests.test_torch_train import (
 from tests.test_torch_vit import (
     SMALL as VIT_SMALL, _jax_init as _jax_vit_init, run_jax as _run_jax_vit,
 )
+from tests.torch_shared import shared
 from tests.torch_dp_worker import (
     FUNCTIONS, MODULES, REPO, bn_case, bn_inputs, launch,
 )
@@ -69,10 +70,13 @@ def _one_torch_thread():
 # --- sync-BN ----------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def syncbn_ranks(tmp_path_factory):
-    out = tmp_path_factory.mktemp("syncbn")
-    launch(["tests/torch_dp_worker.py", "syncbn", str(out)])
-    return [np.load(out / f"rank{r}.npz") for r in range(2)]
+def syncbn_ranks(request, tmp_path_factory):
+    def compute():
+        out = tmp_path_factory.mktemp("syncbn")
+        launch(["tests/torch_dp_worker.py", "syncbn", str(out)])
+        return [dict(np.load(out / f"rank{r}.npz")) for r in range(2)]
+
+    return shared(request, tmp_path_factory, "torch_dp_syncbn", compute)
 
 
 @pytest.mark.parametrize("name", FUNCTIONS + MODULES)

@@ -124,11 +124,11 @@ def test_policy_and_registry():
     assert make_policy("bf16_full").param_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         make_policy("fp8")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        create_model("gpt2_moe", device="meta")
+    assert create_model("gpt2_moe", device="meta").cfg.num_experts == 8
     for name in ("vit_s16", "vit_b16"):
         assert create_model(name, device="meta").cfg.attn_layout == "bhld2"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        gpt2_124m({**SMALL, "num_experts": 2}, device="meta")
+    moe = gpt2_124m({**SMALL, "num_experts": 2}, device="meta")
+    assert [type(b).__name__ for b in moe.blocks][:2] == ["Block",
+                                                          "MoeBlock"]
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("gpt3", device="meta")

@@ -67,6 +67,7 @@ from pytorch_distributed_training_tpu_torch.models import (
 )
 from tests.test_torch_multinode import _launch as launch_nodes
 from tests.test_torch_train import _assert_params_close
+from tests.torch_shared import shared
 from tests.torch_dp_worker import (
     REPO, SLICE_SHAPES, STEP_RUNS, SYNC_BUCKET_MB, SYNC_MODES,
     SYNC_TOTAL, SYNC_VARIANTS, WIRE_DTYPES, collective_input, launch,
@@ -451,8 +452,9 @@ def _ranks(tmp_path_factory, task: str) -> list:
 
 
 @pytest.fixture(scope="module")
-def collectives_ranks(tmp_path_factory):
-    return _ranks(tmp_path_factory, "collectives4")
+def collectives_ranks(request, tmp_path_factory):
+    return shared(request, tmp_path_factory, "torch_grad_sync_collectives4",
+                  lambda: _ranks(tmp_path_factory, "collectives4"))
 
 
 def _expected(op: str, xs: list, rank: int) -> np.ndarray:
@@ -498,8 +500,9 @@ def test_int16_payload_moves_as_bytes(collectives_ranks):
 # --- the slice split ---------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def slice_ranks(tmp_path_factory):
-    return _ranks(tmp_path_factory, "slices")
+def slice_ranks(request, tmp_path_factory):
+    return shared(request, tmp_path_factory, "torch_grad_sync_slices",
+                  lambda: _ranks(tmp_path_factory, "slices"))
 
 
 @pytest.mark.parametrize("shape", SLICE_SHAPES)
@@ -532,8 +535,9 @@ def mesh4():
 
 
 @pytest.fixture(scope="module")
-def bucket_ranks(tmp_path_factory):
-    return _ranks(tmp_path_factory, "bucket_sync")
+def bucket_ranks(request, tmp_path_factory):
+    return shared(request, tmp_path_factory, "torch_grad_sync_bucket_sync",
+                  lambda: _ranks(tmp_path_factory, "bucket_sync"))
 
 
 def _jax_sync_buckets(mesh, mode, stripe, overlap):
@@ -642,17 +646,22 @@ def _jax_run(mesh, mode, accum, steps):
 
 
 @pytest.fixture(scope="module")
-def step_ranks(tmp_path_factory, mesh4):
-    from tools.grad_sync_diag import tiny_lm_setup
+def step_ranks(request, tmp_path_factory, mesh4):
+    def compute():
+        from tools.grad_sync_diag import tiny_lm_setup
 
-    out = tmp_path_factory.mktemp("grad_sync_steps")
-    state, _, _, _ = tiny_lm_setup(mesh4, "flat")
-    init = gpt2_params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                       state.params))
-    np.savez(out / "init.npz", **{k: v.numpy() for k, v in init.items()})
-    launch(["tests/torch_dp_worker.py", "grad_sync_steps", str(out)], WORLD,
-           timeout=120)
-    return [dict(np.load(out / f"rank{r}.npz")) for r in range(WORLD)]
+        out = tmp_path_factory.mktemp("grad_sync_steps")
+        state, _, _, _ = tiny_lm_setup(mesh4, "flat")
+        init = gpt2_params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                           state.params))
+        np.savez(out / "init.npz",
+                 **{k: v.numpy() for k, v in init.items()})
+        launch(["tests/torch_dp_worker.py", "grad_sync_steps", str(out)],
+               WORLD, timeout=120)
+        return [dict(np.load(out / f"rank{r}.npz")) for r in range(WORLD)]
+
+    return shared(request, tmp_path_factory, "torch_grad_sync_steps",
+                  compute)
 
 
 def _port_params(res: dict, label: str):

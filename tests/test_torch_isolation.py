@@ -42,7 +42,7 @@ def test_port_imports_with_jax_blocked():
     and sync among them), the sharded paths' (the mesh, the placement
     rules and layout, ring attention and Ulysses), the pipeline's (the
     schedule tables, the engines and the pipelined GPT-2), the ViT path's,
-    the checkpoint and
+    the MoE layers, the checkpoint and
     resilience modules (the skip gate and recovery among them) and the
     device caches in a fresh
     interpreter where importing jax, flax or the JAX package fails."""
@@ -71,6 +71,7 @@ def test_port_imports_with_jax_blocked():
         "import pytorch_distributed_training_tpu_torch.models.resnet\n"
         "import pytorch_distributed_training_tpu_torch.models.convert\n"
         "import pytorch_distributed_training_tpu_torch.models.registry\n"
+        "import pytorch_distributed_training_tpu_torch.models.moe\n"
         "import pytorch_distributed_training_tpu_torch.data.transforms\n"
         "import pytorch_distributed_training_tpu_torch.data.native\n"
         "import pytorch_distributed_training_tpu_torch.data.lm_corpus\n"

@@ -34,6 +34,9 @@ with gloo.
   four CPU ranks.
 """
 
+import json
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +81,7 @@ from tests.test_torch_train import _assert_params_close
 from tests.test_torch_vit import (
     _jax_init as _jax_vit_init, run_jax as _run_jax_vit,
 )
+from tests.torch_shared import shared, shared_parts
 from tests.torch_dp_worker import (
     CLIP, IMAGE_SIZE, SHARD_ACCUM, SHARD_LR, SHARDED2_CASES, SHARDED_CASES, TINY4,
     launch, shard_tokens, sp_inputs,
@@ -112,14 +116,17 @@ def _one_torch_thread():
 
 # --- the JAX side -------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_tiny():
+def _tiny_params():
+    return JaxGPT2(cfg=JaxGPT2Config(**TINY4)).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+        train=False)["params"]
+
+
+def _compute_jax_tiny(params):
     """JAX's tiny GPT-2 (``tests/test_parallel.py::_tiny_gpt2``), its
     params, the first batch's loss/logits/grads and the steps' results
     (keyed by (clip, chunk))."""
     jm = JaxGPT2(cfg=JaxGPT2Config(**TINY4))
-    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
-                     train=False)["params"]
     tokens = shard_tokens()
     t0 = jnp.asarray(tokens[0])
 
@@ -167,61 +174,118 @@ IMAGE_RUNS = {"resnet_fsdp": ("resnet", dict(opt="sgd", lr=0.05, wd=1e-3)),
               "vit_tp2": ("vit", dict(opt="adamw", lr=3e-4, wd=0.05))}
 
 
-@pytest.fixture(scope="module")
-def jax_images():
-    """The shallow ResNet and the small ViT in the JAX package: their
-    weights as the port's state dicts, and JAX's ``make_train_step`` on
-    the worker's batches (losses, final state)."""
+def _image_inits() -> dict:
+    """The shallow ResNet's and the small ViT's JAX weights: the JAX
+    params (and statistics) and the port's state dict."""
     out = {}
-    for kind, opt in IMAGE_RUNS.values():
-        size = IMAGE_SIZE[kind]
-        batches = [(b["image"], b["label"]) for b in
-                   dp_check.global_batches(kind, 2, 8, size, 3)]
+    for kind, _ in IMAGE_RUNS.values():
         if kind == "resnet":
-            cfg = RESNET_CONFIGS["BasicBlock-fused"]
-            _, params, stats = _jax_resnet_init(cfg)
-            init = resnet_params_from_jax(
+            _, params, stats = _jax_resnet_init(
+                RESNET_CONFIGS["BasicBlock-fused"])
+            out[kind] = ((params, stats), resnet_params_from_jax(
                 jax.tree_util.tree_map(np.asarray, params),
-                jax.tree_util.tree_map(np.asarray, stats))
-            losses, _, state = _run_jax_resnet(cfg, params, stats, batches,
-                                               accum=2, **opt)
+                jax.tree_util.tree_map(np.asarray, stats)))
         else:
-            jm, params = _jax_vit_init(size)
-            init = vit_params_from_jax(
-                jax.tree_util.tree_map(np.asarray, params))
-            losses, state = _run_jax_vit(jm, params, batches, accum=2, **opt)
-        out[kind] = (init, losses, state)
+            jm, params = _jax_vit_init(IMAGE_SIZE[kind])
+            out[kind] = ((jm, params), vit_params_from_jax(
+                jax.tree_util.tree_map(np.asarray, params)))
     return out
 
 
-def _ranks(tmp_path_factory, jax_tiny, task: str, world: int,
-           images: dict | None = None) -> list:
+def _compute_jax_images(inits: dict):
+    """JAX's ``make_train_step`` on the worker's batches for the shallow
+    ResNet and the small ViT (losses, final state), with their weights
+    as the port's state dicts."""
+    out = {}
+    for kind, opt in IMAGE_RUNS.values():
+        batches = [(b["image"], b["label"]) for b in
+                   dp_check.global_batches(kind, 2, 8, IMAGE_SIZE[kind], 3)]
+        jax_init, init = inits[kind]
+        if kind == "resnet":
+            losses, _, state = _run_jax_resnet(
+                RESNET_CONFIGS["BasicBlock-fused"], *jax_init, batches,
+                accum=2, **opt)
+        else:
+            losses, state = _run_jax_vit(*jax_init, batches, accum=2, **opt)
+        # The state's arrays only: the pickle that shares this fixture
+        # takes no optimizer closures.
+        out[kind] = (init, losses, SimpleNamespace(
+            params=jax.tree_util.tree_map(np.asarray, state.params),
+            batch_stats=jax.tree_util.tree_map(np.asarray,
+                                               state.batch_stats)))
+    return out
+
+
+def _launch(tmp_path_factory, task: str, world: int, *, images=False,
+            cases=None) -> list:
+    """One launch of the worker on the JAX inits: each rank's results
+    (``cases``: the ``SHARDED_CASES`` labels it runs)."""
     out = tmp_path_factory.mktemp(task)
-    np.savez(out / "init.npz", **jax_tiny["init"])
-    for kind, (init, _, _) in (images or {}).items():
+    np.savez(out / "init.npz", **_named(_tiny_params()))
+    for kind, (_, state_dict) in (_image_inits() if images else {}).items():
         np.savez(out / f"{kind}_init.npz",
-                 **{k: v.numpy() for k, v in init.items()})
-    launch(["tests/torch_dp_worker.py", task, str(out)], world,
-           timeout=240)
+                 **{k: v.numpy() for k, v in state_dict.items()})
+    if cases is not None:
+        (out / "cases.json").write_text(json.dumps(cases))
+    launch(["tests/torch_dp_worker.py", task, str(out)], world, timeout=240)
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(world)], out
 
 
-@pytest.fixture(scope="module")
-def ranks4(tmp_path_factory, jax_tiny, jax_images):
-    return _ranks(tmp_path_factory, jax_tiny, "sharded", 4, jax_images)[0]
+# The sharded cases in two launches, and the extras in a third.
+_CASES = sorted(SHARDED_CASES)
+_HALVES = (_CASES[::2], _CASES[1::2])
 
 
 @pytest.fixture(scope="module")
-def ranks2(tmp_path_factory, jax_tiny):
-    return _ranks(tmp_path_factory, jax_tiny, "sharded2", 2)
+def sharded_parts(request, tmp_path_factory):
+    """The JAX references and the worker's launches, each once per run;
+    the xdist workers that reach them at once compute different ones
+    side by side (``shared_parts``).  Each part draws the JAX inits
+    itself (they are deterministic)."""
+    f = tmp_path_factory
+    return shared_parts(request, f, "torch_parallel", {
+        "jax_tiny": lambda: _compute_jax_tiny(_tiny_params()),
+        "jax_images": lambda: _compute_jax_images(_image_inits()),
+        "cases0": lambda: _launch(f, "sharded", 4, cases=_HALVES[0])[0],
+        "cases1": lambda: _launch(f, "sharded", 4, cases=_HALVES[1])[0],
+        "extra": lambda: _launch(f, "sharded_extra", 4, images=True)[0],
+        "ranks2": lambda: _launch(f, "sharded2", 2),
+    })
 
 
 @pytest.fixture(scope="module")
-def sp_ranks(tmp_path_factory):
-    out = tmp_path_factory.mktemp("sp_attention")
-    launch(["tests/torch_dp_worker.py", "sp_attention", str(out)], 4,
-           timeout=120)
-    return dict(np.load(out / "rank0.npz"))
+def jax_tiny(sharded_parts):
+    return sharded_parts["jax_tiny"]
+
+
+@pytest.fixture(scope="module")
+def jax_images(sharded_parts):
+    return sharded_parts["jax_images"]
+
+
+@pytest.fixture(scope="module")
+def ranks4(sharded_parts):
+    """Each rank's results of the three 4-rank launches, merged."""
+    return [{**a, **b, **c} for a, b, c in zip(
+        sharded_parts["cases0"], sharded_parts["cases1"],
+        sharded_parts["extra"])]
+
+
+@pytest.fixture(scope="module")
+def ranks2(sharded_parts):
+    return sharded_parts["ranks2"]
+
+
+@pytest.fixture(scope="module")
+def sp_ranks(request, tmp_path_factory):
+    def compute():
+        out = tmp_path_factory.mktemp("sp_attention")
+        launch(["tests/torch_dp_worker.py", "sp_attention", str(out)], 4,
+               timeout=120)
+        return dict(np.load(out / "rank0.npz"))
+
+    return shared(request, tmp_path_factory, "torch_parallel_sp_ranks",
+                  compute)
 
 
 # --- placement decisions -----------------------------------------------------

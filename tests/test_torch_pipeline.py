@@ -44,7 +44,6 @@ import numpy as np
 import optax
 import pytest
 import torch
-from filelock import FileLock
 
 from pytorch_distributed_training_tpu.comm import compress as jcompress
 from pytorch_distributed_training_tpu.comm.mesh import (
@@ -78,9 +77,10 @@ from pytorch_distributed_training_tpu_torch.parallel import (
     pipeline_schedule as tsched,
 )
 from tests.torch_dp_worker import launch
+from tests.torch_shared import shared, shared_parts
 from tests.torch_pp_worker import (
-    COMPOSITION_MICRO, COMPOSITIONS, COMPRESSED_VG, LAYOUTS, LR, MICRO, STEP_LAYOUTS, TINY,
-    WD, composition_tokens, tokens,
+    COMPOSITION_MICRO, COMPOSITIONS, COMPRESSED_VG, LAYOUTS, LR, MICRO,
+    SCHEDULES, STEP_LAYOUTS, TINY, WD, composition_tokens, tokens,
 )
 
 # tests/test_pipeline.py's tolerances.
@@ -120,27 +120,6 @@ WORKER_TIMEOUT = 420
 def _jax_cfg(layers: int = 4, width: int = 32) -> JaxGPT2Config:
     return JaxGPT2Config(**{**TINY, "num_layers": layers,
                             "hidden_dim": width})
-
-
-def _shared(tmp_path_factory, worker_id: str, name: str, compute):
-    """``compute()`` once per run, shared by the xdist workers through a
-    pickle under a file lock; a run without xdist computes it here."""
-    if worker_id == "master":
-        return compute()
-    root = tmp_path_factory.getbasetemp().parent
-    path = root / f"{name}.pkl"
-    with FileLock(str(path) + ".lock"):
-        if path.exists():
-            return pickle.loads(path.read_bytes())
-        value = compute()
-        path.write_bytes(pickle.dumps(value))
-        return value
-
-
-@pytest.fixture(scope="module")
-def worker_id(request):
-    return getattr(request.config, "workerinput", {}).get("workerid",
-                                                          "master")
 
 
 def _named(tree) -> dict:
@@ -215,48 +194,48 @@ def _jax_steps(init, sched, S, V, batches, mode="none", state=None):
     return np.array(losses), params, state
 
 
-def _jax_compositions() -> dict:
+def _jax_composition(label: str) -> tuple:
     """JAX's PipelinedGPT2 at PP 2 with an fsdp, tensor or sequence axis
-    of 2 (data the rest of the 8 devices): loss and gradients of one
-    batch (2 microbatches), merged to the plain tree (``_pp_tp`` layouts,
-    the permuted qkv, where the stage body is the manual block)."""
-    out = {}
+    of 2 (data the rest of the 8 devices), ``COMPOSITIONS[label]``: loss
+    and gradients of one batch (2 microbatches), merged to the plain tree
+    (``_pp_tp`` layouts, the permuted qkv, where the stage body is the
+    manual block)."""
     t = jnp.asarray(composition_tokens())
-    for label, (sched, axis, width) in COMPOSITIONS.items():
-        cfg = _jax_cfg(4, width)
-        init = JaxGPT2(cfg=cfg).init(jax.random.PRNGKey(0),
-                                     jnp.zeros((1, 8), jnp.int32),
-                                     train=False)["params"]
-        mesh = jax_make_mesh(JaxMeshConfig(data=-1, pipeline=2, **{axis: 2}))
-        V = 2 if sched == "interleaved" else 0
-        pp = jgp.PipelinedGPT2(cfg, mesh, num_microbatches=COMPOSITION_MICRO,
-                               schedule=sched, num_chunks=V or 2)
-        manual = axis in ("tensor", "sequence")
-        if manual:
-            params = jgp.split_gpt2_params_pp_tp(init, 2, cfg.num_heads,
-                                                 num_chunks=V)
+    sched, axis, width = COMPOSITIONS[label]
+    cfg = _jax_cfg(4, width)
+    init = JaxGPT2(cfg=cfg).init(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 8), jnp.int32),
+                                 train=False)["params"]
+    mesh = jax_make_mesh(JaxMeshConfig(data=-1, pipeline=2, **{axis: 2}))
+    V = 2 if sched == "interleaved" else 0
+    pp = jgp.PipelinedGPT2(cfg, mesh, num_microbatches=COMPOSITION_MICRO,
+                           schedule=sched, num_chunks=V or 2)
+    manual = axis in ("tensor", "sequence")
+    if manual:
+        params = jgp.split_gpt2_params_pp_tp(init, 2, cfg.num_heads,
+                                             num_chunks=V)
+    else:
+        params = _jax_split(init, sched, 2, V)
+    with mesh:
+        if sched == "gpipe":
+            def loss_fn(p):
+                logits = pp.apply({"params": p}, t, train=False)
+                return jax_ce(logits[:, :-1], t[:, 1:])
+
+            loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
         else:
-            params = _jax_split(init, sched, 2, V)
-        with mesh:
-            if sched == "gpipe":
-                def loss_fn(p):
-                    logits = pp.apply({"params": p}, t, train=False)
-                    return jax_ce(logits[:, :-1], t[:, 1:])
-
-                loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
-            else:
-                loss, grads = jax.jit(pp.value_and_grad)(params, t)
-        grads = jax.tree_util.tree_map(np.asarray, grads)
-        if manual:
-            merged = jgp.merge_gpt2_params_pp_tp(grads, 2, cfg.num_heads,
-                                                 num_chunks=V)
-        else:
-            merged = _jax_merge(grads, sched, 2, V)
-        out[label] = (float(loss), _named(merged))
-    return out
+            loss, grads = jax.jit(pp.value_and_grad)(params, t)
+    grads = jax.tree_util.tree_map(np.asarray, grads)
+    if manual:
+        merged = jgp.merge_gpt2_params_pp_tp(grads, 2, cfg.num_heads,
+                                             num_chunks=V)
+    else:
+        merged = _jax_merge(grads, sched, 2, V)
+    return float(loss), _named(merged)
 
 
-def _compute_jax() -> dict:
+def _jax_inputs() -> dict:
+    """The batches and the inits (4 and 8 layers, width 256)."""
     batches = tokens()
     inits = {}
     for layers in (4, 8):
@@ -264,74 +243,144 @@ def _compute_jax() -> dict:
         inits[layers] = jm.init(jax.random.PRNGKey(0),
                                 jnp.zeros((1, 8), jnp.int32),
                                 train=False)["params"]
-    ref = {"init": {k: _named(v) for k, v in inits.items()}, "vg": {},
-           "steps": {}, "pp": {}}
-    done = {}
-    for label, (sched, S, V, layers) in LAYOUTS.items():
-        key = (sched, S, V, layers)
-        if key not in done:
-            done[key] = _jax_value_and_grad(inits[layers], sched, S, V,
-                                            layers, batches[0])
-        ref["vg"][label] = done[key]
-    ref["vgc"] = {(sched, mode): _jax_value_and_grad(
-        inits[4], sched, 2, 2 if sched == "interleaved" else 1, 4,
-        batches[0], mode) for sched, mode in COMPRESSED_VG}
-    for sched in ("gpipe", "1f1b", "interleaved"):
-        V = 2 if sched == "interleaved" else 1
-        losses, params, state = _jax_steps(inits[4], sched, 2, V, batches)
-        ref["steps"][sched] = (losses, params[-1])
-        ref["pp"][(sched, "none")] = (losses[:1], params[0])
-        if sched == "1f1b":
-            # The state after one step, carried to the port, and JAX's
-            # own continuation.
-            _, _, one = _jax_steps(inits[4], sched, 2, V, batches[:1])
-            ref["jax_state"] = {
-                "step": np.asarray(one.step),
-                "params": _plain_tree(jax.tree_util.tree_map(
-                    np.asarray, one.params)),
-                "opt_state": _plain_tree(jax.tree_util.tree_map(
-                    np.asarray, one.opt_state)),
-                "batch_stats": {}}
-            ref["jax_continued"] = (losses[1:], params[-1])
-        modes = ("int8", "bf16") if sched == "gpipe" else ("int8",)
-        for mode in modes:
-            losses_c, params_c, _ = _jax_steps(inits[4], sched, 2, V,
-                                               batches[:1], mode=mode)
-            ref["pp"][(sched, mode)] = (losses_c, params_c[0])
-    ref["comp"] = _jax_compositions()
-    ref["init_w256"] = _named(JaxGPT2(cfg=_jax_cfg(4, 256)).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
-        train=False)["params"])
-    pp, mesh = _jax_pp("interleaved", 2, 2)
-    with mesh:
-        ref["logits"] = np.asarray(jax.jit(
-            lambda p, t: pp.apply({"params": p}, t, train=False))(
-                _jax_split(inits[4], "interleaved", 2, 2),
-                jnp.asarray(batches[0])))
+    return {"batches": batches, "inits": inits,
+            "init_w256": _named(JaxGPT2(cfg=_jax_cfg(4, 256)).init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+                train=False)["params"])}
+
+
+def _jax_state(inputs: dict) -> dict:
+    """JAX's 1F1B state after one step, carried to the port's ranks."""
+    _, _, one = _jax_steps(inputs["inits"][4], "1f1b", 2, 1,
+                           inputs["batches"][:1])
+    return {"step": np.asarray(one.step),
+            "params": _plain_tree(jax.tree_util.tree_map(
+                np.asarray, one.params)),
+            "opt_state": _plain_tree(jax.tree_util.tree_map(
+                np.asarray, one.opt_state)),
+            "batch_stats": {}}
+
+
+def _jax_train(inputs: dict, sched: str) -> dict:
+    """JAX's train steps under ``sched``, compressed and not."""
+    batches, inits = inputs["batches"], inputs["inits"]
+    V = 2 if sched == "interleaved" else 1
+    losses, params, _ = _jax_steps(inits[4], sched, 2, V, batches)
+    ref = {"steps": (losses, params[-1]),
+           "pp": {(sched, "none"): (losses[:1], params[0])},
+           # JAX's own continuation of the 1F1B state carried to the port.
+           "jax_continued": (losses[1:], params[-1])}
+    for mode in ("int8", "bf16") if sched == "gpipe" else ("int8",):
+        losses_c, params_c, _ = _jax_steps(inits[4], sched, 2, V,
+                                           batches[:1], mode=mode)
+        ref["pp"][(sched, mode)] = (losses_c, params_c[0])
     return ref
 
 
-@pytest.fixture(scope="module")
-def jax_ref(devices8, tmp_path_factory, worker_id):
-    return _shared(tmp_path_factory, worker_id, "torch_pp_jax", _compute_jax)
+def _jax_logits(inputs: dict) -> np.ndarray:
+    pp, mesh = _jax_pp("interleaved", 2, 2)
+    with mesh:
+        return np.asarray(jax.jit(
+            lambda p, t: pp.apply({"params": p}, t, train=False))(
+                _jax_split(inputs["inits"][4], "interleaved", 2, 2),
+                jnp.asarray(inputs["batches"][0])))
 
 
-@pytest.fixture(scope="module")
-def ranks(jax_ref, tmp_path_factory, worker_id):
+def _vg_part(label: str) -> str:
+    return "vg_" + "_".join(map(str, LAYOUTS[label]))
+
+
+def _parts(inputs: dict, tmp_path_factory) -> dict:
+    """Every part of the pipeline tests' references by name: JAX's loss
+    and gradients a layout, its compressed ones, its train steps a
+    schedule, a composition each, the interleaved logits, and the port's
+    four ranks (``_launch_ranks``)."""
+    batch, inits = inputs["batches"][0], inputs["inits"]
+
+    def vg(sched, S, V, layers, mode="none"):
+        return lambda: _jax_value_and_grad(inits[layers], sched, S, V,
+                                           layers, batch, mode)
+
+    parts = {"ranks": lambda: _launch_ranks(inputs, tmp_path_factory)}
+    for label, key in LAYOUTS.items():
+        parts[_vg_part(label)] = vg(*key)
+    for sched, mode in COMPRESSED_VG:
+        parts[f"vgc_{sched}_{mode}"] = vg(
+            sched, 2, 2 if sched == "interleaved" else 1, 4, mode)
+    for sched in SCHEDULES:
+        parts[f"train_{sched}"] = (lambda sched=sched:
+                                   _jax_train(inputs, sched))
+    for label in COMPOSITIONS:
+        parts[f"comp_{label}"] = lambda label=label: _jax_composition(label)
+    parts["logits"] = lambda: _jax_logits(inputs)
+    return parts
+
+
+class _Table:
+    """``ref[key][k]`` read from the part ``name(k)``."""
+
+    def __init__(self, parts: dict, name, pick=None):
+        self.parts, self.name = parts, name
+        self.pick = pick or (lambda part, k: part)
+
+    def __getitem__(self, k):
+        return self.pick(self.parts[self.name(k)], k)
+
+
+def _jax_ref_view(inputs: dict, parts: dict) -> dict:
+    """JAX's side by the keys the tests read."""
+    return {
+        "init": {k: _named(v) for k, v in inputs["inits"].items()},
+        "init_w256": inputs["init_w256"],
+        "logits": parts["logits"],
+        "comp": _Table(parts, lambda label: f"comp_{label}"),
+        "vg": _Table(parts, _vg_part),
+        "vgc": _Table(parts, lambda k: "vgc_" + "_".join(k)),
+        "steps": _Table(parts, lambda sched: f"train_{sched}",
+                        lambda part, _: part["steps"]),
+        "pp": _Table(parts, lambda k: f"train_{k[0]}",
+                     lambda part, k: part["pp"][k]),
+        "jax_continued": parts["train_1f1b"]["jax_continued"],
+    }
+
+
+def _launch_ranks(inputs: dict, tmp_path_factory) -> dict:
     """Rank 0's results of the four-rank worker."""
-    def compute():
-        out = tmp_path_factory.mktemp("pipeline")
-        np.savez(out / "init.npz", **jax_ref["init"][4])
-        np.savez(out / "init8.npz", **jax_ref["init"][8])
-        np.savez(out / "init_w32.npz", **jax_ref["init"][4])
-        np.savez(out / "init_w256.npz", **jax_ref["init_w256"])
-        with open(out / "jax_state.pkl", "wb") as f:
-            pickle.dump(jax_ref["jax_state"], f)
-        launch(["tests/torch_pp_worker.py", "pipeline", str(out)], 4,
-               timeout=WORKER_TIMEOUT)
-        return dict(np.load(out / "rank0.npz"))
+    inits = inputs["inits"]
+    out = tmp_path_factory.mktemp("pipeline")
+    np.savez(out / "init.npz", **_named(inits[4]))
+    np.savez(out / "init8.npz", **_named(inits[8]))
+    np.savez(out / "init_w32.npz", **_named(inits[4]))
+    np.savez(out / "init_w256.npz", **inputs["init_w256"])
+    with open(out / "jax_state.pkl", "wb") as f:
+        pickle.dump(_jax_state(inputs), f)
+    launch(["tests/torch_pp_worker.py", "pipeline", str(out)], 4,
+           timeout=WORKER_TIMEOUT)
+    return dict(np.load(out / "rank0.npz"))
 
-    return _shared(tmp_path_factory, worker_id, "torch_pp_ranks", compute)
+
+@pytest.fixture(scope="module")
+def jax_inputs(devices8, tmp_path_factory, request):
+    return shared(request, tmp_path_factory, "torch_pp_inputs", _jax_inputs)
+
+
+@pytest.fixture(scope="module")
+def pp_parts(jax_inputs, tmp_path_factory, request):
+    """Every part once per run; the xdist workers that reach them at once
+    compute different parts side by side (``shared_parts``)."""
+    return shared_parts(request, tmp_path_factory, "torch_pp",
+                        _parts(jax_inputs, tmp_path_factory))
+
+
+@pytest.fixture(scope="module")
+def jax_ref(jax_inputs, pp_parts):
+    return _jax_ref_view(jax_inputs, pp_parts)
+
+
+@pytest.fixture(scope="module")
+def ranks(pp_parts):
+    """Rank 0's results of the four-rank worker."""
+    return pp_parts["ranks"]
 
 
 def _sub(res: dict, prefix: str) -> dict:
@@ -872,3 +921,48 @@ def _free_port() -> int:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
 
+
+
+def _epoch_losses(out: str) -> list:
+    return [float(line.split("| loss=")[1].split()[0])
+            for line in out.splitlines() if line.startswith("epoch=")]
+
+
+def test_cli_device_cache_tokens_under_pp2(tmp_path):
+    """``--device-cache`` on a token file under ``--pipeline-parallel 2``
+    (two torchrun CPU ranks): the cache hands both pipeline ranks the
+    global batch (the batch axes have one shard), so the run's epoch
+    losses are one process's cached run's (rtol 1e-5); the uncached pair
+    likewise.  The cache draws its own windows, not the loader's, so a
+    cached run is held to a cached run."""
+    from pytorch_distributed_training_tpu_torch.data.lm_corpus import (
+        synthesize_token_bin,
+    )
+
+    path = str(tmp_path / "train.bin")
+    synthesize_token_bin(path, n_tokens=20_000, vocab_size=128, seed=0)
+    common = ["--use-cpu", "--model", "gpt2", "--dataset",
+              f"token-file:{path}", "--model-overrides", TINY_OVERRIDES,
+              "--seq-len", "16", "--batch-size", "8", "--epochs", "2",
+              "--steps-per-epoch", "2", "--optimizer", "adamw",
+              "--learning-rate", "1e-3", "--num-workers", "0"]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    for cached in ([], ["--device-cache"]):
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", "2", "--master_port", str(_free_port()),
+             "-m", "pytorch_distributed_training_tpu_torch.cli.main",
+             "--distributed", "--pipeline-parallel", "2", *common, *cached],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=240)
+        assert res.returncode == 0, res.stderr[-3000:]
+        flat = subprocess.run(
+            [sys.executable, "-m",
+             "pytorch_distributed_training_tpu_torch.cli.main", *common,
+             *cached], cwd=tmp_path, env=env, capture_output=True,
+            text=True, timeout=240)
+        assert flat.returncode == 0, flat.stderr[-3000:]
+        got, want = _epoch_losses(res.stdout), _epoch_losses(flat.stdout)
+        assert len(got) == len(want) == 2, (res.stdout, flat.stdout)
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=cached)

@@ -30,6 +30,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,32 +42,69 @@ def launch(argv: list[str], n: int = 2, *,
            timeout: float = 100.0) -> list[str]:
     """Run ``n`` ranks of ``python argv`` within ``timeout`` seconds in
     all; returns their stdouts."""
+    return launch_start(argv, n, timeout=timeout).wait()
+
+
+class Launched:
+    """``n`` ranks started by ``launch_start``, each writing its stdout
+    and stderr to a temporary file (no pipe fills while the caller
+    computes); ``wait()`` collects them (every rank killed on a failure
+    or at the deadline)."""
+
+    def __init__(self, procs: list, files: list, deadline: float):
+        self.procs, self.files, self.deadline = procs, files, deadline
+
+    def wait(self) -> list[str]:
+        try:
+            outs = []
+            for p, (fo, fe) in zip(self.procs, self.files):
+                p.wait(timeout=max(self.deadline - time.monotonic(), 0.1))
+                out, err = (_read(f) for f in (fo, fe))
+                assert p.returncode == 0, f"rank failed:\n{out}\n{err}"
+                outs.append(out)
+            return outs
+        finally:
+            self.kill()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (f for pair in self.files for f in pair):
+            f.close()
+
+
+def _read(f) -> str:
+    f.seek(0)
+    return f.read().decode(errors="replace")
+
+
+def launch_start(argv: list[str], n: int = 2, *,
+                 timeout: float = 100.0) -> Launched:
+    """Start ``n`` ranks of ``python argv`` (``launch`` without the
+    wait), so the caller can compute meanwhile; ``timeout`` counts from
+    now."""
     deadline = time.monotonic() + timeout
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    procs = []
+    procs, files = [], []
     try:
         for rank in range(n):
             rank_env = dict(os.environ, MASTER_ADDR="localhost",
                             MASTER_PORT=str(port), WORLD_SIZE=str(n),
                             RANK=str(rank), LOCAL_RANK=str(rank),
                             OMP_NUM_THREADS="1")
+            files.append((tempfile.TemporaryFile(),
+                          tempfile.TemporaryFile()))
             procs.append(subprocess.Popen(
                 [sys.executable, *argv], cwd=REPO, env=rank_env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        outs = []
-        for p in procs:
-            out, err = p.communicate(
-                timeout=max(deadline - time.monotonic(), 0.1))
-            assert p.returncode == 0, f"rank failed:\n{out}\n{err}"
-            outs.append(out)
-        return outs
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+                stdout=files[-1][0], stderr=files[-1][1]))
+    except BaseException:
+        Launched(procs, files, deadline).kill()
+        raise
+    return Launched(procs, files, deadline)
 
 
 # --- the rank side ----------------------------------------------------------
@@ -649,17 +687,30 @@ def _sharded_run(label, mesh_sizes, opts, init, tokens, world, res,
 
 
 def _sharded(rank: int, world: int, group, out: str, cases: dict) -> dict:
+    """``cases`` (``OUT/cases.json``: the labels of ``SHARDED_CASES``
+    to run; every case without it), then at world 2 the checkpoints
+    across layouts."""
+    import json
+
     init = dict(np.load(os.path.join(out, "init.npz")))
     tokens = shard_tokens()
+    path = os.path.join(out, "cases.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            cases = {label: cases[label] for label in json.load(f)}
     res: dict = {}
     for label, (mesh_sizes, opts) in cases.items():
         _sharded_run(label, mesh_sizes, opts, init, tokens, world, res)
-    if world == 4:
-        res.update(_dropout_tp(init, tokens))
-        res.update(_image_fsdp_tp(rank, world, out))
-    else:
+    if world != 4:
         res.update(_ckpt_layouts(init, tokens, world, out))
     return res
+
+
+def _sharded_extra(rank: int, world: int, group, out: str) -> dict:
+    """Dropout under tensor 2 and the image models, sharded (4 ranks)."""
+    init = dict(np.load(os.path.join(out, "init.npz")))
+    return {**_dropout_tp(init, shard_tokens()),
+            **_image_fsdp_tp(rank, world, out)}
 
 
 def _dropout_tp(init, tokens) -> dict:
@@ -872,6 +923,7 @@ def main() -> int:
                  "grad_sync_steps": lambda *a: _grad_sync_steps(*a, out),
                  "sharded": lambda *a: _sharded(*a, out, SHARDED_CASES),
                  "sharded2": lambda *a: _sharded(*a, out, SHARDED2_CASES),
+                 "sharded_extra": lambda *a: _sharded_extra(*a, out),
                  "sp_attention": _sp_attention}
         res = tasks[task](rank, world, group)
         os.makedirs(out, exist_ok=True)
