@@ -13,8 +13,12 @@ the port's main paths:
   from the seed) over the contiguous cache with and without speculative
   decoding, and over the paged pool plainly, with speculative decoding and
   with int8 KV, checking that every request completed and that the
-  attention kernels carried every decode, verify and prefill tick; a
-  scripted engine run at full width serves shared-prefix traffic through
+  attention kernels carried every decode, verify and prefill tick (the
+  speculative paged run with telemetry on: ``--metrics-dir --trace --slo
+  --metrics-port 0``, its 16 request span chains whole, its tick spans
+  equal to its decode ticks, each TTFT its queued and prefill spans,
+  ``/metrics``, ``/healthz`` and ``/slo`` answering 200 mid-run and the
+  live TTFT p99 equal to the log's); a scripted engine run at full width serves shared-prefix traffic through
   the prefix cache; lockstep ``generate`` runs at full width; a small f32
   model's slot-mode logits on the card are checked against the host;
 - training: the CLI trains GPT-2 at full width (124M at 1024 and 512
@@ -41,14 +45,16 @@ the port's main paths:
   below its start and below chance within 150 steps; R4 a shallow f32
   ResNet trains three steps on the card (TF32 off) and on the host from
   the same weights and must agree;
-- data parallel (the reference's DDP), each leg a ``torch.distributed.run``
-  of the port read back through ``--metrics-jsonl``: D1 R2's command with
-  ``--distributed`` (a one-rank NCCL group: sync-BN and the gradient
-  all-reduce on the path), D2 T1's recipe with ``--distributed`` (2
-  epochs of 8 steps, the flash launches counted in the rank, which runs
-  this script as ``--cli-leg OUT ARGV...``), D3 two ranks on the one card
-  over gloo (a shallow ResNet and a 2-layer GPT-2, f32, TF32 off, 3
-  steps): the ranks bit-identical and within 1e-4 of one process;
+- data parallel (the reference's DDP), D1, D2 and V2 one one-rank
+  ``torch.distributed.run`` of the port (the rank runs this script as
+  ``--cli-runs-leg OUT SPEC --cli-joins``: the NCCL group kept across
+  the three CLI runs), read back through ``--metrics-jsonl``: D1 R2's
+  command with ``--distributed`` (a one-rank NCCL group: sync-BN and the
+  gradient all-reduce on the path), D2 T1's recipe with
+  ``--distributed`` (2 epochs of 8 steps, the flash launches counted in
+  the rank), D3 two ranks on the one card over gloo (a shallow ResNet
+  and a 2-layer GPT-2, f32, TF32 off, 3 steps): the ranks bit-identical
+  and within 1e-4 of one process;
 - ViT-B/16 (BASELINE configs[2]) on packed ImageNet-format records of
   random bytes written by the port's ``synthesize_packed_images``: V1
   the CLI at full width (224 px, 1000 classes, bf16, batch 128, adamw,
@@ -64,7 +70,11 @@ the port's main paths:
   C0 what a save of T1's state (GPT-2 124M, 1.49 GB) and of R2's costs
   (host stall, commit, restore) and the torn-save check on the card, C1
   T1's command preempted by ``sigterm@4`` (exit 75) and resumed, its
-  flash launches and step-8 checkpoint equal to T1's, C2 R2's command
+  flash launches and step-8 checkpoint equal to T1's, both processes
+  under ``--metrics-dir --trace --goodput`` (valid logs, each ledger
+  summing to its wall with no rework, the ``compiled_cost`` FLOPs within
+  10 % of the analytic count) and the resumed one profiling steps 5-6
+  (the trace's flash forward kernels counted), C2 R2's command
   under ``--elastic`` with ``crash@7``, its step-12 checkpoint equal to
   the uninterrupted run's, C3 the multi-node shape of configs[4] (two
   ``torch.distributed.run`` nodes of one rank, static rendezvous, gloo on
@@ -138,7 +148,11 @@ the port's main paths:
   checkpoint resumed under PP 4 (bitwise), PP 2 x data 2 and flat at
   world 1 (step-3 losses and checkpoints held to the 1f1b run's); P3
   GPipe x MoE, ``gpt2_moe`` on T1's recipe at PP 2 x data 2 against
-  T6's scatter run, step-3 loss within ``P1_LOSS_BOUND``.  The flash check holds
+  T6's scatter run, step-3 loss within ``P1_LOSS_BOUND``.  P1's
+  ``1f1b_int8`` run writes its four rank logs (``--metrics-dir``):
+  ``merge_timeline`` aligns them, and the ``pp_compress_model`` record
+  and the per-step ``pp_boundary_bytes`` counters equal the model.  The
+  flash check holds
   the kernels at the pipeline's microbatch (B 2, H 12).
 
 Each phase prints its lines; any failed check ends the run with a
@@ -634,11 +648,12 @@ def paged_kernel_phase(torch, pa, seed: int, bandwidth: float) -> dict:
     return results
 
 
-def paged_serving_phase(torch, da, pa, seed: int) -> dict:
+def paged_serving_phase(torch, da, pa, seed: int, repo: str) -> dict:
     """The paged main path: the CLI serving GPT-2 124M in bf16 from the
     paged pool, plainly, with speculative decoding (k = 4) and with int8
     KV.  Every decode and verify tick must run #11 or #12 and every
-    prefill tick #12, once per layer, and #9/#10 never."""
+    prefill tick #12, once per layer, and #9/#10 never.  The speculative
+    run serves with telemetry on (``serve_telemetry``)."""
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.serve import ServingEngine
 
@@ -650,6 +665,10 @@ def paged_serving_phase(torch, da, pa, seed: int) -> dict:
             prefill_ticks[0] += 1
         return original(self)
 
+    tm = os.path.join(repo, "build", "chip_smoke", "serve_tm")
+    telemetry = ["--metrics-dir", tm, "--trace", "--slo",
+                 f"ttft_p99={SERVE_TTFT_P99}", "--metrics-port", "0"]
+
     argv = SERVE_ARGV + ["--seed", str(seed), "--serve-paged"]
     entries = (da.decode_attention, da.decode_attention_multi,
                pa.paged_decode_attention, pa.paged_decode_attention_multi,
@@ -659,12 +678,19 @@ def paged_serving_phase(torch, da, pa, seed: int) -> dict:
     try:
         for label, extra in (("paged", []),
                              ("paged spec", ["--serve-spec",
-                                             "--serve-spec-k", "4"]),
+                                             "--serve-spec-k", "4",
+                                             *telemetry]),
                              ("paged int8", ["--serve-kv-dtype", "int8"])):
             for e in entries:
                 e.launches = 0
             prefill_ticks[0] = 0
-            res = cli(argv + extra)
+            if "spec" in label:
+                with hook_clock() as clock, serve_scrapes() as scrapes:
+                    res = cli(argv + extra)
+                serve_telemetry(tm, res, scrapes)
+                hook_report(clock)
+            else:
+                res = cli(argv + extra)
             n9, n10, n11, n12m, n12p = (e.launches for e in entries)
             s, st = res["summary"], res["engine"]
             ticks = st["decode_ticks"]
@@ -694,6 +720,198 @@ def paged_serving_phase(torch, da, pa, seed: int) -> dict:
     finally:
         ServingEngine.prefill_step = original
     return launches
+
+# The speculative paged run's TTFT objective: loose enough that no alert
+# fires on a healthy card (an alert is a recorded event, not a failure).
+SERVE_TTFT_P99 = "30s"
+
+
+@contextlib.contextmanager
+def hook_clock():
+    """While the CLI serves: the host seconds of the scheduler's ticks and,
+    inside them, of the telemetry's own calls on the serving thread (the
+    engine-stats gauges, the SLO's evaluation, the flight recorder's
+    queue check, the span recorder, the emitter's counters, gauges,
+    histograms and records), each timed where it is entered from outside
+    the others.  The ``record_function`` ranges of ``phase_span`` are not
+    in it.  Yields ``{"tick": [s, n], "<Class>.<method>": [s, n]}``."""
+    import threading
+
+    from pytorch_distributed_training_tpu_torch import obs
+    from pytorch_distributed_training_tpu_torch.serve import (
+        ContinuousScheduler,
+    )
+
+    hooks = [(ContinuousScheduler, "_emit_engine_stats"),
+             (obs.SLOPolicy, "evaluate"), (obs.FlightRecorder, "check_queue"),
+             *[(obs.SpanRecorder, n) for n in ("start_span", "end_span",
+                                               "record_span", "flush")],
+             *[(obs.MetricsEmitter, n) for n in ("counter_add", "gauge",
+                                                 "observe", "emit")],
+             (ContinuousScheduler, "tick")]
+    clock: dict = {"tick": [0.0, 0]}
+    inside = {"tick": False, "hook": False}
+    serving = threading.get_ident()
+
+    def add(key, t0):
+        c = clock.setdefault(key, [0.0, 0])
+        c[0] += time.perf_counter() - t0
+        c[1] += 1
+
+    def timed(owner, name, fn):
+        key = f"{owner.__name__}.{name}"
+
+        def tick(*a, **kw):
+            inside["tick"] = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                add("tick", t0)
+                inside["tick"] = False
+
+        def hook(*a, **kw):
+            if (not inside["tick"] or inside["hook"]
+                    or threading.get_ident() != serving):
+                return fn(*a, **kw)
+            inside["hook"] = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                add(key, t0)
+                inside["hook"] = False
+
+        return tick if name == "tick" else hook
+
+    originals = [(owner, name, getattr(owner, name)) for owner, name in hooks]
+    for owner, name, fn in originals:
+        setattr(owner, name, timed(owner, name, fn))
+    try:
+        yield clock
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+
+
+def hook_report(clock: dict) -> None:
+    """Prints ``hook_clock``'s reading: the telemetry's host time a tick
+    beside the tick's."""
+    tick_s, ticks = clock.pop("tick")
+    total = sum(s for s, _ in clock.values())
+    parts = ", ".join(f"{k} {s / ticks * 1e6:.1f} us ({n} calls)"
+                      for k, (s, n) in sorted(clock.items(),
+                                              key=lambda kv: -kv[1][0]))
+    check(ticks > 0 and total > 0,
+          f"serve telemetry: the hooks were timed ({ticks} ticks)")
+    print(f"serve telemetry host cost (paged spec): {ticks} scheduler "
+          f"ticks, {tick_s / ticks * 1e3:.3f} ms a tick; the telemetry's "
+          f"calls {total / ticks * 1e6:.1f} us a tick "
+          f"({total / tick_s * 100:.2f} % of the ticks' time): {parts}",
+          flush=True)
+
+
+@contextlib.contextmanager
+def serve_scrapes():
+    """While the CLI serves: the ops endpoint's ``/metrics``, ``/healthz``
+    and ``/slo`` fetched over localhost on the fifth scheduler tick (the
+    run live), and the live aggregator's TTFT p99 read after the tick
+    that finished the last request.  Yields the dict it fills."""
+    import urllib.request
+
+    from pytorch_distributed_training_tpu_torch.obs import http
+    from pytorch_distributed_training_tpu_torch.serve import (
+        ContinuousScheduler,
+    )
+
+    scrapes: dict = {"servers": [], "ticks": 0}
+    start, tick = http.OpsServer.start, ContinuousScheduler.tick
+
+    def started(self):
+        scrapes["servers"].append(self)
+        return start(self)
+
+    def ticked(self):
+        events = tick(self)
+        scrapes["ticks"] += 1
+        (server,) = scrapes["servers"]
+        if scrapes["ticks"] == 5:
+            for path in ("/metrics", "/healthz", "/slo"):
+                with urllib.request.urlopen(server.url + path,
+                                            timeout=10) as r:
+                    scrapes[path] = (r.status, r.read().decode())
+        if self.idle:
+            scrapes["live_ttft_p99"] = \
+                server.aggregator.hist("ttft_s").quantile(99)
+        return events
+
+    http.OpsServer.start, ContinuousScheduler.tick = started, ticked
+    try:
+        yield scrapes
+    finally:
+        http.OpsServer.start, ContinuousScheduler.tick = start, tick
+
+
+def serve_telemetry(tm: str, res: dict, scrapes: dict) -> None:
+    """The speculative paged run's telemetry: the log passes the port's
+    ``validate_events``; all 16 request span chains are whole; the
+    engine's decode and verify tick spans equal its decode-tick counter;
+    each request's TTFT is its queued plus prefill span, and the TTFT
+    decomposition's p50 equals the histogram's; the endpoint answered 200
+    on the three paths mid-run, ``/metrics`` a Prometheus exposition with
+    the engine's counters; the live TTFT p99 equals the quantile of the
+    summary's bucket counts read back from the log."""
+    import shutil
+
+    from pytorch_distributed_training_tpu_torch import obs
+
+    events = obs.read_events(os.path.join(tm, "events.rank00000.jsonl"))
+    obs.validate_events(events)
+    spans = obs.span_events(events)
+    chains: dict = {}
+    for sp in spans:
+        if sp.get("corr") is not None:
+            chains.setdefault(sp["corr"], {})[sp["span"]] = sp
+    whole = {"serve/request", "request/queued", "request/prefill",
+             "request/decode"}
+    check(sorted(chains) == list(range(16))
+          and all(set(c) == whole for c in chains.values()),
+          f"serve telemetry: 16 whole request chains ({len(chains)})")
+    ticks = sum(sp["span"] in ("serve/decode", "serve/verify")
+                for sp in spans)
+    check(ticks == res["engine"]["decode_ticks"]
+          == events[-1]["counters"]["decode_ticks"],
+          f"serve telemetry: {ticks} tick spans, "
+          f"{res['engine']['decode_ticks']} decode ticks")
+    for corr, c in chains.items():
+        ttft = c["request/prefill"]["t1"] - c["serve/request"]["t0"]
+        parts = c["request/queued"]["dur"] + c["request/prefill"]["dur"]
+        check(abs(parts - ttft) <= 1e-9,
+              f"serve telemetry: request {corr} queued + prefill {parts} "
+              f"vs TTFT {ttft}")
+    dec = obs.ttft_decomposition(spans)
+    hist = events[-1]["histograms"]["ttft_s"]
+    check(dec["requests"] == 16 and hist["count"] == 16
+          and abs(dec["ttft_s"]["p50"] - hist["p50"]) <= 1e-9,
+          f"serve telemetry: TTFT decomposition p50 {dec['ttft_s']['p50']} "
+          f"vs histogram {hist['p50']}")
+    check(all(scrapes.get(p, (0,))[0] == 200
+              for p in ("/metrics", "/healthz", "/slo"))
+          and "# TYPE decode_ticks counter" in scrapes["/metrics"][1],
+          f"serve telemetry: /metrics /healthz /slo answered 200 mid-run "
+          f"({[scrapes.get(p, (None,))[0] for p in ('/metrics', '/healthz', '/slo')]})")
+    offline = obs.quantile_from_buckets(hist["buckets"], 99)
+    check(scrapes.get("live_ttft_p99") == offline,
+          f"serve telemetry: live TTFT p99 {scrapes.get('live_ttft_p99')} "
+          f"vs the log's {offline}")
+    print(f"serve telemetry (paged spec): 16 whole request chains, {ticks} "
+          f"tick spans = decode ticks; TTFT decomposition queue "
+          f"{dec['queue_wait_s']['mean'] * 1e3:.2f} + prefill "
+          f"{dec['prefill_compute_s']['mean'] * 1e3:.2f} + sched "
+          f"{dec['sched_delay_s']['mean'] * 1e3:.2f} ms (means); endpoint "
+          f"200 on /metrics /healthz /slo at tick 5; live TTFT p99 "
+          f"{offline:.6f} s = the log's", flush=True)
+    shutil.rmtree(tm, ignore_errors=True)
 
 
 def prefix_phase(torch, seed: int) -> None:
@@ -1781,7 +1999,10 @@ def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
     GPT-2 with accumulation 2, 3 steps each: the ranks bit-identical, and
     within 1e-4 of one process on the whole global batch (GPT-2's key
     bias, whose gradient is zero in exact arithmetic, to Adam's bound).
-    Returns D2's launches by row."""
+    D1, D2 and V2 (the ViT's one-rank leg, checked in ``vit_phase``) run
+    in one one-rank torchrun (``--cli-runs-leg ... --cli-joins``), the
+    NCCL group the first joins kept across them: one process start for
+    the three.  Returns D2's launches by row."""
     import numpy as np
 
     from pytorch_distributed_training_tpu_torch.tools import dp_check
@@ -1792,18 +2013,41 @@ def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
     script = os.path.join(repo, "chip_smoke.py")
     joined = "Process group initialized - WORLD_SIZE: 1, RANK: 0"
     t0 = time.monotonic()
-    path = os.path.join(out_dir, "d1.jsonl")
-    if os.path.exists(path):
-        os.remove(path)
-    counts = os.path.join(out_dir, "d1_calls.json")
-    out = torchrun(repo, 1, [script, "--cli-leg", counts, *R2_ARGV,
-                             "--distributed", "--seed", str(seed),
-                             "--metrics-jsonl", path], timeout=240)
-    check(joined in out and "process 0/1 | backend=cuda | devices=1" in out,
-          "D1: the CLI joined a one-rank group on the card")
-    with open(counts) as f:
-        comm = json.load(f)["comm"]
-    recs = _records(path)
+    paths = {leg: os.path.join(out_dir, f"{leg}.jsonl")
+             for leg in ("d1", "d2", "v2")}
+    for path in paths.values():
+        if os.path.exists(path):
+            os.remove(path)
+    vit = vit_records(repo, seed)
+    legs = [
+        {"label": "d1", "argv": [*R2_ARGV, "--distributed", "--seed",
+                                 str(seed), "--metrics-jsonl", paths["d1"]]},
+        {"label": "d2", "argv": [*T1_RECIPE, *TRAIN_COMMON, "--epochs", "2",
+                                 "--steps-per-epoch", "8", "--total-steps",
+                                 "16", "--distributed", "--seed", str(seed),
+                                 "--metrics-jsonl", paths["d2"]]},
+        {"label": "v2", "argv": [*vit_argv(vit), "--distributed", "--seed",
+                                 str(seed), "--metrics-jsonl", paths["v2"]]},
+    ]
+    spec = os.path.join(out_dir, "legs.json")
+    with open(spec, "w") as f:
+        json.dump(legs, f)
+    out = torchrun(repo, 1, [script, "--cli-runs-leg", out_dir, spec,
+                             "--cli-joins"], timeout=780)
+    check(out.count(joined) == 3
+          and out.count("process 0/1 | backend=cuda | devices=1") == 3,
+          "D1, D2, V2: each CLI run joined the one-rank group on the card")
+    counts = {}
+    for leg in ("d1", "d2", "v2"):
+        with open(os.path.join(out_dir, f"{leg}.rank0.json")) as f:
+            counts[leg] = json.load(f)
+    figures["V2"] = (counts["v2"], _records(paths["v2"]))
+    print(f"dp D1 + D2 + V2: one torchrun, {time.monotonic() - t0:.1f} s "
+          f"(legs {counts['d1']['seconds']:.1f} + "
+          f"{counts['d2']['seconds']:.1f} + {counts['v2']['seconds']:.1f} "
+          "s of CLI time)", flush=True)
+    comm = counts["d1"]["comm"]
+    recs = _records(paths["d1"])
     check(len(recs) == 2 and recs[-1]["step"] == 40
           and _finite([r["loss"] for r in recs]),
           f"D1: 2 epochs, 40 steps, finite losses ({recs})")
@@ -1820,22 +2064,10 @@ def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
           f"{r2_ms:.1f} ms; epoch losses "
           f"{[round(r['loss'], 4) for r in recs]}; {comm['pmean']} "
           f"gradient pmeans, {comm['psum'] - comm['pmean']} sync-BN "
-          f"all-reduces; {time.monotonic() - t0:.1f} s", flush=True)
+          f"all-reduces; {counts['d1']['seconds']:.1f} s", flush=True)
 
-    t0 = time.monotonic()
-    path = os.path.join(out_dir, "d2.jsonl")
-    if os.path.exists(path):
-        os.remove(path)
-    counts = os.path.join(out_dir, "d2_launches.json")
-    out = torchrun(repo, 1, [script, "--cli-leg", counts, *T1_RECIPE,
-                             *TRAIN_COMMON, "--epochs", "2",
-                             "--steps-per-epoch", "8", "--total-steps", "16",
-                             "--distributed", "--seed", str(seed),
-                             "--metrics-jsonl", path], timeout=240)
-    check(joined in out, "D2: the CLI joined a one-rank group on the card")
-    with open(counts) as f:
-        n = json.load(f)
-    recs = _records(path)
+    n = counts["d2"]
+    recs = _records(paths["d2"])
     want = 12 * 2 * 16
     check(n["steps"] == 16 and len(recs) == 2
           and _finite([r["loss"] for r in recs]),
@@ -1855,8 +2087,7 @@ def dp_phase(torch, seed: int, repo: str, figures: dict) -> dict:
           f"tokens/s, step {step_ms:.1f} ms; T1 in this call {t1_tok_s:.0f} "
           f"tokens/s, {t1_ms:.1f} ms; epoch losses "
           f"{[round(r['loss'], 4) for r in recs]}; launches fwd {n['fwd']} "
-          f"dq {n['dq']} dkv {n['dkv']}; {time.monotonic() - t0:.1f} s",
-          flush=True)
+          f"dq {n['dq']} dkv {n['dkv']}; {n['seconds']:.1f} s", flush=True)
 
     # D3: both pairs of ranks start at once; the one-process references
     # are computed while they run.
@@ -1970,19 +2201,19 @@ def vit_forward_flops(cfg, image_size: int) -> float:
                  + 2 * d * cfg.num_classes)
 
 
-def vit_phase(torch, fa, seed: int, repo: str, figures: dict) -> dict:
-    """The ViT path (BASELINE configs[2]) on packed records: V1 through
-    the CLI, V2 with ``--distributed``, V3 forced flash against the
-    kernel-free layouts, V4 card against host, R2p ResNet-50 on the same
-    records.  Returns V3's launches by row."""
-    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+def vit_records(repo: str, seed: int) -> str:
+    """The ViT legs' packed file (``VIT_RECORDS`` random records from the
+    seed and a 1000-class sidecar), written once a run; returns its
+    path."""
     from pytorch_distributed_training_tpu_torch.data import (
-        native, synthesize_packed_images,
+        synthesize_packed_images,
     )
 
     out_dir = os.path.join(repo, "build", "chip_smoke", "vit")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "train.pck")
+    if os.path.exists(path + ".classes"):
+        return path
     t0 = time.monotonic()
     synthesize_packed_images(path, n=VIT_RECORDS, size=VIT_RECORD_SIZE,
                              num_classes=1000, seed=seed)
@@ -1993,6 +2224,19 @@ def vit_phase(torch, fa, seed: int, repo: str, figures: dict) -> dict:
     print(f"vit records: {VIT_RECORDS} x {VIT_RECORD_SIZE} px, 1000 "
           f"classes, {os.path.getsize(path) / 1e6:.1f} MB written in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
+    return path
+
+
+def vit_phase(torch, fa, seed: int, repo: str, figures: dict) -> dict:
+    """The ViT path (BASELINE configs[2]) on packed records: V1 through
+    the CLI, V2 with ``--distributed`` (run in the data-parallel phase's
+    torchrun, ``figures["V2"]``, checked here beside V1), V3 forced flash
+    against the kernel-free layouts, V4 card against host, R2p ResNet-50
+    on the same records.  Returns V3's launches by row."""
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.data import native
+
+    path = vit_records(repo, seed)
 
     # V1: the CLI at full width; every step's loss recorded.
     step_losses: list = []
@@ -2039,22 +2283,8 @@ def vit_phase(torch, fa, seed: int, repo: str, figures: dict) -> dict:
     del trainer
     torch.cuda.empty_cache()
 
-    # V2: V1 with --distributed, one NCCL rank.
-    t0 = time.monotonic()
-    script = os.path.join(repo, "chip_smoke.py")
-    metrics = os.path.join(out_dir, "v2.jsonl")
-    if os.path.exists(metrics):
-        os.remove(metrics)
-    counts = os.path.join(out_dir, "v2_calls.json")
-    out = torchrun(repo, 1, [script, "--cli-leg", counts, *vit_argv(path),
-                             "--distributed", "--seed", str(seed),
-                             "--metrics-jsonl", metrics], timeout=300)
-    check("Process group initialized - WORLD_SIZE: 1, RANK: 0" in out
-          and "process 0/1 | backend=cuda | devices=1" in out,
-          "V2: the CLI joined a one-rank group on the card")
-    with open(counts) as f:
-        n = json.load(f)
-    recs = _records(metrics)
+    # V2: V1 with --distributed, one NCCL rank (run in dp_phase's torchrun).
+    n, recs = figures.pop("V2")
     check(n["steps"] == steps and len(recs) == 2
           and _finite([r["loss"] for r in recs]),
           f"V2: {steps} steps, finite losses ({recs})")
@@ -2071,7 +2301,7 @@ def vit_phase(torch, fa, seed: int, repo: str, figures: dict) -> dict:
           f"call {img_s:.1f} images/s ({v2_img_s / img_s:.3f}x); "
           f"{n['comm']['pmean']} gradient pmeans, "
           f"{n['comm']['psum'] - n['comm']['pmean']} other all-reduces; "
-          f"{time.monotonic() - t0:.1f} s", flush=True)
+          f"{n['seconds']:.1f} s of CLI time", flush=True)
 
     launches = vit_flash_turns(torch, fa, seed)
     vit_parity_phase(torch, seed)
@@ -2574,12 +2804,17 @@ def checkpoint_phase(torch, seed: int, repo: str, figures: dict) -> dict:
         c1 = os.path.join(CKPT, "c1")
         argv = [*t1_argv, "--checkpoint-dir", c1, "--ckpt-every-steps", "2",
                 "--inject-faults", "sigterm@4"]
+        # Telemetry on both processes; the resumed one profiles steps 5-6.
+        c1_tm = [os.path.join(CKPT, f"c1_tm{i}") for i in range(2)]
+        c1_prof = os.path.join(CKPT, "c1_prof")
         counts = []
-        for i, extra in enumerate(([], ["--resume"])):
+        for i, extra in enumerate(([], ["--resume", "--profile-dir", c1_prof,
+                                        "--profile-steps", "5:7"])):
             out_json = os.path.join(CKPT, f"c1_{i}.json")
             proc = subprocess.Popen(
                 [sys.executable, script, "--cli-leg", out_json, *argv,
-                 *extra], cwd=repo, stdout=subprocess.PIPE,
+                 *extra, "--metrics-dir", c1_tm[i], "--trace", "--goodput"],
+                cwd=repo, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True, start_new_session=True)
             out = _finish(proc, f"C1 process {i + 1}", 300,
                           code=75 if i == 0 else 0)
@@ -2606,6 +2841,7 @@ def checkpoint_phase(torch, seed: int, repo: str, figures: dict) -> dict:
               f"C1: attention outside the kernels {counts}")
         verdict = _same_run(torch, "C1", c1, t1_dir, 8, uninterrupted(
             t1_argv, os.path.join(CKPT, "t1_2"), "C1: T1 again"))
+        c1_telemetry(c1_tm, c1_prof, figures["T1"][1])
         print(f"ckpt C1 (GPT-2 124M, T1's recipe, #4/#5; sigterm@4, step "
               f"checkpoints every 2): exit 75 with steps 2, 4, 5; resumed "
               f"from step 5 (epoch 0, skipping 5 consumed batches) to step "
@@ -2692,6 +2928,101 @@ def checkpoint_phase(torch, seed: int, repo: str, figures: dict) -> dict:
             torchrun_kill(proc)
         shutil.rmtree(CKPT, ignore_errors=True)
     return {4: n["fwd"], 5: n["dq"] + n["dkv"]}
+
+# C1's telemetry: T1's step counted on meta tensors against the analytic
+# count of PERF.md section 2 (6 N a token + 12 layers L d, GPT-2 124M's N
+# with tied embeddings), and the flash forward launches a profiled step
+# makes (12 layers x 2 microbatches).
+T1_PARAMS = 124_439_808
+T1_ANALYTIC_FLOPS = (6 * T1_PARAMS + 12 * 12 * 1024 * 768) * 16 * 1024
+C1_FLOPS_BOUND = 0.10
+C1_PROFILED = (5, 7)
+
+
+def c1_telemetry(tm_dirs: list, prof_dir: str, t1_ms: float) -> None:
+    """C1's two processes ran under ``--metrics-dir --trace --goodput``:
+    both logs pass the port's ``validate_events``; each process's goodput
+    ledger sums to its wall exactly with no ``rework`` (a preemption
+    commits synchronously), the preempted one charging ``ckpt_save`` and
+    the resumed one ``ckpt_restore``; each ``compiled_cost`` holds T1's
+    step FLOPs within ``C1_FLOPS_BOUND`` of the analytic count, the
+    allocator's peaks and the card's data-sheet peak; the resumed
+    process's ``torch.profiler`` trace of steps 5-6 holds their step
+    markers and 48 ``flash_fwd_kernel`` device events.  Prints the
+    preempted process's warm step time beside T1's in this call: the
+    ledger's ``step_compute`` over its step intervals (steps 1-4,
+    telemetry on, the saves in their own category), and where its first
+    seconds went: start-up to the first epoch (the flop probe included)
+    and the first step."""
+    from pytorch_distributed_training_tpu_torch import obs
+
+    ledgers, costs, marks_t = [], [], []
+    for i, directory in enumerate(tm_dirs):
+        events = obs.read_events(os.path.join(directory,
+                                              "events.rank00000.jsonl"))
+        obs.validate_events(events)
+        check(events[-1]["kind"] == "summary",
+              f"C1 process {i + 1}: the log is closed with its summary")
+        (led,) = [e for e in events if e.get("record") == "goodput_ledger"]
+        cats = led["categories_ns"]
+        check(led["identity_ok"] and sum(cats.values()) == led["wall_ns"]
+              and cats["rework"] == 0,
+              f"C1 process {i + 1}: ledger categories sum to the wall "
+              f"exactly, no rework ({cats}, wall {led['wall_ns']})")
+        ledgers.append(led)
+        (cost,) = [e for e in events if e["kind"] == "compiled_cost"]
+        check("error" not in cost and abs(cost["flops"] / T1_ANALYTIC_FLOPS
+                                          - 1) <= C1_FLOPS_BOUND
+              and cost["memory"]["peak_allocated_bytes"] > 0
+              and cost["peak_flops"] == 989e12,
+              f"C1 process {i + 1}: compiled_cost {cost} against the "
+              f"analytic {T1_ANALYTIC_FLOPS:.4g} FLOPs a step")
+        costs.append(cost)
+        first = {}
+        for e in events:
+            key = e.get("phase") or e["kind"]
+            if key in ("meta", "epoch_start", "step"):
+                first.setdefault(key, e["t"])
+        marks_t.append(first)
+    check(ledgers[0]["categories_ns"]["ckpt_save"] > 0
+          and ledgers[1]["categories_ns"]["ckpt_restore"] > 0,
+          "C1: the preempted process charged ckpt_save, the resumed one "
+          "ckpt_restore")
+    with open(os.path.join(prof_dir, "trace.rank0.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    marks = {e["name"] for e in trace if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("train#")}
+    flash = [e for e in trace if e.get("cat") == "kernel"
+             and "flash_fwd_kernel" in e.get("name", "")]
+    want = {f"train#{s}" for s in range(*C1_PROFILED)}
+    check(marks == want and len(flash) == 12 * 2 * 2,
+          f"C1: the profiled window holds {sorted(marks)} (want "
+          f"{sorted(want)}) and {len(flash)} flash_fwd_kernel device "
+          "events (want 48)")
+    led = ledgers[0]
+    warm = (led["categories_ns"]["step_compute"]
+            + led["categories_ns"]["grad_sync"]) \
+        / led["step_intervals"]["step_compute"] / 1e6
+    start = marks_t[0]
+    print(f"ckpt C1 telemetry: logs valid; goodput "
+          f"{ledgers[0]['goodput_fraction']:.4f} / "
+          f"{ledgers[1]['goodput_fraction']:.4f} of "
+          f"{ledgers[0]['wall_s']:.2f} / {ledgers[1]['wall_s']:.2f} s "
+          f"(ckpt_save {ledgers[0]['seconds']['ckpt_save']:.3f} s, "
+          f"ckpt_restore {ledgers[1]['seconds']['ckpt_restore']:.3f} s, "
+          f"compile {ledgers[0]['seconds']['compile']:.3f} / "
+          f"{ledgers[1]['seconds']['compile']:.3f} s, rework 0); "
+          f"compiled_cost {costs[0]['flops']:.6g} FLOPs a step "
+          f"({costs[0]['flops'] / T1_ANALYTIC_FLOPS:.4f} of the analytic "
+          f"{T1_ANALYTIC_FLOPS:.6g}), peak allocated "
+          f"{costs[0]['memory']['peak_allocated_bytes'] / 1e9:.2f} GB; "
+          f"profiled steps 5-6: {len(flash)} flash_fwd_kernel events; "
+          f"warm step (the ledger's step_compute over steps 1-4, "
+          f"telemetry on) {warm:.1f} ms, T1 in this call {t1_ms:.1f} ms "
+          f"(its 8 steps' mean); process 1: start-up to the first epoch "
+          f"(the flop probe included) "
+          f"{start['epoch_start'] - start['meta']:.2f} s, first step "
+          f"{start['step'] - start['epoch_start']:.2f} s", flush=True)
 
 
 # The device-cache and skip-gate legs write under here (removed at the end).
@@ -4256,6 +4587,44 @@ P1_LOSS_BOUND = 0.02          # M1's
 P3_RUNS = [("moe_pp2d2", ["--pipeline-parallel", "2"])]
 P3_FLASH = {"moe_pp2d2": (72, 72)}
 P1_TOKENS = 16 * 1024         # a step's global tokens
+# The P1 run that writes its rank logs (``p1_telemetry``).
+P1_TM_RUN = "1f1b_int8"
+P1_TM = os.path.join(PP_DIR, "p1_tm")
+
+
+def p1_telemetry() -> None:
+    """P1's ``1f1b_int8`` run under ``--metrics-dir``: four rank logs,
+    each valid, whose steps ``merge_timeline`` aligns with no rank
+    missing; every rank's ``pp_compress_model`` record and its
+    ``pp_boundary_bytes`` counter on each of the 3 steps equal
+    ``_pp_bytes``' model."""
+    from pytorch_distributed_training_tpu_torch import obs
+
+    logs = obs.load_rank_logs(P1_TM)
+    check(sorted(logs) == [0, 1, 2, 3], f"P1 telemetry: four rank logs "
+          f"({sorted(logs)})")
+    want = _pp_bytes(P1_TM_RUN)
+    for rank, events in logs.items():
+        obs.validate_events(events)
+        (rec,) = [e for e in events if e.get("record") == "pp_compress_model"]
+        steps = [e["counters"]["pp_boundary_bytes"] for e in events
+                 if e["kind"] == "step"]
+        check(rec["pp_boundary_bytes_per_step"] == want
+              and rec["mode"] == "int8" and rec["num_stages"] == 4
+              and steps == [want] * 3,
+              f"P1 telemetry rank {rank}: pp_compress_model {rec} and the "
+              f"step counters {steps} against the model's {want}")
+    timeline = obs.merge_timeline(logs)
+    check([row["step"] for row in timeline] == [0, 1, 2]
+          and not any(row["missing_ranks"] for row in timeline),
+          f"P1 telemetry: merge_timeline aligns steps 0-2 on 4 ranks "
+          f"({[(r['step'], r['missing_ranks']) for r in timeline]})")
+    skew = obs.straggler_report(timeline)
+    print(f"pipeline P1 telemetry ({P1_TM_RUN}): 4 rank logs, steps 0-2 "
+          f"aligned, pp_compress_model and pp_boundary_bytes {want} a step "
+          f"on every rank; per-rank median step "
+          f"{[round(v * 1e3, 1) for v in skew['per_rank_median_dt_s'].values()]}"
+          f" ms, stragglers {skew['stragglers']}", flush=True)
 
 
 def _p0_model(torch, seed: int, layers: int, width: int):
@@ -4451,8 +4820,8 @@ def cli_runs(torch, out: str, runs: list, rank: int) -> dict:
                     state_bytes=state_bytes(trainer.state),
                     params=sum(p.numel()
                                for p in trainer.state.params.values()),
-                    dispatch=getattr(trainer.state.model.cfg,
-                                     "moe_dispatch", None),
+                    dispatch=getattr(getattr(trainer.state.model, "cfg",
+                                             None), "moe_dispatch", None),
                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                     seconds=time.monotonic() - t0)
                 train.make_train_step = original
@@ -4470,22 +4839,27 @@ def cli_runs(torch, out: str, runs: list, rank: int) -> dict:
     return records
 
 
-def cli_runs_leg(out: str, spec: str) -> int:
+def cli_runs_leg(out: str, spec: str, cli_joins: bool = False) -> int:
     """One rank of a torchrun of several CLI legs on the card
     (``--cli-runs-leg OUT SPEC``, ``SPEC`` a JSON list for ``cli_runs``),
-    each rank in a gloo group (several ranks on the one card)."""
+    each rank in a gloo group (several ranks on the one card); with
+    ``cli_joins`` (``--cli-joins``) the rank joins no group itself: the
+    CLI's first ``--distributed`` run does (NCCL on the card) and
+    ``group_kept`` holds it for the others."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pytorch_distributed_training_tpu_torch.comm import init as comm_init
 
-    torch.set_num_threads(1)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    comm_init.initialize(device, backend="gloo")
+    if not cli_joins:
+        torch.set_num_threads(1)
+        comm_init.initialize(device, backend="gloo")
     try:
         with open(spec) as f:
-            cli_runs(torch, out, json.load(f), comm_init.process_index())
+            cli_runs(torch, out, json.load(f),
+                     int(os.environ.get("RANK", "0")))
     finally:
         comm_init.shutdown()
     return 0
@@ -4507,6 +4881,8 @@ def _p1_runs() -> list:
     for label, extra in P1_RUNS:
         if label != "flat_again":
             extra = extra + ["--checkpoint-dir", _p1_ckpt(label)]
+        if label == P1_TM_RUN:
+            extra = extra + ["--metrics-dir", P1_TM]
         runs.append(dict(label=label, argv=[
             *T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
             "3", "--accum-steps", "1", *extra]))
@@ -4784,6 +5160,7 @@ def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
               f"flash fwd/dq/dkv {ranks[0]['fwd']}/{ranks[0]['dq']}/"
               f"{ranks[0]['dkv']} a rank{extra}", flush=True)
     del flat_ref
+    p1_telemetry()
     for label, loss, d3, dist in held:
         check(d3 <= P1_LOSS_BOUND,
               f"P1 {label}: step-3 loss {loss} vs flat {flat[2]} ({d3:.3g}, "
@@ -4902,6 +5279,9 @@ def main() -> int:
                     help="(internal) one rank of the pipeline phase's legs")
     ap.add_argument("--cli-runs-leg", nargs=2, metavar=("OUT", "SPEC"),
                     help="(internal) one rank of several CLI legs in turn")
+    ap.add_argument("--cli-joins", action="store_true",
+                    help="(internal) with --cli-runs-leg: the CLI's "
+                    "--distributed run joins the group")
     args = ap.parse_args()
     if args.cli_leg:
         return cli_leg(args.cli_leg[0], args.cli_leg[1:])
@@ -4913,7 +5293,7 @@ def main() -> int:
     if args.pipeline_leg:
         return pipeline_leg(args.pipeline_leg[0], int(args.pipeline_leg[1]))
     if args.cli_runs_leg:
-        return cli_runs_leg(*args.cli_runs_leg)
+        return cli_runs_leg(*args.cli_runs_leg, args.cli_joins)
     import torch
 
     if not torch.cuda.is_available():
@@ -4981,7 +5361,7 @@ def main() -> int:
     timed("train parity", train_parity_phase, torch, fa, args.seed)
     _, launches = timed("serving", serving_phase, torch, da, args.seed)
     launches.update(timed("paged serving", paged_serving_phase, torch, da,
-                          pa, args.seed))
+                          pa, args.seed, repo))
     for kname, n in launches.items():
         kernels[kname]["launches"] = n
     timed("prefix", prefix_phase, torch, args.seed)

@@ -71,14 +71,28 @@ M] [--pipeline-chunks V] [--pp-compress none|bf16|int8]`` splits the
 block stack into S stages over a ``pipeline`` axis
 (``parallel/gpt2_pipeline.py``); ``--remat`` checkpoints GPipe's ticks,
 ``--grad-sync-stripe`` stripes the compressed stage hops, and the run
-prints the stage-boundary byte model (``pp_compress_model:``) and names
-the stages and the schedule in its summaries.  ``data`` takes the rest
-of the world, and ``--fsdp``, ``--tensor-parallel`` and ring
+names the stages and the schedule in its summaries.  ``data`` takes the
+rest of the world, and ``--fsdp``, ``--tensor-parallel`` and ring
 ``--sequence-parallel`` (GPipe) compose with it as in JAX.
 
-Not ported yet: the MoE GPT-2, telemetry (with it the
-``grad_sync_model`` and ``pp_compress_model`` events) and elastic
-resizing.
+Telemetry (``obs/``): ``--metrics-dir D [--log-format jsonl|tsv]``
+writes each process's event log ``D/events.rank0000N.jsonl`` — JAX's
+schema v4: per-step records with their counter deltas (the analytic DCN
+and stage-boundary bytes), the ``grad_sync_model`` and
+``pp_compress_model`` records, a ``compiled_cost`` event (the step's
+FLOPs counted on ``meta`` tensors, the first step's collective census
+and the allocator's peaks), flight-recorder anomalies and a closing
+summary, which the repo's ``tools/telemetry_report.py`` and
+``tools/trace_export.py`` read; ``--trace [--trace-sample-rate R]`` adds
+request and step spans; ``--goodput`` the training goodput ledger;
+``--slo SPEC`` burn-rate alerts and ``--metrics-port P [--healthz-stale-s
+S]`` the ``/metrics``, ``/healthz`` and ``/slo`` endpoint on 127.0.0.1
+(port 0: an ephemeral one, printed); ``--profile-dir D [--profile-steps
+START:STOP]`` a ``torch.profiler`` Chrome trace of a global-step window
+or of the first epoch.  The JAX CLI's refusals of these flags are usage
+errors (exit 2) with its messages.
+
+Not ported yet: elastic resizing (``--elastic-resize``).
 """
 
 from __future__ import annotations
@@ -283,29 +297,261 @@ def _pipelined(args, net, mesh, policy):
         build_parser().error(str(e))
 
 
-def _print_pp_model(args, net, policy) -> None:
-    """The stage-boundary byte model and every input it takes, on one
-    line (JAX's ``pp_compress_model`` record; telemetry is not ported)."""
-    import json
+def _check_telemetry(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's refusals of the telemetry flags, as usage errors
+    (exit 2) with its messages, before anything is built.  Parses
+    ``--profile-steps`` into ``args.profile_window``."""
+    args.profile_window = None
+    if args.profile_steps is not None:
+        if not args.profile_dir:
+            parser.error("--profile-steps requires --profile-dir")
+        lo, sep, hi = args.profile_steps.partition(":")
+        try:
+            window = (int(lo), int(hi))
+        except ValueError:
+            parser.error(f"--profile-steps must be START:STOP, got "
+                         f"{args.profile_steps!r}")
+        if not sep or window[0] < 0 or window[1] <= window[0]:
+            parser.error(f"--profile-steps window must satisfy 0 <= START "
+                         f"< STOP, got {args.profile_steps!r}")
+        args.profile_window = window
+    if args.trace:
+        if not args.metrics_dir:
+            parser.error("--trace records span events into the "
+                         "--metrics-dir log; pass --metrics-dir")
+        if args.log_format != "jsonl":
+            parser.error("--trace needs --log-format jsonl (the exporter "
+                         "and the TTFT decomposition read spans back)")
+    if args.goodput:
+        if args.serve:
+            parser.error("--goodput attributes a TRAINING run's wall "
+                         "clock; serving goodput is the --slo plane's job")
+        if not args.metrics_dir:
+            parser.error("--goodput writes the goodput_ledger record into "
+                         "the --metrics-dir log; pass --metrics-dir")
+    if args.slo is not None or args.metrics_port is not None:
+        if not args.metrics_dir:
+            parser.error("--slo/--metrics-port aggregate the telemetry "
+                         "spine live; pass --metrics-dir")
+        from ..obs import parse_slo_spec
+
+        try:
+            if args.slo:
+                parse_slo_spec(args.slo)
+        except ValueError as e:
+            parser.error(f"--slo: {e}")
+
+
+class _Telemetry:
+    """The telemetry of one run, as the JAX CLI builds it: the emitter
+    (disabled without ``--metrics-dir``, so every wiring point threads
+    one object), the span recorder (``--trace``), the goodput ledger
+    (``--goodput``; its restart watermark in ``<checkpoint-dir>/
+    .progress``), and the live aggregator, SLO policy and ops endpoint
+    (``--slo`` / ``--metrics-port``), teed from the same emitter."""
+
+    def __init__(self, args, *, rank: int, world: int, device, mode: str):
+        import os
+
+        from ..obs import MetricsEmitter
+
+        self.emitter = MetricsEmitter(
+            args.metrics_dir, rank=rank, world=world,
+            log_format=args.log_format, meta={
+                "mode": mode, "model": args.model, "dataset": args.dataset,
+                "precision": args.precision, "batch_size": args.batch_size,
+                "accum_steps": args.accum_steps, "grad_sync": args.grad_sync,
+                "backend": "gpu" if device.type == "cuda" else "cpu",
+            })
+        self.spans = self.ledger = self.live = self.slo = self.server = None
+        self._closed = False
+        if args.trace:
+            from ..obs import SpanRecorder
+
+            self.spans = SpanRecorder(self.emitter,
+                                      sample_rate=args.trace_sample_rate)
+        if args.goodput:
+            from ..obs import GoodputLedger
+
+            self.ledger = GoodputLedger(
+                clock=self.emitter.clock,
+                progress_path=(os.path.join(args.checkpoint_dir, ".progress")
+                               if args.checkpoint_dir else None))
+        if args.slo is not None or args.metrics_port is not None:
+            from ..obs import (
+                LiveAggregator, OpsServer, SLOPolicy, parse_slo_spec,
+            )
+
+            self.live = LiveAggregator(clock=self.emitter.clock)
+            self.slo = SLOPolicy(
+                self.live, parse_slo_spec(args.slo) if args.slo else [],
+                emitter=self.emitter)
+            self.emitter.attach_sink(self.live)
+            self.emitter.attach_sink(self.slo)   # anomaly -> alert
+            if args.metrics_port is not None:
+                # Ranks of one host (torchrun) each take their own port:
+                # the given one plus the local rank, or an ephemeral one.
+                port = args.metrics_port and args.metrics_port + int(
+                    os.environ.get("LOCAL_RANK", 0))
+                self.server = OpsServer(
+                    self.live, self.slo, port=port,
+                    stale_after_s=args.healthz_stale_s,
+                    ledger=self.ledger).start()
+                print(f"ops endpoint: {self.server.url} (/metrics /healthz "
+                      "/slo)", flush=True)
+
+    @property
+    def live_emitter(self):
+        return self.emitter if self.emitter.enabled else None
+
+    def bracket(self, category: str):
+        import contextlib
+
+        return (self.ledger.bracket(category) if self.ledger is not None
+                else contextlib.nullcontext())
+
+    def close(self, **summary) -> None:
+        """Every exit path: stop the endpoint, print the alert summary,
+        flush the spans, freeze the ledger (its gauges and record come
+        before the summary, from one snapshot), write the summary and
+        close the log.  Once: later calls do nothing."""
+        if self._closed:
+            return
+        self._closed = True
+        if self.server is not None:
+            self.server.stop()
+        if self.slo is not None and self.slo.alert_log:
+            red = self.slo.snapshot()["alerts"]
+            print(f"slo: {red['transitions']} alert transition(s), "
+                  f"{red['anomaly_alerts']['count']} promoted anomaly "
+                  f"alert(s); active: {self.slo.active_alerts or 'none'}")
+        if self.spans is not None:
+            self.spans.close()
+        if self.ledger is not None:
+            snap = self.ledger.finalize(self.emitter)
+            print(f"goodput: {snap['goodput_fraction']:.4f} over "
+                  f"{snap['wall_s']:.2f}s wall (identity "
+                  f"{'ok' if snap['identity_ok'] else 'BROKEN'})")
+        self.emitter.summary(**summary)
+        self.emitter.close()
+
+
+def _emit_models(tel: _Telemetry, args, state, mesh, grad_sync, net,
+                 policy) -> None:
+    """The JAX CLI's byte-model records and per-step counters: the DCN
+    bytes of the gradient sync (``dcn_model_unavailable`` where the flat
+    model does not cover the layout: recorded, and the run trains on),
+    the stage-boundary bytes under ``--pipeline-parallel`` with the
+    ``pp_compress_model`` record, and the ``grad_sync_model`` record with
+    the wall model, whose per-step quota the goodput ledger splits off
+    as ``grad_sync``."""
+    import torch
+
+    from ..obs import (
+        dcn_step_counters, grad_sync_wall_model, pp_step_counters,
+    )
+
+    emitter = tel.emitter
+    counters: dict = {}
+    try:
+        params = state.params
+        if state.shardings is not None:
+            params = {n: state.shardings.params[n].shape for n in params}
+        counters.update(dcn_step_counters(
+            grad_sync=grad_sync, mesh=mesh, params=params,
+            num_microbatches=args.accum_steps))
+    except ValueError as e:
+        emitter.emit("record", {"record": "dcn_model_unavailable",
+                                "error": str(e)})
+    if args.pipeline_parallel > 1:
+        fields = dict(
+            schedule=args.pipeline_schedule,
+            num_stages=args.pipeline_parallel,
+            num_microbatches=net.num_microbatches,
+            microbatch_rows=args.batch_size // net.num_microbatches,
+            seq_len=args.seq_len,
+            hidden=net.cfg.hidden_dim,
+            act_itemsize=torch.empty(
+                (), dtype=policy.compute_dtype).element_size(),
+            mode=args.pp_compress,
+            num_chunks=(args.pipeline_chunks
+                        if args.pipeline_schedule == "interleaved" else 1))
+        pp = pp_step_counters(**fields)
+        counters.update(pp)
+        emitter.emit("record", {
+            "record": "pp_compress_model", **fields,
+            "pp_boundary_bytes_per_step": pp["pp_boundary_bytes"]})
+    emitter.set_step_counters(counters)
+    if grad_sync is None:
+        return
+    wall = grad_sync_wall_model(
+        ici_bytes=grad_sync.ici_bytes_per_sync(),
+        dcn_bytes=grad_sync.dcn_bytes_per_sync(),
+        n_buckets=grad_sync.layout.n_buckets, n_slices=grad_sync.n_slices,
+        ici_size=grad_sync.ici_size, stripe=grad_sync.stripe,
+        phase_overlap=grad_sync.phase_overlap)
+    syncs = grad_sync.syncs_per_step(args.accum_steps)
+    emitter.emit("record", {
+        "record": "grad_sync_model", "mode": args.grad_sync,
+        "dcn_bytes_per_sync": grad_sync.dcn_bytes_per_sync(),
+        "ici_bytes_per_sync": grad_sync.ici_bytes_per_sync(),
+        "n_elems_padded": grad_sync.layout.padded,
+        "n_slices": grad_sync.n_slices, "ici": grad_sync.ici_size,
+        "n_buckets": grad_sync.layout.n_buckets,
+        "topk_frac": grad_sync.config.topk_frac,
+        "bucket_mb": grad_sync.bucket_mb,
+        "bucket_policy": grad_sync.bucket_policy,
+        "syncs_per_step": syncs, "stripe": grad_sync.stripe,
+        "phase_overlap": grad_sync.phase_overlap,
+        "overlap_depth": grad_sync.overlap_depth,
+        "wall_serial_s": wall["wall_serial_s"],
+        "wall_overlap_s": wall["wall_overlap_s"], "wall_s": wall["wall_s"],
+        "bubble_s": wall["bubble_s"], "overlap_ratio": wall["overlap_ratio"],
+    })
+    if tel.ledger is not None:
+        u, v = wall["ici_per_bucket_s"], wall["dcn_per_bucket_s"]
+        share = u / (u + v) if (u + v) > 0 else 0.0
+        tel.ledger.set_grad_sync_model(
+            wall["wall_s"] * syncs, ici_share=share, model={
+                "mode": args.grad_sync, "wall_s_per_sync": wall["wall_s"],
+                "syncs_per_step": syncs,
+                "per_step_s": wall["wall_s"] * syncs, "ici_share": share})
+
+
+def _probe_step_cost(trainer, batches, *, kind, policy, args,
+                     input_normalize):
+    """The ``compiled_cost`` probe on the first batch: the step's FLOPs
+    counted on ``meta`` tensors (``obs.count_step_flops``: no launch, no
+    state, RNG or batch-order change) and the card's peak, left on the
+    trainer, which adds the first step's census and memory and emits it.
+    The peeked batch is chained back.  Accounting never fails the run:
+    an error is recorded in the event instead, as in JAX."""
+    import itertools
 
     import torch
 
-    from ..comm.compress import pp_boundary_bytes_per_step
+    from ..obs import count_step_flops, peak_flops_for
+    from ..train import step_objective
 
-    fields = dict(
-        schedule=args.pipeline_schedule, num_stages=args.pipeline_parallel,
-        num_microbatches=net.num_microbatches,
-        microbatch_rows=args.batch_size // net.num_microbatches,
-        seq_len=args.seq_len, hidden=net.cfg.hidden_dim,
-        act_itemsize=torch.empty((), dtype=policy.compute_dtype)
-        .element_size(),
-        mode=args.pp_compress,
-        num_chunks=(args.pipeline_chunks
-                    if args.pipeline_schedule == "interleaved" else 1))
-    print("pp_compress_model: " + json.dumps({
-        **fields,
-        "pp_boundary_bytes_per_step": pp_boundary_bytes_per_step(**fields)}),
-        flush=True)
+    batches = iter(batches)
+    first = next(batches, None)
+    if first is None:
+        return batches
+    try:
+        loss_fn = step_objective(
+            trainer.state, kind=kind, policy=policy,
+            lm_loss_chunk=args.ce_chunk,
+            label_smoothing=args.label_smoothing,
+            input_normalize=input_normalize)
+        flops = count_step_flops(loss_fn, trainer.state.params, {
+            k: torch.as_tensor(v) for k, v in first.items()})
+        trainer.cost_report = {
+            "flops": flops,
+            "peak_flops": (peak_flops_for()
+                           if trainer.device.type == "cuda" else None)}
+    except Exception as e:   # never fail the run for accounting
+        trainer.cost_report = {"error": str(e)}
+    return itertools.chain([first], batches)
 
 
 def _build_grad_sync(args, state, group):
@@ -467,6 +713,78 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-jsonl", default=None,
                    help="Append per-epoch metrics (training) or one record "
                         "per finished request (--serve) here.")
+    # --- telemetry (obs/; the JAX CLI's flags and defaults) ---
+    p.add_argument("--metrics-dir", default=None,
+                   help="Telemetry spine (obs/): write this process's "
+                        "schema-versioned structured event log "
+                        "(events.rank*.jsonl) here — per-step records with "
+                        "counter deltas (analytic DCN bytes under "
+                        "--grad-sync), phase/heartbeat/anomaly "
+                        "flight-recorder events, a compiled-cost record "
+                        "(the step's FLOPs counted on meta tensors, the "
+                        "first step's collective census and peak memory), "
+                        "and a closing summary.  Every process writes its "
+                        "own file; merge with tools/telemetry_report.py.")
+    p.add_argument("--log-format", default="jsonl", choices=("jsonl", "tsv"),
+                   help="--metrics-dir event format (tsv is write-only "
+                        "export; the report tooling reads jsonl).")
+    p.add_argument("--profile-dir", default=None,
+                   help="Write a torch.profiler trace (CPU and CUDA "
+                        "activities, Chrome format) of the first epoch, or "
+                        "of the --profile-steps window, here.")
+    p.add_argument("--profile-steps", default=None,
+                   help="START:STOP global-step window to capture, "
+                        "[START, STOP) (requires --profile-dir); captured "
+                        "once, cut at the end of the data.")
+    p.add_argument("--trace", action="store_true",
+                   help="Request-scoped tracing (obs/spans.py): record span "
+                        "events into the --metrics-dir log — the request "
+                        "lifecycle (queue wait, prefill chunks, per-tick "
+                        "decode/verify with slot attribution) under "
+                        "--serve, per-step host spans (dispatch, host sync, "
+                        "snapshot, checkpoint) in training.  Export with "
+                        "tools/trace_export.py (Perfetto / "
+                        "chrome://tracing); tools/telemetry_report.py adds "
+                        "the TTFT decomposition.")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   help="Fraction of requests (serve) / steps (train) "
+                        "traced (--trace).  Deterministic per correlation "
+                        "id: a sampled request records its WHOLE span "
+                        "chain, an unsampled one records nothing.")
+    p.add_argument("--slo", default=None,
+                   help="Declared service objectives over the live "
+                        "telemetry plane (obs/slo.py), e.g. "
+                        "'ttft_p99=250ms,tpot_p99=40ms,goodput=0.99' "
+                        "(serve) or 'step_time_p95=120ms' (train): "
+                        "multi-window burn-rate alerts (fast 1m / slow "
+                        "10m) evaluated at every tick/step, each state "
+                        "transition an alert event in the --metrics-dir "
+                        "log and on /slo.  Requires --metrics-dir.")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="Scrapeable ops endpoint (obs/http.py) on "
+                        "127.0.0.1: /metrics (Prometheus text), /healthz "
+                        "(heartbeat-staleness liveness), /slo (objective "
+                        "status, active alerts, live TTFT decomposition).  "
+                        "0 binds an ephemeral port (printed); under "
+                        "torchrun each rank of a host binds this port plus "
+                        "its local rank.  Requires --metrics-dir.")
+    p.add_argument("--healthz-stale-s", type=float, default=60.0,
+                   help="/healthz staleness bound (--metrics-port): a "
+                        "component whose last event/gauge is older than "
+                        "this flips the probe to 503.  Liveness refreshes "
+                        "per optimizer step (train) / scheduler tick "
+                        "(serve).")
+    p.add_argument("--goodput", action="store_true",
+                   help="Training goodput ledger (obs/ledger.py): classify "
+                        "every second of the run into mutually exclusive "
+                        "categories — compile (the first step's one-time "
+                        "costs), step_compute, grad_sync (ICI/DCN split "
+                        "via the analytic wall model), data_wait, "
+                        "ckpt_save, ckpt_restore, rework, "
+                        "supervisor_backoff, other — with sum(categories) "
+                        "== wall clock EXACT; a goodput_ledger record in "
+                        "the event log.  Requires --metrics-dir; training "
+                        "runs only.")
     # --- checkpoints and resilience (the JAX CLI's flags and defaults) ---
     p.add_argument("--checkpoint-dir", default=None,
                    help="Save a checkpoint per epoch.")
@@ -620,10 +938,13 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
               n_requests, rate, num_slots, max_new, prefill_chunk, spec_k=0,
               spec_ngram=4, device=None, paged=False, block_size=16,
               num_blocks=0, kv_dtype="bf16", kv_host_mb=0.0,
-              checkpoint_dir=None) -> dict:
+              checkpoint_dir=None, emitter=None, spans=None,
+              slo_policy=None) -> dict:
     """Serve ``model`` over the synthetic trace and print the summary.
     With ``checkpoint_dir`` the newest verified checkpoint's parameters
-    replace the fresh-init weights drawn from ``seed``.
+    replace the fresh-init weights drawn from ``seed``.  ``emitter``,
+    ``spans`` and ``slo_policy`` are the scheduler's telemetry hooks
+    (``_Telemetry``); the caller closes them.
 
     Returns ``{"summary", "engine", "tokens"}``: the SLO summary, the
     engine's counters, and every request's generated tokens by id."""
@@ -702,6 +1023,7 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
     # The whole trace is this tool's own workload: queue all of it.
     scheduler = ContinuousScheduler(
         engine, max_queue=n_requests, request_logger=req_log,
+        emitter=emitter, spans=spans, slo=slo_policy,
     )
     layout = (
         f"paged ({engine.pool.num_blocks} blocks x {block_size})" if paged
@@ -757,6 +1079,11 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
     metrics_lib.MetricsLogger(None).log({"mode": "serve", **{
         k: v for k, v in summary.items() if not isinstance(v, dict)
     }})
+    if spans is not None:
+        spans.close()
+        print(f"trace: {spans.recorded} spans recorded ({spans.sampled_out} "
+              f"sampled out at rate {spans.sample_rate}); export with "
+              "tools/trace_export.py")
     return {"summary": summary, "engine": engine.stats(), "tokens": tokens}
 
 
@@ -952,7 +1279,13 @@ def run_train(args, overrides: dict, device=None):
                   f"RANK: {rank}")
         print(f"process {rank}/{world} | backend={device.type} | devices=1")
         seed_everything(args.seed)
-        return _train(args, overrides, device, group, rank, world)
+        # Built as early as possible, so the ledger books the start-up.
+        tel = _Telemetry(args, rank=rank, world=world, device=device,
+                         mode="train")
+        try:
+            return _train(args, overrides, device, group, rank, world, tel)
+        finally:
+            tel.close()   # a run refused before its loop started
     finally:
         comm_init.shutdown()
 
@@ -1016,7 +1349,7 @@ def _device_cache(args, ds, kind, device, rank, world):
         raise SystemExit(f"--device-cache: {e}") from None
 
 
-def _train(args, overrides, device, group, rank, world):
+def _train(args, overrides, device, group, rank, world, tel):
     import dataclasses
     import itertools
     import os
@@ -1093,6 +1426,7 @@ def _train(args, overrides, device, group, rank, world):
             + (f" x {net.num_microbatches} pipeline microbatches"
                if args.pipeline_parallel > 1 else ""))
     faults = None
+    emitter = tel.emitter
     fault_spec = args.inject_faults or os.environ.get(FAULTS_ENV)
     if fault_spec:
         # Fired-markers persist under the checkpoint dir, so a supervised
@@ -1100,7 +1434,8 @@ def _train(args, overrides, device, group, rank, world):
         try:
             faults = FaultInjector.from_spec(fault_spec, state_dir=(
                 os.path.join(args.checkpoint_dir, ".fault_state")
-                if args.checkpoint_dir else None))
+                if args.checkpoint_dir else None),
+                emitter=tel.live_emitter)
         except ValueError as e:
             raise SystemExit(str(e)) from None
     loader = DataLoader(ds, DataLoaderConfig(
@@ -1142,7 +1477,10 @@ def _train(args, overrides, device, group, rank, world):
         recovery = RecoveryManager(RecoveryConfig(
             rollback_after=args.rollback_after,
             max_rollbacks=args.max_rollbacks,
-            snapshot_every_steps=args.snapshot_every_steps))
+            snapshot_every_steps=args.snapshot_every_steps),
+            emitter=tel.live_emitter, ledger=tel.ledger)
+    if emitter.enabled:
+        _emit_models(tel, args, state, mesh, grad_sync, net, policy)
     # Optimizer steps per epoch — translates a restored step counter back
     # into an epoch index on --resume.  len(loader) is the per-process
     # step count, which equals the global optimizer step count (every
@@ -1155,13 +1493,26 @@ def _train(args, overrides, device, group, rank, world):
         def ckpt_anomaly(kind, **fields):
             # A silent fallback to an older step is a debugging trap.
             print(f"checkpoint: {kind} {fields}")
+            emitter.anomaly(kind, **fields)
 
         ckpt_mgr = CheckpointManager(
             args.checkpoint_dir, on_anomaly=ckpt_anomaly,
             fault_injector=faults, process_group=group)
-        restored = ckpt_mgr.restore_latest(state) if args.resume else None
+        restored = None
+        if args.resume:
+            with tel.bracket("ckpt_restore"):
+                restored = ckpt_mgr.restore_latest(state)
+            if tel.ledger is not None:
+                # Restart rework: the steps this attempt re-executes below
+                # the interrupted one's watermark.
+                prev = tel.ledger.read_progress(tel.ledger.progress_path)
+                if prev is not None:
+                    tel.ledger.set_rework_until(prev)
         if restored is not None:
             state = restored
+            emitter.emit("record", {"record": "checkpoint_restore",
+                                    "step": int(state.step),
+                                    "restore_source": "disk"})
             # Resume where training left off; a mid-epoch step checkpoint
             # also skips the partial epoch's consumed batches (the
             # loader's epoch-seeded order replays them identically).
@@ -1177,7 +1528,6 @@ def _train(args, overrides, device, group, rank, world):
         pipeline_grad_fn = make_pipeline_grad_fn(
             net, label_smoothing=args.label_smoothing,
             accum_steps=args.accum_steps)
-        _print_pp_model(args, net, policy)
     step_fn = make_train_step(
         kind=kind, policy=policy, num_microbatches=args.accum_steps,
         seed=args.seed + 1, label_smoothing=args.label_smoothing,
@@ -1200,11 +1550,30 @@ def _train(args, overrides, device, group, rank, world):
             preemption = PreemptionHandler().install()
         except ValueError:
             preemption = None  # not the main thread (embedded callers)
+    window = args.profile_window
     trainer = Trainer(state, step_fn, device, TrainerConfig(
         prefetch=0 if cache is not None else TrainerConfig.prefetch,
-        checkpoint_every_steps=args.ckpt_every_steps),
+        checkpoint_every_steps=args.ckpt_every_steps,
+        # The step window is the trainer's; a whole first epoch is
+        # bracketed below.
+        profile_dir=args.profile_dir if window is not None else None,
+        profile_steps=window),
         faults=faults, preemption=preemption, checkpoint_fn=checkpoint_fn,
-        recovery=recovery)
+        recovery=recovery, emitter=emitter, spans=tel.spans,
+        # What one step holds: the span attributes a timeline reader
+        # needs (the sub-phase ranges are the profiler capture's).
+        anatomy={
+            "microbatches": args.accum_steps, "grad_sync": args.grad_sync,
+            **({"sync_tiers": [
+                "grad_sync/rs_ici", "grad_sync/ar_dcn", "grad_sync/ag_ici",
+            ] + (["grad_sync/stripe"]
+                 if grad_sync is not None and grad_sync.stripe > 1 else [])}
+               if args.grad_sync.startswith("hier") else {}),
+            **({"pipeline_stages": args.pipeline_parallel,
+                "pipeline_schedule": args.pipeline_schedule}
+               if args.pipeline_parallel > 1 else {}),
+        },
+        slo=tel.slo, ledger=tel.ledger)
     logger = metrics_lib.MetricsLogger(args.metrics_jsonl)
     eval_loader = eval_step = None
     if eval_ds is not None:
@@ -1225,6 +1594,7 @@ def _train(args, overrides, device, group, rank, world):
     print("training started")
     t0 = time.perf_counter()
     preempted = None
+    probed = False
     try:
         for epoch in range(start_epoch, args.epochs):
             if cache is not None:
@@ -1239,7 +1609,20 @@ def _train(args, overrides, device, group, rank, world):
             if skip or args.steps_per_epoch is not None:
                 batches = itertools.islice(batches, skip,
                                            args.steps_per_epoch)
-            summary = trainer.run_epoch(batches, epoch=epoch)
+            if emitter.enabled and not probed:
+                # The flop probe, booked as the ledger's compile interval.
+                with tel.bracket("compile"):
+                    batches = _probe_step_cost(
+                        trainer, batches, kind=kind, policy=policy,
+                        args=args, input_normalize=input_normalize)
+                probed = True
+            if args.profile_dir and window is None and epoch == 0:
+                from ..utils.profiling import trace
+
+                with trace(args.profile_dir):
+                    summary = trainer.run_epoch(batches, epoch=epoch)
+            else:
+                summary = trainer.run_epoch(batches, epoch=epoch)
             if args.pipeline_parallel > 1:
                 summary = {**summary,
                            "pipeline_stages": args.pipeline_parallel,
@@ -1249,7 +1632,8 @@ def _train(args, overrides, device, group, rank, world):
                 # Async: staging is enqueued now, the write overlaps the
                 # eval and the next epoch; the finally below commits the
                 # last save.
-                ckpt_mgr.save(trainer.state)
+                with tel.bracket("ckpt_save"):
+                    ckpt_mgr.save(trainer.state)
             if eval_loader is None:
                 continue
             batches = iter(eval_loader)
@@ -1275,10 +1659,15 @@ def _train(args, overrides, device, group, rank, world):
         try:
             loader.close()
         finally:
-            # Every exit path waits for the last async save to commit
-            # (and raises if it failed).
-            if ckpt_mgr is not None:
-                ckpt_mgr.close()
+            try:
+                # Every exit path waits for the last async save to commit
+                # (and raises if it failed).
+                if ckpt_mgr is not None:
+                    ckpt_mgr.close()
+            finally:
+                # Every exit path — normal, preempted, failed — flushes
+                # and closes the event log.
+                tel.close()
     elapsed = time.perf_counter() - t0
     if preempted is not None:
         print(f"preempted at step {preempted.step}; checkpoint "
@@ -1346,6 +1735,7 @@ def main(argv: list[str] | None = None):
     args = parser.parse_args(argv)
     _check_grad_sync(parser, args)
     _check_sharding(parser, args)
+    _check_telemetry(parser, args)
     if args.elastic:
         return _run_elastic(parser, args)
     if args.ckpt_every_steps and not args.checkpoint_dir:
@@ -1369,19 +1759,31 @@ def main(argv: list[str] | None = None):
                          device="cpu" if args.use_cpu else None)
     if model_kind(args.model) != "lm":
         raise SystemExit("--serve requires a transformer LM (--model gpt2*)")
-    return run_serve(
-        model=args.model, overrides=overrides, precision=args.precision,
-        seed=args.seed, seq_len=args.seq_len,
-        metrics_jsonl=args.metrics_jsonl, n_requests=args.serve_requests,
-        rate=args.serve_rate, num_slots=args.serve_slots,
-        max_new=args.serve_max_new, prefill_chunk=args.serve_prefill_chunk,
-        spec_k=args.serve_spec_k if args.serve_spec else 0,
-        spec_ngram=args.serve_spec_ngram,
-        device="cpu" if args.use_cpu else None,
-        paged=args.serve_paged, block_size=args.serve_block_size,
-        num_blocks=args.serve_num_blocks, kv_dtype=args.serve_kv_dtype,
-        kv_host_mb=args.serve_kv_host_mb, checkpoint_dir=args.checkpoint_dir,
-    )
+    from ..utils.device import resolve_device
+
+    tel = _Telemetry(args, rank=0, world=1, mode="serve",
+                     device=resolve_device("cpu" if args.use_cpu else None))
+    result = None
+    try:
+        result = run_serve(
+            model=args.model, overrides=overrides, precision=args.precision,
+            seed=args.seed, seq_len=args.seq_len,
+            metrics_jsonl=args.metrics_jsonl, n_requests=args.serve_requests,
+            rate=args.serve_rate, num_slots=args.serve_slots,
+            max_new=args.serve_max_new,
+            prefill_chunk=args.serve_prefill_chunk,
+            spec_k=args.serve_spec_k if args.serve_spec else 0,
+            spec_ngram=args.serve_spec_ngram,
+            device="cpu" if args.use_cpu else None,
+            paged=args.serve_paged, block_size=args.serve_block_size,
+            num_blocks=args.serve_num_blocks, kv_dtype=args.serve_kv_dtype,
+            kv_host_mb=args.serve_kv_host_mb,
+            checkpoint_dir=args.checkpoint_dir, emitter=tel.live_emitter,
+            spans=tel.spans, slo_policy=tel.slo,
+        )
+    finally:
+        tel.close(**({"serve": result["summary"]} if result else {}))
+    return result
 
 
 if __name__ == "__main__":

@@ -38,6 +38,14 @@ Transport rules of the two backends:
   therefore stages a CUDA tensor through the host (copy out, send/recv,
   copy back).  Only a gloo group takes that branch; NCCL runs every call
   directly.
+
+**The census** (``obs/cost.py::collective_census``): between
+:func:`census_start` and :func:`census_stop` every collective adds its
+result's bytes to a host tally under JAX's kind names (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``,
+``collective-permute``), by the dtype it moves on the wire.  The tally
+reads shapes only: it adds no launch and no device read.  The CLI keeps
+it open over the first step of a ``--metrics-dir`` run.
 """
 
 from __future__ import annotations
@@ -70,6 +78,37 @@ class Pending:
             self._result = self._finish()
             self._done = True
         return self._result
+
+
+_census: dict | None = None
+
+
+def census_start() -> None:
+    """Open the collective tally (module docstring)."""
+    global _census
+    _census = {}
+
+
+def census_stop() -> dict:
+    """Close the tally and return it: ``{kind: {"bytes", "count",
+    "by_dtype"}}``."""
+    global _census
+    tally, _census = _census or {}, None
+    return tally
+
+
+def _tally(kind: str, t: torch.Tensor) -> None:
+    if _census is None:
+        return
+    from ..obs.cost import dtype_name
+
+    entry = _census.setdefault(kind, {"bytes": 0, "count": 0,
+                                      "by_dtype": {}})
+    nbytes = t.numel() * t.element_size()
+    name = dtype_name(t.dtype)
+    entry["bytes"] += nbytes
+    entry["count"] += 1
+    entry["by_dtype"][name] = entry["by_dtype"].get(name, 0) + nbytes
 
 
 def _issued(works, finish, async_op: bool):
@@ -112,6 +151,7 @@ def _reducible(x: torch.Tensor) -> None:
 def psum(x: torch.Tensor, group, *, async_op: bool = False):
     """Sum ``x`` over ``group`` in place; returns ``x``."""
     _reducible(x)
+    _tally("all-reduce", x)
     work = dist.all_reduce(x, group=group, async_op=async_op)
     return _issued([work], lambda: x, async_op)
 
@@ -123,6 +163,7 @@ def all_gather(x: torch.Tensor, group, *, gather_axis: int = 0,
     n = _size(group)
     moved = _to_wire(x.movedim(gather_axis, 0))
     out = moved.new_empty((n * moved.shape[0], *moved.shape[1:]))
+    _tally("all-gather", out)
     work = dist.all_gather_into_tensor(out, moved, group=group,
                                        async_op=async_op)
 
@@ -148,6 +189,7 @@ def reduce_scatter(x: torch.Tensor, group, *, scatter_axis: int = 0,
                          f"split into {n} blocks")
     moved = x.movedim(scatter_axis, 0).contiguous()
     out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
+    _tally("reduce-scatter", out)
     work = _REDUCE_SCATTER(out, moved, group=group, async_op=async_op)
     return _issued([work], lambda: out.movedim(0, scatter_axis), async_op)
 
@@ -178,6 +220,7 @@ def ppermute(x: torch.Tensor, group, perm: Sequence[tuple[int, int]], *,
     device = x.device
     send = _to_wire(x.cpu() if staged else x)
     recv = torch.zeros_like(send)
+    _tally("collective-permute", recv)
     ops, local = [], False
     for a, b in perm:
         if a == me and b == me:
@@ -211,6 +254,7 @@ def all_to_all(x: torch.Tensor, group, *, split_axis: int,
                          f"split into {n} blocks")
     moved = _to_wire(x.movedim(split_axis, 0))
     out = torch.empty_like(moved)
+    _tally("all-to-all", out)
     dist.all_to_all_single(out, moved, group=group)
     blocks = _from_wire(out, x.dtype).view(
         n, moved.shape[0] // n, *x.movedim(split_axis, 0).shape[1:])

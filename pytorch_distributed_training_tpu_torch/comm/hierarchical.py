@@ -65,6 +65,7 @@ from .compress import (
     encode_int8,
     encode_topk,
 )
+from ..obs.trace import scope
 from .mesh import AXIS_DATA, split_slice_groups
 from .striping import (
     ici_bytes_per_sync,
@@ -231,6 +232,10 @@ class GradSync:
         encoded payload (never f32) and decode and sum it in f32; bf16
         components cross as their int16 bit pattern, as JAX bitcasts
         them to u16, so no conversion can widen them on the wire."""
+        with scope("grad_sync/ar_dcn"):
+            return self._dcn_issue(part, residual, async_op)
+
+    def _dcn_issue(self, part: torch.Tensor, residual: Any, async_op: bool):
         mode = self.config.mode
         if mode == "hier":
             hop = self._dcn_hop(part, False, True)
@@ -274,12 +279,14 @@ class GradSync:
         return _later(finish, async_op)
 
     def _rs(self, rows: torch.Tensor, async_op: bool = False):
-        return collectives.reduce_scatter(rows, self.groups.ici,
-                                          scatter_axis=1, async_op=async_op)
+        with scope("grad_sync/rs_ici"):
+            return collectives.reduce_scatter(
+                rows, self.groups.ici, scatter_axis=1, async_op=async_op)
 
     def _ag(self, rows: torch.Tensor, async_op: bool = False):
-        return collectives.all_gather(rows, self.groups.ici, gather_axis=1,
-                                      async_op=async_op)
+        with scope("grad_sync/ag_ici"):
+            return collectives.all_gather(rows, self.groups.ici,
+                                          gather_axis=1, async_op=async_op)
 
     def _sync_buckets(self, buckets: torch.Tensor, residual: Any,
                       async_op: bool = False):

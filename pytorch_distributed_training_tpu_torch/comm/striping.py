@@ -34,6 +34,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..obs.trace import scope
 from .collectives import Pending, ppermute
 from .compress import _MODE_CODEC, bucket_wire_bytes
 from .mesh import stripe_lane_perm
@@ -110,15 +111,17 @@ def striped_dcn_hop(x: torch.Tensor, hop: Callable, *, ici_group,
     if len(stripes) == 1:
         return hop(x, async_op)
     first = hop(stripes[0], True)
-    out = [ppermute(s, ici_group, stripe_lane_perm(ici_size, j),
-                    async_op=True) for j, s in enumerate(stripes) if j]
+    with scope("grad_sync/stripe"):
+        out = [ppermute(s, ici_group, stripe_lane_perm(ici_size, j),
+                        async_op=True) for j, s in enumerate(stripes) if j]
 
     def finish():
         parts = [first.wait()]
         for j, rotated in enumerate(out, start=1):
             g = hop(rotated.wait(), False)
-            parts.append(ppermute(g, ici_group,
-                                  stripe_lane_perm(ici_size, -j)))
+            with scope("grad_sync/stripe"):
+                parts.append(ppermute(g, ici_group,
+                                      stripe_lane_perm(ici_size, -j)))
         return torch.cat(parts, dim=-1)
 
     pending = Pending([], finish)

@@ -104,6 +104,8 @@ def flash_preferred(q_len: int, k_len: int, head_dim: int, *,
     kernels for these shapes: the JAX package's size rule (q_len >= 256,
     k_len >= 64, head_dim >= 64), with "the tensors lie on CUDA" in the
     place of "the backend is a TPU", and the ``PDT_FORCE_ATTN`` override.
+    ``meta`` tensors (the flop probe of ``obs/cost.py``) route as CUDA
+    ones do, so the probe counts the kernels the card runs.
 
     The JAX version also consults the VMEM-fit rules
     (``native_layout_selected``) when told ``num_heads``; they only pick
@@ -115,7 +117,7 @@ def flash_preferred(q_len: int, k_len: int, head_dim: int, *,
         return False
     if forced == "flash":
         return True
-    return (torch.device(device).type == "cuda" and q_len >= 256
+    return (torch.device(device).type in ("cuda", "meta") and q_len >= 256
             and k_len >= 64 and head_dim >= 64)
 
 

@@ -24,6 +24,12 @@ pass over key tiles and a dk/dv pass over query tiles (#8's split).
 - ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv``: the three kernel
   entries, each with a ``.launches`` count.  CPU tensors take the plain
   version and count nothing; CUDA tensors launch the kernel or raise.
+  ``meta`` tensors (the flop probe of ``obs/cost.py``) launch nothing:
+  they return outputs of the right shape and add the kernel's
+  floating-point operations to :data:`meta_flops` — 2 x the visible
+  (query, key) pairs x head_dim for each of its products: the forward's
+  two (scores, p·v), the dq pass's three (scores, dp, dq) and the dk/dv
+  pass's four (scores, dp, dv, dk).
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the plain versions, with the
   one-tile math of #4 (``_fwd_tile``) and ``_bwd_block``: f32 scores,
   masked entries an explicit 0, p normalised before its rounding to v's
@@ -193,16 +199,40 @@ def _scale(q, scale):
     return q.shape[-1] ** -0.5 if scale is None else scale
 
 
+# FLOPs of the kernel calls made on ``meta`` tensors (module docstring);
+# the flop probe zeroes it before counting and reads it after.
+meta_flops = 0
+
+
+def _visible_pairs(q_len: int, k_len: int, causal: bool) -> int:
+    """(query, key) pairs the mask leaves visible: all, or under the
+    bottom-right aligned causal mask those with j <= i + k_len - q_len."""
+    if not causal:
+        return q_len * k_len
+    rows = torch.arange(q_len) + 1 + (k_len - q_len)
+    return int(rows.clamp(0, k_len).sum())
+
+
+def _count_meta(products: int, q, k, causal: bool) -> None:
+    global meta_flops
+    b, q_len, h, d = q.shape
+    meta_flops += products * 2 * b * h * d * _visible_pairs(
+        q_len, k.shape[1], causal)
+
+
 def flash_fwd(q, k, v, *, causal: bool = False, scale=None):
     """Forward kernel: ``(out, lse)``, out (B, Lq, H, D) in q's dtype, lse
     (B, H, Lq) f32.  CPU tensors take ``flash_fwd_plain``."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, scale)
-    _check(dict(q=q, k=k, v=v), {})
     b, q_len, h, d = q.shape
     out = torch.empty((b, q_len, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, q_len), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        _count_meta(2, q, k, causal)
+        return out, lse
+    _check(dict(q=q, k=k, v=v), {})
     # Operand order of pdt_flash_fwd: q, k, v, out, lse.
     _launch("pdt_flash_fwd", [q, k, v, out, lse], q, k, causal, scale)
     flash_fwd.launches += 1
@@ -216,6 +246,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     if q.device.type == "cpu":
         _, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale)
         return _dq_plain(q, k, ds)
+    if q.device.type == "meta":
+        _count_meta(3, q, k, causal)
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
     _check(dict(q=q, k=k, v=v, do=do), dict(lse=lse, delta=delta))
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch("pdt_flash_bwd_dq", [q, k, v, do, lse, delta, dq], q, k, causal,
@@ -231,6 +264,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     if q.device.type == "cpu":
         p, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale)
         return _dkv_plain(q, k, v, do, p, ds)
+    if q.device.type == "meta":
+        _count_meta(4, q, k, causal)
+        return (torch.empty_like(k, memory_format=torch.contiguous_format),
+                torch.empty_like(v, memory_format=torch.contiguous_format))
     _check(dict(q=q, k=k, v=v, do=do), dict(lse=lse, delta=delta))
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)

@@ -20,6 +20,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..obs.trace import scope
+
 
 def _split_microbatches(batch: dict, num_microbatches: int) -> list[dict]:
     """(N*m, ...) leaves → N dicts of (m, ...) views, in order."""
@@ -117,12 +119,16 @@ def accumulate_gradients(
     leaves = [params[n] for n in names]
 
     def call(mb, i):
-        out = loss_fn(params, mb, i) if pass_microbatch_index \
-            else loss_fn(params, mb)
-        loss, aux = out if has_aux else (out, None)
-        value = (loss.detach(), _tree_map(torch.Tensor.detach, aux)) \
-            if has_aux else loss.detach()
-        return value, torch.autograd.grad(loss, leaves)
+        # One microbatch's forward and backward under the phase name of
+        # obs/trace.py (a profiler range; the step's span carries the
+        # microbatch count).
+        with scope("grad_accum/microbatch"):
+            out = loss_fn(params, mb, i) if pass_microbatch_index \
+                else loss_fn(params, mb)
+            loss, aux = out if has_aux else (out, None)
+            value = (loss.detach(), _tree_map(torch.Tensor.detach, aux)) \
+                if has_aux else loss.detach()
+            return value, torch.autograd.grad(loss, leaves)
 
     def cast(grads):
         return {n: g.to(p.dtype) for n, g, p in zip(names, grads, leaves)}

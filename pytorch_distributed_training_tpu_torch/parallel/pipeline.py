@@ -77,6 +77,7 @@ from ..comm.compress import boundary_has_residual, boundary_permute
 from ..comm.mesh import (
     AXIS_DATA, AXIS_FSDP, AXIS_PIPELINE, AXIS_SEQUENCE, BATCH_AXES,
 )
+from ..obs.trace import scope
 
 F32 = torch.float32
 
@@ -258,36 +259,37 @@ def pipeline_forward(
         return stage_fn(params, x, key)
 
     for t in range(M + S - 1):
-        m = t - s
-        if ring.first:
-            # The arrival (the wrap edge) stays in the graph with a zero
-            # cotangent, as JAX's jnp.where keeps it.
-            x = torch.where(pick_first, microbatches[min(t, M - 1)], cur)
-        else:
-            x = cur
-        if not 0 <= m < M:
-            # A bubble tick (the module docstring): the arrival passes on,
-            # tied by a zero to the arrival and to the stage's parameters
-            # so that its hop stays on the graph.
-            value = x
-            if m < 0 and residual:
-                with torch.no_grad():
-                    value = call(x, None)
-                if with_aux:
-                    value = value[0]
-            y = value + (x + tie) * 0
-        elif remat_ticks and torch.is_grad_enabled():
-            y = checkpoint(call, x, fold_seed(seed, m, s),
-                           use_reentrant=False)
-        else:
-            y = call(x, fold_seed(seed, m, s))
-        if with_aux and 0 <= m < M:
-            y, tick_aux = y
-            aux = tick_aux if aux is None else aux + tick_aux
-        if ring.last and m >= 0:
-            outputs[m] = y
-        cur, resid = boundary_permute(y, resid, ring.group, ring.next,
-                                      boundary_compress, boundary_stripe)
+        with scope("pipeline/tick"):
+            m = t - s
+            if ring.first:
+                # The arrival (the wrap edge) stays in the graph with a zero
+                # cotangent, as JAX's jnp.where keeps it.
+                x = torch.where(pick_first, microbatches[min(t, M - 1)], cur)
+            else:
+                x = cur
+            if not 0 <= m < M:
+                # A bubble tick (the module docstring): the arrival passes on,
+                # tied by a zero to the arrival and to the stage's parameters
+                # so that its hop stays on the graph.
+                value = x
+                if m < 0 and residual:
+                    with torch.no_grad():
+                        value = call(x, None)
+                    if with_aux:
+                        value = value[0]
+                y = value + (x + tie) * 0
+            elif remat_ticks and torch.is_grad_enabled():
+                y = checkpoint(call, x, fold_seed(seed, m, s),
+                               use_reentrant=False)
+            else:
+                y = call(x, fold_seed(seed, m, s))
+            if with_aux and 0 <= m < M:
+                y, tick_aux = y
+                aux = tick_aux if aux is None else aux + tick_aux
+            if ring.last and m >= 0:
+                outputs[m] = y
+            cur, resid = boundary_permute(y, resid, ring.group, ring.next,
+                                          boundary_compress, boundary_stripe)
     anchor = cur.reshape(-1)[0].float() * 0.0
     out = torch.stack(outputs) if ring.last else None
     if replicate:
@@ -438,38 +440,39 @@ def pipeline_train_1f1b(
     in_buf: list = [None] * S
     x_buf: list = [None] * S
     for t in range(T):
-        x_in, rx_new = boundary_permute(y_send, rx, ring.group, ring.next,
-                                        boundary_compress, boundary_stripe)
-        cot_in, rc_new = boundary_permute(cot_send, rc, ring.group,
-                                          ring.prev, boundary_compress,
-                                          boundary_stripe)
-        if resid:
-            # A residual commits only on a tick whose send was real.
-            if _fwd_sched(s, t - 1, S, M)[0]:
-                rx = rx_new
-            if _bwd_sched(s, t - 1, S, M)[0]:
-                rc = rc_new
-        sender_did, sender_f = _fwd_sched(s - 1, t - 1, S, M)
-        if sender_did and s > 0:
-            in_buf[sender_f % S] = x_in
-        do_f, f = _fwd_sched(s, t, S, M)
-        do_b, b = _bwd_sched(s, t, S, M)
-        y_send = cot_send = zeros
-        if do_f:
-            with torch.no_grad():
-                x = first_call(f) if ring.first else in_buf[f % S]
-                y_send = stage_call(f)(x)
-            x_buf[f % S] = x
-        if do_b:
-            xbar = _backward_tick(
-                acc, stage_call=stage_call(b),
-                first_call=lambda: first_call(b), last_fn=last_fn,
-                stage_params=stage_params, outer=outer_params,
-                x_saved=x_buf[b % S], cot=cot_in, target=targets[b],
-                first=ring.first, last=ring.last)
-            x_buf[b % S] = None
-            if xbar is not None:
-                cot_send = xbar
+        with scope("pipeline/tick"):
+            x_in, rx_new = boundary_permute(y_send, rx, ring.group, ring.next,
+                                            boundary_compress, boundary_stripe)
+            cot_in, rc_new = boundary_permute(cot_send, rc, ring.group,
+                                              ring.prev, boundary_compress,
+                                              boundary_stripe)
+            if resid:
+                # A residual commits only on a tick whose send was real.
+                if _fwd_sched(s, t - 1, S, M)[0]:
+                    rx = rx_new
+                if _bwd_sched(s, t - 1, S, M)[0]:
+                    rc = rc_new
+            sender_did, sender_f = _fwd_sched(s - 1, t - 1, S, M)
+            if sender_did and s > 0:
+                in_buf[sender_f % S] = x_in
+            do_f, f = _fwd_sched(s, t, S, M)
+            do_b, b = _bwd_sched(s, t, S, M)
+            y_send = cot_send = zeros
+            if do_f:
+                with torch.no_grad():
+                    x = first_call(f) if ring.first else in_buf[f % S]
+                    y_send = stage_call(f)(x)
+                x_buf[f % S] = x
+            if do_b:
+                xbar = _backward_tick(
+                    acc, stage_call=stage_call(b),
+                    first_call=lambda: first_call(b), last_fn=last_fn,
+                    stage_params=stage_params, outer=outer_params,
+                    x_saved=x_buf[b % S], cot=cot_in, target=targets[b],
+                    first=ring.first, last=ring.last)
+                x_buf[b % S] = None
+                if xbar is not None:
+                    cot_send = xbar
     stage, outer, loss = _combine_accumulators(
         ring, acc.stage, acc.outer, acc.loss, fsdp_dims=fsdp_dims,
         scatter=True)
@@ -544,42 +547,43 @@ def pipeline_train_interleaved(
     x_buf: list = [None] * sched.n_x_slots
     cot_buf: list = [None] * sched.n_cot_slots
     for t in range(T):
-        x_in, rx_new = boundary_permute(y_send, rx, ring.group, ring.next,
-                                        boundary_compress, boundary_stripe)
-        cot_in, rc_new = boundary_permute(cot_send, rc, ring.group,
-                                          ring.prev, boundary_compress,
-                                          boundary_stripe)
-        if resid and t > 0:
-            if tb["f_do"][t - 1]:
-                rx = rx_new
-            if tb["b_do"][t - 1]:
-                rc = rc_new
-        if tb["r_do"][t]:
-            in_buf[tb["r_slot"][t]] = x_in
-        if tb["c_do"][t]:
-            cot_buf[tb["c_slot"][t]] = cot_in
-        y_send = cot_send = zeros
-        if tb["f_do"][t]:
-            m, v = tb["f_mb"][t], tb["f_chunk"][t]
-            with torch.no_grad():
-                x = (first_call(m) if tb["f_first"][t]
-                     else in_buf[tb["f_in_slot"][t]])
-                y_send = chunk_call(m, v)(x)
-            x_buf[tb["f_save_slot"][t]] = x
-        if tb["b_do"][t]:
-            m, v = tb["b_mb"][t], tb["b_chunk"][t]
-            seeded = bool(tb["b_seed_loss"][t])
-            xbar = _backward_tick(
-                acc, stage_call=chunk_call(m, v),
-                first_call=lambda m=m: first_call(m), last_fn=last_fn,
-                stage_params=stage_params, outer=outer_params,
-                x_saved=x_buf[tb["b_x_slot"][t]],
-                cot=None if seeded else cot_buf[tb["b_cot_slot"][t]],
-                target=targets[m], first=bool(tb["b_first"][t]),
-                last=seeded)
-            x_buf[tb["b_x_slot"][t]] = None
-            if xbar is not None:
-                cot_send = xbar
+        with scope("pipeline/tick"):
+            x_in, rx_new = boundary_permute(y_send, rx, ring.group, ring.next,
+                                            boundary_compress, boundary_stripe)
+            cot_in, rc_new = boundary_permute(cot_send, rc, ring.group,
+                                              ring.prev, boundary_compress,
+                                              boundary_stripe)
+            if resid and t > 0:
+                if tb["f_do"][t - 1]:
+                    rx = rx_new
+                if tb["b_do"][t - 1]:
+                    rc = rc_new
+            if tb["r_do"][t]:
+                in_buf[tb["r_slot"][t]] = x_in
+            if tb["c_do"][t]:
+                cot_buf[tb["c_slot"][t]] = cot_in
+            y_send = cot_send = zeros
+            if tb["f_do"][t]:
+                m, v = tb["f_mb"][t], tb["f_chunk"][t]
+                with torch.no_grad():
+                    x = (first_call(m) if tb["f_first"][t]
+                         else in_buf[tb["f_in_slot"][t]])
+                    y_send = chunk_call(m, v)(x)
+                x_buf[tb["f_save_slot"][t]] = x
+            if tb["b_do"][t]:
+                m, v = tb["b_mb"][t], tb["b_chunk"][t]
+                seeded = bool(tb["b_seed_loss"][t])
+                xbar = _backward_tick(
+                    acc, stage_call=chunk_call(m, v),
+                    first_call=lambda m=m: first_call(m), last_fn=last_fn,
+                    stage_params=stage_params, outer=outer_params,
+                    x_saved=x_buf[tb["b_x_slot"][t]],
+                    cot=None if seeded else cot_buf[tb["b_cot_slot"][t]],
+                    target=targets[m], first=bool(tb["b_first"][t]),
+                    last=seeded)
+                x_buf[tb["b_x_slot"][t]] = None
+                if xbar is not None:
+                    cot_send = xbar
     stage, outer, loss = _combine_accumulators(
         ring, acc.stage, acc.outer, acc.loss, fsdp_dims=fsdp_dims,
         scatter=True)

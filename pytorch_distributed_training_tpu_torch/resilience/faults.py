@@ -146,9 +146,13 @@ class FaultInjector:
     """
 
     def __init__(self, faults: list[Fault], *, state_dir: str | None = None,
-                 _exit=os._exit, _kill=os.kill, _sleep=time.sleep):
+                 emitter=None, _exit=os._exit, _kill=os.kill,
+                 _sleep=time.sleep):
         self.faults = list(faults)
         self.state_dir = state_dir
+        # A fired fault is an anomaly event on the telemetry emitter
+        # (``--metrics-dir``), as in JAX.
+        self.emitter = emitter
         self._markers = _FiredMarkers(state_dir)
         self._exit, self._kill, self._sleep = _exit, _kill, _sleep
 
@@ -159,6 +163,12 @@ class FaultInjector:
     def fired(self, fault: Fault) -> bool:
         return self._markers.fired(fault.name)
 
+    def _mark(self, fault: Fault) -> None:
+        self._markers.mark(fault.name)
+        if self.emitter is not None:
+            self.emitter.anomaly(
+                "fault_injected", fault=fault.kind, fault_step=fault.step)
+
     def on_step(self, global_step: int, batch):
         """Fire any fault armed for this step; returns the (possibly
         corrupted) batch.  Called by the trainer before the step
@@ -167,7 +177,7 @@ class FaultInjector:
             if fault.step != global_step or fault.kind == "ckpt_truncate" \
                     or self.fired(fault):
                 continue
-            self._markers.mark(fault.name)
+            self._mark(fault)
             if fault.kind == "crash":
                 self._exit(CRASH_EXIT_CODE)
             elif fault.kind == "stall":
@@ -193,7 +203,7 @@ class FaultInjector:
                     or self.fired(fault):
                 continue
             manager.wait_until_finished()
-            self._markers.mark(fault.name)
+            self._mark(fault)
             truncate_checkpoint(manager.directory, step)
 
 

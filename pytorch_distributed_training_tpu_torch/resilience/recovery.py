@@ -23,10 +23,12 @@ is skipped.  That escalation is the host's:
    (``--elastic``) relaunches from the last committed checkpoint,
    charging ``--max-restarts``.
 
-The JAX manager also reports to the telemetry emitter and the goodput
-ledger, which the port does not have yet; rollbacks and the abort are
-printed to stderr instead, and the trainer's epoch summary counts the
-rollbacks.
+Rollbacks and the abort are anomaly events on the telemetry emitter
+(``emitter``, ``--metrics-dir``), as in JAX; with no emitter live they
+are printed to stderr.  The goodput ledger (``ledger``, ``--goodput``)
+re-classifies a rollback's discarded steps as ``rework`` and charges the
+restore to ``ckpt_restore``; a snapshot retires the window below it.
+The trainer's epoch summary counts the rollbacks.
 """
 
 from __future__ import annotations
@@ -52,8 +54,11 @@ class RecoveryConfig:
 
 
 class RecoveryManager:
-    def __init__(self, config: RecoveryConfig | None = None):
+    def __init__(self, config: RecoveryConfig | None = None, *, emitter=None,
+                 ledger=None):
         self.config = config or RecoveryConfig()
+        self.emitter = emitter
+        self.ledger = ledger
         self.rollbacks = 0
         self.stage_seconds: list[float] = []   # each staging's host time
         self._snapshot: tuple[dict, dict, object] | None = None
@@ -86,6 +91,8 @@ class RecoveryManager:
         self._snapshot_step = global_step
         self._last_stage_step = global_step
         self.stage_seconds.append(time.perf_counter() - t0)
+        if self.ledger is not None:
+            self.ledger.note_snapshot(global_step)
 
     # ---- rollback / abort ----------------------------------------------
 
@@ -96,19 +103,36 @@ class RecoveryManager:
         if bad_streak < self.config.rollback_after or self._snapshot is None:
             return state
         if self.rollbacks >= self.config.max_rollbacks:
-            print(f"recovery: abort at step {global_step} (bad streak "
-                  f"{bad_streak}, {self.rollbacks} rollbacks)",
-                  file=sys.stderr, flush=True)
+            if self.emitter is not None:
+                self.emitter.anomaly(
+                    "recovery_abort", step=global_step,
+                    rollbacks=self.rollbacks, bad_streak=bad_streak)
+            else:
+                print(f"recovery: abort at step {global_step} (bad streak "
+                      f"{bad_streak}, {self.rollbacks} rollbacks)",
+                      file=sys.stderr, flush=True)
             raise RecoveryAborted(
                 f"{bad_streak} consecutive bad steps at step {global_step} "
                 f"after {self.rollbacks} rollbacks — aborting for a "
                 "supervised restart from the last committed checkpoint")
         self.rollbacks += 1
-        print(f"recovery: rollback {self.rollbacks} at step {global_step} "
-              f"to the snapshot of step {self._snapshot_step} (bad streak "
-              f"{bad_streak}; the snapshot staged in "
-              f"{self.stage_seconds[-1] * 1e3:.2f} ms)", file=sys.stderr,
-              flush=True)
+        if self.emitter is not None:
+            self.emitter.anomaly(
+                "rollback", step=global_step, bad_streak=bad_streak,
+                snapshot_step=self._snapshot_step, rollback=self.rollbacks)
+        else:
+            print(f"recovery: rollback {self.rollbacks} at step "
+                  f"{global_step} to the snapshot of step "
+                  f"{self._snapshot_step} (bad streak {bad_streak}; the "
+                  f"snapshot staged in {self.stage_seconds[-1] * 1e3:.2f} "
+                  "ms)", file=sys.stderr, flush=True)
+        if self.ledger is not None:
+            # The updates of [snapshot_step, global_step] are discarded:
+            # their charged wall time moves to rework, and the restore
+            # is a ckpt_restore interval.
+            self.ledger.note_rollback(self._snapshot_step, global_step)
+            with self.ledger.bracket("ckpt_restore"):
+                return self._restore(state)
         return self._restore(state)
 
     def _restore(self, state):

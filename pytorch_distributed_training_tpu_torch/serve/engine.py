@@ -24,6 +24,13 @@ scratch row or block, their outputs are discarded), so admission and
 retirement are host bookkeeping only.  The paged pool's block table goes
 to the device once per tick, after the host has allocated the blocks the
 tick writes and before the forward.
+
+Each step runs inside ``obs.trace.phase_span`` (``serve/prefill``,
+``serve/decode``, ``serve/verify``): a profiler range and, when the
+scheduler wired a ``SpanRecorder`` (``--trace``), a tick span carrying
+its slots and request ids (``spans_replica`` too under a replica id).
+The step's tokens are read back inside it, so it closes on finished
+device work.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from ..comm.compress import KV_DTYPES
 from ..models.generate import eos_cut_length, filter_logits, sample_logits
+from ..obs.trace import phase_span
 from ..utils.device import resolve_device
 from .draft import NgramIndex, PromptLookupDrafter
 from .kv_pool import KVCachePool, PagedKVCachePool
@@ -173,6 +181,9 @@ class ServingEngine:
         self.decode_tokens = 0
         self.spec_drafted_tokens = 0
         self.spec_accepted_tokens = 0
+        # Wired by the scheduler (module docstring); None records nothing.
+        self.spans = None
+        self.spans_replica = None
 
     # ------------------------------------------------------------------ #
     # device steps
@@ -397,7 +408,13 @@ class ServingEngine:
             took[i] = n
             if self.paged:
                 self.pool.ensure_length(i, int(self.pool.lengths[i]) + n)
-        tok = self._prefill(tokens, positions, last_idx)
+        span_kw = {}
+        if self.spans is not None:
+            span_kw["slots"] = [[i, sl.request_id, took[i]] for i, sl in batch]
+            if self.spans_replica is not None:
+                span_kw["replica"] = self.spans_replica
+        with phase_span(self.spans, "serve/prefill", **span_kw):
+            tok = self._prefill(tokens, positions, last_idx)
         events: list[Event] = []
         for i, sl in batch:
             sl.consumed += took[i]
@@ -420,7 +437,13 @@ class ServingEngine:
             positions[i] = self.pool.lengths[i]
             if self.paged:
                 self.pool.ensure_length(i, int(self.pool.lengths[i]) + 1)
-        tok = self._decode(tokens, positions)
+        span_kw = {}
+        if self.spans is not None:
+            span_kw["slots"] = [[i, sl.request_id] for i, sl in batch]
+            if self.spans_replica is not None:
+                span_kw["replica"] = self.spans_replica
+        with phase_span(self.spans, "serve/decode", **span_kw):
+            tok = self._decode(tokens, positions)
         events: list[Event] = []
         self.decode_ticks += 1
         self.decode_slot_ticks += len(batch)
@@ -473,7 +496,17 @@ class ServingEngine:
                 self.pool.ensure_length(
                     i, int(self.pool.lengths[i]) + int(dlen[i]) + 1
                 )
-        out, accepted = self._verify(tokens, positions, dlen)
+        span_kw = {}
+        if self.spans is not None:
+            span_kw["slots"] = [[i, sl.request_id] for i, sl in batch]
+            span_kw["drafted"] = int(dlen.sum())
+            if self.spans_replica is not None:
+                span_kw["replica"] = self.spans_replica
+        with phase_span(self.spans, "serve/verify", **span_kw) as vspan:
+            out, accepted = self._verify(tokens, positions, dlen)
+            if vspan is not None:
+                vspan.attrs["accepted"] = int(accepted[
+                    [i for i, _ in batch]].sum())
         events: list[Event] = []
         self.decode_ticks += 1
         self.decode_slot_ticks += len(batch)

@@ -10,26 +10,9 @@ the counterpart of the JAX package's ``serve/metrics.py`` for one engine
 
 from __future__ import annotations
 
-from typing import Iterable
-
 import numpy as np
 
-
-def percentiles(
-    xs: Iterable[float | None], qs: Iterable[float] = (50.0, 99.0)
-) -> dict[str, float | None]:
-    """Linear-interpolated percentiles of the non-None samples, keyed
-    ``"p50"``/``"p99"``/... (a copy of the JAX package's
-    ``obs/emitter.py::percentiles``)."""
-    clean = [x for x in xs if x is not None]
-    out: dict[str, float | None] = {}
-    for q in qs:
-        key = f"p{int(q) if float(q).is_integer() else q}"
-        out[key] = (
-            float(np.percentile(np.asarray(clean, np.float64), q))
-            if clean else None
-        )
-    return out
+from ..obs import percentiles
 
 
 def percentile(xs, q: float) -> float | None:

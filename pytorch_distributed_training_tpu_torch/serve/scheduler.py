@@ -1,7 +1,13 @@
 """Iteration-level continuous batching: admit into freed slots every tick.
 The counterpart of the JAX package's ``serve/scheduler.py`` for one
-engine (the admission policy, live SLO, span and telemetry hooks are not
-ported yet).
+engine, with its telemetry hooks: ``emitter`` (TTFT and TPOT histograms,
+the shed, cancelled and rejected counters, the engine's gauges and
+counter deltas every tick, a flight recorder for queue saturation),
+``spans`` (each request's ``serve/request`` chain, and the engine's
+slot-attributed tick spans), ``slo`` (evaluated once a tick) and
+``replica`` (stamped on every record, label of the histograms).  The
+admission policy of ``--serve-priority`` (weighted classes) comes with
+the serving fleet's modules; admission here is the tenant rotation.
 
 - FIFO queue with bounded-queue backpressure (``submit`` refuses past
   ``max_queue``), round-robin across tenants, FIFO within one;
@@ -25,6 +31,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from ..obs import labeled
 from .engine import ServingEngine
 from .metrics import finalize_record
 
@@ -69,11 +76,32 @@ class ContinuousScheduler:
         max_queue: int = 64,
         clock: Callable[[], float] = time.monotonic,
         request_logger=None,
+        emitter=None,
+        replica: int | None = None,
+        spans=None,
+        slo=None,
     ):
         self.engine = engine
         self.max_queue = max_queue
         self.clock = clock
         self.request_logger = request_logger
+        # Evaluated once a tick, after the tick's records landed.
+        self.slo = slo
+        # The request chains come from the records' own timestamps, so
+        # span math and histogram math cannot disagree; the engine gets
+        # the recorder for its tick spans.
+        self.spans = spans
+        if spans is not None:
+            engine.spans = spans
+            engine.spans_replica = replica
+        self.replica = replica
+        self.emitter = emitter
+        self.recorder = None
+        if emitter is not None:
+            from ..obs import FlightRecorder
+
+            self.recorder = FlightRecorder(emitter)
+        self._last_stats: dict = {}
         self.queue: deque[Request] = deque()
         self._last_tenant: Any = _NO_TENANT
         # Queued tenants -> queued-request count (the one-tenant fast path).
@@ -96,6 +124,8 @@ class ContinuousScheduler:
             raise ValueError(f"request {request.id}: {e}") from None
         if len(self.queue) >= self.max_queue:
             self.rejected += 1
+            if self.emitter is not None:
+                self.emitter.counter_add("rejected_requests", 1)
             return False
         self.queue.append(request)
         self._tenant_counts[request.tenant] = (
@@ -111,6 +141,7 @@ class ContinuousScheduler:
                 else None
             ),
             "tenant": request.tenant,
+            "replica": self.replica,
             "admitted": None,
             "first_token": None,
             "finish": None,
@@ -153,7 +184,11 @@ class ContinuousScheduler:
             self.records[r.id]["admitted"] = self.clock()
         self.queue_depth_samples.append(len(self.queue))
         self.active_slot_samples.append(self.engine.pool.num_active)
+        if self.recorder is not None:
+            self.recorder.check_queue(len(self.queue), self.max_queue)
         events = cancel_events + self.engine.step()
+        if self.emitter is not None:
+            self._emit_engine_stats()
         now = self.clock()
         for ev in events:
             rec = self.records[ev.request_id]
@@ -165,15 +200,141 @@ class ContinuousScheduler:
             if ev.reason == "cancelled":
                 self.cancelled += 1
             self._finish(rec, now, ev.reason)
+        if self.slo is not None:
+            self.slo.evaluate(now)
+        if self.spans is not None:
+            # Deferred serialization drains at the tick boundary.
+            self.spans.flush()
         return events
 
     def _finish(self, rec: dict, now: float, reason: str) -> None:
         rec["finish"] = now
         rec["finish_reason"] = reason
         finalize_record(rec)
+        self._record_request_spans(rec)
         self.completed.append(rec)
         if self.request_logger is not None:
             self.request_logger.log(rec)
+        if self.emitter is None:
+            return
+        if reason == "shed":
+            self.emitter.counter_add("shed_requests", 1)
+            self.emitter.emit("record", {
+                "record": "request_shed", "id": rec["id"],
+                "queued_s": now - rec["arrival"],
+            })
+        elif reason == "cancelled":
+            # Kept out of the SLO histograms and the goodput tokens.
+            self.emitter.counter_add("cancelled_requests", 1)
+            self.emitter.emit("record", {
+                "record": "request_cancelled", "id": rec["id"],
+                "generated": rec["generated"],
+                "overdue_s": now - rec["deadline"],
+            })
+        else:
+            # The plain names feed the SLO objectives; the labeled ones
+            # are the per-tenant / per-replica views (obs/live.py).
+            views = [{}]
+            if rec["tenant"] is not None:
+                views.append({"tenant": rec["tenant"]})
+            if rec["replica"] is not None:
+                views.append({"replica": rec["replica"]})
+            for view in views:
+                if rec.get("ttft") is not None:
+                    self.emitter.observe(labeled("ttft_s", **view),
+                                         rec["ttft"])
+                if rec.get("tpot") is not None:
+                    self.emitter.observe(labeled("tpot_s", **view),
+                                         rec["tpot"])
+                self.emitter.counter_add(
+                    labeled("generated_tokens", **view), rec["generated"])
+                self.emitter.counter_add(
+                    labeled("finished_requests", **view), 1)
+            self.emitter.emit("record", {
+                "record": "request_finish", "id": rec["id"],
+                "finish_reason": rec["finish_reason"],
+                "generated": rec["generated"],
+            })
+
+    def _record_request_spans(self, rec: dict) -> None:
+        """The finished request's chain from the record's timestamps:
+        ``serve/request`` (arrival → finish) parenting ``request/queued``
+        (arrival → admitted), ``request/prefill`` (admitted → first
+        token) and ``request/decode`` (first token → finish).  A shed
+        request, or one cancelled before its first token, carries the
+        queued leg alone.  Sampled per request id: whole or not at all."""
+        if self.spans is None or not self.spans.enabled:
+            return
+        corr = rec["id"]
+        root = self.spans.start_span(
+            "serve/request", corr=corr, t0=rec["arrival"],
+            tenant=rec["tenant"], replica=rec["replica"],
+            prompt_len=rec["prompt_len"],
+        )
+        if root is None:  # not sampled
+            return
+        queued_end = (rec["admitted"] if rec["admitted"] is not None
+                      else rec["finish"])
+        extra = ({"replica": rec["replica"]} if rec["replica"] is not None
+                 else {})
+        self.spans.record_span("request/queued", rec["arrival"], queued_end,
+                               corr=corr, parent=root, **extra)
+        if rec["admitted"] is not None and rec["first_token"] is not None:
+            self.spans.record_span(
+                "request/prefill", rec["admitted"], rec["first_token"],
+                corr=corr, parent=root, **extra)
+            self.spans.record_span(
+                "request/decode", rec["first_token"], rec["finish"],
+                corr=corr, parent=root, **extra)
+        self.spans.end_span(root, t1=rec["finish"],
+                            generated=rec["generated"],
+                            finish_reason=rec["finish_reason"])
+
+    def _emit_engine_stats(self) -> None:
+        """The engine's accounting every tick: gauges for the slots and
+        the paged pool's occupancy, counter deltas for its monotonic
+        stats, and the speculation histograms."""
+        st = self.engine.stats()
+        sfx = f"_r{self.replica}" if self.replica is not None else ""
+        self.emitter.gauge(f"serve_slots_active{sfx}", st["slots_active"])
+        if "blocks_in_use" in st:
+            self.emitter.gauge(f"kv_blocks_in_use{sfx}", st["blocks_in_use"])
+            self.emitter.gauge(f"kv_blocks_cached{sfx}", st["blocks_cached"])
+            self.emitter.gauge(f"kv_block_occupancy{sfx}",
+                               st["block_occupancy"])
+        if "host_blocks" in st:
+            self.emitter.gauge(f"kv_host_blocks{sfx}", st["host_blocks"])
+            self.emitter.gauge(f"kv_host_bytes{sfx}", st["host_bytes"])
+            if "kv_block_bytes" in st:
+                self.emitter.gauge(f"kv_block_bytes{sfx}",
+                                   st["kv_block_bytes"])
+        for name in (
+            "prefill_tokens_computed", "prefill_tokens_offered",
+            "prefix_hit_tokens", "prefix_lookup_tokens", "blocks_evicted",
+            "cow_copies", "decode_ticks", "decode_slot_ticks",
+            "decode_tokens", "spec_drafted_tokens", "spec_accepted_tokens",
+            "blocks_spilled", "blocks_restored", "blocks_sibling_fetched",
+            "host_dropped_blocks", "handoffs",
+        ):
+            if name in st:
+                delta = st[name] - self._last_stats.get(name, 0)
+                if delta:
+                    self.emitter.counter_add(name, delta)
+        if "spec_drafted_tokens" in st:
+            drafted = (st["spec_drafted_tokens"]
+                       - self._last_stats.get("spec_drafted_tokens", 0))
+            if drafted:
+                acc = (st["spec_accepted_tokens"]
+                       - self._last_stats.get("spec_accepted_tokens", 0))
+                self.emitter.observe("spec_acceptance_rate", acc / drafted)
+            slot_ticks = (st["decode_slot_ticks"]
+                          - self._last_stats.get("decode_slot_ticks", 0))
+            if slot_ticks:
+                toks = (st["decode_tokens"]
+                        - self._last_stats.get("decode_tokens", 0))
+                self.emitter.observe("spec_tokens_per_slot_tick",
+                                     toks / slot_ticks)
+        self._last_stats = st
 
     def _drop_tenant_count(self, tenant) -> None:
         n = self._tenant_counts.get(tenant, 0) - 1

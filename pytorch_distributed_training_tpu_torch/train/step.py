@@ -465,6 +465,58 @@ def _sharded_train_step(layout, *, kind, policy, num_microbatches, seed,
     return train_step
 
 
+def step_objective(state: TrainState, *, kind: str = "lm",
+                   policy: Policy | None = None,
+                   lm_loss_chunk: int | None = None,
+                   label_smoothing: float = 0.0,
+                   input_normalize: tuple | None = None,
+                   aux_loss_weight: float = 0.01):
+    """``(params, batch) -> loss``: the objective a train step
+    differentiates, on ``state``'s model over the whole ``batch``, with
+    no collective (an MoE model routes the batch alone, BatchNorm takes
+    its statistics on it).  The flop probe of ``obs/cost.py`` runs it on
+    ``meta`` tensors; the forward and backward FLOPs of a step are those
+    of its rows, whatever its microbatches.  A sharded state's model
+    gathers its leaves with collectives and cannot run there: raises."""
+    _check_kind(kind)
+    if state.shardings is not None:
+        raise NotImplementedError(
+            "the flop probe runs one process's model on meta tensors; a "
+            "sharded or pipelined state gathers its leaves with "
+            "collectives, which cannot run there")
+    policy = policy or Policy()
+    model = state.model.train()
+    if kind == "image_classifier":
+        normalize_on = _normalize_on(input_normalize, policy)
+
+        def image_loss(params, batch):
+            image = prepare_image_input(batch["image"], policy,
+                                        normalize_on(batch["image"].device))
+            stats = {n: torch.empty_like(t, device=image.device)
+                     for n, t in state.batch_stats.items()}
+            logits = _image_forward(model, params, stats, image,
+                                    policy=policy, keep=state.keep,
+                                    new_stats={})
+            return cross_entropy_loss(logits, batch["label"],
+                                      label_smoothing=label_smoothing)
+
+        return image_loss
+    moe = model.cfg.num_experts > 0
+    if moe:
+        from ..models.moe import set_moe_routing
+
+        set_moe_routing(model, None)
+
+    def lm_loss(params, batch):
+        out = _lm_loss(model, params, batch["tokens"], policy=policy,
+                       generator=None, lm_loss_chunk=lm_loss_chunk,
+                       label_smoothing=label_smoothing,
+                       aux_loss_weight=aux_loss_weight if moe else None)
+        return out[0] if moe else out
+
+    return lm_loss
+
+
 def make_eval_step(
     *,
     kind: str = "lm",

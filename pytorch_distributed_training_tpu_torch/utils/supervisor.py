@@ -37,9 +37,9 @@ from .backoff import BackoffPolicy
 HEARTBEAT_ENV = "PDT_HEARTBEAT_FILE"
 
 # Cumulative crash-backoff seconds this supervisor has slept, exported to
-# each relaunched child.  The JAX package's goodput ledger reads it to
-# charge ``supervisor_backoff``; the port exports it the same way (its
-# ledger is not ported yet).
+# each relaunched child, whose goodput ledger (obs/ledger.py, --goodput)
+# charges them to ``supervisor_backoff`` and widens its wall clock by
+# them.
 BACKOFF_ENV = "PDT_BACKOFF_S"
 
 # Exit code of a run that checkpointed and exited on SIGTERM (a

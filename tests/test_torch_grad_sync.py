@@ -802,13 +802,34 @@ GPT2_ARGV = ["--use-cpu", "--model", "gpt2", "--dataset", "synthetic-tokens",
              "--steps-per-epoch", "3", "--num-workers", "0"]
 
 
+# The fields of the JAX CLI's ``grad_sync_model`` record.
+GRAD_SYNC_MODEL_FIELDS = {
+    "record", "mode", "dcn_bytes_per_sync", "ici_bytes_per_sync",
+    "n_elems_padded", "n_slices", "ici", "n_buckets", "topk_frac",
+    "bucket_mb", "bucket_policy", "syncs_per_step", "stripe",
+    "phase_overlap", "overlap_depth", "wall_serial_s", "wall_overlap_s",
+    "wall_s", "bubble_s", "overlap_ratio",
+}
+
+
 def test_cli_four_ranks_hier_int8(tmp_path):
+    """Four torchrun ranks under ``hier-int8`` in 2 slices, striped and
+    pipelined, with ``--metrics-dir``: JAX's ``grad-sync:`` line on each
+    rank; a rank log each, whose steps ``merge_timeline`` aligns; the
+    ``grad_sync_model`` record with the JAX CLI's fields, its byte model
+    JAX's ``dcn_bytes_per_sync`` / ``ici_bytes_per_sync`` on the record's
+    layout and its wall the port's model of those bytes; the per-step
+    DCN and ICI counters the record's bytes times its syncs a step."""
+    from pytorch_distributed_training_tpu_torch import obs as tobs
+
+    mdir = tmp_path / "tm"
     res = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "4", "-m",
          "pytorch_distributed_training_tpu_torch.cli.main", "--distributed",
          *GPT2_ARGV, "--grad-sync", "hier-int8", "--grad-sync-slices", "2",
-         "--grad-sync-stripe", "2", "--grad-sync-overlap", "on"],
+         "--grad-sync-stripe", "2", "--grad-sync-overlap", "on",
+         "--metrics-dir", str(mdir)],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stdout + res.stderr
@@ -817,6 +838,43 @@ def test_cli_four_ranks_hier_int8(tmp_path):
     assert "(auto), stripe=2 overlap=on" in out
     assert out.count("training finished") == 4
     assert "epoch=0 | step=3 |" in out
+    logs = tobs.load_rank_logs(str(mdir))
+    assert sorted(logs) == [0, 1, 2, 3]
+    timeline = tobs.merge_timeline(logs)
+    assert [row["step"] for row in timeline] == [0, 1, 2]
+    assert all(not row["missing_ranks"] for row in timeline)
+    records = []
+    for rank, events in logs.items():
+        tobs.validate_events(events)
+        (rec,) = [e for e in events if e.get("record") == "grad_sync_model"]
+        rec = {k: v for k, v in rec.items()
+               if k not in ("v", "t", "rank", "kind")}
+        assert set(rec) == GRAD_SYNC_MODEL_FIELDS
+        records.append(rec)
+        steps = [e for e in events if e["kind"] == "step"]
+        assert all(e["counters"]["dcn_bytes"] == rec["dcn_bytes_per_sync"]
+                   * rec["syncs_per_step"]
+                   and e["counters"]["ici_bytes"] == rec["ici_bytes_per_sync"]
+                   * rec["syncs_per_step"] for e in steps)
+    assert all(r == records[0] for r in records)
+    rec = records[0]
+    assert (rec["mode"], rec["n_slices"], rec["ici"], rec["stripe"],
+            rec["phase_overlap"], rec["syncs_per_step"]) == \
+        ("hier-int8", 2, 2, 2, True, 2)
+    assert rec["dcn_bytes_per_sync"] == jax_dcn_bytes(
+        rec["n_elems_padded"], 2, 2, "hier-int8",
+        n_buckets=rec["n_buckets"], topk_frac=rec["topk_frac"]) > 0
+    assert rec["ici_bytes_per_sync"] == jstripe.ici_bytes_per_sync(
+        rec["n_elems_padded"], 2, 2, "hier-int8", n_buckets=rec["n_buckets"],
+        topk_frac=rec["topk_frac"], stripe=2)
+    wall = tobs.grad_sync_wall_model(
+        ici_bytes=rec["ici_bytes_per_sync"],
+        dcn_bytes=rec["dcn_bytes_per_sync"], n_buckets=rec["n_buckets"],
+        n_slices=2, ici_size=2, stripe=2, phase_overlap=True)
+    assert {k: rec[k] for k in ("wall_serial_s", "wall_overlap_s",
+                                "wall_s", "bubble_s", "overlap_ratio")} == \
+        {k: wall[k] for k in ("wall_serial_s", "wall_overlap_s", "wall_s",
+                              "bubble_s", "overlap_ratio")}
 
 
 def test_two_nodes_detect_two_slices():

@@ -883,8 +883,16 @@ def test_cli_model_refusals(capsys, overrides, extra, message):
 
 def test_cli_torchrun_pp2(tmp_path):
     """``--distributed --pipeline-parallel 2 --pipeline-schedule 1f1b
-    --pp-compress int8`` under torchrun, two CPU ranks: the mesh line,
-    the byte model, the summary naming the stages and the schedule."""
+    --pp-compress int8 --metrics-dir`` under torchrun, two CPU ranks: the
+    mesh line, the summary naming the stages and the schedule, and the
+    byte model: each rank's event log holds the ``pp_compress_model``
+    record, field for field the JAX CLI's for this configuration
+    (``tests/test_obs.py``'s pin), and its ``pp_boundary_bytes`` counter
+    on every step; ``merge_timeline`` aligns the two ranks' steps."""
+    from pytorch_distributed_training_tpu import obs as jobs
+    from pytorch_distributed_training_tpu_torch import obs as tobs
+
+    mdir = tmp_path / "tm"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
            "2", "--master_port", str(_free_port()), "-m",
            "pytorch_distributed_training_tpu_torch.cli.main", "--use-cpu",
@@ -894,7 +902,7 @@ def test_cli_torchrun_pp2(tmp_path):
            "--optimizer", "adamw", "--learning-rate", "1e-3",
            "--num-workers", "0", "--pipeline-parallel", "2",
            "--pipeline-schedule", "1f1b", "--pp-compress", "int8",
-           "--grad-sync-stripe", "2"]
+           "--grad-sync-stripe", "2", "--metrics-dir", str(mdir)]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run(cmd, cwd=tmp_path, env={
         **env, "PYTHONPATH": os.path.dirname(os.path.dirname(
@@ -903,11 +911,29 @@ def test_cli_torchrun_pp2(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     out = res.stdout
     assert "'pipeline': 2" in out
-    assert '"pp_boundary_bytes_per_step": ' in out
-    want = jcompress.pp_boundary_bytes_per_step(
-        schedule="1f1b", num_stages=2, num_microbatches=4, microbatch_rows=2,
-        seq_len=16, hidden=32, act_itemsize=4, mode="int8")
-    assert f'"pp_boundary_bytes_per_step": {want}' in out
+    fields = dict(schedule="1f1b", num_stages=2, num_microbatches=4,
+                  microbatch_rows=2, seq_len=16, hidden=32, act_itemsize=4,
+                  mode="int8", num_chunks=1)
+    want = {"record": "pp_compress_model", **fields,
+            "pp_boundary_bytes_per_step":
+                jobs.pp_step_counters(**fields)["pp_boundary_bytes"]}
+    assert want["pp_boundary_bytes_per_step"] == \
+        jcompress.pp_boundary_bytes_per_step(**fields)
+    logs = tobs.load_rank_logs(str(mdir))
+    assert sorted(logs) == [0, 1]
+    for rank, events in logs.items():
+        tobs.validate_events(events)
+        assert events[0]["world"] == 2 and events[0]["rank"] == rank
+        (rec,) = [e for e in events if e.get("record") == "pp_compress_model"]
+        assert {k: v for k, v in rec.items()
+                if k not in ("v", "t", "rank", "kind")} == want
+        steps = [e for e in events if e["kind"] == "step"]
+        assert [e["counters"]["pp_boundary_bytes"] for e in steps] == \
+            [want["pp_boundary_bytes_per_step"]] * 2
+    timeline = tobs.merge_timeline(logs)
+    assert timeline == jobs.merge_timeline(logs)
+    assert [row["step"] for row in timeline] == [0, 1]
+    assert all(sorted(row["ranks"]) == [0, 1] for row in timeline)
     assert "pipeline_stages=2 | pipeline_schedule=1f1b" in out
     # The two pipeline ranks share their rows: 2 steps of 8.
     assert "examples=16 |" in out
