@@ -18,9 +18,17 @@ the port's main paths:
   --metrics-port 0``, its 16 request span chains whole, its tick spans
   equal to its decode ticks, each TTFT its queued and prefill spans,
   ``/metrics``, ``/healthz`` and ``/slo`` answering 200 mid-run and the
-  live TTFT p99 equal to the log's); a scripted engine run at full width serves shared-prefix traffic through
-  the prefix cache; lockstep ``generate`` runs at full width; a small f32
-  model's slot-mode logits on the card are checked against the host;
+  live TTFT p99 equal to the log's); the disaggregated tier
+  (``--serve-disagg 2:6``, paged with a host tier and contiguous: 16
+  handoffs, the prefill role's and the decode role's kernel launches
+  counted apart); a scripted engine run at full width serves
+  shared-prefix traffic through the prefix cache, then a two-replica
+  ``ReplicaRouter`` on the card (affinity hits, a rebalance with a
+  sibling fetch, the fetched blocks bitwise equal across the pools, the
+  counters equal to the telemetry); lockstep ``generate`` runs at full
+  width; a small f32 model's slot-mode logits on the card are checked
+  against the host; #9, #11 and #12 are also timed at the 3 heads a rank
+  holds under ``--serve-tp 4``;
 - training: the CLI trains GPT-2 at full width (124M at 1024 and 512
   positions with gradient accumulation, XL widths at 1024, 2048
   positions, and the main run again with remat and chunked CE), each run
@@ -148,7 +156,12 @@ the port's main paths:
   checkpoint resumed under PP 4 (bitwise), PP 2 x data 2 and flat at
   world 1 (step-3 losses and checkpoints held to the 1f1b run's); P3
   GPipe x MoE, ``gpt2_moe`` on T1's recipe at PP 2 x data 2 against
-  T6's scatter run, step-3 loss within ``P1_LOSS_BOUND``.  P1's
+  T6's scatter run, step-3 loss within ``P1_LOSS_BOUND``.  In the same
+  torchrun, ``--serve-tp 4`` serves GPT-2 124M (bf16, speculative,
+  contiguous then paged) with every rank's kernel launches at 3 local
+  heads counted and the first prefill tick's logits held to the
+  one-process runs', and the JAX tests' tiny f32 GPT-2 at TP 2 and TP 4
+  gives one process's greedy tokens.  P1's
   ``1f1b_int8`` run writes its four rank logs (``--metrics-dir``):
   ``merge_timeline`` aligns them, and the ``pp_compress_model`` record
   and the per-step ``pp_boundary_bytes`` counters equal the model.  The
@@ -324,15 +337,16 @@ def host_us(torch, fn, reps: int = 200) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def bound_ms(index, c: int, dtype, bandwidth: float) -> tuple[float, str]:
+def bound_ms(index, c: int, dtype, bandwidth: float,
+             heads: int = H) -> tuple[float, str]:
     """Least time for the work these inputs need: the visible K/V prefix
     read once plus q, out and index, against the flops of QK^T and PV."""
     item = 2 if "bfloat16" in str(dtype) else 4
     keys = [min(i + c, L) for i in index]
     per_query = [min(i + j + 1, L) for i in index for j in range(c)]
-    nbytes = (2 * sum(keys) * H * DH * item + 2 * B * c * H * DH * item
-              + 4 * B)
-    ops = 4 * sum(per_query) * H * DH
+    nbytes = (2 * sum(keys) * heads * DH * item
+              + 2 * B * c * heads * DH * item + 4 * B)
+    ops = 4 * sum(per_query) * heads * DH
     t_bytes, t_ops = nbytes / bandwidth, ops / PEAK_OPS[str(dtype)]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -466,9 +480,33 @@ def kernel_phase(torch, da, seed: int, bandwidth: float) -> dict:
     return results
 
 
-def serving_phase(torch, da, seed: int) -> tuple[dict, dict]:
+@contextlib.contextmanager
+def first_logits(torch, box: dict, key: str):
+    """While the CLI serves in this process: the LM head's first output
+    (the first prefill tick's logits, (slots, vocab) f32) kept on the
+    host as ``box[key]``."""
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2
+
+    head = GPT2.head
+
+    def first(self, x):
+        out = head(self, x)
+        if key not in box:
+            box[key] = out.detach().float().cpu()
+        return out
+
+    GPT2.head = first
+    try:
+        yield
+    finally:
+        GPT2.head = head
+
+
+def serving_phase(torch, da, seed: int, carry: dict) -> tuple[dict, dict]:
     """The main path: the CLI serving GPT-2 124M in bf16, once plainly and
-    once with speculative decoding (k = 4)."""
+    once with speculative decoding (k = 4); the speculative run's first
+    prefill logits and tokens go to ``carry`` (the one-process reference
+    of the tensor-parallel runs, ``pipeline_phase``)."""
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
 
     argv = SERVE_ARGV + ["--seed", str(seed)]
@@ -476,7 +514,12 @@ def serving_phase(torch, da, seed: int) -> tuple[dict, dict]:
     for spec in (False, True):
         da.decode_attention.launches = 0
         da.decode_attention_multi.launches = 0
-        res = cli(argv + (["--serve-spec", "--serve-spec-k", "4"] if spec else []))
+        with first_logits(torch, carry, "logits/contig" if spec else "-"):
+            res = cli(argv + (["--serve-spec", "--serve-spec-k", "4"]
+                              if spec else []))
+        carry.pop("-", None)
+        if spec:
+            carry["tokens/contig"] = res["tokens"]
         n9 = da.decode_attention.launches
         n10 = da.decode_attention_multi.launches
         launches["decode_attention"] += n9
@@ -511,8 +554,8 @@ def serving_phase(torch, da, seed: int) -> tuple[dict, dict]:
     return runs, launches
 
 
-def paged_bound_ms(index, c: int, storage: str, bandwidth: float
-                   ) -> tuple[float, str]:
+def paged_bound_ms(index, c: int, storage: str, bandwidth: float,
+                   heads: int = H) -> tuple[float, str]:
     """Least time for one paged call on these inputs: the visible whole
     blocks of each row at the stored width (plus their bf16 scales when
     quantized), q, out, table and index read or written once, against
@@ -521,12 +564,12 @@ def paged_bound_ms(index, c: int, storage: str, bandwidth: float
     q_item = 4 if storage == "f32" else 2
     span = NB * BS
     blocks = sum(min(NB, (i + c - 1) // BS + 1) for i in index)
-    nbytes = 2 * blocks * H * BS * DH * item
+    nbytes = 2 * blocks * heads * BS * DH * item
     if storage in ("int8", "int4"):
-        nbytes += 2 * blocks * H * BS * 2
-    nbytes += 2 * B * c * H * DH * q_item + 4 * B * NB + 4 * B
+        nbytes += 2 * blocks * heads * BS * 2
+    nbytes += 2 * B * c * heads * DH * q_item + 4 * B * NB + 4 * B
     live = sum(min(i + j + 1, span) for i in index for j in range(c))
-    ops = 4 * live * H * DH
+    ops = 4 * live * heads * DH
     peak = PEAK_OPS["torch.float32" if storage == "f32" else "torch.bfloat16"]
     t_bytes, t_ops = nbytes / bandwidth, ops / peak
     return (max(t_bytes, t_ops) * 1e3,
@@ -648,12 +691,108 @@ def paged_kernel_phase(torch, pa, seed: int, bandwidth: float) -> dict:
     return results
 
 
-def paged_serving_phase(torch, da, pa, seed: int, repo: str) -> dict:
+# The heads a rank holds under --serve-tp 4 (GPT-2 124M's 12 over 4).
+TP_HEADS = 3
+
+
+def tp_kernel_phase(torch, da, pa, seed: int, bandwidth: float,
+                    kernels: dict) -> None:
+    """#9 (C = 1), #11 (C = 1) and #12 (C = 16, the prefill chunk) at the
+    heads a rank holds under ``--serve-tp 4`` (H 3, the serving shapes
+    otherwise, bf16), against their plain versions (#9: atol 2e-3, rtol
+    1e-2; paged: atol 2e-2, rtol 2e-2) and timed with their bound and
+    SDPA's time on the same K/V (paged: already gathered); each is added
+    to its row's ``variants`` with ``heads`` 3."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    hh = TP_HEADS
+    index = torch.tensor(INDEX, dtype=torch.int32, device="cuda")
+    k = torch.randn(B, hh, L, DH, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, hh, L, DH, generator=gen, device="cuda").bfloat16()
+    kb = torch.randn(NBLOCKS + 1, hh, BS, DH, generator=gen,
+                     device="cuda").bfloat16()
+    vb = torch.randn(NBLOCKS + 1, hh, BS, DH, generator=gen,
+                     device="cuda").bfloat16()
+    perm = torch.randperm(NBLOCKS, generator=torch.Generator().manual_seed(
+        seed))
+    table = perm[:B * NB].view(B, NB).to(torch.int32).cuda()
+    for name, c in (("decode_attention", 1), ("paged_decode_attention", 1),
+                    ("_paged_multi_call", 16)):
+        q = torch.randn(B, c, hh, DH, generator=gen,
+                        device="cuda").bfloat16()
+        mask = (torch.arange(L, device="cuda")[None, None, :]
+                <= index[:, None, None].long()
+                + torch.arange(c, device="cuda")[None, :, None])
+        qt = q.transpose(1, 2)
+        if name == "decode_attention":
+            q0 = q[:, 0]
+
+            def kernel():
+                return da.decode_attention(q0, k, v, index)[:, None]
+
+            def plain():
+                return da.decode_attention_multi_plain(q, k, v, index)
+
+            kk, vv, atol, rtol = k, v, 2e-3, 1e-2
+            bms, by = bound_ms(INDEX, c, torch.bfloat16, bandwidth, hh)
+        else:
+            if c == 1:
+                q0 = q[:, 0]
+
+                def kernel():
+                    return pa.paged_decode_attention(
+                        q0, kb, vb, table, index)[:, None]
+            else:
+                def kernel():
+                    return pa.paged_prefill_attention(q, kb, vb, table,
+                                                      index)
+
+            def plain():
+                return pa.paged_attention_plain(q, kb, vb, table, index)
+
+            kk, vv = pa.paged_window(kb, vb, table)
+            atol = rtol = 2e-2
+            bms, by = paged_bound_ms(INDEX, c, "bf16", bandwidth, hh)
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        check(bool(torch.isfinite(out.float()).all()) and bool(
+            (err <= atol + rtol * ref.float().abs()).all()),
+            f"{name} C={c} H={hh} within atol {atol} rtol {rtol} (max err "
+            f"{err.max().item():.3g})")
+        ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kk, vv, attn_mask=mask[:, None]))
+        kernels[name]["variants"].append(dict(
+            heads=hh, chunk=c, storage="bf16",
+            max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=library_ms))
+        print(f"kernel {name} C={c} H={hh} bf16 (a rank's heads under "
+              f"--serve-tp 4): max_abs_err {err.max().item():.3g} (atol "
+              f"{atol}, rtol {rtol}); kernel {ms * 1e3:.1f} us, plain "
+              f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us"
+              f"{' (gather excluded)' if 'paged' in name else ''}, bound "
+              f"{bms * 1e3:.2f} us ({by}); {ms / library_ms:.2f}x sdpa, "
+              f"{ms / bms:.1f}x bound", flush=True)
+
+
+# The disaggregated runs: 2 prefill-role and 6 decode-role slots (the
+# 8 of SERVE_ARGV), paged with a host tier, and contiguous.
+DISAGG_RUNS = (("disagg paged", ["--serve-paged", "--serve-disagg", "2:6",
+                                 "--serve-kv-host-mb", "64"]),
+               ("disagg contiguous", ["--serve-disagg", "2:6"]))
+
+
+def paged_serving_phase(torch, da, pa, seed: int, repo: str,
+                        carry: dict) -> dict:
     """The paged main path: the CLI serving GPT-2 124M in bf16 from the
     paged pool, plainly, with speculative decoding (k = 4) and with int8
     KV.  Every decode and verify tick must run #11 or #12 and every
     prefill tick #12, once per layer, and #9/#10 never.  The speculative
-    run serves with telemetry on (``serve_telemetry``)."""
+    run serves with telemetry on (``serve_telemetry``); its first prefill
+    logits and tokens go to ``carry``.  Then the disaggregated tier
+    (``DISAGG_RUNS``, ``disagg_runs``).  Returns the launches by row."""
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.serve import ServingEngine
 
@@ -685,8 +824,10 @@ def paged_serving_phase(torch, da, pa, seed: int, repo: str) -> dict:
                 e.launches = 0
             prefill_ticks[0] = 0
             if "spec" in label:
-                with hook_clock() as clock, serve_scrapes() as scrapes:
+                with hook_clock() as clock, serve_scrapes() as scrapes, \
+                        first_logits(torch, carry, "logits/paged"):
                     res = cli(argv + extra)
+                carry["tokens/paged"] = res["tokens"]
                 serve_telemetry(tm, res, scrapes)
                 hook_report(clock)
             else:
@@ -719,6 +860,87 @@ def paged_serving_phase(torch, da, pa, seed: int, repo: str) -> dict:
                   f"{n12m} paged_prefill_attention {n12p}", flush=True)
     finally:
         ServingEngine.prefill_step = original
+    for row, n in disagg_runs(torch, da, pa, seed).items():
+        launches[row] = launches.get(row, 0) + n
+    return launches
+
+
+def disagg_runs(torch, da, pa, seed: int) -> dict:
+    """The disaggregated tier through the CLI (``DISAGG_RUNS``): all 16
+    requests complete, each adopted once (16 handoffs); the prefill role
+    runs #12 once per layer per prefill tick (paged; the contiguous
+    cache's 16-wide chunks take the plain ragged path there, as the
+    interleaved engine's do), the decode role #11 + #12 (paged) or #9 +
+    #10 (contiguous) once per layer per decode or verify tick and no
+    other kernel; the shared pool's audit holds after the paged run.
+    Prints each run's handoffs and their host time a tick; returns the
+    launches by row."""
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.serve import (
+        DisaggServingEngine,
+    )
+
+    entries = (da.decode_attention, da.decode_attention_multi,
+               pa.paged_decode_attention, pa.paged_decode_attention_multi,
+               pa.paged_prefill_attention)
+    tiers = []
+    init = DisaggServingEngine.__init__
+
+    def kept(self, *a, **kw):
+        init(self, *a, **kw)
+        tiers.append(self)
+
+    launches = {"decode_attention": 0, "decode_attention_multi": 0,
+                "paged_decode_attention": 0, "_paged_multi_call": 0}
+    DisaggServingEngine.__init__ = kept
+    try:
+        for label, extra in DISAGG_RUNS:
+            for e in entries:
+                e.launches = 0
+            tiers.clear()
+            res = cli(SERVE_ARGV + ["--seed", str(seed)] + extra)
+            n9, n10, n11, n12m, n12p = (e.launches for e in entries)
+            s, st = res["summary"], res["engine"]
+            (tier,) = tiers
+            ticks = st["decode_ticks"]
+            pre_ticks = tier.prefill_engine.prefill_ticks
+            check(s["completed"] == 16, f"{label}: 16 requests completed")
+            check(all(0 <= t < VOCAB for r in res["tokens"].values()
+                      for t in r), f"{label}: tokens inside the vocabulary")
+            check(st["handoffs"] == 16 and res["prefill_ticks"] == pre_ticks
+                  and tier.decode_engine.prefill_ticks == 0
+                  and tier.prefill_engine.decode_ticks == 0,
+                  f"{label}: 16 handoffs ({st['handoffs']}), each role its "
+                  "half alone")
+            if "paged" in label:
+                check(n9 == n10 == 0 and n11 + n12m == LAYERS * ticks
+                      and n12p == LAYERS * pre_ticks,
+                      f"{label}: #11 + #12 {n11} + {n12m} = 12 x {ticks} "
+                      f"decode ticks, #12 prefill {n12p} = 12 x "
+                      f"{pre_ticks} prefill ticks, #9/#10 {n9}/{n10}")
+                tier.check_invariants()
+                launches["paged_decode_attention"] += n11
+                launches["_paged_multi_call"] += n12m + n12p
+            else:
+                check(n11 == n12m == n12p == 0
+                      and n9 + n10 == LAYERS * ticks,
+                      f"{label}: #9 + #10 {n9} + {n10} = 12 x {ticks} "
+                      f"decode ticks, paged {n11}/{n12m}/{n12p}")
+                launches["decode_attention"] += n9
+                launches["decode_attention_multi"] += n10
+            print(f"serve {label} (2 prefill + 6 decode slots): completed "
+                  f"{s['completed']}/16, {s['goodput_tok_per_s']} tok/s, "
+                  f"ttft p50/p99 {s['ttft_p50_s']}/{s['ttft_p99_s']} s, "
+                  f"tpot p50/p99 {s['tpot_p50_s']}/{s['tpot_p99_s']} s; "
+                  f"{st['handoffs']} handoffs, handoff host "
+                  f"{res['handoff_s'] / res['ticks'] * 1e3:.4f} ms a tick "
+                  f"over {res['ticks']} ticks; decode ticks {ticks}, "
+                  f"prefill ticks {pre_ticks}; launches #9 {n9} #10 {n10} "
+                  f"#11 {n11} #12 {n12m} + {n12p}", flush=True)
+            del tier
+            tiers.clear()
+    finally:
+        DisaggServingEngine.__init__ = init
     return launches
 
 # The speculative paged run's TTFT objective: loose enough that no alert
@@ -914,11 +1136,12 @@ def serve_telemetry(tm: str, res: dict, scrapes: dict) -> None:
     shutil.rmtree(tm, ignore_errors=True)
 
 
-def prefix_phase(torch, seed: int) -> None:
+def prefix_phase(torch, seed: int, repo: str) -> None:
     """Shared-prefix traffic at full width: 16 requests with one
     128-token prefix (8 blocks) and distinct tails, through the paged
     engine's prefix cache; the same requests without the cache give the
-    greedy-token agreement (information only: bf16)."""
+    greedy-token agreement (information only: bf16).  Then the same
+    prefix through two replicas behind the router (``router_leg``)."""
     import numpy as np
 
     from pytorch_distributed_training_tpu_torch.models import create_model
@@ -961,7 +1184,92 @@ def prefix_phase(torch, seed: int) -> None:
           f"{st['prefill_tokens_offered']}, cow copies {st['cow_copies']}; "
           f"agreement with prefix_cache=False (informational): "
           f"{same}/{total} tokens", flush=True)
+    router_leg(torch, model, seed, prefix, rng, repo)
     del model
+
+
+def router_leg(torch, model, seed: int, prefix, rng, repo: str) -> None:
+    """A ``ReplicaRouter`` of 2 full-width paged replicas (8 slots and a
+    64 MB host tier each) on the one card, scripted: one request warms
+    replica 0 with the 128-token prefix, then 15 sharing it arrive at
+    once.  Affinity sends them to replica 0 until its queue reaches the
+    cap (2), then they rebalance to replica 1, the first with a sibling
+    fetch of the prefix into its host tier.  Checks: affinity hits, a
+    rebalance with a sibling fetch, the fetched blocks restored on
+    replica 1 bit for bit (each block's bytes equal across the two
+    pools), every request completed, and the router's counters equal to
+    its emitted telemetry."""
+    import shutil
+
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.obs import MetricsEmitter
+    from pytorch_distributed_training_tpu_torch.serve import (
+        ReplicaRouter, Request, ServingEngine, VirtualClock,
+        hash_prompt_blocks,
+    )
+
+    tm = os.path.join(repo, "build", "chip_smoke", "router_tm")
+    shutil.rmtree(tm, ignore_errors=True)
+    emitter = MetricsEmitter(tm, rank=0)
+    engines = [ServingEngine(model, num_slots=8, paged=True, kv_host_mb=64,
+                             temperature=0.0, seed=seed, device="cuda")
+               for _ in range(2)]
+    clock = VirtualClock()
+    router = ReplicaRouter(engines, clock=clock, affinity_queue_cap=2,
+                           emitter=emitter)
+    prompts = [np.concatenate([prefix, rng.integers(0, VOCAB, (n,))])
+               .astype(np.int32) for n in rng.integers(8, 64, 16)]
+    t0 = time.monotonic()
+    check(router.submit(Request(0, prompts[0], 32)), "router: queued")
+    while not router.idle:
+        router.tick()
+    for i, p in enumerate(prompts[1:], 1):
+        check(router.submit(Request(i, p, 32)), "router: queued")
+    while not router.idle:
+        router.tick()
+    seconds = time.monotonic() - t0
+    rt = router.stats()
+    summary = emitter.summary()
+    emitter.close()
+    counters = summary["counters"]
+    check(len(router.completed) == 16, "router: 16 requests completed")
+    check(rt["affinity_hits"] > 0 and rt["rebalanced"] > 0
+          and rt["sibling_fetches"] > 0 and rt["sibling_fetch_blocks"] > 0,
+          f"router: affinity hits, a rebalance and a sibling fetch ({rt})")
+    src, dst = (e.pool.blocks for e in engines)
+    hashes = hash_prompt_blocks(prompts[0], src.block_size)[:len(prefix)
+                                                           // src.block_size]
+    same = 0
+    for h in hashes:
+        a, b = src.read_block_bytes(h), dst.read_block_bytes(h)
+        check(a is not None and b is not None
+              and all(np.array_equal(x, y) for x, y in zip(a, b)),
+              "router: a fetched prefix block's bytes equal on both "
+              "replicas")
+        same += 1
+    check(dst.blocks_restored >= len(hashes),
+          f"router: replica 1 restored the fetched prefix "
+          f"({dst.blocks_restored} blocks)")
+    for name, key in (("router_routed_requests", None),
+                      ("router_affinity_hits", "affinity_hits"),
+                      ("router_rebalanced", "rebalanced"),
+                      ("router_sibling_fetches", "sibling_fetches"),
+                      ("router_sibling_fetch_blocks",
+                       "sibling_fetch_blocks")):
+        want = sum(rt["routed"]) if key is None else rt[key]
+        check(counters.get(name, 0) == want,
+              f"router: telemetry {name} {counters.get(name)} vs {want}")
+    for e in engines:
+        e.pool.check_invariants()
+    shutil.rmtree(tm, ignore_errors=True)
+    print(f"router (2 paged GPT-2 124M replicas, 8 slots and a 64 MB host "
+          f"tier each, one card): routed {rt['routed']}, affinity hits "
+          f"{rt['affinity_hits']}, rebalanced {rt['rebalanced']}, sibling "
+          f"fetches {rt['sibling_fetches']} ({rt['sibling_fetch_blocks']} "
+          f"blocks), replica 1 restored {dst.blocks_restored} blocks, "
+          f"{same} prefix blocks bitwise equal across the pools, telemetry "
+          f"= counters; {seconds:.1f} s", flush=True)
 
 
 def generate_phase(torch, da, seed: int) -> None:
@@ -3283,8 +3591,8 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
     records, DC3 T1 on a token file written from the seed (flash #4/#5):
     each warm epoch's rate and step, and a profiled window's busy share
     and host-to-device copies a step, which must be 0 with the cache.
-    G1 T1 with ``--skip-bad-steps`` against T1 without, off / on / on /
-    off: bitwise the same trajectory (flash #4/#5); then ``gate_turns``,
+    G1 T1 with ``--skip-bad-steps`` against T1 without, off / on:
+    bitwise the same trajectory (flash #4/#5); then ``gate_turns``,
     the gate's cost a step.  G2 R1's loader command (float batches) with the gate,
     ``nan_batch@3`` and ``spike_batch@6:1e4``: the NaN step skipped, the
     parameters bitwise unchanged across it, the norms around the spike.
@@ -3341,11 +3649,12 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
     launches[4] += fwd
     launches[5] += dq + dkv
 
-    # G1: T1 with and without the gate, off / on / on / off; every step's
-    # loss bits and the end weights' crc32 must agree.
+    # G1: T1 without the gate, then with it; every step's loss bits and
+    # the end weights' crc32 must agree.  (Two turns, not four since the
+    # serving tier joined the script: gate_turns times the gate's cost.)
     runs = []
     _reset_flash(fa)
-    for gate in (False, True, True, False):
+    for gate in (False, True):
         losses: list = []
         trainer, _ = _leg(torch, cli, T1_TWO_EPOCHS + TRAIN_COMMON + seed_argv
                           + (["--skip-bad-steps"] if gate else []),
@@ -3361,9 +3670,9 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
         del trainer
         torch.cuda.empty_cache()
     fwd, dq, dkv = (e.launches for e in _flash_entries(fa))
-    check(fwd == dq == dkv == 4 * 12 * 2 * 16,
+    check(fwd == dq == dkv == 2 * 12 * 2 * 16,
           f"G1: flash launches fwd {fwd} dq {dq} dkv {dkv}, expected "
-          f"{4 * 12 * 2 * 16} each (four runs of 16 steps)")
+          f"{2 * 12 * 2 * 16} each (two runs of 16 steps)")
     launches[4] += fwd
     launches[5] += dq + dkv
     ref = runs[0]
@@ -3372,7 +3681,7 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
         check(crc == ref[2], "G1: end weights bitwise equal")
     off = [r[3] for r in runs if not r[0]]
     on = [r[3] for r in runs if r[0]]
-    print(f"G1 T1 --skip-bad-steps (off / on / on / off, 2 x 8 steps): "
+    print(f"G1 T1 --skip-bad-steps (off / on, 2 x 8 steps): "
           f"16 losses and {len(ref[2])} weights bitwise equal; warm step "
           f"off {' / '.join(f'{x:.2f}' for x in off)} ms, on "
           f"{' / '.join(f'{x:.2f}' for x in on)} ms", flush=True)
@@ -4792,6 +5101,11 @@ def cli_runs(torch, out: str, runs: list, rank: int) -> dict:
     try:
         with group_kept():
             for run in runs:
+                if run.get("serve"):
+                    if torch.distributed.is_initialized():
+                        collectives.barrier()
+                    records[run["label"]] = serve_run(torch, out, run, rank)
+                    continue
                 if run.get("copy") and rank == 0:
                     src, step, target = run["copy"]
                     shutil.rmtree(target, ignore_errors=True)
@@ -4837,6 +5151,258 @@ def cli_runs(torch, out: str, runs: list, rank: int) -> dict:
             for name, fn in originals.items():
                 setattr(module, name, fn)
     return records
+
+
+def serve_run(torch, out: str, run: dict, rank: int) -> dict:
+    """One ``cli_runs`` spec with ``"serve": true``: the CLI serving in
+    this rank (``--serve-tp`` over the group this process joined), its
+    record ``OUT/<label>.rank<r>.json``: each attention kernel's launches
+    (#9, #10, #11, #12 verify, #12 prefill), the engine's decode ticks and
+    this rank's prefill forwards, the heads the model's caches were made
+    at, the lockstep's broadcasts (the leader), the summary and tokens
+    (the leader) and the seconds; rank 0's first prefill logits go to
+    ``OUT/<label>.logits.pt``."""
+    from pytorch_distributed_training_tpu_torch.cli.main import main as cli
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2
+    from pytorch_distributed_training_tpu_torch.ops import (
+        decode_attention as da, paged_attention as pa,
+    )
+
+    entries = (da.decode_attention, da.decode_attention_multi,
+               pa.paged_decode_attention, pa.paged_decode_attention_multi,
+               pa.paged_prefill_attention)
+    for e in entries:
+        e.launches = 0
+    heads: set = set()
+    local_heads = GPT2.local_heads
+
+    def counted(self):
+        n = local_heads(self)
+        heads.add(n)
+        return n
+
+    box: dict = {}
+    GPT2.local_heads = counted
+    t0 = time.monotonic()
+    try:
+        with first_logits(torch, box, "logits"):
+            res = cli(run["argv"])
+    finally:
+        GPT2.local_heads = local_heads
+    record = dict(
+        launches=[e.launches for e in entries],
+        decode_ticks=res["engine"]["decode_ticks"],
+        prefill_ticks=res["prefill_ticks"], heads=sorted(heads),
+        summary=res["summary"], tokens=res["tokens"], tp=res.get("tp"),
+        ticks=res.get("ticks"), seconds=time.monotonic() - t0)
+    if rank == 0:
+        torch.save(box["logits"], os.path.join(out,
+                                               f"{run['label']}.logits.pt"))
+    with open(os.path.join(out, f"{run['label']}.rank{rank}.json"),
+              "w") as f:
+        json.dump(record, f)
+    return record
+
+
+# --serve-tp 4 in the pipeline phase's torchrun: GPT-2 124M at full
+# width, bf16, SERVE_ARGV with speculative decoding (k = 4), contiguous
+# then paged, over the first TP_REQUESTS of its requests with budgets up
+# to 32 (a tick costs ~140 ms over gloo on one card: 24 host-staged
+# all-reduces).  The trace's first 8 prompts, so the first prefill
+# tick, are the 16-request runs'; its logits are held to theirs
+# (serving_phase, paged_serving_phase) within TP_LOGITS_ATOL: the
+# row-parallel sums change bf16 roundings.
+TP_RUNS = (("tp4_contig", []), ("tp4_paged", ["--serve-paged"]))
+TP_REQUESTS = 8
+TP_LOGITS_ATOL = 5e-2
+# The JAX tests' tiny GPT-2 (tests/test_serve_tp.py) at TP 2, and its
+# widths at 4 heads for TP 4, f32 with TF32 off: greedy tokens equal to
+# one process's on the card.
+TP_TINY = {2: dict(num_layers=2, hidden_dim=32, num_heads=2, vocab_size=61,
+                   max_seq_len=48),
+           4: dict(num_layers=2, hidden_dim=32, num_heads=4, vocab_size=61,
+                   max_seq_len=48)}
+TP_TINY_ENGINES = {
+    "contig": dict(num_slots=3, max_len=48, prefill_chunk=4,
+                   temperature=0.0),
+    "paged_spec": dict(num_slots=2, max_len=48, prefill_chunk=4,
+                       temperature=0.0, paged=True, block_size=8, spec_k=3),
+}
+
+
+def _tp_runs(seed: int) -> list:
+    return [dict(label=label, serve=True, argv=[
+        *SERVE_ARGV, "--seed", str(seed), "--serve-spec", "--serve-spec-k",
+        "4", "--serve-tp", "4", "--serve-requests", str(TP_REQUESTS),
+        "--serve-max-new", "32", *extra]) for label, extra in TP_RUNS]
+
+
+def _tiny_requests(seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, 61, (int(rng.integers(3, 9)),))
+               .astype(np.int32) for _ in range(5)]
+    return prompts, [6, 4, 8, 5, 7]
+
+
+def _drive_engine(engine, prompts, budgets) -> dict:
+    """FIFO admission into free slots and raw engine ticks; the tokens."""
+    out = {i: [] for i in range(len(prompts))}
+    engine.stream_cb = lambda rid, tok: out[rid].append(tok)
+    pend = list(range(len(prompts)))
+    while pend or engine.busy:
+        while pend and engine.has_free_slot and engine.can_admit(
+                prompts[pend[0]], budgets[pend[0]]):
+            i = pend.pop(0)
+            engine.start(i, prompts[i], budgets[i])
+        engine.step()
+    engine.stream_cb = None
+    return out
+
+
+def tp_tiny_leg(torch, out: str, seed: int, rank: int,
+                device: str = "cuda") -> None:
+    """The tiny f32 models of ``TP_TINY`` (TF32 off) served by
+    ``TP_TINY_ENGINES`` at TP 2 (data 2 x tensor 2: two groups, each led
+    by its first rank) and TP 4 over the 4 ranks, and by one process on
+    each leader from the same weights: ``OUT/tiny.rank<r>.json`` holds
+    each case's tensor-parallel and one-process tokens (leaders)."""
+    import copy
+
+    from pytorch_distributed_training_tpu_torch.comm.mesh import (
+        MeshConfig, make_mesh,
+    )
+    from pytorch_distributed_training_tpu_torch.models import (
+        GPT2, GPT2Config,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel import (
+        shard_for_serving,
+    )
+    from pytorch_distributed_training_tpu_torch.serve import (
+        LockstepEngine, ServingEngine, follow,
+    )
+    from pytorch_distributed_training_tpu_torch.serve.tp import (
+        serving_groups,
+    )
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    record: dict = {}
+    try:
+        for tp, cfg in TP_TINY.items():
+            mesh = make_mesh(MeshConfig(data=4 // tp, tensor=tp))
+            ctl, leader = serving_groups(mesh)
+            whole = GPT2(GPT2Config(**cfg), device=device)
+            whole.init_weights(torch.Generator(device=device).manual_seed(
+                seed))
+            whole.eval()
+            for label, kw in TP_TINY_ENGINES.items():
+                trace = _tiny_requests(seed)
+                model = shard_for_serving(copy.deepcopy(whole), mesh)
+                engine = ServingEngine(model, device=device, **kw)
+                if rank != leader:
+                    follow(engine, ctl, leader)
+                    continue
+                lock = LockstepEngine(engine, ctl, leader)
+                try:
+                    got = _drive_engine(lock, *trace)
+                except BaseException as e:
+                    lock.close(e)
+                    raise
+                lock.close()
+                ref = _drive_engine(ServingEngine(whole, device=device,
+                                                  **kw), *trace)
+                record[f"tp{tp}/{label}"] = {"tp": got, "one": ref}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with open(os.path.join(out, f"tiny.rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def tp_check(out: str, carry: dict) -> dict:
+    """The --serve-tp 4 runs: on every rank the kernels launched 12 times
+    a tick at 3 local heads (contiguous: #9 + #10 = 12 x decode ticks,
+    no paged kernel; paged: #11 + #12 = 12 x decode ticks and #12
+    prefill = 12 x the rank's prefill forwards, no contiguous kernel),
+    every rank the same ticks, every request completed on rank 0 with
+    tokens inside the vocabulary; the first prefill tick's logits within
+    ``TP_LOGITS_ATOL`` of one process's (token agreement over each
+    request's common length printed as information); the tiny f32
+    models' TP 2 and TP 4 tokens equal to one process's.  Returns the
+    launches by row."""
+    import torch
+
+    launches = {"decode_attention": 0, "decode_attention_multi": 0,
+                "paged_decode_attention": 0, "_paged_multi_call": 0}
+    for label, _ in TP_RUNS:
+        ranks = _run_ranks(out, label)
+        lead = ranks[0]
+        paged = "paged" in label
+        for r, x in enumerate(ranks):
+            n9, n10, n11, n12m, n12p = x["launches"]
+            if paged:
+                ok = (n9 == n10 == 0 and n11 + n12m == LAYERS
+                      * x["decode_ticks"] and n12p == LAYERS
+                      * x["prefill_ticks"])
+            else:
+                ok = (n11 == n12m == n12p == 0
+                      and n9 + n10 == LAYERS * x["decode_ticks"])
+            check(ok and x["heads"] == [TP_HEADS]
+                  and x["decode_ticks"] == lead["decode_ticks"]
+                  and x["prefill_ticks"] == lead["prefill_ticks"],
+                  f"TP {label} rank {r}: launches {x['launches']} vs 12 x "
+                  f"{x['decode_ticks']} decode / {x['prefill_ticks']} "
+                  f"prefill ticks, heads {x['heads']}")
+            launches["decode_attention"] += n9
+            launches["decode_attention_multi"] += n10
+            launches["paged_decode_attention"] += n11
+            launches["_paged_multi_call"] += n12m + n12p
+        s = lead["summary"]
+        toks = {int(k): v for k, v in lead["tokens"].items()}
+        check(s["completed"] == TP_REQUESTS and len(toks) == TP_REQUESTS
+              and all(0 <= t < VOCAB for r in toks.values() for t in r),
+              f"TP {label}: {TP_REQUESTS} requests completed, tokens in the "
+              "vocabulary")
+        kind = "paged" if paged else "contig"
+        got = torch.load(os.path.join(out, f"{label}.logits.pt"))
+        ref = carry.pop(f"logits/{kind}")
+        err = (got - ref).abs().max().item()
+        check(got.shape == ref.shape and err <= TP_LOGITS_ATOL,
+              f"TP {label}: first prefill logits within {TP_LOGITS_ATOL} of "
+              f"one process's (max err {err:.3g})")
+        one = carry.pop(f"tokens/{kind}")
+        same = sum(a == b for rid in toks for a, b in zip(toks[rid],
+                                                          one[rid]))
+        total = sum(min(len(v), len(one[rid])) for rid, v in toks.items())
+        tp = lead["tp"]
+        print(f"serve {label} (--serve-tp 4, GPT-2 124M bf16, 4 gloo ranks "
+              f"on one card, 3 heads a rank): completed {s['completed']}/"
+              f"{TP_REQUESTS}, "
+              f"{s['goodput_tok_per_s']} tok/s, ttft p50/p99 "
+              f"{s['ttft_p50_s']}/{s['ttft_p99_s']} s, tpot p50/p99 "
+              f"{s['tpot_p50_s']}/{s['tpot_p99_s']} s; decode ticks "
+              f"{lead['decode_ticks']}, prefill ticks "
+              f"{lead['prefill_ticks']}, launches a rank {lead['launches']}; "
+              f"lockstep {tp['broadcasts']} broadcasts, "
+              f"{tp['broadcast_s'] / lead['ticks'] * 1e3:.4f} ms a tick over "
+              f"{lead['ticks']} ticks; first prefill logits max err {err:.3g} "
+              f"(bound {TP_LOGITS_ATOL}); token agreement with one process "
+              f"(informational) {same}/{total}; {lead['seconds']:.1f} s",
+              flush=True)
+    tiny = _run_ranks(out, "tiny")
+    leaders = {0: tiny[0], 2: tiny[2]}
+    cases = 0
+    for r, rec in leaders.items():
+        for key, v in rec.items():
+            check(v["tp"] == v["one"], f"TP tiny f32 {key} (leader rank "
+                  f"{r}): tokens equal one process's")
+            cases += 1
+    check(cases == 6, f"TP tiny: 6 cases held ({cases})")
+    print(f"serve TP tiny f32 (TF32 off): TP 2 (two groups) and TP 4, "
+          f"contiguous and paged speculative, {cases} cases, greedy tokens "
+          "equal to one process's on the card", flush=True)
+    return launches
 
 
 def cli_runs_leg(out: str, spec: str, cli_joins: bool = False) -> int:
@@ -4927,6 +5493,8 @@ def pipeline_leg(out: str, seed: int) -> int:
             json.dump({"seconds": time.monotonic() - t0}, f)
         with open(os.path.join(out, "p1.json")) as f:
             cli_runs(torch, os.path.join(out, "p1"), json.load(f), rank)
+        collectives.barrier()
+        tp_tiny_leg(torch, os.path.join(out, "p1"), seed, rank)
         collectives.barrier()
     finally:
         comm_init.shutdown()
@@ -5086,7 +5654,7 @@ def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
         os.makedirs(os.path.join(out, part))
     t0 = time.monotonic()
     with open(os.path.join(out, "p1.json"), "w") as f:
-        json.dump(_p1_runs(), f)
+        json.dump(_p1_runs() + _tp_runs(seed), f)
     argv = [os.path.join(repo, "chip_smoke.py"), "--pipeline-leg", out,
             str(seed)]
     proc = torchrun_logged(repo, 4, argv, logs)
@@ -5214,6 +5782,7 @@ def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
           "times are gloo's on one card", flush=True)
     del trainer
     moe_f, moe_b = _p3_check(os.path.join(out, "p1"), carry.pop("t6"))
+    carry["tp_launches"] = tp_check(os.path.join(out, "p1"), carry)
     shutil.rmtree(PP_DIR, ignore_errors=True)
     shutil.rmtree(M1_FLAT_CKPT, ignore_errors=True)
     return {4: fwd + moe_f, 5: bwd + moe_b}
@@ -5357,20 +5926,22 @@ def main() -> int:
     kernels = timed("decode", kernel_phase, torch, da, args.seed, bandwidth)
     kernels.update(timed("paged", paged_kernel_phase, torch, pa, args.seed,
                          bandwidth))
+    timed("tp kernels", tp_kernel_phase, torch, da, pa, args.seed,
+          bandwidth, kernels)
     timed("parity", parity_phase, torch, args.seed)
     timed("train parity", train_parity_phase, torch, fa, args.seed)
-    _, launches = timed("serving", serving_phase, torch, da, args.seed)
-    launches.update(timed("paged serving", paged_serving_phase, torch, da,
-                          pa, args.seed, repo))
-    for kname, n in launches.items():
-        kernels[kname]["launches"] = n
-    timed("prefix", prefix_phase, torch, args.seed)
+    carry: dict = {}
+    _, launches = timed("serving", serving_phase, torch, da, args.seed,
+                        carry)
+    for kname, n in timed("paged serving", paged_serving_phase, torch, da,
+                          pa, args.seed, repo, carry).items():
+        launches[kname] = launches.get(kname, 0) + n
+    timed("prefix", prefix_phase, torch, args.seed, repo)
     timed("generate", generate_phase, torch, da, args.seed)
     figures: dict = {}
     for num, n in timed("training", training_phase, torch, fa, args.seed,
                         figures).items():
         flash[num]["launches"] = n
-    carry: dict = {}
     for num, n in timed("moe", moe_train_phase, torch, args.seed,
                         carry).items():
         flash[num]["launches"] += n
@@ -5396,6 +5967,10 @@ def main() -> int:
     for num, n in timed("pipeline", pipeline_phase, torch, args.seed, repo,
                         carry).items():
         flash[num]["launches"] += n
+    for kname, n in carry.pop("tp_launches").items():
+        launches[kname] = launches.get(kname, 0) + n
+    for kname, n in launches.items():
+        kernels[kname]["launches"] = n
     print("phases: " + ", ".join(f"{k} {v:.1f} s"
                                  for k, v in seconds.items()), flush=True)
     print(f"total: {time.monotonic() - t_start:.1f} s", flush=True)

@@ -12,7 +12,11 @@ batch 32, adam, lr 0.1) on CUDA; ``--use-cpu`` runs on the host;
         --batch-size 16 --accum-steps 2 --optimizer adamw
 
 trains GPT-2; ``--serve`` serves instead (add ``--serve-paged
-[--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool);
+[--serve-kv-dtype int8] [--serve-kv-host-mb 64]`` for the paged KV pool,
+``--serve-disagg P:D`` for prefill- and decode-role pools,
+``--serve-replicas N [--no-serve-affinity]`` for a router over N
+replicas, ``--serve-ttl S`` for deadlines; ``--serve-tp N`` under a
+torchrun world of N serves tensor-parallel);
 
     python -m pytorch_distributed_training_tpu_torch.cli.main \
         --model vit_b16 --dataset packed-images:train.pck --image-size 224 \
@@ -931,7 +935,73 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Max draft tokens verified per slot per tick.")
     p.add_argument("--serve-spec-ngram", type=int, default=4,
                    help="Longest suffix n-gram the drafter matches.")
+    p.add_argument("--serve-tp", type=int, default=1,
+                   help="Tensor-parallel size of the serving engine: run "
+                        "under torchrun with a world of N; each rank holds "
+                        "its shard of the heads and of the MLP and the "
+                        "ranks step in lockstep (serve/tp.py).  Greedy "
+                        "output stays token-exact.  1 = unsharded.")
+    p.add_argument("--serve-replicas", type=int, default=1,
+                   help="Independent engine replicas behind one router "
+                        "(serve/router.py): prefix-cache affinity, then "
+                        "least-loaded dispatch.  Replica k runs on card k "
+                        "when there are enough cards, else all share one.")
+    p.add_argument("--serve-affinity", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="Prefix-cache-affinity routing (--serve-replicas > "
+                        "1, paged engines); off = pure least-loaded "
+                        "dispatch.")
+    p.add_argument("--serve-ttl", type=float, default=None,
+                   help="Deadline in seconds after arrival: a request "
+                        "still queued past it is shed, one in flight is "
+                        "cancelled at the next tick; both are excluded from "
+                        "goodput.")
+    p.add_argument("--serve-disagg", default=None, metavar="P:D",
+                   help="Disaggregated prefill/decode serving: a P-slot "
+                        "prefill-role pool and a D-slot decode-role pool "
+                        "per replica (serve/disagg.py), KV handed off "
+                        "through the shared paged block pool (or a row "
+                        "copy, contiguous).  Replaces --serve-slots.")
     return p
+
+
+def _check_serve_scale(tp: int, replicas: int) -> None:
+    """The refusals of ``--serve-tp`` / ``--serve-replicas``."""
+    if tp < 1 or replicas < 1:
+        raise SystemExit("--serve-tp and --serve-replicas must be >= 1")
+    if tp > 1 and replicas > 1:
+        raise SystemExit(
+            "--serve-tp > 1 with --serve-replicas > 1 needs a router that "
+            "spans processes (ROADMAP.md Queue 1 item 11b, not ported yet): "
+            "serve one tensor-parallel engine, or replicas at --serve-tp 1"
+        )
+
+
+def _serve_world(tp: int, device) -> tuple[int, int]:
+    """``(rank, world)`` of a ``--serve-tp`` run: the torchrun group
+    joined (gloo when the ranks share a card or run on the host, NCCL
+    when each has its own card); ``(0, 1)`` at ``tp`` 1."""
+    import os
+
+    import torch
+
+    from ..comm import init as comm_init
+
+    if tp == 1:
+        return 0, 1
+    world = (comm_init.process_count() if comm_init.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != tp:
+        raise SystemExit(
+            f"--serve-tp {tp} runs under torchrun with a world of {tp} "
+            f"(got {world}): python -m torch.distributed.run "
+            f"--nproc-per-node {tp} -m "
+            "pytorch_distributed_training_tpu_torch.cli.main --serve ..."
+        )
+    backend = ("nccl" if device.type == "cuda"
+               and torch.cuda.device_count() >= tp else "gloo")
+    comm_init.initialize(device, backend=backend)
+    return comm_init.process_index(), world
 
 
 def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
@@ -939,23 +1009,52 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
               spec_ngram=4, device=None, paged=False, block_size=16,
               num_blocks=0, kv_dtype="bf16", kv_host_mb=0.0,
               checkpoint_dir=None, emitter=None, spans=None,
-              slo_policy=None) -> dict:
+              slo_policy=None, ttl=None, tp=1, replicas=1, affinity=True,
+              disagg=None) -> dict:
     """Serve ``model`` over the synthetic trace and print the summary.
     With ``checkpoint_dir`` the newest verified checkpoint's parameters
     replace the fresh-init weights drawn from ``seed``.  ``emitter``,
     ``spans`` and ``slo_policy`` are the scheduler's telemetry hooks
     (``_Telemetry``); the caller closes them.
 
-    Returns ``{"summary", "engine", "tokens"}``: the SLO summary, the
-    engine's counters, and every request's generated tokens by id."""
+    Scale-out, as the JAX CLI builds it: ``disagg`` ("P:D") splits each
+    replica into a prefill-role and a decode-role pool
+    (``DisaggServingEngine``); ``replicas`` > 1 puts a prefix-affinity
+    router (``ReplicaRouter``) above the replicas, replica k on card k
+    when there are enough cards, else all on ``device``; ``tp`` > 1 shards
+    the engine over a torchrun world of ``tp`` ranks, the first of which
+    drives the rest in lockstep (``serve/tp.py``).  ``ttl`` gives every
+    request a deadline ``ttl`` seconds after its arrival.
+
+    Returns ``{"summary", "engine", "tokens", "prefill_ticks", "rank",
+    ...}``: the SLO summary, the engine's (tier's, router's summed)
+    counters, every request's generated tokens by id, this rank's prefill
+    forwards; ``router`` and ``tp`` hold the router's counters and the
+    lockstep's.  A follower rank returns its engine's counters, no
+    summary and no tokens."""
+    import copy
+
+    import torch
+
     from ..models import create_model
     from ..serve import (
-        ContinuousScheduler, Request, ServingEngine, summarize_records,
+        DisaggServingEngine, LockstepEngine, ServingEngine, follow,
     )
     from ..train import make_policy
-    from ..utils import metrics as metrics_lib
     from ..utils.device import resolve_device
 
+    _check_serve_scale(tp, replicas)
+    role_slots = None
+    if disagg is not None:
+        try:
+            p_slots, d_slots = (int(x) for x in str(disagg).split(":"))
+            if p_slots < 1 or d_slots < 1:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(
+                f"--serve-disagg wants P:D with both >= 1 (e.g. 1:3), got "
+                f"{disagg!r}") from None
+        role_slots = (p_slots, d_slots)
     if kv_host_mb and not paged:
         raise SystemExit(
             "--serve-kv-host-mb spills paged blocks — add --serve-paged"
@@ -991,15 +1090,89 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         print("warning: serving FRESH-INIT weights (pass --checkpoint-dir "
               "with a trained run for real outputs)")
     max_len = net.cfg.max_seq_len
+    rank, leader, ctl = 0, 0, None
+    if tp > 1:
+        from ..comm.mesh import MeshConfig, make_mesh
+        from ..parallel.sharded import shard_for_serving
+        from ..serve.tp import serving_groups
+
+        rank, _ = _serve_world(tp, device)
+        heads = net.cfg.num_heads
+        if heads % tp:
+            build_parser().error(
+                f"--serve-tp {tp} needs heads ({heads}) divisible by it "
+                "(each rank attends over its own heads)")
+        mesh = make_mesh(MeshConfig(data=1, tensor=tp))
+        shard_for_serving(net, mesh)
+        ctl, leader = serving_groups(mesh)
     tokens: dict = {}
-    engine = ServingEngine(
-        net, num_slots=num_slots, max_len=max_len,
-        prefill_chunk=prefill_chunk, temperature=0.0, seed=seed,
-        spec_k=spec_k, spec_ngram=spec_ngram, device=device,
-        stream_cb=lambda rid, tok: tokens.setdefault(rid, []).append(tok),
+    engine_kw = dict(
+        max_len=max_len, prefill_chunk=prefill_chunk, temperature=0.0,
+        seed=seed, spec_k=spec_k, spec_ngram=spec_ngram,
         paged=paged, block_size=block_size, num_blocks=num_blocks or None,
         kv_dtype=kv_dtype, kv_host_mb=kv_host_mb or None,
+        stream_cb=(None if rank != leader else
+                   lambda rid, tok: tokens.setdefault(rid, []).append(tok)),
     )
+    engines = []
+    for k in range(replicas):
+        dev, net_k = device, net
+        if (device.type == "cuda" and replicas > 1
+                and torch.cuda.device_count() >= replicas):
+            dev = torch.device("cuda", k)
+            if dev != device:
+                net_k = copy.deepcopy(net).to(dev)
+        if role_slots is not None:
+            engines.append(DisaggServingEngine(
+                net_k, prefill_slots=role_slots[0],
+                decode_slots=role_slots[1], device=dev, **engine_kw))
+        else:
+            engines.append(ServingEngine(net_k, num_slots=num_slots,
+                                         device=dev, **engine_kw))
+    engine = engines[0]
+
+    def prefill_ticks():
+        return sum((e.prefill_engine if role_slots else e).prefill_ticks
+                   for e in engines)
+
+    if rank != leader:
+        follow(engine, ctl, leader)
+        return {"summary": None, "engine": engine.stats(), "tokens": {},
+                "prefill_ticks": prefill_ticks(), "rank": rank}
+    lockstep = LockstepEngine(engine, ctl, leader) if tp > 1 else None
+    try:
+        result = _serve_trace(
+            engines=[lockstep] if lockstep is not None else engines,
+            net=net, seed=seed, seq_len=seq_len, max_len=max_len,
+            max_new=max_new, n_requests=n_requests, rate=rate, ttl=ttl,
+            metrics_jsonl=metrics_jsonl, emitter=emitter, spans=spans,
+            slo_policy=slo_policy, affinity=affinity, paged=paged,
+            spec_k=spec_k, spec_ngram=spec_ngram, kv_dtype=kv_dtype,
+            kv_host_mb=kv_host_mb, block_size=block_size,
+            prefill_chunk=prefill_chunk, num_slots=num_slots,
+            role_slots=role_slots, tp=tp, tokens=tokens, lockstep=lockstep)
+    except BaseException as e:
+        if lockstep is not None:
+            lockstep.close(e)
+        raise
+    if lockstep is not None:
+        lockstep.close()
+    return {**result, "prefill_ticks": prefill_ticks(), "rank": rank}
+
+
+def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
+                 n_requests, rate, ttl, metrics_jsonl, emitter, spans,
+                 slo_policy, affinity, paged, spec_k, spec_ngram, kv_dtype,
+                 kv_host_mb, block_size, prefill_chunk, num_slots,
+                 role_slots, tp, tokens, lockstep) -> dict:
+    """``run_serve``'s trace on the leader: the synthetic requests, the
+    scheduler or router over ``engines``, and the summary lines."""
+    from ..serve import (
+        ContinuousScheduler, ReplicaRouter, Request, summarize_records,
+    )
+    from ..utils import metrics as metrics_lib
+
+    engine = engines[0]
     rng = np.random.default_rng(seed)
     p_hi = max(min(seq_len, max_len - max_new) // 2, 2)
     prompts = [
@@ -1014,42 +1187,74 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         arrivals = np.zeros(n_requests)
     t0 = time.monotonic()
     requests = [
-        Request(i, prompts[i], int(budgets[i]), float(t0 + arrivals[i]))
+        Request(i, prompts[i], int(budgets[i]), float(t0 + arrivals[i]),
+                deadline=(float(t0 + arrivals[i] + ttl)
+                          if ttl is not None else None))
         for i in range(n_requests)
     ]
     req_log = (
         metrics_lib.RequestLogger(metrics_jsonl) if metrics_jsonl else None
     )
     # The whole trace is this tool's own workload: queue all of it.
-    scheduler = ContinuousScheduler(
-        engine, max_queue=n_requests, request_logger=req_log,
-        emitter=emitter, spans=spans, slo=slo_policy,
-    )
+    router = None
+    if len(engines) > 1:
+        router = ReplicaRouter(
+            engines, max_queue=n_requests, request_logger=req_log,
+            emitter=emitter, affinity=affinity, spans=spans, slo=slo_policy,
+        )
+        driver = router
+    else:
+        driver = ContinuousScheduler(
+            engine, max_queue=n_requests, request_logger=req_log,
+            emitter=emitter, spans=spans, slo=slo_policy,
+        )
+    n_blocks = (engine.blocks.num_blocks if role_slots is not None
+                else engine.pool.num_blocks) if paged else 0
     layout = (
-        f"paged ({engine.pool.num_blocks} blocks x {block_size})" if paged
+        f"paged ({n_blocks} blocks x {block_size})" if paged
         else "contiguous"
     )
     if kv_dtype != "bf16":
         layout += f", kv={kv_dtype}"
     if kv_host_mb:
         layout += f" + {kv_host_mb:g} MB host KV tier"
+    slots_note = (f"{role_slots[0]}+{role_slots[1]} prefill+decode slots"
+                  if role_slots is not None else f"{num_slots} slots")
     spec_note = f", spec k={spec_k} ngram={spec_ngram}" if spec_k else ""
+    scale_note = ""
+    if tp > 1 or len(engines) > 1:
+        scale_note = (f", tp={tp} x {len(engines)} replica(s)"
+                      f"{', affinity' if len(engines) > 1 and affinity else ''}")
     print(
-        f"serving started: {n_requests} requests, {num_slots} slots "
+        f"serving started: {n_requests} requests, {slots_note} "
         f"({layout}), rate={rate or 'burst'} req/s, "
-        f"prefill_chunk={prefill_chunk}{spec_note}"
+        f"prefill_chunk={prefill_chunk}{spec_note}{scale_note}"
     )
     # Every tick reads its sampled tokens back to the host, so the trace
     # has finished on the device when run() returns.
-    records = scheduler.run(requests)
+    records = driver.run(requests)
     elapsed = time.monotonic() - t0
+    if router is not None:
+        engine_stats = router.engine_stats()
+        samples = (router.queue_depth_samples(),
+                   router.active_slot_samples())
+    else:
+        engine_stats = engine.stats()
+        samples = (driver.queue_depth_samples, driver.active_slot_samples)
     summary = summarize_records(
-        records, elapsed=elapsed,
-        queue_depth_samples=scheduler.queue_depth_samples,
-        rejected=scheduler.rejected,
-        active_slot_samples=scheduler.active_slot_samples,
-        engine_stats=engine.stats() if (paged or spec_k) else None,
+        records, elapsed=elapsed, queue_depth_samples=samples[0],
+        rejected=driver.rejected, active_slot_samples=samples[1],
+        engine_stats=engine_stats if (paged or spec_k) else None,
     )
+    if router is not None:
+        rt = router.stats()
+        hit_rate = (rt["affinity_hits"] / sum(rt["routed"])
+                    if sum(rt["routed"]) else 0.0)
+        print(f"router: routed={rt['routed']} "
+              f"affinity_hit_rate={hit_rate:.3f} "
+              f"rebalanced={rt['rebalanced']} rejected={rt['rejected']} "
+              f"sibling_fetches={rt['sibling_fetches']} "
+              f"({rt['sibling_fetch_blocks']} blocks)")
     if spec_k and summary.get("spec"):
         sp = summary["spec"]
         print(
@@ -1058,7 +1263,7 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
             f"tokens_per_tick={sp['tokens_per_decode_tick']}"
         )
     if paged:
-        st = engine.stats()
+        st = engine_stats
         hit_rate = (
             st["prefix_hit_tokens"] / st["prefix_lookup_tokens"]
             if st["prefix_lookup_tokens"] else 0.0
@@ -1076,6 +1281,25 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
                 f"dropped={st.get('host_dropped_blocks', 0)} "
                 f"resident={st.get('host_blocks', 0)} blocks"
             )
+    ticks = len(samples[0])
+    extra = {}
+    if role_slots is not None:
+        tiers = [getattr(e, "_engine", e) for e in engines]
+        handoff_s = sum(t.handoff_s for t in tiers)
+        print(f"disagg: {engine_stats.get('handoffs', 0)} prefill->decode "
+              f"handoff(s), roles {role_slots[0]}p+{role_slots[1]}d, "
+              f"handoff host {handoff_s / max(ticks, 1) * 1e3:.4f} ms a "
+              "tick")
+        extra["handoff_s"] = handoff_s
+    if lockstep is not None:
+        print(f"tensor parallel: {tp} ranks in lockstep, "
+              f"{lockstep.broadcasts} calls broadcast, broadcast host "
+              f"{lockstep.broadcast_s / max(ticks, 1) * 1e3:.4f} ms a tick")
+        extra["tp"] = {"broadcasts": lockstep.broadcasts,
+                       "broadcast_s": lockstep.broadcast_s}
+    extra["ticks"] = ticks
+    if router is not None:
+        extra["router"] = router.stats()
     metrics_lib.MetricsLogger(None).log({"mode": "serve", **{
         k: v for k, v in summary.items() if not isinstance(v, dict)
     }})
@@ -1084,7 +1308,8 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         print(f"trace: {spans.recorded} spans recorded ({spans.sampled_out} "
               f"sampled out at rate {spans.sample_rate}); export with "
               "tools/trace_export.py")
-    return {"summary": summary, "engine": engine.stats(), "tokens": tokens}
+    return {"summary": summary, "engine": engine_stats, "tokens": tokens,
+            **extra}
 
 
 def _load_params(net, params: dict) -> None:
@@ -1697,6 +1922,9 @@ def _child_argv(parser: argparse.ArgumentParser, args) -> list[str]:
         if isinstance(action, argparse._StoreTrueAction):
             if value:
                 argv.append(action.option_strings[0])
+        elif isinstance(action, argparse.BooleanOptionalAction):
+            # --flag / --no-flag: the first option string is the positive.
+            argv.append(action.option_strings[0 if value else 1])
         elif value is not None:
             argv.extend([action.option_strings[0], str(value)])
     return argv
@@ -1759,10 +1987,17 @@ def main(argv: list[str] | None = None):
                          device="cpu" if args.use_cpu else None)
     if model_kind(args.model) != "lm":
         raise SystemExit("--serve requires a transformer LM (--model gpt2*)")
+    from ..comm import init as comm_init
     from ..utils.device import resolve_device
 
-    tel = _Telemetry(args, rank=0, world=1, mode="serve",
-                     device=resolve_device("cpu" if args.use_cpu else None))
+    device = resolve_device("cpu" if args.use_cpu else None)
+    # A --serve-tp run joins its torchrun group first: each rank's
+    # telemetry is its own.
+    _check_serve_scale(args.serve_tp, args.serve_replicas)
+    joined = args.serve_tp > 1 and not comm_init.is_initialized()
+    rank, world = _serve_world(args.serve_tp, device)
+    tel = _Telemetry(args, rank=rank, world=world, mode="serve",
+                     device=device)
     result = None
     try:
         result = run_serve(
@@ -1779,10 +2014,15 @@ def main(argv: list[str] | None = None):
             num_blocks=args.serve_num_blocks, kv_dtype=args.serve_kv_dtype,
             kv_host_mb=args.serve_kv_host_mb,
             checkpoint_dir=args.checkpoint_dir, emitter=tel.live_emitter,
-            spans=tel.spans, slo_policy=tel.slo,
+            spans=tel.spans, slo_policy=tel.slo, ttl=args.serve_ttl,
+            tp=args.serve_tp, replicas=args.serve_replicas,
+            affinity=args.serve_affinity, disagg=args.serve_disagg,
         )
     finally:
-        tel.close(**({"serve": result["summary"]} if result else {}))
+        tel.close(**({"serve": result["summary"]}
+                     if result and result["summary"] else {}))
+        if joined:
+            comm_init.shutdown()
     return result
 
 

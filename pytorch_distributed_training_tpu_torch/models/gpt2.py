@@ -200,9 +200,16 @@ class GPT2(nn.Module):
                 "decode mode supports the dense single-device attention "
                 "path (no MoE, no sp_mesh)")
 
+    def local_heads(self) -> int:
+        """The attention heads this rank holds: all of them, or under a
+        tensor shard of ``qkv`` (tensor-parallel serving) its share."""
+        head_dim = self.cfg.hidden_dim // self.cfg.num_heads
+        return self.blocks[0].attn.qkv.weight.shape[0] // (3 * head_dim)
+
     def new_cache(self, batch: int, length: int):
         """Zeroed per-layer KV caches for ``batch`` rows of ``length``
-        positions, in this model's dtype and on its device."""
+        positions at this rank's heads (``local_heads``), in this model's
+        dtype and on its device."""
         if not 1 <= length <= self.cfg.max_seq_len:
             raise ValueError(
                 f"cache length {length} outside 1..{self.cfg.max_seq_len} "
@@ -212,7 +219,8 @@ class GPT2(nn.Module):
         cfg = self.cfg
         return [
             new_kv_cache(
-                batch, cfg.num_heads, length, cfg.hidden_dim // cfg.num_heads,
+                batch, self.local_heads(), length,
+                cfg.hidden_dim // cfg.num_heads,
                 dtype=self.wte.dtype, device=self.wte.device,
             )
             for _ in range(cfg.num_layers)
@@ -221,9 +229,10 @@ class GPT2(nn.Module):
     def new_block_cache(self, num_blocks: int, block_size: int,
                         kv_quant: str | None = None):
         """Zeroed per-layer paged pools of ``num_blocks`` blocks of
-        ``block_size`` positions (plus each layer's scratch block), in this
-        model's dtype and on its device; ``kv_quant`` "int8"/"int4"
-        stores the quantized payload and bf16 scales instead."""
+        ``block_size`` positions (plus each layer's scratch block) at this
+        rank's heads, in this model's dtype and on its device;
+        ``kv_quant`` "int8"/"int4" stores the quantized payload and bf16
+        scales instead."""
         if num_blocks < 1 or block_size < 1:
             raise ValueError(
                 f"num_blocks ({num_blocks}) and block_size ({block_size}) "
@@ -233,7 +242,7 @@ class GPT2(nn.Module):
         cfg = self.cfg
         return [
             new_kv_blocks(
-                num_blocks, cfg.num_heads, block_size,
+                num_blocks, self.local_heads(), block_size,
                 cfg.hidden_dim // cfg.num_heads, dtype=self.wte.dtype,
                 device=self.wte.device, kv_quant=kv_quant,
             )

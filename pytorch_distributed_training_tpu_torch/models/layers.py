@@ -58,6 +58,14 @@ ring_attention.py``, ``parallel/ulysses.py``); both compose with tensor
 parallelism, each rank of a sequence group carrying its tensor shard of
 the heads.  A module whose weights are whole (no tensor shard) runs the
 plain path whatever the context says.
+
+**Tensor-parallel serving** (the cached forward, ``parallel/sharded.py::
+shard_for_serving``).  The same shards: the local head count comes from
+the ``qkv`` shard, the cache holds those heads only (``GPT2.new_cache``),
+the decode and paged kernels run on them as on whole weights, and the
+partial projections are summed over the tensor group (``g``) before the
+bias.  These are the JAX package's ``*_tp`` ``shard_map`` wrappers
+(``pallas_attention.py``) without a wrapper.
 """
 
 from __future__ import annotations
@@ -185,7 +193,18 @@ class SelfAttention(nn.Module):
         # package picks between this split and last-axis column spans
         # (``qkv[..., :d]``) by the attention it dispatches to, a layout
         # choice for XLA; in PyTorch both are the same strided view.
-        q, k, v = self.qkv(x).view(b, l, 3, h, d // h).unbind(2)
+        # A cached forward under a tensor shard (serving) attends over
+        # the rank's local heads (module docstring).
+        local = self.qkv.weight.shape[0] // (3 * (d // h))
+        group = None
+        if local != h:
+            if cache is None or self.parallel is None:
+                raise ValueError(
+                    "a tensor shard of qkv needs the parallel context "
+                    "(parallel/sharded.py::configure_model)")
+            group = self.parallel.tp_group
+            x = copy_to_group(x, group)
+        q, k, v = self.qkv(x).view(b, l, 3, local, d // h).unbind(2)
         if cache is None:
             if positions is not None:
                 raise ValueError("positions need a KV cache")
@@ -204,7 +223,12 @@ class SelfAttention(nn.Module):
                 )
             else:
                 out = _slot_attend(q, k, v, positions, cache, attn_mask)
-        return self.proj(out.reshape(b, l, d))
+        out = out.reshape(b, l, local * (d // h))
+        if group is None:
+            return self.proj(out)
+        y = reduce_from_group(torch.nn.functional.linear(
+            out, self.proj.weight), group)
+        return y + self.proj.bias
 
 
     def _parallel_forward(self, x):

@@ -133,6 +133,45 @@ def configure_model(model, mesh, sp_mode: str = "ring"):
     return ctx
 
 
+def shard_for_serving(model, mesh):
+    """A tensor-parallel serving replica of ``model`` (a whole GPT-2) on
+    ``mesh``'s tensor group, in place: each leaf the tensor-parallel
+    layers consume (``TP_CONSUMED``) and ``serve_tp_rules`` splits over
+    ``tensor`` becomes this rank's shard (``qkv`` by head, as training
+    lays it out), every other leaf stays whole, and the model's
+    ``parallel`` context is set (``configure_model``).  JAX's
+    ``shard_map`` wrappers around the attention kernels
+    (``pallas_attention.py``'s ``*_tp``) are this: the same kernels on
+    the rank's local heads.  A head count the tensor axis does not
+    divide is refused (JAX replicates the cache then)."""
+    from torch import nn
+
+    from .sharding import serve_tp_rules
+
+    tp = mesh.shape[AXIS_TENSOR]
+    heads = model.cfg.num_heads
+    if heads % tp:
+        raise ValueError(
+            f"tensor-parallel serving over {tp} ranks needs heads "
+            f"({heads}) divisible by it (each rank attends over its own "
+            "heads)")
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    specs = infer_params_sharding(shapes, mesh, serve_tp_rules())
+    with torch.no_grad():
+        for name, param in list(model.named_parameters()):
+            if not (TP_CONSUMED.search(name) and AXIS_TENSOR
+                    in spec_axis_names(specs[name])):
+                continue
+            place = Placement.of(specs[name], shapes[name], mesh,
+                                 3 if _BY_HEAD.search(name) else 1)
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf, nn.Parameter(
+                place.shard(param.detach()).contiguous(),
+                requires_grad=False))
+    configure_model(model, mesh)
+    return model
+
+
 def spec_axis_names(spec: P) -> set:
     """Every mesh axis a spec names, on any dim."""
     return {a for e in spec if e is not None

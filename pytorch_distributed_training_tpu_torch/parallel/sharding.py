@@ -243,6 +243,19 @@ def tp_rules_for(model: str) -> ShardingRules:
     return FSDP_RULES
 
 
+def serve_tp_rules(model: str = "gpt2") -> ShardingRules:
+    """``tp_rules_for`` for a tensor-parallel serving engine, with the
+    deliberate replication of ``wpe`` spelled out (JAX's
+    ``serve_tp_rules``).  ``wte`` keeps its vocab-split rule, which
+    GPT-2's 50257-row vocabulary never divides (dropped, so
+    replicated).  The port's engine consumes the column- and row-split
+    leaves as its shards (``parallel/sharded.py::shard_for_serving``) and
+    keeps every other leaf whole on each rank."""
+    base = tp_rules_for(model)
+    return dataclasses.replace(
+        base, rules=((r"wpe", P()),) + tuple(base.rules))
+
+
 def infer_params_sharding(shapes: dict, mesh,
                           rules: ShardingRules = DDP_RULES) -> dict[str, P]:
     """``{name: spec}`` for ``shapes`` (``{name: shape}`` of one model's

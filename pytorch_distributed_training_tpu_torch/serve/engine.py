@@ -1,7 +1,18 @@
 """Continuous-batching decode engine: the counterpart of the JAX package's
-``serve/engine.py`` (one engine with both roles, no tensor parallelism),
-over the contiguous slot pool or, with ``paged=True``, the paged block
-pool with prefix caching, an optional host-RAM tier and int8/int4 KV.
+``serve/engine.py``, over the contiguous slot pool or, with
+``paged=True``, the paged block pool with prefix caching, an optional
+host-RAM tier and int8/int4 KV.
+
+``role`` splits the engine for the disaggregated tier
+(``serve/disagg.py``): a "prefill" engine runs only the prefill step and
+parks each finished prompt for handoff (``export_handoff``), building no
+drafter; a "decode" engine runs only decode/verify and admits only by
+``adopt``; "both" is the interleaved engine.  ``block_pool`` puts a
+paged engine's view over a shared ``BlockPool``.  A model whose
+attention holds a tensor shard of the heads (``parallel/sharded.py::
+shard_for_serving``) serves tensor-parallel: the caches hold the rank's
+local heads and the same kernels run on them; ``serve/tp.py`` keeps the
+ranks' engines in lockstep.
 
 Three steps cover the serving loop, each one forward over the whole slot
 array so shapes never change:
@@ -46,8 +57,10 @@ from ..models.generate import eos_cut_length, filter_logits, sample_logits
 from ..obs.trace import phase_span
 from ..utils.device import resolve_device
 from .draft import NgramIndex, PromptLookupDrafter
-from .kv_pool import KVCachePool, PagedKVCachePool
+from .kv_pool import KVCachePool, PagedKVCachePool, SlotExport
 from .kv_store import HostKVStore
+
+ROLES = ("both", "prefill", "decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +93,31 @@ class _Slot:
         return np.concatenate(
             [self.prompt, np.asarray(self.generated, np.int32)]
         ) if self.generated else self.prompt
+
+
+@dataclasses.dataclass
+class Handoff:
+    """One request in flight from a prefill-role engine to a decode-role
+    engine (``serve/disagg.py``): the host request state plus the KV
+    handle (``SlotExport``).  The decode engine adopts it without
+    recomputing a prompt position."""
+
+    request_id: Any
+    prompt: np.ndarray
+    max_new: int
+    generated: list
+    pending: int
+    export: SlotExport
+
+
+def tp_size(model) -> int:
+    """The tensor-parallel size ``model``'s attention is sharded over (1
+    when its weights are whole)."""
+    attn = model.blocks[0].attn
+    par = getattr(attn, "parallel", None)
+    if par is None or attn.qkv.weight.shape[0] == 3 * model.cfg.hidden_dim:
+        return 1
+    return par.tp_size
 
 
 class ServingEngine:
@@ -120,6 +158,8 @@ class ServingEngine:
         prefix_cache: bool = True,
         kv_dtype: str = "bf16",
         kv_host_mb: float | None = None,
+        role: str = "both",
+        block_pool=None,
     ):
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -134,10 +174,27 @@ class ServingEngine:
                 "quantized KV storage lives in the paged block pool — "
                 "pass paged=True with kv_dtype int8/int4"
             )
+        if role not in ROLES:
+            raise ValueError(
+                f"role must be 'both', 'prefill' or 'decode', got {role!r}"
+            )
+        if block_pool is not None and not paged:
+            raise ValueError(
+                "block_pool sharing is the paged layout's handoff "
+                "substrate — pass paged=True"
+            )
         if kv_host_mb is not None and not paged:
             raise ValueError(
                 "the host KV tier spills paged blocks — pass paged=True"
             )
+        if kv_host_mb is not None and block_pool is not None:
+            raise ValueError(
+                "on a shared BlockPool the host tier belongs to the pool "
+                "— construct it there (BlockPool(host_store=...)), not on "
+                "one of its views"
+            )
+        self.role = role
+        self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.eos_token_id = eos_token_id
@@ -145,24 +202,28 @@ class ServingEngine:
         self.stream_cb = stream_cb
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
+        # A prefill-role engine never decodes: no drafter (spec_k inert).
         self.drafter = PromptLookupDrafter(
             max_ngram=spec_ngram,
             min_ngram=min(max(2, spec_ngram - 1), spec_ngram),
             index=NgramIndex(spec_ngram),
-        ) if spec_k > 0 else None
+        ) if spec_k > 0 and role != "prefill" else None
         cap = max_len or model.cfg.max_seq_len
         self.paged = paged
         if paged:
+            shared = block_pool is not None
             self.pool = PagedKVCachePool(
                 self.model, num_slots=num_slots,
-                num_blocks=num_blocks or num_slots * (-(-cap // block_size)),
-                block_size=block_size, max_len=cap,
+                num_blocks=None if shared else (
+                    num_blocks or num_slots * (-(-cap // block_size))),
+                block_size=None if shared else block_size, max_len=cap,
                 prefix_cache=prefix_cache,
                 kv_quant=None if kv_dtype == "bf16" else kv_dtype,
                 host_store=(
                     None if kv_host_mb is None
                     else HostKVStore(int(kv_host_mb * 2**20))
                 ),
+                blocks=block_pool,
             )
         else:
             self.pool = KVCachePool(
@@ -170,12 +231,19 @@ class ServingEngine:
             )
         self.max_len = self.pool.max_len
         self.num_slots = num_slots
+        self.tp = tp_size(self.model)
+        # Host-side admission cap (set by a re-split of the tier): below
+        # num_slots, admission and adoption stop at it while the steps
+        # keep their width.  None = uncapped.
+        self.slot_cap: int | None = None
         self._slots: list[_Slot | None] = [None] * num_slots
+        self._seed = seed
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._sample_kw = dict(temperature=temperature, top_k=top_k)
         self._mask_cols = torch.arange(self.pool.mask_len, device=self.device)
         self.prefill_tokens_computed = 0
         self.prefill_tokens_offered = 0
+        self.prefill_ticks = 0  # forwards of prefill_step (not in stats)
         self.decode_ticks = 0
         self.decode_slot_ticks = 0  # one per live decoding slot per tick
         self.decode_tokens = 0
@@ -287,8 +355,15 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
 
     @property
+    def effective_slots(self) -> int:
+        """Admission width: ``num_slots`` unless a re-split capped it."""
+        if self.slot_cap is None:
+            return self.num_slots
+        return min(self.slot_cap, self.num_slots)
+
+    @property
     def has_free_slot(self) -> bool:
-        return self.pool.num_active < self.num_slots
+        return self.pool.num_active < self.effective_slots
 
     @property
     def busy(self) -> bool:
@@ -326,6 +401,11 @@ class ServingEngine:
 
     def start(self, request_id, prompt, max_new: int) -> int:
         """Admit a request into a free slot; returns the slot index."""
+        if self.role == "decode":
+            raise RuntimeError(
+                "a decode-role engine admits by adopt() — it runs no "
+                "prefill step to consume a raw prompt with"
+            )
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -352,6 +432,51 @@ class ServingEngine:
             (i, sl) for i, sl in enumerate(self._slots)
             if sl is not None and sl.phase == phase
         ]
+
+    # ------------------------------------------------------------------ #
+    # prefill->decode handoff (serve/disagg.py)
+    # ------------------------------------------------------------------ #
+
+    def handoff_ready(self) -> list[int]:
+        """Slots whose prompt finished prefilling on this prefill-role
+        engine and now await adoption by a decode-role engine."""
+        return [i for i, _ in self._live("handoff")]
+
+    def export_handoff(self, slot: int) -> Handoff:
+        """Detach a finished-prefill request for decode-side adoption: the
+        request state plus the pool's KV handle (paged: the block-table
+        row, the slot frees at once; contiguous: the row, copied at
+        adoption).  No forward runs."""
+        sl = self._slots[slot]
+        if sl is None or sl.phase != "handoff":
+            raise ValueError(f"slot {slot} is not awaiting handoff")
+        handoff = Handoff(
+            request_id=sl.request_id, prompt=sl.prompt, max_new=sl.max_new,
+            generated=list(sl.generated), pending=int(sl.pending),
+            export=self.pool.export_slot(slot),
+        )
+        self._slots[slot] = None
+        return handoff
+
+    def can_adopt(self) -> bool:
+        return self.has_free_slot
+
+    def adopt(self, handoff: Handoff) -> int:
+        """Adopt a handed-off request into this decode-role engine: the
+        pool installs the KV handle (the prompt's K/V as the prefill side
+        wrote them) and the slot resumes at the pending token."""
+        slot = self.pool.adopt_slot(handoff.export)
+        self._slots[slot] = _Slot(
+            request_id=handoff.request_id, prompt=handoff.prompt,
+            max_new=handoff.max_new, consumed=handoff.prompt.size,
+            phase="decode", pending=handoff.pending,
+            generated=list(handoff.generated),
+        )
+        if self.drafter is not None:
+            # The decode side owns the drafter: the adopted prompt feeds
+            # the shared n-gram index here.
+            self.drafter.observe_prompt(handoff.prompt)
+        return slot
 
     def live_requests(self) -> list:
         """Request ids of every admitted, unfinished request."""
@@ -415,13 +540,18 @@ class ServingEngine:
                 span_kw["replica"] = self.spans_replica
         with phase_span(self.spans, "serve/prefill", **span_kw):
             tok = self._prefill(tokens, positions, last_idx)
+        self.prefill_ticks += 1
         events: list[Event] = []
         for i, sl in batch:
             sl.consumed += took[i]
             self.prefill_tokens_computed += took[i]
             self.pool.advance(i, took[i])
             if sl.consumed == sl.prompt.size:
-                sl.phase = "decode"
+                # A prefill-role engine parks the finished prompt for
+                # handoff; its first token (the TTFT moment) is still
+                # sampled and emitted here, and an EOS or a one-token
+                # budget retires it on this side.
+                sl.phase = "handoff" if self.role == "prefill" else "decode"
                 events.extend(self._emit(i, sl, int(tok[i])))
         return events
 
@@ -535,9 +665,15 @@ class ServingEngine:
         return events
 
     def step(self) -> list[Event]:
-        """One engine tick: a prefill chunk for prompt-loading slots, then
-        a decode (or speculative verify) batch for generating slots."""
+        """One engine tick.  ``role="both"``: a prefill chunk for
+        prompt-loading slots, then a decode (or speculative verify) batch
+        for generating slots.  A role engine runs its own half only; the
+        disaggregated tier sequences the two."""
+        if self.role == "prefill":
+            return self.prefill_step()
         decode = self.verify_step if self.spec_k > 0 else self.decode_step
+        if self.role == "decode":
+            return decode()
         return self.prefill_step() + decode()
 
     def stats(self) -> dict:
@@ -546,6 +682,7 @@ class ServingEngine:
         block/hit/eviction counters when paged."""
         out = {
             "slots_active": self.pool.num_active,
+            "slot_cap": self.effective_slots,
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "prefill_tokens_offered": self.prefill_tokens_offered,
             "decode_ticks": self.decode_ticks,
@@ -558,3 +695,99 @@ class ServingEngine:
         if self.paged:
             out.update(self.pool.stats())
         return out
+
+    def memory_model(self, program: str) -> dict[str, int]:
+        """The analytic per-rank byte model of one step (``program``:
+        "prefill", "decode" or "verify"), computed from the engine's
+        config as the JAX package's ``memory_model`` computes it, in the
+        reference's layout: the parameters under ``serve_tp_rules`` over
+        the tensor axis, the KV pool split on the heads (with the
+        reference cache's index scalars, an int32 a layer and one for
+        the positions), the host operands and the activation estimate.
+        ``kv_cache_resident`` is the port's own pool tensors on this rank
+        (their scratch row or block included, local heads only)."""
+        from types import SimpleNamespace
+
+        from ..comm.mesh import MESH_AXES
+        from ..models.gpt2 import GPT2
+        from ..obs.cost import (
+            kv_pool_model_bytes, serve_activation_estimate,
+            tree_bytes_per_device,
+        )
+        from ..parallel.sharding import serve_tp_rules
+
+        if program not in ("prefill", "decode", "verify"):
+            raise ValueError(f"unknown program {program!r}")
+        cfg = self.model.cfg
+        whole = dict(GPT2(cfg, device="meta",
+                          dtype=self.model.wte.dtype).named_parameters())
+        if self.tp > 1:
+            mesh = SimpleNamespace(shape={
+                **{a: 1 for a in MESH_AXES}, "tensor": self.tp})
+            params = tree_bytes_per_device(whole, mesh=mesh,
+                                           rules=serve_tp_rules())
+        else:
+            params = tree_bytes_per_device(whole)
+        quant = None if self.kv_dtype == "bf16" else self.kv_dtype
+        head_dim = cfg.hidden_dim // cfg.num_heads
+        cache = kv_pool_model_bytes(
+            num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+            head_dim=head_dim, max_len=self.pool.max_len,
+            num_slots=self.num_slots, paged=self.paged,
+            num_blocks=getattr(self.pool, "num_blocks", 0),
+            block_size=getattr(self.pool, "block_size", 0),
+            itemsize=self.model.wte.element_size(), tp=self.tp,
+            index_bytes=4 * (cfg.num_layers + 1), dtype=quant,
+        )
+        s = self.num_slots
+        width = {"prefill": self.prefill_chunk, "decode": 1,
+                 "verify": self.spec_k + 1}[program]
+        table = 4 * s * self.pool.blocks_per_slot if self.paged else 0
+        operands = {
+            # tokens + positions (+ last_idx / draft_len) + the rng key.
+            "prefill": 4 * s * self.prefill_chunk + 4 * s + 4 * s,
+            "decode": 4 * s + 4 * s,
+            "verify": 4 * s * (self.spec_k + 1) + 4 * s + 4 * s,
+        }[program] + table + 8
+        activations = serve_activation_estimate(
+            num_slots=s, width=width, hidden=cfg.hidden_dim,
+            num_heads=cfg.num_heads, vocab=cfg.vocab_size,
+            mask_len=self.pool.mask_len, paged=self.paged,
+            cache_bytes=cache, head_dim=head_dim,
+            kv_quant=quant is not None,
+        )
+        arguments = params + cache + operands
+        return {
+            "params": params,
+            "kv_cache": cache,
+            "kv_cache_model": cache,
+            "operands": operands,
+            "activation_estimate": activations,
+            "arguments": arguments,
+            "aliased": cache,
+            "total": arguments + activations,
+            "kv_cache_resident": sum(
+                t.numel() * t.element_size()
+                for layer in self.pool.cache for t in layer),
+        }
+
+    def reset(self) -> None:
+        """Drop every in-flight request, the prefix cache, the drafter
+        index and the counters, and rewind the sampling generator to the
+        seed: a leg run on a reused engine sees the state a fresh engine
+        would.  The shared ``NgramIndex`` is cleared in place, never
+        replaced (the router shares one index across replicas)."""
+        self._slots = [None] * self.num_slots
+        self.slot_cap = None
+        self.pool.reset()
+        self.prefill_tokens_computed = 0
+        self.prefill_tokens_offered = 0
+        self.prefill_ticks = 0
+        self.decode_ticks = 0
+        self.decode_slot_ticks = 0
+        self.decode_tokens = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self._generator.manual_seed(self._seed)
+        if self.drafter is not None and self.drafter.index is not None:
+            self.drafter.index.clear()

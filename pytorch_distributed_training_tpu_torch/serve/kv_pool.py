@@ -36,13 +36,26 @@ device once per tick.  Block edits outside a forward (copy on write, host
 restore) write the pool tensors in place, on the current stream; a spill
 copies one block to the host (a device sync, on eviction's slow path).
 Release never zeroes a block: stale bytes are masked, as in the
-contiguous pool.  Sharing one BlockPool across several views, the slot
-export of the disaggregated tier and the tensor-parallel placement are
-not ported yet.
+contiguous pool.
+
+**Sharing and handoff** (``serve/disagg.py``).  Several
+``PagedKVCachePool`` views may sit over one ``BlockPool``
+(``blocks=``): the device tensors, prefix registry, host tier and
+reservation budget are the substrate's, and a view brings only its slot
+bookkeeping.  A slot leaves one view as a :class:`SlotExport` (paged:
+the block-table row, its refcounts and reservation parked on the pool
+until another view adopts it; contiguous: a reference to the still
+allocated source row, copied row-wise at adoption).  The sibling fetch
+(``serve/kv_store.py``) reads a block's bytes from whichever tier holds
+them (``read_block_bytes``) and stores them into another pool's host tier
+(``adopt_host_block``).  Under tensor parallelism every rank holds its
+own pools over its local heads (``serve/tp.py``): the host state is the
+same on every rank, the bytes are each rank's head shard.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections import OrderedDict
 from typing import Any
@@ -115,6 +128,50 @@ class KVCachePool:
             )
         self.lengths[slot] = old + n
 
+    # ------------------------------------------------------------------ #
+    # prefill->decode handoff (serve/disagg.py): the contiguous layout
+    # has no shared substrate, so the handle is the slot row; adoption
+    # copies the K/V rows from the prefill pool's cache into the decode
+    # pool's, then releases the source slot.
+    # ------------------------------------------------------------------ #
+
+    def export_slot(self, slot: int) -> "SlotExport":
+        """Package ``slot`` for adoption by another contiguous pool; the
+        slot stays allocated here until ``adopt_slot`` copies it (or
+        ``release_export`` drops it)."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not allocated")
+        return SlotExport(kind="contig", length=int(self.lengths[slot]),
+                          src_pool=self, src_slot=slot)
+
+    def adopt_slot(self, export: "SlotExport") -> int:
+        """Claim a local slot, copy the source row's K/V across every
+        layer on the device, release the source."""
+        if export.kind != "contig":
+            raise ValueError(
+                "contiguous pools adopt contiguous exports only (a paged "
+                "handoff travels by block table, not by row copy)"
+            )
+        src = export.src_pool
+        if src.max_len != self.max_len:
+            raise ValueError(
+                f"row-copy handoff needs matching max_len "
+                f"({src.max_len} != {self.max_len})"
+            )
+        slot = self.allocate()
+        if slot is None:
+            raise RuntimeError("no free slot to adopt into")
+        for dst_layer, src_layer in zip(self.cache, src.cache):
+            for d, s_ in zip(dst_layer, src_layer):
+                d[slot].copy_(s_[export.src_slot])
+        self.lengths[slot] = export.length
+        src.release(export.src_slot)
+        return slot
+
+    def release_export(self, export: "SlotExport") -> None:
+        """Drop an un-adopted export (handoff cancelled)."""
+        export.src_pool.release(export.src_slot)
+
     def reset(self) -> None:
         """Drop all slots (bookkeeping only; cache bytes stay stale)."""
         self.active[:] = False
@@ -132,6 +189,26 @@ def hash_prompt_blocks(prompt: np.ndarray, block_size: int) -> list:
         h = hash((h, bytes(prompt[i * block_size:(i + 1) * block_size])))
         out.append(h)
     return out
+
+
+@dataclasses.dataclass
+class SlotExport:
+    """One slot's KV handle in flight between pools (the prefill->decode
+    handoff payload).  Paged: the block-table row; its refcounts stay
+    claimed by the export, so the bytes never move and the source slot
+    frees at once.  Contiguous: a reference to the still allocated source
+    slot, copied row-wise at adoption."""
+
+    kind: str  # "paged" | "contig"
+    length: int
+    # paged
+    table_row: np.ndarray | None = None
+    outstanding: int = 0
+    pending_reg: list = dataclasses.field(default_factory=list)
+    blocks: "BlockPool | None" = None
+    # contig
+    src_pool: KVCachePool | None = None
+    src_slot: int = -1
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -178,14 +255,18 @@ class BlockPool:
         # (None = chain root) and the reverse child sets.
         self._hash_parent: dict = {}
         self._hash_children: dict = {}
-        # Worst-case blocks still owed to live slots across every view.
+        # Worst-case blocks still owed to live slots across every view,
+        # and the part of it riding in-flight slot exports.
         self.outstanding_total = 0
+        self.outstanding_handoff = 0
+        self._exports: dict[int, SlotExport] = {}
         self._views: list = []
         self.blocks_evicted = 0
         self.cow_copies = 0
         self.blocks_spilled = 0
         self.blocks_restored = 0
         self.chain_unregistered = 0
+        self.sibling_fetched_blocks = 0
 
     # ------------------------------------------------------------------ #
     # block bytes
@@ -352,8 +433,62 @@ class BlockPool:
         self.blocks_restored += 1
         return bid
 
+    # ------------------------------------------------------------------ #
+    # sibling fetch (serve/kv_store.py::sibling_fetch)
+    # ------------------------------------------------------------------ #
+
+    def read_block_bytes(self, h) -> list[np.ndarray] | None:
+        """``h``'s bytes from whichever tier holds them (device registry
+        first), None when unresolvable: the sibling fetch's source read.
+        Changes no recency and no refcount."""
+        bid = self._hash_to_block.get(h)
+        if bid is not None:
+            return self.read_device_block(bid)
+        if self.host is not None and self.host.has(h):
+            return self.host._entries[h].arrays
+        return None
+
+    def adopt_host_block(self, h, parent, arrays) -> bool:
+        """Store a sibling pool's block bytes into this pool's host tier
+        under the shared chained hash (the sibling fetch's target).
+        Refused when the parent is unresolvable here.  ``h`` is linked
+        before the store's LRU drops cascade, so a put that drops ``h``'s
+        own parent takes ``h`` with it; the return value says whether
+        ``h`` is resolvable after all."""
+        if self.host is None:
+            return False
+        if self.resolvable(h):
+            return True
+        if parent is not None and not self.resolvable(parent):
+            return False
+        stored, dropped = self.host.put(h, arrays)
+        if stored:
+            self._link(h, parent)
+        for d in dropped:
+            self._hash_unresolvable(d)
+        return stored and self.resolvable(h)
+
+    # ------------------------------------------------------------------ #
+    # views and handoff reservations
+    # ------------------------------------------------------------------ #
+
     def attach_view(self, view) -> None:
         self._views.append(view)
+
+    def begin_export(self, export: SlotExport) -> None:
+        self.outstanding_handoff += export.outstanding
+        self._exports[id(export)] = export
+
+    def end_export(self, export: SlotExport, *, adopted: bool) -> None:
+        self.outstanding_handoff -= export.outstanding
+        del self._exports[id(export)]
+        if not adopted:
+            # Cancelled in flight: the blocks release and the worst-case
+            # reservation dies with the request.
+            self.outstanding_total -= export.outstanding
+            for bid in export.table_row:
+                if bid != self.num_blocks:
+                    self.release_block(int(bid))
 
     # ------------------------------------------------------------------ #
     # accounting
@@ -387,6 +522,7 @@ class BlockPool:
             out.update({
                 "blocks_spilled": self.blocks_spilled,
                 "blocks_restored": self.blocks_restored,
+                "blocks_sibling_fetched": self.sibling_fetched_blocks,
                 "chain_unregistered": self.chain_unregistered,
                 "kv_block_bytes": self.block_bytes,
                 **self.host.stats(),
@@ -397,12 +533,13 @@ class BlockPool:
 
     def check_invariants(self) -> None:
         """Conservation + refcount + chain audit (test hook) across every
-        attached view: each block is exactly one of free / referenced /
-        evictable, refcounts equal table references, and every resolvable
-        hash's parent is resolvable."""
+        attached view and in-flight export: each block is exactly one of
+        free / referenced / evictable, refcounts equal table references,
+        and every resolvable hash's parent is resolvable."""
         refs = np.zeros((self.num_blocks,), np.int64)
-        for view in self._views:
-            tables = view.block_tables
+        rows = [view.block_tables for view in self._views]
+        rows += [e.table_row for e in self._exports.values()]
+        for tables in rows:
             live = tables[tables != self.num_blocks]
             np.add.at(refs, live, 1)
         if not np.array_equal(refs, self.refcount):
@@ -425,9 +562,10 @@ class BlockPool:
             if self._block_hash.get(bid) != h:
                 raise AssertionError("hash map / reverse map drift")
         view_out = sum(int(v._outstanding.sum()) for v in self._views)
-        if view_out != self.outstanding_total:
+        if view_out + self.outstanding_handoff != self.outstanding_total:
             raise AssertionError(
-                f"outstanding drift: views {view_out} != total "
+                f"outstanding drift: views {view_out} + handoff "
+                f"{self.outstanding_handoff} != total "
                 f"{self.outstanding_total}"
             )
         hashes = set(self._hash_to_block)
@@ -457,18 +595,27 @@ class BlockPool:
         self._hash_children.clear()
         self._free_blocks = list(range(self.num_blocks - 1, -1, -1))
         self.outstanding_total = 0
+        self.outstanding_handoff = 0
+        self._exports.clear()
         self.blocks_evicted = 0
         self.cow_copies = 0
         self.blocks_spilled = 0
         self.blocks_restored = 0
         self.chain_unregistered = 0
+        self.sibling_fetched_blocks = 0
         if self.host is not None:
             self.host.reset()
 
 
 class PagedKVCachePool:
-    """Slot view over a :class:`BlockPool` of its own: per-slot block
-    tables and prefix caching.
+    """Slot view over a :class:`BlockPool`: per-slot block tables and
+    prefix caching.
+
+    Constructed alone (``blocks=None``) the view owns a private
+    BlockPool.  Over a shared one (the disaggregated tier) it brings only
+    its slot bookkeeping; ``num_blocks``/``block_size`` given must match
+    the pool's, the host tier belongs to the pool, and ``kv_quant`` must
+    name the pool's storage.
 
     ``max_len`` bounds the logical length of one request (the model's
     position table is the hard ceiling); the memory bound is the global
@@ -483,10 +630,11 @@ class PagedKVCachePool:
     request can always finish.
     """
 
-    def __init__(self, model, *, num_slots: int, num_blocks: int,
-                 block_size: int, max_len: int | None = None,
+    def __init__(self, model, *, num_slots: int,
+                 num_blocks: int | None = None,
+                 block_size: int | None = None, max_len: int | None = None,
                  prefix_cache: bool = True, kv_quant: str | None = None,
-                 host_store=None):
+                 host_store=None, blocks: BlockPool | None = None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         cap = max_len if max_len is not None else model.cfg.max_seq_len
@@ -495,20 +643,51 @@ class PagedKVCachePool:
                 f"max_len {cap} outside 1..{model.cfg.max_seq_len} "
                 "(the model's position table bounds logical length)"
             )
-        self.blocks = BlockPool(
-            model, num_blocks=num_blocks, block_size=block_size,
-            kv_quant=kv_quant, host_store=host_store,
-        )
-        self.blocks.attach_view(self)
+        if blocks is None:
+            if num_blocks is None or block_size is None:
+                raise ValueError(
+                    "a view owning its BlockPool needs num_blocks and "
+                    "block_size"
+                )
+            blocks = BlockPool(
+                model, num_blocks=num_blocks, block_size=block_size,
+                kv_quant=kv_quant, host_store=host_store,
+            )
+            self._owns_blocks = True
+        else:
+            if host_store is not None:
+                raise ValueError(
+                    "host_store belongs to the shared BlockPool — "
+                    "construct it there"
+                )
+            for name, given in (
+                ("num_blocks", num_blocks), ("block_size", block_size),
+            ):
+                if given is not None and given != getattr(blocks, name):
+                    raise ValueError(
+                        f"{name} {given} != shared BlockPool's "
+                        f"{getattr(blocks, name)}"
+                    )
+            pool_quant = _storage_quant(blocks.cache)
+            if pool_quant != kv_quant:
+                raise ValueError(
+                    f"kv_dtype {kv_quant or 'bf16'!r} disagrees with the "
+                    f"shared BlockPool's storage layout "
+                    f"({pool_quant or 'bf16'}) — construct the pool and "
+                    "every view with one kv_dtype"
+                )
+            self._owns_blocks = False
+        self.blocks = blocks
+        blocks.attach_view(self)
         self.num_slots = num_slots
         self.max_len = cap
-        self.blocks_per_slot = -(-cap // block_size)
+        self.blocks_per_slot = -(-cap // blocks.block_size)
         self.prefix_cache_enabled = prefix_cache
         self.lengths = np.zeros((num_slots,), np.int32)
         self.active = np.zeros((num_slots,), bool)
         self._free_slots = list(range(num_slots - 1, -1, -1))
         self.block_tables = np.full(
-            (num_slots, self.blocks_per_slot), num_blocks, np.int32
+            (num_slots, self.blocks_per_slot), blocks.num_blocks, np.int32
         )
         # Per slot: worst-case blocks still to allocate, and the full
         # prompt blocks awaiting registration once fully written.
@@ -777,8 +956,68 @@ class PagedKVCachePool:
         self._pending_reg[slot] = []
         self._free_slots.append(slot)
 
+    # ------------------------------------------------------------------ #
+    # prefill->decode handoff (serve/disagg.py): the block-table row is
+    # the handle.  The export keeps every block claimed and parks the
+    # reservation on the BlockPool while the slot frees; adoption puts
+    # the row into another view over the same pool without moving a byte.
+    # ------------------------------------------------------------------ #
+
+    def export_slot(self, slot: int) -> SlotExport:
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not allocated")
+        export = SlotExport(
+            kind="paged", length=int(self.lengths[slot]),
+            table_row=self.block_tables[slot].copy(),
+            outstanding=int(self._outstanding[slot]),
+            pending_reg=list(self._pending_reg[slot]),
+            blocks=self.blocks,
+        )
+        self.blocks.begin_export(export)
+        self.block_tables[slot] = self.blocks.num_blocks
+        self.active[slot] = False
+        self.lengths[slot] = 0
+        self._outstanding[slot] = 0
+        self._pending_reg[slot] = []
+        self._free_slots.append(slot)
+        return export
+
+    def adopt_slot(self, export: SlotExport) -> int:
+        if export.kind != "paged":
+            raise ValueError(
+                "paged pools adopt paged exports only (a contiguous "
+                "handoff travels by row copy, not by block table)"
+            )
+        if export.blocks is not self.blocks:
+            raise ValueError(
+                "a paged handoff needs both views on one shared "
+                "BlockPool — the block ids are meaningless elsewhere"
+            )
+        if export.table_row.shape != (self.blocks_per_slot,):
+            raise ValueError(
+                f"block-table width mismatch: export "
+                f"{export.table_row.shape[0]} != view "
+                f"{self.blocks_per_slot}"
+            )
+        if not self._free_slots:
+            raise RuntimeError("no free slot to adopt into")
+        slot = self._free_slots.pop()
+        self.active[slot] = True
+        self.block_tables[slot] = export.table_row
+        self.lengths[slot] = export.length
+        self._outstanding[slot] = export.outstanding
+        self._pending_reg[slot] = list(export.pending_reg)
+        self.blocks.end_export(export, adopted=True)
+        return slot
+
+    def release_export(self, export: SlotExport) -> None:
+        """Drop an un-adopted export (handoff cancelled): its blocks
+        release and its reservation dies."""
+        self.blocks.end_export(export, adopted=False)
+
     def check_invariants(self) -> None:
-        """Conservation + refcount + chain audit (test hook)."""
+        """Conservation + refcount + chain audit (test hook), across every
+        view of the BlockPool."""
         self.blocks.check_invariants()
 
     def stats(self) -> dict:
@@ -790,11 +1029,22 @@ class PagedKVCachePool:
 
     def reset(self) -> None:
         """Drop all slots, the prefix cache and the counters (bookkeeping
-        only; block bytes stay stale-but-masked, as on release)."""
+        only; block bytes stay stale-but-masked, as on release).  A view
+        over a shared BlockPool resets its own slots only: the tier
+        resets the substrate once after every view."""
         for slot in range(self.num_slots):
             if self.active[slot]:
                 self.release(slot)
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
         self._free_slots = list(range(self.num_slots - 1, -1, -1))
-        self.blocks.reset()
+        if self._owns_blocks:
+            self.blocks.reset()
+
+
+def _storage_quant(cache) -> str | None:
+    """The storage kind of a block pool's tensors: None (native) or
+    "int8"/"int4", read from the payload dtype."""
+    from ..models.layers import cache_quant
+
+    return cache_quant(cache[0])

@@ -1,5 +1,6 @@
-"""The host-RAM tier under the paged block pool: the counterpart of the
-JAX package's ``serve/kv_store.py::HostKVStore`` (host numpy only).
+"""The host-RAM tier under the paged block pool and the cross-replica
+sibling fetch: the counterpart of the JAX package's ``serve/kv_store.py``
+(host numpy only).
 
 When the block pool (``serve/kv_pool.py::BlockPool``) evicts a cached
 prefix block under pressure, it spills the block's K/V bytes here, keyed
@@ -9,8 +10,13 @@ recomputing the prefix: a lossless host round trip.
 
 :class:`HostKVStore` is a capacity-bounded LRU byte store with exact
 accounting.  All chain semantics (parent links, cascade drops of
-unrestorable descendants) live in ``BlockPool``.  The cross-replica
-sibling fetch of the JAX module waits for the router's port.
+unrestorable descendants) live in ``BlockPool``.
+
+:func:`sibling_fetch` / :func:`sibling_fetch_striped` copy a prompt's
+hot prefix blocks from other replicas' pools into one pool's host tier
+(the router's rebalance, ``serve/router.py``): a block live in a source
+pool is read device to host from that pool's device, so replicas on
+different cards exchange bytes through host RAM.
 """
 
 from __future__ import annotations
@@ -125,3 +131,68 @@ class HostKVStore:
         self.stored_blocks = 0
         self.dropped_blocks = 0
         self.hit_blocks = 0
+
+
+def sibling_fetch(dst, src, prompt: np.ndarray) -> int:
+    """Copy ``prompt``'s hot prefix blocks from ``src`` into ``dst``'s
+    host tier (both ``BlockPool``s); returns the blocks fetched.
+
+    Walks the chained block hashes in order: a hash ``dst`` resolves
+    already (either tier) is skipped, one only ``src`` resolves is copied
+    (device to host when it is live in ``src``), and the walk stops at
+    the first hash neither resolves, so the fetched chain stays a
+    contiguous leading run.  The bytes land in the host tier: the next
+    admission on ``dst`` restores the blocks it needs."""
+    if dst.host is None:
+        raise ValueError(
+            "sibling_fetch needs a host tier on the destination pool "
+            "(construct it with a HostKVStore)"
+        )
+    if dst.block_size != src.block_size:
+        raise ValueError(
+            f"block size mismatch: dst {dst.block_size} != src "
+            f"{src.block_size} — the chained hashes would never align"
+        )
+    return sibling_fetch_striped(dst, [src], prompt)
+
+
+def sibling_fetch_striped(dst, srcs, prompt: np.ndarray) -> int:
+    """:func:`sibling_fetch` from several sources: missing block *i* is
+    read from source ``i % len(srcs)``, falling back to the others in
+    order when that one cannot resolve it.  With one source it is
+    ``sibling_fetch``, byte for byte and counter for counter."""
+    from .kv_pool import hash_prompt_blocks
+
+    if dst.host is None:
+        raise ValueError(
+            "sibling_fetch needs a host tier on the destination pool "
+            "(construct it with a HostKVStore)"
+        )
+    srcs = [s for s in srcs if s is not None and s is not dst]
+    for src in srcs:
+        if dst.block_size != src.block_size:
+            raise ValueError(
+                f"block size mismatch: dst {dst.block_size} != src "
+                f"{src.block_size} — the chained hashes would never align"
+            )
+    if not srcs:
+        return 0
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    fetched, parent, miss = 0, None, 0
+    for h in hash_prompt_blocks(prompt, dst.block_size):
+        if dst.resolvable(h):
+            parent = h
+            continue
+        lane = miss % len(srcs)
+        arrays = None
+        for j in range(len(srcs)):
+            arrays = srcs[(lane + j) % len(srcs)].read_block_bytes(h)
+            if arrays is not None:
+                break
+        if arrays is None or not dst.adopt_host_block(h, parent, arrays):
+            break
+        fetched += 1
+        miss += 1
+        parent = h
+    dst.sibling_fetched_blocks += fetched
+    return fetched

@@ -1,6 +1,7 @@
 """Serving SLO metrics: TTFT / TPOT percentiles, goodput, queue depth —
-the counterpart of the JAX package's ``serve/metrics.py`` for one engine
-(the replica and failover views wait for the router's port).
+the counterpart of the JAX package's ``serve/metrics.py``, with its
+per-replica view of the router's merged records (the failover view comes
+with item 12's controllers).
 
 - **TTFT** (time to first token): arrival → first sampled token.
 - **TPOT** (time per output token): ``(finish - first_token) /
@@ -91,6 +92,27 @@ def summarize_records(
             )
         },
     }
+    replicas = sorted({r.get("replica") for r in finished} - {None}, key=str)
+    if replicas:
+        # The router's tier: which replica served what, with the same
+        # shed and cancel exclusions as the global figures.
+        out["replicas"] = {}
+        for rid in replicas:
+            mine = [r for r in completed if r.get("replica") == rid]
+            ttft50 = percentile([r["ttft"] for r in mine], 50)
+            out["replicas"][str(rid)] = {
+                "completed": len(mine),
+                "generated_tokens": int(
+                    sum(r.get("generated", 0) for r in mine)),
+                "shed": sum(1 for r in finished if r.get("replica") == rid
+                            and r.get("finish_reason") == "shed"),
+                "cancelled": sum(
+                    1 for r in finished if r.get("replica") == rid
+                    and r.get("finish_reason") == "cancelled"),
+                "failed": 0,
+                "ttft_p50_s": (round(ttft50, 6) if ttft50 is not None
+                               else None),
+            }
     if queue_depth_samples:
         out["queue_depth_mean"] = round(
             float(np.mean(queue_depth_samples)), 2

@@ -297,6 +297,12 @@ class ContinuousScheduler:
         st = self.engine.stats()
         sfx = f"_r{self.replica}" if self.replica is not None else ""
         self.emitter.gauge(f"serve_slots_active{sfx}", st["slots_active"])
+        if "prefill_slots_active" in st:
+            # The disaggregated tier's occupancy a role.
+            self.emitter.gauge(f"serve_prefill_slots_active{sfx}",
+                               st["prefill_slots_active"])
+            self.emitter.gauge(f"serve_decode_slots_active{sfx}",
+                               st["decode_slots_active"])
         if "blocks_in_use" in st:
             self.emitter.gauge(f"kv_blocks_in_use{sfx}", st["blocks_in_use"])
             self.emitter.gauge(f"kv_blocks_cached{sfx}", st["blocks_cached"])

@@ -51,8 +51,8 @@ class RequestLogger(_JsonlEmitter):
 
     _FIELDS = (
         "id", "prompt_len", "max_new_tokens", "arrival", "deadline",
-        "tenant", "admitted", "first_token", "finish", "finish_reason",
-        "generated", "ttft", "tpot",
+        "tenant", "replica", "admitted", "first_token", "finish",
+        "finish_reason", "generated", "ttft", "tpot",
     )
 
     def __init__(self, jsonl_path: str, only_rank0: bool = True):
@@ -62,3 +62,8 @@ class RequestLogger(_JsonlEmitter):
         if not self._is_emitter():
             return
         self._append({k: record[k] for k in self._FIELDS if k in record})
+
+    def read(self) -> list[dict[str, Any]]:
+        """Load the records back (the recompute path)."""
+        with open(self.jsonl_path) as f:
+            return [json.loads(line) for line in f if line.strip()]

@@ -51,9 +51,9 @@ SMALL = dict(num_layers=2, hidden_dim=32, num_heads=2, vocab_size=61,
 PAGED = dict(max_len=48, prefill_chunk=4, temperature=0.0, paged=True,
              block_size=4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# Counters only the JAX engine keeps: its admission cap and the router's
-# sibling fetch, neither ported yet.
-JAX_ONLY_STATS = {"slot_cap", "blocks_sibling_fetched"}
+# Counters only the JAX engine keeps: none since the serving tier's port
+# (the admission cap and the sibling fetch's count).
+JAX_ONLY_STATS: set = set()
 
 
 @pytest.fixture(autouse=True)
