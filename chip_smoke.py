@@ -25,10 +25,20 @@ the port's main paths:
   shared-prefix traffic through the prefix cache, then a two-replica
   ``ReplicaRouter`` on the card (affinity hits, a rebalance with a
   sibling fetch, the fetched blocks bitwise equal across the pools, the
-  counters equal to the telemetry); lockstep ``generate`` runs at full
-  width; a small f32 model's slot-mode logits on the card are checked
-  against the host; #9, #11 and #12 are also timed at the 3 heads a rank
-  holds under ``--serve-tp 4``;
+  counters equal to the telemetry); the serving fleet's controllers
+  (``fleet_phase``, each router under a virtual clock): F1 two paged
+  replicas with a replica crash and a stall (failover: one death, its
+  work drained and requeued, one respawn at the backoff's tick with the
+  card's allocations unchanged, tokens equal to a faultless run up to
+  each requeue point), F2 the disaggregated tier losing its prefill
+  role and then a parked handoff (the role revived, the orphan
+  requeued, the shared pool's audit clean), A1 three replicas under
+  the autoscale controller (a scale-up and a scale-down with their
+  causes, no allocation across a revive, ``/slo``'s controller block);
+  lockstep ``generate`` runs at full width; a small f32 model's slot-mode logits on the card are checked
+  against the host; #9-#12 are also held and timed at the heads a rank
+  holds in the TP runs (``TP_KERNEL_CASES``: 3 under ``--serve-tp 4``, 6
+  under ``--serve-tp 2``);
 - training: the CLI trains GPT-2 at full width (124M at 1024 and 512
   positions with gradient accumulation, XL widths at 1024, 2048
   positions, and the main run again with remat and chunked CE), each run
@@ -157,11 +167,16 @@ the port's main paths:
   world 1 (step-3 losses and checkpoints held to the 1f1b run's); P3
   GPipe x MoE, ``gpt2_moe`` on T1's recipe at PP 2 x data 2 against
   T6's scatter run, step-3 loss within ``P1_LOSS_BOUND``.  In the same
-  torchrun, ``--serve-tp 4`` serves GPT-2 124M (bf16, speculative,
-  contiguous then paged) with every rank's kernel launches at 3 local
-  heads counted and the first prefill tick's logits held to the
-  one-process runs', and the JAX tests' tiny f32 GPT-2 at TP 2 and TP 4
-  gives one process's greedy tokens.  P1's
+  torchrun GPT-2 124M serves (bf16, speculative) under ``--serve-tp 4``
+  (contiguous) and as two tensor-parallel replicas, ``--serve-tp 2
+  --serve-replicas 2`` (paged; rank 0's router drives its own group and
+  the other group's leader), with and without a crash of replica 1:
+  every rank's kernel launches at its local heads counted, the first
+  prefill tick's logits held to the one-process runs', the remote calls
+  and the failover block printed; the JAX tests' tiny f32 GPT-2 at TP 2,
+  at TP 4 and as TP 2 x 2 replicas behind one router (with and without
+  a crash) gives one process's greedy tokens and routing, and a prefix
+  fetched between the groups is each rank's shard bit for bit.  P1's
   ``1f1b_int8`` run writes its four rank logs (``--metrics-dir``):
   ``merge_timeline`` aligns them, and the ``pp_compress_model`` record
   and the per-step ``pp_boundary_bytes`` counters equal the model.  The
@@ -691,45 +706,50 @@ def paged_kernel_phase(torch, pa, seed: int, bandwidth: float) -> dict:
     return results
 
 
-# The heads a rank holds under --serve-tp 4 (GPT-2 124M's 12 over 4).
-TP_HEADS = 3
+# The kernels at a rank's heads under the TP runs (TP_RUNS): #9 and #10
+# (C = 5, the k = 4 verify) at 3 heads under --serve-tp 4; #11 and #12
+# (verify C = 5, prefill chunk C = 16) at 6 under --serve-tp 2; and #11 /
+# #12 at 3 heads, the timings of the paged --serve-tp 4 run they replaced.
+TP_KERNEL_CASES = ((3, "decode_attention", 1), (3, "decode_attention_multi", 5),
+                   (3, "paged_decode_attention", 1),
+                   (3, "_paged_multi_call", 16),
+                   (6, "paged_decode_attention", 1), (6, "_paged_multi_call", 5),
+                   (6, "_paged_multi_call", 16))
 
 
 def tp_kernel_phase(torch, da, pa, seed: int, bandwidth: float,
                     kernels: dict) -> None:
-    """#9 (C = 1), #11 (C = 1) and #12 (C = 16, the prefill chunk) at the
-    heads a rank holds under ``--serve-tp 4`` (H 3, the serving shapes
-    otherwise, bf16), against their plain versions (#9: atol 2e-3, rtol
-    1e-2; paged: atol 2e-2, rtol 2e-2) and timed with their bound and
-    SDPA's time on the same K/V (paged: already gathered); each is added
-    to its row's ``variants`` with ``heads`` 3."""
+    """Each case of ``TP_KERNEL_CASES`` (the serving shapes otherwise,
+    bf16) against its plain version (#9/#10: atol 2e-3, rtol 1e-2; paged:
+    atol 2e-2, rtol 2e-2), timed with its bound and SDPA's time on the
+    same K/V (paged: already gathered); each is added to its row's
+    ``variants`` with its ``heads``."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    hh = TP_HEADS
     index = torch.tensor(INDEX, dtype=torch.int32, device="cuda")
-    k = torch.randn(B, hh, L, DH, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(B, hh, L, DH, generator=gen, device="cuda").bfloat16()
-    kb = torch.randn(NBLOCKS + 1, hh, BS, DH, generator=gen,
-                     device="cuda").bfloat16()
-    vb = torch.randn(NBLOCKS + 1, hh, BS, DH, generator=gen,
-                     device="cuda").bfloat16()
     perm = torch.randperm(NBLOCKS, generator=torch.Generator().manual_seed(
         seed))
     table = perm[:B * NB].view(B, NB).to(torch.int32).cuda()
-    for name, c in (("decode_attention", 1), ("paged_decode_attention", 1),
-                    ("_paged_multi_call", 16)):
+    kv: dict = {}
+    for hh, name, c in TP_KERNEL_CASES:
+        if hh not in kv:
+            kv[hh] = [torch.randn(*shape, generator=gen,
+                                  device="cuda").bfloat16()
+                      for shape in ((B, hh, L, DH), (B, hh, L, DH),
+                                    (NBLOCKS + 1, hh, BS, DH),
+                                    (NBLOCKS + 1, hh, BS, DH))]
+        k, v, kb, vb = kv[hh]
         q = torch.randn(B, c, hh, DH, generator=gen,
                         device="cuda").bfloat16()
-        mask = (torch.arange(L, device="cuda")[None, None, :]
-                <= index[:, None, None].long()
-                + torch.arange(c, device="cuda")[None, :, None])
-        qt = q.transpose(1, 2)
-        if name == "decode_attention":
-            q0 = q[:, 0]
-
-            def kernel():
-                return da.decode_attention(q0, k, v, index)[:, None]
+        q0 = q[:, 0]
+        if name.startswith("decode_attention"):
+            if c == 1:
+                def kernel():
+                    return da.decode_attention(q0, k, v, index)[:, None]
+            else:
+                def kernel():
+                    return da.decode_attention_multi(q, k, v, index)
 
             def plain():
                 return da.decode_attention_multi_plain(q, k, v, index)
@@ -738,11 +758,13 @@ def tp_kernel_phase(torch, da, pa, seed: int, bandwidth: float,
             bms, by = bound_ms(INDEX, c, torch.bfloat16, bandwidth, hh)
         else:
             if c == 1:
-                q0 = q[:, 0]
-
                 def kernel():
                     return pa.paged_decode_attention(
                         q0, kb, vb, table, index)[:, None]
+            elif c <= 8:
+                def kernel():
+                    return pa.paged_decode_attention_multi(q, kb, vb, table,
+                                                           index)
             else:
                 def kernel():
                     return pa.paged_prefill_attention(q, kb, vb, table,
@@ -754,6 +776,10 @@ def tp_kernel_phase(torch, da, pa, seed: int, bandwidth: float,
             kk, vv = pa.paged_window(kb, vb, table)
             atol = rtol = 2e-2
             bms, by = paged_bound_ms(INDEX, c, "bf16", bandwidth, hh)
+        mask = (torch.arange(kk.shape[2], device="cuda")[None, None, :]
+                <= index[:, None, None].long()
+                + torch.arange(c, device="cuda")[None, :, None])
+        qt = q.transpose(1, 2)
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
@@ -769,8 +795,8 @@ def tp_kernel_phase(torch, da, pa, seed: int, bandwidth: float,
             max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=library_ms))
         print(f"kernel {name} C={c} H={hh} bf16 (a rank's heads under "
-              f"--serve-tp 4): max_abs_err {err.max().item():.3g} (atol "
-              f"{atol}, rtol {rtol}); kernel {ms * 1e3:.1f} us, plain "
+              f"--serve-tp {12 // hh}): max_abs_err {err.max().item():.3g} "
+              f"(atol {atol}, rtol {rtol}); kernel {ms * 1e3:.1f} us, plain "
               f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us"
               f"{' (gather excluded)' if 'paged' in name else ''}, bound "
               f"{bms * 1e3:.2f} us ({by}); {ms / library_ms:.2f}x sdpa, "
@@ -1270,6 +1296,414 @@ def router_leg(torch, model, seed: int, prefix, rng, repo: str) -> None:
           f"blocks), replica 1 restored {dst.blocks_restored} blocks, "
           f"{same} prefix blocks bitwise equal across the pools, telemetry "
           f"= counters; {seconds:.1f} s", flush=True)
+
+
+# The serving fleet's legs (``fleet_phase``): GPT-2 124M in bf16 from the
+# seed, SERVE_ARGV's trace (16 requests at once, 8 slots and the CLI's
+# engine settings a replica), each router under a VirtualClock advanced
+# FLEET_DT a tick, so a respawn lands on the tick the backoff fixes.
+FLEET_DT = 0.05
+F1_FAULTS = "replica_crash@4:1,replica_stall@9:0:3"
+F2_FAULTS = "replica_crash@5:0:prefill,handoff_drop@{drop}"
+# The tick of F2's dropped handoff: the first at which the 2:6 tier has a
+# handoff parked (the decode role full), as the trace's ticks give it.
+F2_DROP_TICK = 70
+
+
+def _fleet_requests(seed: int, n: int = 16, first: int = 0):
+    from pytorch_distributed_training_tpu_torch.cli.main import (
+        serve_requests,
+    )
+
+    reqs = serve_requests(vocab=VOCAB, seed=seed, seq_len=512, max_len=1024,
+                          max_new=64, n_requests=n)
+    for r in reqs:
+        r.id += first
+    return reqs
+
+
+def _fleet_engine(model, seed: int, device, **kw):
+    """The CLI's paged engine of SERVE_ARGV (8 slots, chunk 16)."""
+    from pytorch_distributed_training_tpu_torch.serve import ServingEngine
+
+    return ServingEngine(model, num_slots=8, max_len=1024, prefill_chunk=16,
+                         temperature=0.0, seed=seed, paged=True,
+                         device=device, **kw)
+
+
+def _streams(engines) -> dict:
+    toks: dict = {}
+    for e in engines:
+        e.stream_cb = lambda rid, t: toks.setdefault(rid, []).append(int(t))
+    return toks
+
+
+def _tick_until_idle(router, clock, limit: int = 6000) -> int:
+    n = 0
+    while not router.idle:
+        router.tick()
+        clock.advance(FLEET_DT)
+        n += 1
+        check(n < limit, f"fleet: the router went idle within {limit} ticks")
+    return n
+
+
+def _storage(engines) -> list:
+    out = []
+    for e in engines:
+        blocks = e.blocks if hasattr(e, "prefill_engine") else e.pool.blocks
+        out.append([t.data_ptr() for layer in blocks.cache for t in layer])
+    return out
+
+
+def _blocks_free(engine) -> tuple:
+    st = engine.stats()
+    return st["blocks_in_use"], st["blocks_free"] + st["blocks_cached"]
+
+
+def _watch_respawns(torch, ctrl, router, engines, seen: list) -> None:
+    """Each respawn's tick, clock and the card's allocated bytes (and the
+    pools' storage) before and after it."""
+    respawn = ctrl._respawn
+
+    def logged(k, now):
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_allocated(), _storage(engines))
+        t0 = time.perf_counter()
+        respawn(k, now)
+        torch.cuda.synchronize()
+        seen.append({"replica": k, "tick": router.tick_index, "t": now,
+                     "s": time.perf_counter() - t0,
+                     "same": before == (torch.cuda.memory_allocated(),
+                                        _storage(engines)),
+                     "bytes": before[0]})
+
+    ctrl._respawn = logged
+
+
+def f1_leg(torch, model, seed: int, device) -> dict:
+    """F1: ``--serve-replicas 2 --serve-paged --serve-kv-host-mb 64``'s
+    engines behind the router with a failover controller, the chaos
+    plane at ``F1_FAULTS`` (replica 1 crashes at tick 4, replica 0 stalls
+    three ticks at 9), against the same router without faults.  Checks:
+    16/16 finish with one record an id, one death, its drained and
+    requeued counts, one respawn at the backoff's tick with the card's
+    allocated bytes and the pools unchanged across it; tokens equal the
+    faultless run's up to each retried request's requeue point (the
+    requests differing after it counted); every block back to free or
+    cached.  Returns the figures."""
+    from pytorch_distributed_training_tpu_torch.resilience import (
+        ServeFaultInjector,
+    )
+    from pytorch_distributed_training_tpu_torch.serve import (
+        FailoverController, ReplicaRouter, VirtualClock,
+    )
+
+    out: dict = {}
+    for faults in (None, F1_FAULTS):
+        engines = [_fleet_engine(model, seed, device, kv_host_mb=64)
+                   for _ in range(2)]
+        toks = _streams(engines)
+        clock = VirtualClock()
+        ctrl = FailoverController()
+        router = ReplicaRouter(
+            engines, max_queue=16, clock=clock, failover=ctrl,
+            chaos=ServeFaultInjector.from_spec(faults) if faults else None)
+        respawns: list = []
+        points: dict = {}
+        timing = {"declare": 0.0, "requeue": 0.0}
+        if faults:
+            _watch_respawns(torch, ctrl, router, engines, respawns)
+            requeue, declare = ctrl._requeue, ctrl.declare_dead
+
+            def first_point(tr, now, **kw):
+                points.setdefault(tr.request.id, len(tr.tokens))
+                t0 = time.perf_counter()
+                requeue(tr, now, **kw)
+                timing["requeue"] += time.perf_counter() - t0
+
+            def timed_declare(*a, **kw):
+                t0 = time.perf_counter()
+                declare(*a, **kw)
+                timing["declare"] += time.perf_counter() - t0
+
+            ctrl._requeue, ctrl.declare_dead = first_point, timed_declare
+        start = [_blocks_free(e) for e in engines]
+        t0 = time.monotonic()
+        for r in _fleet_requests(seed):
+            check(router.submit(r), "F1: request queued")
+        ticks = _tick_until_idle(router, clock)
+        seconds = time.monotonic() - t0
+        # Past the trace: tick on until a respawn the backoff set is due.
+        while faults and ctrl._respawn_at:
+            router.tick()
+            clock.advance(FLEET_DT)
+        ids = [r["id"] for r in router.completed]
+        check(len(ids) == len(set(ids)) == 16
+              and all(r["finish_reason"] == "length"
+                      for r in router.completed),
+              f"F1 {faults}: 16/16 finished, one record an id")
+        for e in engines:
+            e.pool.check_invariants()
+        end = [_blocks_free(e) for e in engines]
+        check(all(u == 0 and f == s[1] for (u, f), s in zip(end, start)),
+              f"F1: every block free or cached again ({start} -> {end})")
+        out[faults or "clean"] = dict(
+            tokens=toks, fo=ctrl.stats(), respawns=respawns, points=points,
+            ticks=ticks, seconds=seconds, timing=timing,
+            records={r["id"]: r for r in router.completed})
+        del router, engines
+        torch.cuda.empty_cache()
+    clean, run = out["clean"], out[F1_FAULTS]
+    fo = run["fo"]
+    (death,) = fo["deaths"]
+    delay = FailoverController().backoff.delay(1)
+    (resp,) = run["respawns"] if len(run["respawns"]) == 1 else (None,)
+    check(fo["replica_deaths"] == 1 and death["replica"] == 1
+          and fo["requeued"] + fo["retried"] > 0 and fo["failed"] == 0
+          and fo["respawns"] == 1 and resp is not None,
+          f"F1: one death of replica 1, work drained, one respawn ({fo})")
+    due = death["t"] + delay
+    check(resp["t"] >= due > resp["t"] - FLEET_DT - 1e-9,
+          f"F1: the respawn at tick {resp['tick']} (t {resp['t']:.3f}) is "
+          f"the first at or after the backoff's {due:.3f}")
+    check(resp["same"], "F1: memory_allocated and the pools unchanged "
+          "across the respawn")
+    check(clean["fo"]["replica_deaths"] == 0, "F1 clean: no death")
+    retried = [rid for rid, rec in run["records"].items()
+               if rec.get("retries")]
+    for rid in retried:
+        p = run["points"][rid]
+        check(run["tokens"][rid][:p] == clean["tokens"][rid][:p],
+              f"F1: request {rid} equal to the faultless run up to its "
+              f"requeue point ({p} tokens)")
+    differ = sum(run["tokens"][rid] != clean["tokens"][rid]
+                 for rid in clean["tokens"])
+    run.update(delay=delay, retried_ids=retried, differ=differ)
+    return out
+
+
+def f2_leg(torch, model, seed: int, device) -> dict:
+    """F2: ``--serve-paged --serve-disagg 2:6``'s tier behind the router
+    (a fault spec forces it at one replica), ``F2_FAULTS``: the prefill
+    role dies at tick 5 (its stranded and queued work waits for the
+    respawn), then a parked handoff is dropped.  Checks: the role
+    revived, the dropped handoff's orphan requeued, 16/16 finished, the
+    shared pool's audit clean after each event and every block back."""
+    from pytorch_distributed_training_tpu_torch.resilience import (
+        ServeFaultInjector,
+    )
+    from pytorch_distributed_training_tpu_torch.serve import (
+        DisaggServingEngine, FailoverController, ReplicaRouter,
+        VirtualClock,
+    )
+
+    tier = DisaggServingEngine(model, prefill_slots=2, decode_slots=6,
+                               max_len=1024, prefill_chunk=16,
+                               temperature=0.0, seed=seed, paged=True,
+                               device=device)
+    _streams([tier])
+    clock = VirtualClock()
+    ctrl = FailoverController()
+    router = ReplicaRouter([tier], max_queue=16, clock=clock, failover=ctrl,
+                           chaos=ServeFaultInjector.from_spec(
+                               F2_FAULTS.format(drop=F2_DROP_TICK)))
+    events: list = []
+    respawns: list = []
+    _watch_respawns(torch, ctrl, router, [tier], respawns)
+    inject, drop = router.inject_role_death, router.drop_handoff
+
+    def role_death(k, role):
+        inject(k, role)
+        tier.check_invariants()
+        events.append(("death", role, router.tick_index))
+
+    def dropped():
+        rid = drop()
+        tier.check_invariants()
+        events.append(("drop", rid, router.tick_index))
+        return rid
+
+    router.inject_role_death, router.drop_handoff = role_death, dropped
+    start = _blocks_free(tier)
+    t0 = time.monotonic()
+    for r in _fleet_requests(seed):
+        check(router.submit(r), "F2: request queued")
+    ticks = _tick_until_idle(router, clock)
+    seconds = time.monotonic() - t0
+    fo = ctrl.stats()
+    ids = [r["id"] for r in router.completed]
+    tier.check_invariants()
+    check(len(ids) == len(set(ids)) == 16, "F2: 16/16 finished once")
+    check([e[0] for e in events] == ["death", "drop"]
+          and events[1][1] is not None and tier.handoffs_dropped == 1,
+          f"F2: the prefill role died, then a parked handoff was dropped "
+          f"({events})")
+    check(fo["respawns"] == 1 and ctrl.health[0].state == "up"
+          and tier.dead_roles == () and respawns[0]["same"],
+          f"F2: the role revived, allocations unchanged ({fo})")
+    check(fo["retried"] >= 1, "F2: the orphan was requeued")
+    check(_blocks_free(tier) == (0, start[1]),
+          "F2: every block free or cached again")
+    return {"fo": fo, "events": events, "respawns": respawns,
+            "ticks": ticks, "seconds": seconds,
+            "handoffs": tier.handoffs}
+
+
+def a1_leg(torch, model, seed: int, device, repo: str) -> dict:
+    """A1: three paged replicas behind the router with failover and the
+    autoscale controller (``min_replicas`` 1: two park at once) under a
+    VirtualClock; a burst of 16, idle ticks, a burst of 8, idle ticks.
+    Checks: a scale-up and a scale-down at least, each an
+    ``autoscale_action`` record with its cause; the card's allocated
+    bytes and the pools unchanged across every revive; every request
+    done; ``/slo``'s controller block equal to ``snapshot()``."""
+    import shutil
+
+    from pytorch_distributed_training_tpu_torch.obs import (
+        LiveAggregator, MetricsEmitter, OpsServer, read_events,
+    )
+    from pytorch_distributed_training_tpu_torch.serve import (
+        AutoscaleController, FailoverController, ReplicaRouter,
+        VirtualClock,
+    )
+
+    tm = os.path.join(repo, "build", "chip_smoke", "a1_tm")
+    shutil.rmtree(tm, ignore_errors=True)
+    clock = VirtualClock()
+    emitter = MetricsEmitter(tm, rank=0, clock=clock)
+    agg = LiveAggregator(clock=clock)
+    emitter.attach_sink(agg)
+    engines = [_fleet_engine(model, seed, device) for _ in range(3)]
+    _streams(engines)
+    auto = AutoscaleController(min_replicas=1)
+    ctrl = FailoverController()
+    router = ReplicaRouter(engines, max_queue=24, clock=clock,
+                           emitter=emitter, failover=ctrl, autoscale=auto)
+    revives: list = []
+    revive = ctrl.revive
+
+    def logged(k, tick, now):
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_allocated(), _storage(engines))
+        revive(k, tick, now)
+        torch.cuda.synchronize()
+        revives.append((k, tick, before == (torch.cuda.memory_allocated(),
+                                            _storage(engines))))
+
+    ctrl.revive = logged
+    t0 = time.monotonic()
+    for r in _fleet_requests(seed):
+        check(router.submit(r), "A1: request queued")
+    ticks = _tick_until_idle(router, clock)
+    for _ in range(auto.down_idle_ticks + auto.cooldown_ticks):
+        router.tick()
+        clock.advance(FLEET_DT)
+    for r in _fleet_requests(seed + 1, n=8, first=100):
+        check(router.submit(r), "A1: request queued")
+    ticks += _tick_until_idle(router, clock)
+    for _ in range(auto.down_idle_ticks + auto.cooldown_ticks):
+        router.tick()
+        clock.advance(FLEET_DT)
+    seconds = time.monotonic() - t0
+    server = OpsServer(agg, None, controller=auto)
+    status, _, body = server._respond("/slo")
+    block = json.loads(body)["controller"]
+    snap = json.loads(json.dumps(auto.snapshot()))
+    emitter.close()
+    actions = [e for name in sorted(os.listdir(tm))
+               if name.startswith("events.")
+               for e in read_events(os.path.join(tm, name))
+               if e.get("record") == "autoscale_action"]
+    shutil.rmtree(tm, ignore_errors=True)
+    st = auto.stats()
+    done = router.completed
+    check(len(done) == 24 and len({r["id"] for r in done}) == 24
+          and all(r["finish_reason"] == "length" for r in done),
+          "A1: 24/24 requests done, once")
+    check(st["scale_ups"] >= 1 and st["scale_downs"] >= 1,
+          f"A1: a scale-up and a scale-down ({st})")
+    check(len(actions) == st["actions"]
+          and all(a["cause"]["signal"] for a in actions)
+          and [a["action"] for a in actions]
+          == [h["action"] for h in auto.history],
+          "A1: every action an autoscale_action record with its cause")
+    check(revives and all(same for _, _, same in revives),
+          f"A1: memory_allocated and the pools unchanged across each "
+          f"revive ({revives})")
+    check(status == 200 and block == snap,
+          "A1: /slo's controller block equals snapshot()")
+    for e in engines:
+        e.pool.check_invariants()
+    return {"stats": st, "history": list(auto.history), "ticks": ticks,
+            "seconds": seconds, "revives": revives,
+            "fo": ctrl.stats()}
+
+
+def fleet_phase(torch, pa, seed: int, repo: str) -> dict:
+    """The serving fleet's controllers on the card (F1, F2, A1); returns
+    the paged kernels' launches by row (#11, #12)."""
+    from pytorch_distributed_training_tpu_torch.models import create_model
+
+    card = card_line()
+    model = create_model("gpt2", dtype=torch.bfloat16, device="cuda",
+                         seed=seed)
+    entries = (pa.paged_decode_attention, pa.paged_decode_attention_multi,
+               pa.paged_prefill_attention)
+    launches = {"paged_decode_attention": 0, "_paged_multi_call": 0}
+
+    def counted(leg, *a):
+        for e in entries:
+            e.launches = 0
+        out = leg(torch, model, seed, "cuda", *a)
+        n11, n12m, n12p = (e.launches for e in entries)
+        check(n11 > 0 and n12p > 0, f"{leg.__name__}: the paged kernels "
+              f"launched ({n11}, {n12m}, {n12p})")
+        launches["paged_decode_attention"] += n11
+        launches["_paged_multi_call"] += n12m + n12p
+        return out, (n11, n12m, n12p)
+
+    f1, n = counted(f1_leg)
+    run, clean = f1[F1_FAULTS], f1["clean"]
+    fo, (resp,) = run["fo"], run["respawns"]
+    print(f"fleet F1 (2 paged GPT-2 124M replicas, 8 slots and a 64 MB host "
+          f"tier each, {F1_FAULTS}; {card}): 16/16 once; death of replica 1 "
+          f"at tick {fo['deaths'][0]['tick']}, requeued {fo['requeued']}, "
+          f"retried {fo['retried']}, duplicates suppressed "
+          f"{fo['duplicates_suppressed']}, respawn at tick {resp['tick']} "
+          f"(backoff {run['delay']:.3f} s, {FLEET_DT} s a tick), reset "
+          f"{resp['s'] * 1e3:.3f} ms host, memory_allocated "
+          f"{resp['bytes']} B unchanged; detection + drain "
+          f"{run['timing']['declare'] * 1e3:.3f} ms, requeues "
+          f"{run['timing']['requeue'] * 1e3:.3f} ms host; requests "
+          f"differing from the faultless run {run['differ']}/16 (none before "
+          f"its requeue point, {len(run['retried_ids'])} retried); ticks "
+          f"{run['ticks']} / {clean['ticks']} clean; {run['seconds']:.1f} / "
+          f"{clean['seconds']:.1f} s; launches #11 {n[0]} #12 {n[1]} + "
+          f"{n[2]}", flush=True)
+    f2, n = counted(f2_leg)
+    fo = f2["fo"]
+    print(f"fleet F2 (--serve-disagg 2:6 paged, "
+          f"{F2_FAULTS.format(drop=F2_DROP_TICK)}; {card}): 16/16 once; "
+          f"events {f2['events']}, respawn at tick "
+          f"{f2['respawns'][0]['tick']} (allocations unchanged), requeued "
+          f"{fo['requeued']}, retried {fo['retried']}, {f2['handoffs']} "
+          f"handoffs, audit clean; {f2['ticks']} ticks, "
+          f"{f2['seconds']:.1f} s; launches #11 {n[0]} #12 {n[1]} + {n[2]}",
+          flush=True)
+    a1, n = counted(a1_leg, repo)
+    st = a1["stats"]
+    acts = [(h["tick"], h["action"], h["cause"]["signal"])
+            for h in a1["history"]]
+    print(f"fleet A1 (3 paged replicas, min 1, bursts of 16 and 8; {card}): "
+          f"24/24; actions {acts}; active {st['replicas_active']}/3 at the "
+          f"end; revives {len(a1['revives'])} with memory_allocated and "
+          f"the pools unchanged; /slo controller block = snapshot(); "
+          f"{a1['ticks']} busy ticks, {a1['seconds']:.1f} s; launches #11 "
+          f"{n[0]} #12 {n[1]} + {n[2]}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def generate_phase(torch, da, seed: int) -> None:
@@ -3586,8 +4020,7 @@ def gate_turns(torch, seed: int, steps: int = 5) -> None:
 
 def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
     """The device-resident datasets and the skip gate through the CLI.
-    DC1 R1 with and without ``--device-cache`` (loader / cache / cache /
-    loader), DC2 R2p's ResNet-50 and V1's ViT-B/16 on V1's packed
+    DC1 R1 without and with ``--device-cache`` (loader, cache), DC2 R2p's ResNet-50 and V1's ViT-B/16 on V1's packed
     records, DC3 T1 on a token file written from the seed (flash #4/#5):
     each warm epoch's rate and step, and a profiled window's busy share
     and host-to-device copies a step, which must be 0 with the cache.
@@ -3620,11 +4053,12 @@ def cache_guard_phase(torch, fa, seed: int, repo: str) -> dict:
     seed_argv = ["--seed", str(seed)]
     launches = {4: 0, 5: 0}
 
-    # DC1: the reference's run, loader / cache / cache / loader; warm steps
-    # 20-24 of the first epoch are profiled, the second epoch is timed
-    # unprofiled.
+    # DC1: the reference's run, loader then cache (one pair: the ABBA
+    # quartet's spread is on record, and its second pair pays for the
+    # serving fleet's legs); warm steps 20-24 of the first epoch are
+    # profiled, the second epoch is timed unprofiled.
     _pair(torch, cli, "DC1 R1", R1_ARGV + seed_argv, 50, 20, 5, 1,
-          "images/s", order=("loader", "cache", "cache", "loader"))
+          "images/s")
     # DC2: the packed records of the ViT legs (232 px, cropped to 224).
     packed = os.path.join(repo, "build", "chip_smoke", "vit", "train.pck")
     r2p = list(R2_ARGV)
@@ -5167,6 +5601,7 @@ def serve_run(torch, out: str, run: dict, rank: int) -> dict:
     from pytorch_distributed_training_tpu_torch.ops import (
         decode_attention as da, paged_attention as pa,
     )
+    from pytorch_distributed_training_tpu_torch.serve import ServingEngine
 
     entries = (da.decode_attention, da.decode_attention_multi,
                pa.paged_decode_attention, pa.paged_decode_attention_multi,
@@ -5182,19 +5617,38 @@ def serve_run(torch, out: str, run: dict, rank: int) -> dict:
         return n
 
     box: dict = {}
+    # This rank's forwards: its engines' counters, plus what each reset
+    # (a respawn) zeroed (rank 0's summary sums every replica's).
+    made: list = []
+    zeroed = {"decode_ticks": 0, "prefill_ticks": 0}
+    init, reset = ServingEngine.__init__, ServingEngine.reset
+
+    def kept(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def counted_reset(self):
+        for key in zeroed:
+            zeroed[key] += getattr(self, key)
+        reset(self)
+
     GPT2.local_heads = counted
+    ServingEngine.__init__, ServingEngine.reset = kept, counted_reset
     t0 = time.monotonic()
     try:
         with first_logits(torch, box, "logits"):
             res = cli(run["argv"])
     finally:
         GPT2.local_heads = local_heads
+        ServingEngine.__init__, ServingEngine.reset = init, reset
     record = dict(
         launches=[e.launches for e in entries],
-        decode_ticks=res["engine"]["decode_ticks"],
-        prefill_ticks=res["prefill_ticks"], heads=sorted(heads),
-        summary=res["summary"], tokens=res["tokens"], tp=res.get("tp"),
-        ticks=res.get("ticks"), seconds=time.monotonic() - t0)
+        **{key: n + sum(getattr(e, key) for e in made)
+           for key, n in zeroed.items()},
+        heads=sorted(heads), summary=res["summary"], tokens=res["tokens"],
+        tp=res.get("tp"), remote=res.get("remote"),
+        router=res.get("router"), ticks=res.get("ticks"),
+        seconds=time.monotonic() - t0)
     if rank == 0:
         torch.save(box["logits"], os.path.join(out,
                                                f"{run['label']}.logits.pt"))
@@ -5204,15 +5658,24 @@ def serve_run(torch, out: str, run: dict, rank: int) -> dict:
     return record
 
 
-# --serve-tp 4 in the pipeline phase's torchrun: GPT-2 124M at full
-# width, bf16, SERVE_ARGV with speculative decoding (k = 4), contiguous
-# then paged, over the first TP_REQUESTS of its requests with budgets up
-# to 32 (a tick costs ~140 ms over gloo on one card: 24 host-staged
-# all-reduces).  The trace's first 8 prompts, so the first prefill
-# tick, are the 16-request runs'; its logits are held to theirs
-# (serving_phase, paged_serving_phase) within TP_LOGITS_ATOL: the
-# row-parallel sums change bf16 roundings.
-TP_RUNS = (("tp4_contig", []), ("tp4_paged", ["--serve-paged"]))
+# The pipeline phase's torchrun serves GPT-2 124M at full width, bf16,
+# SERVE_ARGV with speculative decoding (k = 4) over the first TP_REQUESTS
+# of its requests with budgets up to 32 (a tick costs ~140 ms over gloo
+# on one card: 24 host-staged all-reduces): --serve-tp 4 contiguous, then
+# --serve-tp 2 --serve-replicas 2 paged (rank 0's router over its group
+# and the other group's leader), then the same with replica 1 crashing at
+# tick 6.  The trace's first 8 prompts, so the first prefill tick, are the
+# 16-request runs'; its logits are held to theirs (serving_phase,
+# paged_serving_phase) within TP_LOGITS_ATOL, row by row for the requests
+# group 0 holds (the router alternates them: rows 0-3 are requests 0, 2,
+# 4, 6): the row-parallel sums change bf16 roundings.
+TP_RUNS = (("tp4_contig", ["--serve-tp", "4"]),
+           ("tp2x2_paged", ["--serve-tp", "2", "--serve-replicas", "2",
+                            "--serve-paged"]),
+           ("tp2x2_crash", ["--serve-tp", "2", "--serve-replicas", "2",
+                            "--serve-paged", "--serve-inject-faults",
+                            "replica_crash@6:1"]))
+TP_GROUP_ROWS = [0, 2, 4, 6]
 TP_REQUESTS = 8
 TP_LOGITS_ATOL = 5e-2
 # The JAX tests' tiny GPT-2 (tests/test_serve_tp.py) at TP 2, and its
@@ -5233,8 +5696,82 @@ TP_TINY_ENGINES = {
 def _tp_runs(seed: int) -> list:
     return [dict(label=label, serve=True, argv=[
         *SERVE_ARGV, "--seed", str(seed), "--serve-spec", "--serve-spec-k",
-        "4", "--serve-tp", "4", "--serve-requests", str(TP_REQUESTS),
-        "--serve-max-new", "32", *extra]) for label, extra in TP_RUNS]
+        "4", "--serve-requests", str(TP_REQUESTS), "--serve-max-new", "32",
+        *extra]) for label, extra in TP_RUNS]
+
+
+# The tiny fleet (tp_tiny_leg): TP 2 x 2 behind rank 0's router against
+# one process's 2-replica router, paged with host tiers, on a trace whose
+# shared prefix warms one replica and whose burst the affinity cap
+# rebalances with a sibling fetch; the crash run kills replica 1 while it
+# holds work (the router's VirtualClock advances TINY_FLEET_DT a tick).
+TINY_FLEET_ENGINE = dict(num_slots=2, max_len=48, prefill_chunk=4,
+                         temperature=0.0, paged=True, block_size=4,
+                         num_blocks=24, kv_host_mb=2.0)
+TINY_FLEET_CRASH = "replica_crash@23:1"
+TINY_FLEET_DT = 0.05
+
+
+def _tiny_fleet_prompt(seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.concatenate([(np.arange(8, dtype=np.int32) * 5) % 61,
+                           rng.integers(0, 61, (3,)).astype(np.int32)])
+
+
+def _tiny_fleet(engines, crash: bool) -> dict:
+    """The tiny fleet's trace through a router over ``engines`` (two
+    unsharded engines, or rank 0's group engines): tokens, routing
+    counters, the failover block, each record's outcome (JSON-ready)."""
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.resilience import (
+        ServeFaultInjector,
+    )
+    from pytorch_distributed_training_tpu_torch.serve import (
+        FailoverController, ReplicaRouter, Request, VirtualClock,
+    )
+    from pytorch_distributed_training_tpu_torch.utils.backoff import (
+        BackoffPolicy,
+    )
+
+    clock = VirtualClock()
+    toks: dict = {}
+    for e in engines:
+        e.stream_cb = lambda rid, t: toks.setdefault(str(rid), []).append(
+            int(t))
+    kw = {}
+    if crash:
+        kw = dict(chaos=ServeFaultInjector.from_spec(TINY_FLEET_CRASH),
+                  failover=FailoverController(
+                      miss_threshold=2,
+                      backoff=BackoffPolicy(base_s=0.05, jitter=0.0)))
+    router = ReplicaRouter(engines, clock=clock, affinity_queue_cap=1, **kw)
+    pending = [Request(0, _tiny_fleet_prompt(99), 2, arrival_time=0.0)] + [
+        Request(i, _tiny_fleet_prompt(i), 6, arrival_time=1.0)
+        for i in range(1, 7)] + [
+        Request(9, np.asarray([2, 4, 6, 8], np.int32), 6, arrival_time=1.0)]
+    i = ticks = 0
+    while i < len(pending) or not router.idle:
+        while i < len(pending) and pending[i].arrival_time <= clock():
+            router.submit(pending[i])
+            i += 1
+        router.tick()
+        clock.advance(TINY_FLEET_DT)
+        ticks += 1
+        check(ticks < 2000, "TP tiny fleet: the trace converged")
+    st = router.stats()
+    return json.loads(json.dumps({
+        "tokens": toks, "ticks": ticks, "failover": st.get("failover"),
+        "router": {k: st[k] for k in ("routed", "affinity_hits",
+                                      "rebalanced", "rejected",
+                                      "sibling_fetches",
+                                      "sibling_fetch_blocks")},
+        "records": {str(r["id"]): [r["finish_reason"], r.get("retries"),
+                                   r.get("replica_history")]
+                    for r in router.completed},
+    }))
 
 
 def _tiny_requests(seed: int):
@@ -5266,8 +5803,12 @@ def tp_tiny_leg(torch, out: str, seed: int, rank: int,
     """The tiny f32 models of ``TP_TINY`` (TF32 off) served by
     ``TP_TINY_ENGINES`` at TP 2 (data 2 x tensor 2: two groups, each led
     by its first rank) and TP 4 over the 4 ranks, and by one process on
-    each leader from the same weights: ``OUT/tiny.rank<r>.json`` holds
-    each case's tensor-parallel and one-process tokens (leaders)."""
+    each leader from the same weights; then the 2-head model as TP 2 x 2
+    replicas behind rank 0's router (``_tiny_fleet``, with and without a
+    crash) against one process's 2-replica router: ``OUT/tiny.rank<r>
+    .json`` holds each case's tensor-parallel and one-process results
+    (leaders), ``OUT/tiny_prefix.rank<r>.npz`` each rank's shard of the
+    fetched prefix blocks."""
     import copy
 
     from pytorch_distributed_training_tpu_torch.comm.mesh import (
@@ -5279,11 +5820,14 @@ def tp_tiny_leg(torch, out: str, seed: int, rank: int,
     from pytorch_distributed_training_tpu_torch.parallel import (
         shard_for_serving,
     )
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.comm import collectives
     from pytorch_distributed_training_tpu_torch.serve import (
-        LockstepEngine, ServingEngine, follow,
+        LockstepEngine, ServingEngine, follow, hash_prompt_blocks,
     )
     from pytorch_distributed_training_tpu_torch.serve.tp import (
-        serving_groups,
+        ReplicaFabric, run_fleet_rank, serving_groups,
     )
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -5314,6 +5858,34 @@ def tp_tiny_leg(torch, out: str, seed: int, rank: int,
                 ref = _drive_engine(ServingEngine(whole, device=device,
                                                   **kw), *trace)
                 record[f"tp{tp}/{label}"] = {"tp": got, "one": ref}
+        # The fleet: TP 2 x 2 behind rank 0's router (serve/tp.py) against
+        # one process's 2-replica router over the whole model.
+        mesh = make_mesh(MeshConfig(data=2, tensor=2))
+        fabric = ReplicaFabric(mesh)
+        whole = GPT2(GPT2Config(**TP_TINY[2]), device=device)
+        whole.init_weights(torch.Generator(device=device).manual_seed(seed))
+        whole.eval()
+        for label, crash in (("fleet", False), ("fleet_crash", True)):
+            engine = ServingEngine(
+                shard_for_serving(copy.deepcopy(whole), mesh), device=device,
+                **TINY_FLEET_ENGINE)
+            got = run_fleet_rank(fabric, engine,
+                                 lambda engines: _tiny_fleet(engines, crash))
+            if rank == 0:
+                ref = _tiny_fleet([ServingEngine(whole, device=device,
+                                                 **TINY_FLEET_ENGINE)
+                                   for _ in range(2)], crash)
+                record[label] = {"tp": got, "one": ref}
+            if not crash:
+                blocks = engine.pool.blocks
+                chain = hash_prompt_blocks(_tiny_fleet_prompt(99),
+                                           blocks.block_size)
+                np.savez(os.path.join(out, f"tiny_prefix.rank{rank}.npz"),
+                         **{f"b{i}_{j}": a for i, h in enumerate(chain)
+                            if (arrays := blocks.read_block_bytes(h))
+                            is not None
+                            for j, a in enumerate(arrays)})
+            collectives.barrier()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     with open(os.path.join(out, f"tiny.rank{rank}.json"), "w") as f:
@@ -5321,24 +5893,29 @@ def tp_tiny_leg(torch, out: str, seed: int, rank: int,
 
 
 def tp_check(out: str, carry: dict) -> dict:
-    """The --serve-tp 4 runs: on every rank the kernels launched 12 times
-    a tick at 3 local heads (contiguous: #9 + #10 = 12 x decode ticks,
-    no paged kernel; paged: #11 + #12 = 12 x decode ticks and #12
-    prefill = 12 x the rank's prefill forwards, no contiguous kernel),
-    every rank the same ticks, every request completed on rank 0 with
-    tokens inside the vocabulary; the first prefill tick's logits within
-    ``TP_LOGITS_ATOL`` of one process's (token agreement over each
-    request's common length printed as information); the tiny f32
-    models' TP 2 and TP 4 tokens equal to one process's.  Returns the
-    launches by row."""
+    """The tensor-parallel runs (``TP_RUNS``): on every rank the kernels
+    launched 12 times a tick at its local heads (3 under --serve-tp 4, 6
+    under --serve-tp 2; contiguous: #9 + #10 = 12 x decode ticks, no
+    paged kernel; paged: #11 + #12 = 12 x decode ticks and #12 prefill =
+    12 x the rank's prefill forwards, no contiguous kernel), a group's
+    ranks the same ticks, every request completed on rank 0 with tokens
+    inside the vocabulary; the first prefill tick's logits within
+    ``TP_LOGITS_ATOL`` of one process's (the rows of the requests group 0
+    holds; token agreement printed as information); the crash run's
+    failover block F1's (one death, work drained and requeued, one
+    respawn); the remote calls and their host time a tick printed; the
+    tiny f32 models (``tp_tiny_leg``) equal to one process's.  Returns
+    the launches by row."""
+    import numpy as np
     import torch
 
     launches = {"decode_attention": 0, "decode_attention_multi": 0,
                 "paged_decode_attention": 0, "_paged_multi_call": 0}
-    for label, _ in TP_RUNS:
+    for label, argv in TP_RUNS:
         ranks = _run_ranks(out, label)
         lead = ranks[0]
-        paged = "paged" in label
+        paged = "--serve-paged" in argv
+        tp = int(argv[argv.index("--serve-tp") + 1])
         for r, x in enumerate(ranks):
             n9, n10, n11, n12m, n12p = x["launches"]
             if paged:
@@ -5348,9 +5925,10 @@ def tp_check(out: str, carry: dict) -> dict:
             else:
                 ok = (n11 == n12m == n12p == 0
                       and n9 + n10 == LAYERS * x["decode_ticks"])
-            check(ok and x["heads"] == [TP_HEADS]
-                  and x["decode_ticks"] == lead["decode_ticks"]
-                  and x["prefill_ticks"] == lead["prefill_ticks"],
+            peer = ranks[r - r % tp]
+            check(ok and x["heads"] == [12 // tp] and x["decode_ticks"] > 0
+                  and x["decode_ticks"] == peer["decode_ticks"]
+                  and x["prefill_ticks"] == peer["prefill_ticks"],
                   f"TP {label} rank {r}: launches {x['launches']} vs 12 x "
                   f"{x['decode_ticks']} decode / {x['prefill_ticks']} "
                   f"prefill ticks, heads {x['heads']}")
@@ -5366,42 +5944,98 @@ def tp_check(out: str, carry: dict) -> dict:
               "vocabulary")
         kind = "paged" if paged else "contig"
         got = torch.load(os.path.join(out, f"{label}.logits.pt"))
-        ref = carry.pop(f"logits/{kind}")
+        ref = carry[f"logits/{kind}"]
+        if tp == 2:
+            got, ref = got[:len(TP_GROUP_ROWS)], ref[TP_GROUP_ROWS]
         err = (got - ref).abs().max().item()
         check(got.shape == ref.shape and err <= TP_LOGITS_ATOL,
               f"TP {label}: first prefill logits within {TP_LOGITS_ATOL} of "
               f"one process's (max err {err:.3g})")
-        one = carry.pop(f"tokens/{kind}")
+        one = carry[f"tokens/{kind}"]
         same = sum(a == b for rid in toks for a, b in zip(toks[rid],
                                                           one[rid]))
         total = sum(min(len(v), len(one[rid])) for rid, v in toks.items())
-        tp = lead["tp"]
-        print(f"serve {label} (--serve-tp 4, GPT-2 124M bf16, 4 gloo ranks "
-              f"on one card, 3 heads a rank): completed {s['completed']}/"
-              f"{TP_REQUESTS}, "
+        extra = ""
+        if tp == 2:
+            rt, remote = lead["router"], lead["remote"]
+            per_tick = remote["round_trip_s"] / lead["ticks"] * 1e3
+            served = remote["served_s"] / lead["ticks"] * 1e3
+            blocked = remote["wait_s"] / lead["ticks"] * 1e3
+            extra = (f"; routed {rt['routed']}, remote replica "
+                     f"{remote['round_trips']} calls "
+                     f"({remote['round_trips'] / lead['ticks']:.2f} a "
+                     f"tick), {per_tick:.4f} ms host from send to reply a "
+                     f"tick, the group's own work {served:.4f} ms, rank 0 "
+                     f"blocked on replies {blocked:.4f} ms (its step "
+                     f"posted before group 0's), "
+                     f"{remote['cached_reads']} cached reads")
+            fo = rt.get("failover")
+            if "--serve-inject-faults" in argv:
+                check(fo["replica_deaths"] == 1 and fo["respawns"] == 1
+                      and fo["deaths"][0]["replica"] == 1
+                      and fo["requeued"] + fo["retried"] > 0
+                      and fo["failed"] == 0,
+                      f"TP {label}: one death of group 1, its work drained "
+                      f"and requeued, one respawn ({fo})")
+                extra += (f"; failover: death at tick "
+                          f"{fo['deaths'][0]['tick']}, requeued "
+                          f"{fo['requeued']}, retried {fo['retried']}, "
+                          f"respawns {fo['respawns']}")
+            else:
+                check(fo["replica_deaths"] == 0, f"TP {label}: no death")
+        tp_note = lead["tp"]
+        print(f"serve {label} (GPT-2 124M bf16, {' '.join(argv[:4])}, 4 gloo "
+              f"ranks on one card, {12 // tp} heads a rank): completed "
+              f"{s['completed']}/{TP_REQUESTS}, "
               f"{s['goodput_tok_per_s']} tok/s, ttft p50/p99 "
               f"{s['ttft_p50_s']}/{s['ttft_p99_s']} s, tpot p50/p99 "
               f"{s['tpot_p50_s']}/{s['tpot_p99_s']} s; decode ticks "
-              f"{lead['decode_ticks']}, prefill ticks "
-              f"{lead['prefill_ticks']}, launches a rank {lead['launches']}; "
-              f"lockstep {tp['broadcasts']} broadcasts, "
-              f"{tp['broadcast_s'] / lead['ticks'] * 1e3:.4f} ms a tick over "
-              f"{lead['ticks']} ticks; first prefill logits max err {err:.3g} "
-              f"(bound {TP_LOGITS_ATOL}); token agreement with one process "
-              f"(informational) {same}/{total}; {lead['seconds']:.1f} s",
-              flush=True)
+              f"{[x['decode_ticks'] for x in ranks]}, prefill ticks "
+              f"{[x['prefill_ticks'] for x in ranks]}, launches by rank "
+              f"{[x['launches'] for x in ranks]}; lockstep "
+              f"{tp_note['broadcasts']} broadcasts, "
+              f"{tp_note['broadcast_s'] / lead['ticks'] * 1e3:.4f} ms a tick "
+              f"over {lead['ticks']} ticks{extra}; first prefill logits max "
+              f"err {err:.3g} (bound {TP_LOGITS_ATOL}); token agreement with "
+              f"one process (informational) {same}/{total}; "
+              f"{lead['seconds']:.1f} s", flush=True)
+    for kind in ("contig", "paged"):
+        carry.pop(f"logits/{kind}")
+        carry.pop(f"tokens/{kind}")
     tiny = _run_ranks(out, "tiny")
     leaders = {0: tiny[0], 2: tiny[2]}
     cases = 0
     for r, rec in leaders.items():
         for key, v in rec.items():
+            if key.startswith("fleet"):
+                continue
             check(v["tp"] == v["one"], f"TP tiny f32 {key} (leader rank "
                   f"{r}): tokens equal one process's")
             cases += 1
     check(cases == 6, f"TP tiny: 6 cases held ({cases})")
+    for label in ("fleet", "fleet_crash"):
+        v = tiny[0][label]
+        check(v["tp"] == v["one"], f"TP tiny f32 {label}: TP 2 x 2's tokens "
+              "and routing equal one process's 2-replica router's")
+        cases += 1
+    fo = tiny[0]["fleet_crash"]["one"]["failover"]
+    check(fo["replica_deaths"] == 1 and fo["respawns"] == 1,
+          f"TP tiny fleet_crash: one death, one respawn ({fo})")
+    fetched = tiny[0]["fleet"]["one"]["router"]["sibling_fetch_blocks"]
+    check(fetched > 0, "TP tiny fleet: a sibling fetch between groups")
+    for a, b in ((0, 2), (1, 3)):
+        pa_ = np.load(os.path.join(out, f"tiny_prefix.rank{a}.npz"))
+        pb = np.load(os.path.join(out, f"tiny_prefix.rank{b}.npz"))
+        check(sorted(pa_.files) == sorted(pb.files) and len(pa_.files) > 0
+              and all(np.array_equal(pa_[k], pb[k]) for k in pa_.files),
+              f"TP tiny fleet: rank {b}'s fetched prefix blocks are rank "
+              f"{a}'s shard, bit for bit")
     print(f"serve TP tiny f32 (TF32 off): TP 2 (two groups) and TP 4, "
-          f"contiguous and paged speculative, {cases} cases, greedy tokens "
-          "equal to one process's on the card", flush=True)
+          f"contiguous and paged speculative, and TP 2 x 2 behind one "
+          f"router with and without a crash of replica 1, {cases} cases, "
+          f"greedy tokens equal to one process's on the card; {fetched} "
+          f"prefix blocks fetched between the groups, each rank's shard "
+          f"bit for bit its peer's", flush=True)
     return launches
 
 
@@ -5499,6 +6133,51 @@ def pipeline_leg(out: str, seed: int) -> int:
     finally:
         comm_init.shutdown()
     return 0
+
+
+def serving_leg(out: str, seed: int) -> int:
+    """One rank of ``--serving-only``'s 4-rank torchrun (``--serving-leg
+    OUT SEED``), gloo on the one card: the TP runs (``_tp_runs``) and
+    ``tp_tiny_leg``, as the pipeline phase's torchrun runs them."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_training_tpu_torch.comm import (
+        collectives, init as comm_init,
+    )
+
+    torch.set_num_threads(1)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    comm_init.initialize(device, backend="gloo")
+    try:
+        rank = comm_init.process_index()
+        cli_runs(torch, out, _tp_runs(seed), rank)
+        collectives.barrier()
+        tp_tiny_leg(torch, out, seed, rank)
+        collectives.barrier()
+    finally:
+        comm_init.shutdown()
+    return 0
+
+
+def serving_torchrun(torch, seed: int, repo: str, carry: dict) -> dict:
+    """``--serving-only``'s TP runs: ``serving_leg`` on 4 ranks, then
+    ``tp_check``.  Returns the launches by row."""
+    import shutil
+
+    base = os.path.join(repo, "build", "chip_smoke", "serving_only")
+    shutil.rmtree(base, ignore_errors=True)
+    out, logs = os.path.join(base, "legs"), os.path.join(base, "logs")
+    os.makedirs(out)
+    argv = [os.path.join(repo, "chip_smoke.py"), "--serving-leg", out,
+            str(seed)]
+    proc = torchrun_logged(repo, 4, argv, logs)
+    try:
+        wait_ranks(proc, argv, 600, logs, "serving legs")
+    finally:
+        torchrun_kill(proc)
+    return tp_check(out, carry)
 
 
 def _rel_l2(a: dict, b: dict, names) -> float:
@@ -5851,6 +6530,13 @@ def main() -> int:
     ap.add_argument("--cli-joins", action="store_true",
                     help="(internal) with --cli-runs-leg: the CLI's "
                     "--distributed run joins the group")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="the serving tier alone, for work on it: the "
+                    "builds, the decode, paged and TP kernel checks, the "
+                    "serving, paged serving, prefix and fleet phases and "
+                    "the TP runs' torchrun (~3 min); prints no result line")
+    ap.add_argument("--serving-leg", nargs=2, metavar=("OUT", "SEED"),
+                    help="(internal) one rank of --serving-only's TP runs")
     args = ap.parse_args()
     if args.cli_leg:
         return cli_leg(args.cli_leg[0], args.cli_leg[1:])
@@ -5863,6 +6549,9 @@ def main() -> int:
         return pipeline_leg(args.pipeline_leg[0], int(args.pipeline_leg[1]))
     if args.cli_runs_leg:
         return cli_runs_leg(*args.cli_runs_leg, args.cli_joins)
+    if args.serving_leg:
+        return serving_leg(args.serving_leg[0], int(args.serving_leg[1]))
+    only = args.serving_only
     import torch
 
     if not torch.cuda.is_available():
@@ -5921,15 +6610,17 @@ def main() -> int:
         seconds[name] = time.monotonic() - t0
         return out
 
-    flash = timed("flash", flash_kernel_phase, torch, fa, args.seed,
-                  bandwidth)
+    if not only:
+        flash = timed("flash", flash_kernel_phase, torch, fa, args.seed,
+                      bandwidth)
     kernels = timed("decode", kernel_phase, torch, da, args.seed, bandwidth)
     kernels.update(timed("paged", paged_kernel_phase, torch, pa, args.seed,
                          bandwidth))
     timed("tp kernels", tp_kernel_phase, torch, da, pa, args.seed,
           bandwidth, kernels)
-    timed("parity", parity_phase, torch, args.seed)
-    timed("train parity", train_parity_phase, torch, fa, args.seed)
+    if not only:
+        timed("parity", parity_phase, torch, args.seed)
+        timed("train parity", train_parity_phase, torch, fa, args.seed)
     carry: dict = {}
     _, launches = timed("serving", serving_phase, torch, da, args.seed,
                         carry)
@@ -5937,6 +6628,18 @@ def main() -> int:
                           pa, args.seed, repo, carry).items():
         launches[kname] = launches.get(kname, 0) + n
     timed("prefix", prefix_phase, torch, args.seed, repo)
+    for kname, n in timed("fleet", fleet_phase, torch, pa, args.seed,
+                          repo).items():
+        launches[kname] = launches.get(kname, 0) + n
+    if only:
+        for kname, n in timed("tp runs", serving_torchrun, torch, args.seed,
+                              repo, carry).items():
+            launches[kname] = launches.get(kname, 0) + n
+        print("phases: " + ", ".join(f"{k} {v:.1f} s"
+                                     for k, v in seconds.items()), flush=True)
+        print(f"serving only: every check held; launches {launches}; "
+              f"{time.monotonic() - t_start:.1f} s", flush=True)
+        return 0
     timed("generate", generate_phase, torch, da, args.seed)
     figures: dict = {}
     for num, n in timed("training", training_phase, torch, fa, args.seed,

@@ -936,16 +936,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-spec-ngram", type=int, default=4,
                    help="Longest suffix n-gram the drafter matches.")
     p.add_argument("--serve-tp", type=int, default=1,
-                   help="Tensor-parallel size of the serving engine: run "
-                        "under torchrun with a world of N; each rank holds "
-                        "its shard of the heads and of the MLP and the "
-                        "ranks step in lockstep (serve/tp.py).  Greedy "
-                        "output stays token-exact.  1 = unsharded.")
+                   help="Tensor-parallel size of each serving replica: run "
+                        "under torchrun with a world of N x "
+                        "--serve-replicas; each rank holds its shard of the "
+                        "heads and of the MLP and a replica's ranks step in "
+                        "lockstep (serve/tp.py).  Greedy output stays "
+                        "token-exact.  1 = unsharded.")
     p.add_argument("--serve-replicas", type=int, default=1,
                    help="Independent engine replicas behind one router "
                         "(serve/router.py): prefix-cache affinity, then "
                         "least-loaded dispatch.  Replica k runs on card k "
-                        "when there are enough cards, else all share one.")
+                        "when there are enough cards, else all share one; "
+                        "with --serve-tp N, on ranks [kN, (k+1)N).")
     p.add_argument("--serve-affinity", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="Prefix-cache-affinity routing (--serve-replicas > "
@@ -962,25 +964,85 @@ def build_parser() -> argparse.ArgumentParser:
                         "per replica (serve/disagg.py), KV handed off "
                         "through the shared paged block pool (or a row "
                         "copy, contiguous).  Replaces --serve-slots.")
+    p.add_argument("--serve-inject-faults", default=None, metavar="SPEC",
+                   help="Serving-tier chaos plane (resilience/faults.py): "
+                        "comma-separated kind@tick[:replica[:arg]] with "
+                        "kinds replica_crash[:role], replica_stall[:ticks], "
+                        "replica_slow:factor, handoff_drop — evaluated at "
+                        "router tick boundaries, each fires once per run "
+                        "(markers persist in <ckpt-dir>/.fault_state across "
+                        "supervised relaunches).  Forces the replica router "
+                        "even at --serve-replicas 1.  Chaos testing only.")
+    p.add_argument("--serve-failover", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="Router-level replica failover (serve/failover.py, "
+                        "multi-replica or chaos runs): missed-tick/heartbeat "
+                        "death detection, fence + drain, token-exact requeue "
+                        "of a dead replica's queued and in-flight requests "
+                        "onto survivors, exactly-once retirement, brown-out "
+                        "shedding, backoff-scheduled respawn.  "
+                        "--no-serve-failover is the control: a dead replica "
+                        "strands its work (expect a hung run under replica "
+                        "faults).")
+    p.add_argument("--serve-retry-budget", type=int, default=2,
+                   help="Failover re-placements a request may consume "
+                        "before it is retired with finish reason 'failed' "
+                        "(--serve-failover).")
+    p.add_argument("--serve-brownout-s", type=float, default=0.0,
+                   help="Brown-out margin (--serve-failover): while the "
+                        "tier is under capacity after a replica death, "
+                        "queued requests shed this many seconds BEFORE "
+                        "their --serve-ttl deadline instead of at it.")
+    p.add_argument("--serve-autoscale", action="store_true",
+                   help="Closed-loop autoscaling (serve/autoscale.py): the "
+                        "fleet is built at --serve-replicas up front, spares "
+                        "park, and a controller on the router tick revives/"
+                        "retires replicas from queue depth + SLO burn "
+                        "alerts, re-splits disagg roles from the live TTFT "
+                        "decomposition, and walks a pressure ladder "
+                        "(host-tier shedding, brown-out) before dropping "
+                        "work.  No device allocation per action; every "
+                        "action is a schema'd autoscale_action event with "
+                        "its cause.  Implies the router path and needs "
+                        "--serve-failover.")
+    p.add_argument("--serve-autoscale-min", type=int, default=1,
+                   help="Floor of active replicas (--serve-autoscale); the "
+                        "controller starts here and parks the rest.")
+    p.add_argument("--serve-autoscale-max", type=int, default=0,
+                   help="Ceiling of active replicas (--serve-autoscale); "
+                        "0 = the whole built fleet (--serve-replicas).")
+    p.add_argument("--serve-autoscale-up-depth", type=int, default=8,
+                   help="Queued requests across the tier (incl. the "
+                        "failover pending buffer) that count as scale-up "
+                        "pressure (--serve-autoscale).")
+    p.add_argument("--serve-autoscale-down-idle", type=int, default=32,
+                   help="Consecutive fully-idle ticks before one replica "
+                        "is drained and parked (--serve-autoscale).")
+    p.add_argument("--serve-autoscale-cooldown", type=int, default=16,
+                   help="Minimum ticks between replica-count actions "
+                        "(--serve-autoscale).")
+    p.add_argument("--serve-priority", default=None, metavar="SPEC",
+                   help="Priority classes for SLO-weighted admission "
+                        "(serve/policy.py): 'interactive=4,batch=1' maps "
+                        "tenant names to scheduling weights popped by "
+                        "weighted deficit over the tenant-fair queue; "
+                        "per-class --slo objectives "
+                        "(ttft_p99[interactive]=250ms) boost a class while "
+                        "its live window is out of budget.")
     return p
 
 
 def _check_serve_scale(tp: int, replicas: int) -> None:
-    """The refusals of ``--serve-tp`` / ``--serve-replicas``."""
+    """The refusal of ``--serve-tp`` / ``--serve-replicas`` below 1."""
     if tp < 1 or replicas < 1:
         raise SystemExit("--serve-tp and --serve-replicas must be >= 1")
-    if tp > 1 and replicas > 1:
-        raise SystemExit(
-            "--serve-tp > 1 with --serve-replicas > 1 needs a router that "
-            "spans processes (ROADMAP.md Queue 1 item 11b, not ported yet): "
-            "serve one tensor-parallel engine, or replicas at --serve-tp 1"
-        )
 
 
-def _serve_world(tp: int, device) -> tuple[int, int]:
-    """``(rank, world)`` of a ``--serve-tp`` run: the torchrun group
-    joined (gloo when the ranks share a card or run on the host, NCCL
-    when each has its own card); ``(0, 1)`` at ``tp`` 1."""
+def _serve_world(tp: int, replicas: int, device) -> tuple[int, int]:
+    """``(rank, world)`` of a ``--serve-tp`` run: the torchrun group of
+    ``tp`` x ``replicas`` ranks joined (gloo when the ranks share a card
+    or run on the host, NCCL when each has its own card); ``(0, 1)`` at
+    ``tp`` 1."""
     import os
 
     import torch
@@ -989,17 +1051,18 @@ def _serve_world(tp: int, device) -> tuple[int, int]:
 
     if tp == 1:
         return 0, 1
+    want = tp * replicas
     world = (comm_init.process_count() if comm_init.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
-    if world != tp:
+    if world != want:
         raise SystemExit(
-            f"--serve-tp {tp} runs under torchrun with a world of {tp} "
-            f"(got {world}): python -m torch.distributed.run "
-            f"--nproc-per-node {tp} -m "
+            f"--serve-tp {tp} x --serve-replicas {replicas} runs under "
+            f"torchrun with a world of {want} (got {world}): python -m "
+            f"torch.distributed.run --nproc-per-node {want} -m "
             "pytorch_distributed_training_tpu_torch.cli.main --serve ..."
         )
     backend = ("nccl" if device.type == "cuda"
-               and torch.cuda.device_count() >= tp else "gloo")
+               and torch.cuda.device_count() >= want else "gloo")
     comm_init.initialize(device, backend=backend)
     return comm_init.process_index(), world
 
@@ -1010,7 +1073,11 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
               num_blocks=0, kv_dtype="bf16", kv_host_mb=0.0,
               checkpoint_dir=None, emitter=None, spans=None,
               slo_policy=None, ttl=None, tp=1, replicas=1, affinity=True,
-              disagg=None) -> dict:
+              disagg=None, inject_faults=None, failover=True,
+              retry_budget=2, brownout_s=0.0, autoscale=False,
+              autoscale_min=1, autoscale_max=0, autoscale_up_depth=8,
+              autoscale_down_idle=32, autoscale_cooldown=16, priority=None,
+              healthz_stale_s=60.0, ops_server=None) -> dict:
     """Serve ``model`` over the synthetic trace and print the summary.
     With ``checkpoint_dir`` the newest verified checkpoint's parameters
     replace the fresh-init weights drawn from ``seed``.  ``emitter``,
@@ -1022,24 +1089,35 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
     (``DisaggServingEngine``); ``replicas`` > 1 puts a prefix-affinity
     router (``ReplicaRouter``) above the replicas, replica k on card k
     when there are enough cards, else all on ``device``; ``tp`` > 1 shards
-    the engine over a torchrun world of ``tp`` ranks, the first of which
-    drives the rest in lockstep (``serve/tp.py``).  ``ttl`` gives every
-    request a deadline ``ttl`` seconds after its arrival.
+    each replica over ``tp`` ranks of a torchrun world of ``tp`` x
+    ``replicas``, replica k on ranks ``[k tp, (k + 1) tp)``: rank 0 runs
+    the router and drives replica 0's ranks in lockstep and the other
+    replicas through their leaders (``serve/tp.py``).  ``ttl`` gives
+    every request a deadline ``ttl`` seconds after its arrival.
+
+    The serving fleet's controllers, as the JAX CLI wires them: a fault
+    spec (``inject_faults`` or ``PDT_SERVE_FAULTS``) arms the chaos plane
+    and forces the router even at one replica; ``failover`` (on by
+    default wherever the router runs) adds the ``FailoverController``
+    (``retry_budget``, ``brownout_s``, the staleness bound
+    ``healthz_stale_s``); ``autoscale`` adds the ``AutoscaleController``
+    and needs failover; ``priority`` ("class=weight,...") the admission
+    policy.  ``ops_server`` serves the autoscale controller's block on
+    ``/slo``.
 
     Returns ``{"summary", "engine", "tokens", "prefill_ticks", "rank",
     ...}``: the SLO summary, the engine's (tier's, router's summed)
     counters, every request's generated tokens by id, this rank's prefill
-    forwards; ``router`` and ``tp`` hold the router's counters and the
-    lockstep's.  A follower rank returns its engine's counters, no
+    forwards; ``router``, ``tp`` and ``remote`` hold the router's
+    counters (the controllers' blocks included), the lockstep's and the
+    remote replicas'.  Any other rank returns its engine's counters, no
     summary and no tokens."""
     import copy
 
     import torch
 
     from ..models import create_model
-    from ..serve import (
-        DisaggServingEngine, LockstepEngine, ServingEngine, follow,
-    )
+    from ..serve import DisaggServingEngine, ServingEngine
     from ..train import make_policy
     from ..utils.device import resolve_device
 
@@ -1063,6 +1141,10 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         raise SystemExit(
             "--serve-kv-dtype quantizes paged blocks — add --serve-paged"
         )
+    if autoscale and not failover:
+        build_parser().error(
+            "--serve-autoscale retires/revives replicas through the "
+            "failover fence/drain path — drop --no-serve-failover")
     device = resolve_device(device)
     policy = make_policy(precision)
     # Serving casts every parameter (LayerNorm and embeddings included) to
@@ -1090,34 +1172,36 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         print("warning: serving FRESH-INIT weights (pass --checkpoint-dir "
               "with a trained run for real outputs)")
     max_len = net.cfg.max_seq_len
-    rank, leader, ctl = 0, 0, None
+    rank, fabric = 0, None
     if tp > 1:
         from ..comm.mesh import MeshConfig, make_mesh
         from ..parallel.sharded import shard_for_serving
-        from ..serve.tp import serving_groups
+        from ..serve.tp import ReplicaFabric
 
-        rank, _ = _serve_world(tp, device)
+        rank, _ = _serve_world(tp, replicas, device)
         heads = net.cfg.num_heads
         if heads % tp:
             build_parser().error(
                 f"--serve-tp {tp} needs heads ({heads}) divisible by it "
                 "(each rank attends over its own heads)")
-        mesh = make_mesh(MeshConfig(data=1, tensor=tp))
+        mesh = make_mesh(MeshConfig(data=replicas, tensor=tp))
         shard_for_serving(net, mesh)
-        ctl, leader = serving_groups(mesh)
+        fabric = ReplicaFabric(mesh)
     tokens: dict = {}
+    stream_cb = (None if rank != 0 else
+                 lambda rid, tok: tokens.setdefault(rid, []).append(tok))
     engine_kw = dict(
         max_len=max_len, prefill_chunk=prefill_chunk, temperature=0.0,
         seed=seed, spec_k=spec_k, spec_ngram=spec_ngram,
         paged=paged, block_size=block_size, num_blocks=num_blocks or None,
         kv_dtype=kv_dtype, kv_host_mb=kv_host_mb or None,
-        stream_cb=(None if rank != leader else
-                   lambda rid, tok: tokens.setdefault(rid, []).append(tok)),
+        stream_cb=stream_cb,
     )
     engines = []
-    for k in range(replicas):
+    # Under --serve-tp every rank builds its shard of its own replica.
+    for k in range(1 if fabric is not None else replicas):
         dev, net_k = device, net
-        if (device.type == "cuda" and replicas > 1
+        if (fabric is None and device.type == "cuda" and replicas > 1
                 and torch.cuda.device_count() >= replicas):
             dev = torch.device("cuda", k)
             if dev != device:
@@ -1129,55 +1213,60 @@ def run_serve(*, model, overrides, precision, seed, seq_len, metrics_jsonl,
         else:
             engines.append(ServingEngine(net_k, num_slots=num_slots,
                                          device=dev, **engine_kw))
-    engine = engines[0]
 
     def prefill_ticks():
         return sum((e.prefill_engine if role_slots else e).prefill_ticks
                    for e in engines)
 
-    if rank != leader:
-        follow(engine, ctl, leader)
-        return {"summary": None, "engine": engine.stats(), "tokens": {},
-                "prefill_ticks": prefill_ticks(), "rank": rank}
-    lockstep = LockstepEngine(engine, ctl, leader) if tp > 1 else None
-    try:
-        result = _serve_trace(
-            engines=[lockstep] if lockstep is not None else engines,
-            net=net, seed=seed, seq_len=seq_len, max_len=max_len,
-            max_new=max_new, n_requests=n_requests, rate=rate, ttl=ttl,
-            metrics_jsonl=metrics_jsonl, emitter=emitter, spans=spans,
-            slo_policy=slo_policy, affinity=affinity, paged=paged,
-            spec_k=spec_k, spec_ngram=spec_ngram, kv_dtype=kv_dtype,
-            kv_host_mb=kv_host_mb, block_size=block_size,
-            prefill_chunk=prefill_chunk, num_slots=num_slots,
-            role_slots=role_slots, tp=tp, tokens=tokens, lockstep=lockstep)
-    except BaseException as e:
-        if lockstep is not None:
-            lockstep.close(e)
-        raise
-    if lockstep is not None:
-        lockstep.close()
+    def trace(group_engines):
+        for e in group_engines:
+            e.stream_cb = stream_cb
+        return _serve_trace(
+            engines=group_engines, net=net, seed=seed, seq_len=seq_len,
+            max_len=max_len, max_new=max_new, n_requests=n_requests,
+            rate=rate, ttl=ttl, metrics_jsonl=metrics_jsonl,
+            emitter=emitter, spans=spans, slo_policy=slo_policy,
+            affinity=affinity, paged=paged, spec_k=spec_k,
+            spec_ngram=spec_ngram, kv_dtype=kv_dtype, kv_host_mb=kv_host_mb,
+            block_size=block_size, prefill_chunk=prefill_chunk,
+            num_slots=num_slots, role_slots=role_slots, tp=tp,
+            replicas=replicas, tokens=tokens, inject_faults=inject_faults,
+            failover=failover, retry_budget=retry_budget,
+            brownout_s=brownout_s, autoscale=autoscale,
+            autoscale_min=autoscale_min, autoscale_max=autoscale_max,
+            autoscale_up_depth=autoscale_up_depth,
+            autoscale_down_idle=autoscale_down_idle,
+            autoscale_cooldown=autoscale_cooldown, priority=priority,
+            healthz_stale_s=healthz_stale_s, ops_server=ops_server,
+            checkpoint_dir=checkpoint_dir)
+
+    if fabric is None:
+        result = trace(engines)
+    else:
+        from ..serve.tp import run_fleet_rank
+
+        result = run_fleet_rank(fabric, engines[0], trace)
+        if rank != 0:
+            return {"summary": None, "engine": engines[0].stats(),
+                    "tokens": {}, "prefill_ticks": prefill_ticks(),
+                    "rank": rank, "calls": result}
     return {**result, "prefill_ticks": prefill_ticks(), "rank": rank}
 
 
-def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
-                 n_requests, rate, ttl, metrics_jsonl, emitter, spans,
-                 slo_policy, affinity, paged, spec_k, spec_ngram, kv_dtype,
-                 kv_host_mb, block_size, prefill_chunk, num_slots,
-                 role_slots, tp, tokens, lockstep) -> dict:
-    """``run_serve``'s trace on the leader: the synthetic requests, the
-    scheduler or router over ``engines``, and the summary lines."""
-    from ..serve import (
-        ContinuousScheduler, ReplicaRouter, Request, summarize_records,
-    )
-    from ..utils import metrics as metrics_lib
+def serve_requests(*, vocab, seed, seq_len, max_len, max_new, n_requests,
+                   rate=0.0, t0=0.0, ttl=None) -> list:
+    """The CLI's synthetic serving trace (the JAX CLI's, draw for draw):
+    prompts of 2 to ``min(seq_len, max_len - max_new) // 2`` tokens,
+    budgets from ``max_new // 4`` to ``max_new``, Poisson arrivals at
+    ``rate`` from ``t0`` (all at ``t0`` when 0), deadlines ``ttl`` after
+    arrival."""
+    from ..serve import Request
 
-    engine = engines[0]
     rng = np.random.default_rng(seed)
     p_hi = max(min(seq_len, max_len - max_new) // 2, 2)
     prompts = [
-        rng.integers(0, net.cfg.vocab_size,
-                     (int(rng.integers(2, p_hi + 1)),)).astype(np.int32)
+        rng.integers(0, vocab, (int(rng.integers(2, p_hi + 1)),))
+        .astype(np.int32)
         for _ in range(n_requests)
     ]
     budgets = rng.integers(max(max_new // 4, 1), max_new + 1, n_requests)
@@ -1185,28 +1274,115 @@ def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
         arrivals = np.cumsum(rng.exponential(1.0 / rate, n_requests))
     else:
         arrivals = np.zeros(n_requests)
-    t0 = time.monotonic()
-    requests = [
+    return [
         Request(i, prompts[i], int(budgets[i]), float(t0 + arrivals[i]),
                 deadline=(float(t0 + arrivals[i] + ttl)
                           if ttl is not None else None))
         for i in range(n_requests)
     ]
+
+
+def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
+                 n_requests, rate, ttl, metrics_jsonl, emitter, spans,
+                 slo_policy, affinity, paged, spec_k, spec_ngram, kv_dtype,
+                 kv_host_mb, block_size, prefill_chunk, num_slots,
+                 role_slots, tp, replicas, tokens, inject_faults, failover,
+                 retry_budget, brownout_s, autoscale, autoscale_min,
+                 autoscale_max, autoscale_up_depth, autoscale_down_idle,
+                 autoscale_cooldown, priority, healthz_stale_s, ops_server,
+                 checkpoint_dir) -> dict:
+    """``run_serve``'s trace on rank 0: the synthetic requests, the
+    scheduler or the router (and its controllers) over ``engines``, and
+    the summary lines."""
+    import os
+
+    from ..resilience.faults import SERVE_FAULTS_ENV
+    from ..serve import (
+        ContinuousScheduler, ReplicaRouter, summarize_records,
+    )
+    from ..serve.tp import LockstepEngine, RemoteReplica
+    from ..utils import metrics as metrics_lib
+
+    engine = engines[0]
+    t0 = time.monotonic()
+    requests = serve_requests(
+        vocab=net.cfg.vocab_size, seed=seed, seq_len=seq_len,
+        max_len=max_len, max_new=max_new, n_requests=n_requests, rate=rate,
+        t0=t0, ttl=ttl)
     req_log = (
         metrics_lib.RequestLogger(metrics_jsonl) if metrics_jsonl else None
     )
+    # The chaos plane: a fault spec forces the router even at one replica
+    # (the failover controller is what is under test).
+    fault_spec = inject_faults or os.environ.get(SERVE_FAULTS_ENV)
+    chaos = None
+    if fault_spec:
+        from ..resilience import ServeFaultInjector
+
+        chaos = ServeFaultInjector.from_spec(
+            fault_spec, emitter=emitter,
+            state_dir=(os.path.join(checkpoint_dir, ".fault_state")
+                       if checkpoint_dir else None))
+        if not failover:
+            print("warning: serving faults armed WITHOUT failover — a dead "
+                  "replica strands its queue (control mode)")
+    aggregator = slo_policy.aggregator if slo_policy is not None else None
+    serve_policy = None
+    if priority:
+        from ..serve import ServePolicy, parse_priority_spec
+
+        try:
+            weights = parse_priority_spec(priority)
+        except ValueError as e:
+            build_parser().error(f"--serve-priority: {e}")
+        serve_policy = ServePolicy(weights, aggregator=aggregator)
+        if slo_policy is not None:
+            serve_policy.bind_objectives(slo_policy.objectives)
     # The whole trace is this tool's own workload: queue all of it.
     router = None
-    if len(engines) > 1:
-        router = ReplicaRouter(
-            engines, max_queue=n_requests, request_logger=req_log,
-            emitter=emitter, affinity=affinity, spans=spans, slo=slo_policy,
-        )
+    if len(engines) > 1 or chaos is not None or autoscale:
+        failover_ctrl = autoscale_ctrl = None
+        if failover:
+            from ..serve import FailoverController
+
+            failover_ctrl = FailoverController(
+                retry_budget=retry_budget, brownout_margin_s=brownout_s,
+                aggregator=aggregator,
+                # One staleness bound for /healthz and the detector.
+                stale_after_s=healthz_stale_s)
+        if autoscale:
+            from ..serve import AutoscaleController
+
+            try:
+                autoscale_ctrl = AutoscaleController(
+                    min_replicas=autoscale_min,
+                    max_replicas=autoscale_max or None,
+                    up_queue_depth=autoscale_up_depth,
+                    down_idle_ticks=autoscale_down_idle,
+                    cooldown_ticks=autoscale_cooldown,
+                    slo=slo_policy, aggregator=aggregator)
+            except ValueError as e:
+                build_parser().error(f"--serve-autoscale: {e}")
+        try:
+            router = ReplicaRouter(
+                engines, max_queue=n_requests, request_logger=req_log,
+                emitter=emitter, affinity=affinity, spans=spans,
+                slo=slo_policy, chaos=chaos, failover=failover_ctrl,
+                autoscale=autoscale_ctrl, policy=serve_policy,
+            )
+        except ValueError as e:
+            if autoscale_ctrl is None:
+                raise
+            build_parser().error(f"--serve-autoscale: {e}")
+        if autoscale_ctrl is not None and ops_server is not None:
+            # /slo grows the controller block (a read-only snapshot).
+            ops_server.controller = autoscale_ctrl
         driver = router
     else:
         driver = ContinuousScheduler(
             engine, max_queue=n_requests, request_logger=req_log,
             emitter=emitter, spans=spans, slo=slo_policy,
+            policy=serve_policy,
         )
     n_blocks = (engine.blocks.num_blocks if role_slots is not None
                 else engine.pool.num_blocks) if paged else 0
@@ -1222,9 +1398,14 @@ def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
                   if role_slots is not None else f"{num_slots} slots")
     spec_note = f", spec k={spec_k} ngram={spec_ngram}" if spec_k else ""
     scale_note = ""
-    if tp > 1 or len(engines) > 1:
-        scale_note = (f", tp={tp} x {len(engines)} replica(s)"
-                      f"{', affinity' if len(engines) > 1 and affinity else ''}")
+    if tp > 1 or replicas > 1:
+        scale_note = (f", tp={tp} x {replicas} replica(s)"
+                      f"{', affinity' if replicas > 1 and affinity else ''}")
+    if router is not None and router.autoscale is not None:
+        a = router.autoscale
+        scale_note += f", autoscale [{a.min_replicas}, {a.max_replicas}]"
+    if serve_policy is not None:
+        scale_note += f", priority({priority})"
     print(
         f"serving started: {n_requests} requests, {slots_note} "
         f"({layout}), rate={rate or 'burst'} req/s, "
@@ -1245,6 +1426,8 @@ def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
         records, elapsed=elapsed, queue_depth_samples=samples[0],
         rejected=driver.rejected, active_slot_samples=samples[1],
         engine_stats=engine_stats if (paged or spec_k) else None,
+        failover_stats=(router.failover.stats() if router is not None
+                        and router.failover is not None else None),
     )
     if router is not None:
         rt = router.stats()
@@ -1255,6 +1438,21 @@ def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
               f"rebalanced={rt['rebalanced']} rejected={rt['rejected']} "
               f"sibling_fetches={rt['sibling_fetches']} "
               f"({rt['sibling_fetch_blocks']} blocks)")
+        if router.failover is not None:
+            fo = rt["failover"]
+            print(f"failover: deaths={fo['replica_deaths']} "
+                  f"requeued={fo['requeued']} retried={fo['retried']} "
+                  f"dup_suppressed={fo['duplicates_suppressed']} "
+                  f"failed={fo['failed']} respawns={fo['respawns']}")
+        if router.autoscale is not None:
+            a = router.autoscale.stats()
+            print(f"autoscale: actions={a['actions']} "
+                  f"up={a['scale_ups']} down={a['scale_downs']} "
+                  f"resplits={a['resplits']} "
+                  f"ladder_moves={a['ladder_moves']} "
+                  f"active={a['replicas_active']}/"
+                  f"{a['replicas_active'] + a['replicas_parked']} "
+                  f"rung={a['rung']} split_bias={a['split_bias']}")
     if spec_k and summary.get("spec"):
         sp = summary["spec"]
         print(
@@ -1283,26 +1481,48 @@ def _serve_trace(*, engines, net, seed, seq_len, max_len, max_new,
             )
     ticks = len(samples[0])
     extra = {}
+    remotes = [e for e in engines if isinstance(e, RemoteReplica)]
     if role_slots is not None:
-        tiers = [getattr(e, "_engine", e) for e in engines]
-        handoff_s = sum(t.handoff_s for t in tiers)
+        handoff_s = sum(e.read("handoff_s") if isinstance(e, RemoteReplica)
+                        else e.handoff_s for e in engines)
         print(f"disagg: {engine_stats.get('handoffs', 0)} prefill->decode "
               f"handoff(s), roles {role_slots[0]}p+{role_slots[1]}d, "
               f"handoff host {handoff_s / max(ticks, 1) * 1e3:.4f} ms a "
               "tick")
         extra["handoff_s"] = handoff_s
-    if lockstep is not None:
+    if isinstance(engine, LockstepEngine):
         print(f"tensor parallel: {tp} ranks in lockstep, "
-              f"{lockstep.broadcasts} calls broadcast, broadcast host "
-              f"{lockstep.broadcast_s / max(ticks, 1) * 1e3:.4f} ms a tick")
-        extra["tp"] = {"broadcasts": lockstep.broadcasts,
-                       "broadcast_s": lockstep.broadcast_s}
+              f"{engine.broadcasts} calls broadcast, broadcast host "
+              f"{engine.broadcast_s / max(ticks, 1) * 1e3:.4f} ms a tick")
+        extra["tp"] = {"broadcasts": engine.broadcasts,
+                       "broadcast_s": engine.broadcast_s}
+    if remotes:
+        calls = sum(r.round_trips for r in remotes)
+        call_s = sum(r.round_trip_s for r in remotes)
+        served_s = sum(r.served_s for r in remotes)
+        wait_s = sum(r.wait_s for r in remotes)
+        cached = sum(r.cached_reads for r in remotes)
+        print(f"remote replicas: {len(remotes)} group(s) led by other "
+              f"processes, {calls} calls ({calls / max(ticks, 1):.2f} a "
+              f"tick), round-trip host {call_s / max(ticks, 1) * 1e3:.4f} "
+              f"ms a tick ({served_s / max(ticks, 1) * 1e3:.4f} of it the "
+              f"groups' own work, rank 0 blocked "
+              f"{wait_s / max(ticks, 1) * 1e3:.4f}), {cached} cached reads")
+        extra["remote"] = {"round_trips": calls, "round_trip_s": call_s,
+                           "served_s": served_s, "wait_s": wait_s,
+                           "cached_reads": cached}
     extra["ticks"] = ticks
     if router is not None:
         extra["router"] = router.stats()
+        if router.autoscale is not None:
+            extra["autoscale"] = router.autoscale.stats()
     metrics_lib.MetricsLogger(None).log({"mode": "serve", **{
         k: v for k, v in summary.items() if not isinstance(v, dict)
     }})
+    if serve_policy is not None:
+        ps = serve_policy.snapshot()
+        print(f"priority: admitted_by_class={ps['admitted_by_class']} "
+              f"boosted={ps['boosted_admissions']}")
     if spans is not None:
         spans.close()
         print(f"trace: {spans.recorded} spans recorded ({spans.sampled_out} "
@@ -1995,7 +2215,7 @@ def main(argv: list[str] | None = None):
     # telemetry is its own.
     _check_serve_scale(args.serve_tp, args.serve_replicas)
     joined = args.serve_tp > 1 and not comm_init.is_initialized()
-    rank, world = _serve_world(args.serve_tp, device)
+    rank, world = _serve_world(args.serve_tp, args.serve_replicas, device)
     tel = _Telemetry(args, rank=rank, world=world, mode="serve",
                      device=device)
     result = None
@@ -2017,6 +2237,18 @@ def main(argv: list[str] | None = None):
             spans=tel.spans, slo_policy=tel.slo, ttl=args.serve_ttl,
             tp=args.serve_tp, replicas=args.serve_replicas,
             affinity=args.serve_affinity, disagg=args.serve_disagg,
+            inject_faults=args.serve_inject_faults,
+            failover=args.serve_failover,
+            retry_budget=args.serve_retry_budget,
+            brownout_s=args.serve_brownout_s,
+            autoscale=args.serve_autoscale,
+            autoscale_min=args.serve_autoscale_min,
+            autoscale_max=args.serve_autoscale_max,
+            autoscale_up_depth=args.serve_autoscale_up_depth,
+            autoscale_down_idle=args.serve_autoscale_down_idle,
+            autoscale_cooldown=args.serve_autoscale_cooldown,
+            priority=args.serve_priority,
+            healthz_stale_s=args.healthz_stale_s, ops_server=tel.server,
         )
     finally:
         tel.close(**({"serve": result["summary"]}

@@ -1,6 +1,7 @@
-"""Deterministic fault injection, the training half of the JAX package's
-``resilience/faults.py``: the plane that proves the checkpoint, the
-preemption exit and the supervisor.
+"""Deterministic fault injection, the counterpart of the JAX package's
+``resilience/faults.py``: the training plane that proves the checkpoint,
+the preemption exit and the supervisor, and the serving tier's chaos
+plane that proves the router's failover (``serve/failover.py``).
 
 A fault spec is a comma-separated list of ``kind@step[:arg]`` entries,
 passed via ``--inject-faults`` (or the ``PDT_FAULTS`` env var) and
@@ -28,9 +29,18 @@ the same optimizer step regardless of epochs, resumes, or data skips:
 The batch faults act on the batch's own device and only on float leaves:
 integer leaves (token ids, labels) and uint8 images (packed records, the
 device cache) pass through, as in JAX, so they change nothing in an LM
-run or a uint8 one.  The JAX package's serving and elastic kinds need
-their tiers; none is ported yet, and a spec naming one is refused rather
-than silently ignored.
+run or a uint8 one.
+
+The serving faults (:data:`SERVE_FAULT_KINDS`, ``--serve-inject-faults``
+or ``PDT_SERVE_FAULTS``) are ``kind@tick[:replica[:arg]]`` entries
+evaluated against the ``ReplicaRouter``'s 1-based tick counter by
+:class:`ServeFaultInjector`: ``replica_crash@T:K[:role]`` (replica K, or
+one role pool of a disaggregated replica, stops responding at tick T),
+``replica_stall@T:K[:N]`` (misses N ticks, default 8),
+``replica_slow@T:K:F`` (responds once in every F ticks) and
+``handoff_drop@T`` (one parked prefill->decode handoff is lost).  The
+JAX package's elastic membership kinds need their plane, which is not
+ported yet: a spec naming one is refused rather than silently ignored.
 
 **Once-per-run semantics.**  A crash/preemption relaunch resumes from a
 checkpoint *below* the fault step and would re-reach it — so each fault
@@ -48,15 +58,21 @@ import time
 
 FAULT_KINDS = ("crash", "stall", "sigterm", "nan_batch", "spike_batch",
                "ckpt_truncate")
-# The JAX package's other kinds, refused here until their slices land.
-_NOT_PORTED = ("replica_crash", "replica_stall", "replica_slow",
-               "handoff_drop", "slice_lost", "slice_return", "host_hang")
+SERVE_FAULT_KINDS = ("replica_crash", "replica_stall", "replica_slow",
+                     "handoff_drop")
+# The JAX package's elastic membership kinds, refused here until their
+# plane lands.
+_NOT_PORTED = ("slice_lost", "slice_return", "host_hang")
+
+_SERVE_ROLES = ("prefill", "decode")
+_DEFAULT_STALL_TICKS = 8
 
 # Distinct from real Python tracebacks (1) and signal deaths (negative /
 # 128+N) so the chaos harness can assert WHICH death it injected.
 CRASH_EXIT_CODE = 13
 
 FAULTS_ENV = "PDT_FAULTS"
+SERVE_FAULTS_ENV = "PDT_SERVE_FAULTS"
 
 _DEFAULT_ARGS = {"stall": 3600.0, "spike_batch": 1e4}
 
@@ -116,6 +132,12 @@ def parse_faults(spec: str) -> list[Fault]:
         if not item:
             continue
         kind, sep, rest = item.partition("@")
+        if sep and kind in SERVE_FAULT_KINDS:
+            raise ValueError(
+                f"fault entry {item!r}: {kind} is a serving fault evaluated "
+                "at router ticks — pass it via --serve-inject-faults, not "
+                "--inject-faults"
+            )
         if sep and kind in _NOT_PORTED:
             # A silently ignored fault would make a chaos run vacuously
             # green — refuse loudly.
@@ -205,6 +227,172 @@ class FaultInjector:
             manager.wait_until_finished()
             self._mark(fault)
             truncate_checkpoint(manager.directory, step)
+
+
+# ---------------------------------------------------------------------- #
+# serving-tier faults (the chaos plane of serve/failover.py)
+# ---------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeFault:
+    kind: str
+    tick: int
+    replica: int | None = None
+    arg: float | None = None      # stall ticks / slow factor
+    role: str | None = None       # replica_crash only: prefill | decode
+
+    @property
+    def name(self) -> str:
+        parts = [str(self.tick)]
+        if self.replica is not None:
+            parts.append(str(self.replica))
+        if self.arg is not None:
+            parts.append(f"{self.arg:g}")
+        if self.role is not None:
+            parts.append(self.role)
+        return f"{self.kind}@{':'.join(parts)}"
+
+
+def parse_serve_faults(spec: str) -> list[ServeFault]:
+    """Parse ``kind@tick[:replica[:arg]],...`` into :class:`ServeFault`
+    entries (the grammar per kind in the module docstring).  A plan that
+    would fire as a no-op (tick 0, a fractional slow factor) is refused
+    here, before any marker could be written."""
+    faults = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        kind, sep, rest = item.partition("@")
+        if not sep or kind not in SERVE_FAULT_KINDS:
+            raise ValueError(
+                f"serve fault entry {item!r} is not kind@tick[:replica"
+                f"[:arg]] with kind in {SERVE_FAULT_KINDS}"
+            )
+        fields = rest.split(":")
+        try:
+            tick = int(fields[0])
+        except ValueError:
+            raise ValueError(
+                f"serve fault entry {item!r}: bad tick {fields[0]!r}"
+            ) from None
+        if tick < 1:
+            # Router ticks are 1-based: a tick-0 fault would validate and
+            # then never fire.
+            raise ValueError(
+                f"serve fault entry {item!r}: ticks are 1-based"
+            )
+        replica, arg, role = None, None, None
+        try:
+            if kind == "handoff_drop":
+                if len(fields) != 1:
+                    raise ValueError("handoff_drop takes no args")
+            else:
+                if len(fields) < 2:
+                    raise ValueError(f"{kind} wants a replica index")
+                replica = int(fields[1])
+                if replica < 0:
+                    raise ValueError("replica index must be >= 0")
+                if kind == "replica_crash":
+                    if len(fields) == 3:
+                        if fields[2] not in _SERVE_ROLES:
+                            raise ValueError(
+                                f"role must be one of {_SERVE_ROLES}"
+                            )
+                        role = fields[2]
+                    elif len(fields) > 3:
+                        raise ValueError("too many fields")
+                elif kind == "replica_stall":
+                    if len(fields) > 3:
+                        raise ValueError("too many fields")
+                    arg = float(fields[2]) if len(fields) == 3 \
+                        else float(_DEFAULT_STALL_TICKS)
+                    if arg < 1:
+                        raise ValueError("stall ticks must be >= 1")
+                else:  # replica_slow
+                    if len(fields) != 3:
+                        raise ValueError(
+                            "replica_slow wants tick:replica:factor"
+                        )
+                    arg = float(fields[2])
+                    # "One tick in every F": a fractional factor would
+                    # truncate at arm time into a no-op fault.
+                    if arg != int(arg) or arg < 2:
+                        raise ValueError(
+                            "slow factor must be an integer >= 2"
+                        )
+        except ValueError as e:
+            raise ValueError(f"serve fault entry {item!r}: {e}") from None
+        faults.append(ServeFault(kind, tick, replica, arg, role))
+    return faults
+
+
+class ServeFaultInjector:
+    """Evaluates a serving fault plan at router tick boundaries
+    (``ReplicaRouter.tick`` calls :meth:`on_tick` first every tick).  A
+    fault only sets the router's per-replica fault state: the router
+    then skips or throttles the replica's scheduler, so a dead replica
+    presents as it would (silent, its heartbeat gauges stale) and the
+    failover controller has to notice; the injector never tells it.
+    Fired faults keep the training plane's once-per-run markers in
+    ``state_dir``."""
+
+    def __init__(self, faults: list[ServeFault], *,
+                 state_dir: str | None = None, emitter=None):
+        self.faults = list(faults)
+        self.emitter = emitter
+        self._markers = _FiredMarkers(state_dir)
+
+    @classmethod
+    def from_spec(cls, spec: str, **kwargs) -> "ServeFaultInjector":
+        return cls(parse_serve_faults(spec), **kwargs)
+
+    def validate(self, n_replicas: int) -> None:
+        """Refuse a replica index the tier does not have (the router calls
+        this when it is built): firing would write the marker first, and
+        a supervised relaunch would then skip the fault silently."""
+        for fault in self.faults:
+            if fault.replica is not None and not (
+                    0 <= fault.replica < n_replicas):
+                raise ValueError(
+                    f"serve fault {fault.name}: replica {fault.replica} "
+                    f"out of range for a {n_replicas}-replica tier"
+                )
+
+    def fired(self, fault: ServeFault) -> bool:
+        return self._markers.fired(fault.name)
+
+    def _mark(self, fault: ServeFault) -> None:
+        self._markers.mark(fault.name)
+        if self.emitter is not None:
+            self.emitter.anomaly(
+                "fault_injected", fault=fault.kind, tick=fault.tick,
+                **({"replica": fault.replica}
+                   if fault.replica is not None else {}),
+            )
+
+    def on_tick(self, tick: int, router) -> None:
+        """Fire any fault armed for this router tick."""
+        for fault in self.faults:
+            if fault.tick != tick or self.fired(fault):
+                continue
+            self._mark(fault)
+            if fault.kind == "replica_crash":
+                if fault.role is not None:
+                    router.inject_role_death(fault.replica, fault.role)
+                else:
+                    router.set_fault(fault.replica, "crash")
+            elif fault.kind == "replica_stall":
+                router.set_fault(
+                    fault.replica, "stall",
+                    until_tick=tick + int(fault.arg or _DEFAULT_STALL_TICKS),
+                )
+            elif fault.kind == "replica_slow":
+                router.set_fault(fault.replica, "slow",
+                                 period=int(fault.arg))
+            elif fault.kind == "handoff_drop":
+                router.drop_handoff()
 
 
 def corrupt_batch(batch: dict, mode: str, factor: float = 1e4) -> dict:

@@ -18,10 +18,13 @@ engine's token for token.
 
 :class:`DisaggServingEngine` has the engine's public surface (start,
 step, cancel, stats, reset, ...) so the scheduler and the replica router
-drive it as one engine.  The role deaths, re-splits and dropped handoffs
-of the failover and autoscale controllers are ``ROADMAP.md`` Queue 1
-item 12: their methods raise ``NotImplementedError`` here, and the state
-they read (``handoffs_dropped``, the role split) is kept.
+drive it as one engine.  The failover and autoscale controllers
+(``serve/failover.py``, ``serve/autoscale.py``) act on it through the
+role methods: ``fail_role`` / ``revive_role`` (a role pool dies and
+comes back; its slots, parked handoffs and their block reservations go
+back to the shared pool at death), ``resplit`` (admission caps below the
+built widths, nothing reallocated) and ``drop_handoff`` (the chaos
+plane's lost message, its export released).
 """
 
 from __future__ import annotations
@@ -32,10 +35,6 @@ from collections import deque
 from .engine import Event, Handoff, ServingEngine
 from .kv_pool import BlockPool
 from .kv_store import HostKVStore
-
-_ITEM_12 = ("role deaths, re-splits and dropped handoffs belong to the "
-            "failover and autoscale controllers, ROADMAP.md Queue 1 item 12 "
-            "(not ported yet)")
 
 
 class _TierPool:
@@ -149,8 +148,11 @@ class DisaggServingEngine:
         self.num_slots = prefill_slots + decode_slots
         self._handoffs: deque[Handoff] = deque()
         self.handoffs = 0  # completed adoptions
-        self.handoffs_dropped = 0  # item 12's lost handoffs; stays 0 here
+        self.handoffs_dropped = 0  # the chaos plane's lost handoffs
         self.handoff_s = 0.0  # host seconds moving handoffs (not in stats)
+        # Dead role pools (serve/failover.py): a dead role neither steps
+        # nor admits nor adopts until revive_role.
+        self._dead_roles: set[str] = set()
         self.pool = _TierPool(self)
 
     # ------------------------------------------------------------------ #
@@ -206,7 +208,10 @@ class DisaggServingEngine:
         """Admission is by the prefill pool: a free prefill slot and
         (paged) the shared block budget, which counts every decode-side
         and in-flight reservation, so an admitted request can always run
-        to completion on the decode side."""
+        to completion on the decode side.  With either role dead the tier
+        admits nothing."""
+        if self._dead_roles:
+            return False
         return self.prefill_engine.can_admit(prompt, max_new)
 
     def start(self, request_id, prompt, max_new: int) -> int:
@@ -251,32 +256,103 @@ class DisaggServingEngine:
     def step(self) -> list[Event]:
         """One tier tick: a prefill chunk on the prefill pool, the
         handoffs, then a decode/verify batch on the decode pool (a request
-        handed off this tick decodes this tick)."""
-        events = self.prefill_engine.step()
-        t0 = time.perf_counter()
-        self._move_handoffs()
-        self.handoff_s += time.perf_counter() - t0
-        return events + self.decode_engine.step()
+        handed off this tick decodes this tick).  A dead role's half does
+        not run; its sibling keeps going (a dead prefill pool's parked
+        handoffs still adopt off the shared pool)."""
+        events: list[Event] = []
+        if "prefill" not in self._dead_roles:
+            events += self.prefill_engine.step()
+        if "decode" not in self._dead_roles:
+            t0 = time.perf_counter()
+            self._move_handoffs()
+            self.handoff_s += time.perf_counter() - t0
+            events += self.decode_engine.step()
+        return events
 
     # ------------------------------------------------------------------ #
-    # item 12 (failover, autoscale): not ported
+    # role death, re-split and lost handoffs (serve/failover.py,
+    # serve/autoscale.py, the chaos plane)
     # ------------------------------------------------------------------ #
 
     def fail_role(self, role: str) -> list:
-        raise NotImplementedError(_ITEM_12)
+        """Kill one role pool: release its slots (and, with the decode
+        role, the parked handoffs' exports: their refcounts and block
+        reservations go back to the shared pool) and return the stranded
+        request ids for the failover controller to requeue.  A prefill
+        death strands the mid-prefill slots only; a decode death strands
+        its live decodes, the parked handoffs and the prefilling requests
+        that could only ever land on it."""
+        if role not in ("prefill", "decode"):
+            raise ValueError(
+                f"role must be 'prefill' or 'decode', got {role!r}"
+            )
+        if role in self._dead_roles:
+            return []
+        self._dead_roles.add(role)
+        stranded: list = []
+        if role == "decode":
+            for rid in list(self.decode_engine.live_requests()):
+                stranded.append(rid)
+                self.decode_engine.cancel(rid)
+            for h in self._handoffs:
+                stranded.append(h.request_id)
+                self.decode_engine.pool.release_export(h.export)
+            self._handoffs.clear()
+        for rid in list(self.prefill_engine.live_requests()):
+            stranded.append(rid)
+            self.prefill_engine.cancel(rid)
+        return stranded
 
     def revive_role(self, role: str) -> None:
-        raise NotImplementedError(_ITEM_12)
+        """Bring a dead role pool back: its slots were released at death
+        and its memory never went away, so it just takes work again."""
+        self._dead_roles.discard(role)
 
     def resplit(self, prefill_cap: int, decode_cap: int) -> None:
-        raise NotImplementedError(_ITEM_12)
+        """Re-bias the P:D split: cap each role's admission width below
+        its built width (nothing is reallocated).  Slots over a new cap
+        drain naturally and are not refilled, so in-flight work is
+        untouched and greedy output stays token-exact."""
+        if not 1 <= prefill_cap <= self.prefill_slots:
+            raise ValueError(
+                f"prefill_cap must be in [1, {self.prefill_slots}], "
+                f"got {prefill_cap} (a 0-width role is fail_role's job)"
+            )
+        if not 1 <= decode_cap <= self.decode_slots:
+            raise ValueError(
+                f"decode_cap must be in [1, {self.decode_slots}], "
+                f"got {decode_cap} (a 0-width role is fail_role's job)"
+            )
+        self.prefill_engine.slot_cap = (
+            None if prefill_cap == self.prefill_slots else int(prefill_cap))
+        self.decode_engine.slot_cap = (
+            None if decode_cap == self.decode_slots else int(decode_cap))
 
     @property
     def dead_roles(self) -> tuple:
-        raise NotImplementedError(_ITEM_12)
+        return tuple(sorted(self._dead_roles))
 
     def drop_handoff(self):
-        raise NotImplementedError(_ITEM_12)
+        """Chaos hook (``handoff_drop@T``): lose one parked handoff.  Its
+        export is released (the blocks' reservation dies with the
+        message) and the scheduler is not told: the orphan the failover
+        sweep must notice.  Returns the dropped request id, or None when
+        nothing is parked."""
+        if not self._handoffs:
+            return None
+        h = self._handoffs.popleft()
+        self.decode_engine.pool.release_export(h.export)
+        self.handoffs_dropped += 1
+        return h.request_id
+
+    def shrink_host_tier(self) -> int | None:
+        """Empty the shared host KV tier and size it to zero (the
+        autoscale ladder's first rung); returns the capacity it had, None
+        without a tier."""
+        return self.prefill_engine.shrink_host_tier()
+
+    def restore_host_tier(self, capacity_bytes: int) -> None:
+        self.prefill_engine.restore_host_tier(capacity_bytes)
 
     @property
     def role_split(self) -> tuple[int, int]:
@@ -336,6 +412,7 @@ class DisaggServingEngine:
         self.handoffs = 0
         self.handoffs_dropped = 0
         self.handoff_s = 0.0
+        self._dead_roles.clear()
 
     def memory_model(self, program: str) -> dict[str, int]:
         """Per-step byte model, from the role engine that runs it."""

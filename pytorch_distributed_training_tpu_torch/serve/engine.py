@@ -771,6 +771,29 @@ class ServingEngine:
                 for layer in self.pool.cache for t in layer),
         }
 
+    def _host_store(self):
+        return getattr(getattr(self.pool, "blocks", None), "host", None)
+
+    def shrink_host_tier(self) -> int | None:
+        """Empty the host KV tier and size it to zero (the autoscale
+        ladder's first rung: spill and restore work leaves the hot path;
+        the tier was a cache, nothing is owed).  Returns the capacity it
+        had, None without a tier."""
+        host = self._host_store()
+        if host is None:
+            return None
+        capacity = host.capacity_bytes
+        host.reset()
+        host.capacity_bytes = 0
+        return capacity
+
+    def restore_host_tier(self, capacity_bytes: int) -> None:
+        """Give the host KV tier back the capacity ``shrink_host_tier``
+        returned."""
+        host = self._host_store()
+        if host is not None:
+            host.capacity_bytes = int(capacity_bytes)
+
     def reset(self) -> None:
         """Drop every in-flight request, the prefix cache, the drafter
         index and the counters, and rewind the sampling generator to the

@@ -178,21 +178,40 @@ def sibling_fetch_striped(dst, srcs, prompt: np.ndarray) -> int:
     if not srcs:
         return 0
     prompt = np.asarray(prompt, np.int32).reshape(-1)
-    fetched, parent, miss = 0, None, 0
-    for h in hash_prompt_blocks(prompt, dst.block_size):
-        if dst.resolvable(h):
-            parent = h
-            continue
-        lane = miss % len(srcs)
-        arrays = None
-        for j in range(len(srcs)):
-            arrays = srcs[(lane + j) % len(srcs)].read_block_bytes(h)
-            if arrays is not None:
-                break
-        if arrays is None or not dst.adopt_host_block(h, parent, arrays):
+    chain = hash_prompt_blocks(prompt, dst.block_size)
+    fetched = 0
+    for i, k in striped_walk(len(chain), lambda i: dst.resolvable(chain[i]),
+                             lambda k, i: srcs[k].resolvable(chain[i]),
+                             len(srcs)):
+        arrays = srcs[k].read_block_bytes(chain[i])
+        parent = chain[i - 1] if i else None
+        if not dst.adopt_host_block(chain[i], parent, arrays):
             break
         fetched += 1
-        miss += 1
-        parent = h
     dst.sibling_fetched_blocks += fetched
     return fetched
+
+
+def striped_walk(length: int, dst_has, src_has, n_srcs: int):
+    """The striped sibling fetch's walk over a chain of ``length`` blocks:
+    yields ``(i, k)``, block *i* from source *k*, in chain order.  A block
+    the destination holds (``dst_has(i)``) is skipped; missing block *i*
+    comes from source ``n % n_srcs`` (``n`` the blocks yielded before
+    it), falling back to the others in order (``src_has(k, i)``); the walk
+    ends at the first block no source holds.  Lazy: the caller moves each
+    block before it asks for the next (an adoption can change what the
+    destination holds), and stops early when one is refused.  The one
+    policy of :func:`sibling_fetch_striped` and of ``serve/tp.py``'s fetch
+    between tensor-parallel groups."""
+    n = 0
+    for i in range(length):
+        if dst_has(i):
+            continue
+        for j in range(n_srcs):
+            k = (n + j) % n_srcs
+            if src_has(k, i):
+                break
+        else:
+            return
+        yield i, k
+        n += 1

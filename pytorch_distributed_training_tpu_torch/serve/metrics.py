@@ -1,7 +1,7 @@
 """Serving SLO metrics: TTFT / TPOT percentiles, goodput, queue depth —
 the counterpart of the JAX package's ``serve/metrics.py``, with its
-per-replica view of the router's merged records (the failover view comes
-with item 12's controllers).
+per-replica view of the router's merged records and its failover view
+(retried requests, duplicates excluded, ``"failed"`` retirements).
 
 - **TTFT** (time to first token): arrival → first sampled token.
 - **TPOT** (time per output token): ``(finish - first_token) /
@@ -50,18 +50,36 @@ def summarize_records(
     rejected: int = 0,
     active_slot_samples: list[int] | None = None,
     engine_stats: dict | None = None,
+    failover_stats: dict | None = None,
 ) -> dict:
     """Aggregate finished per-request records into the SLO summary.
 
-    Deadline-shed (``"shed"``) and mid-decode cancelled (``"cancelled"``)
-    requests count in their own fields and in ``finish_reasons`` but are
-    excluded from ``completed`` and from every latency and goodput
-    figure: nobody received what they produced."""
+    Deadline-shed (``"shed"``), mid-decode cancelled (``"cancelled"``)
+    and failover-retired (``"failed"``: the retry budget ran out,
+    ``serve/failover.py``) requests count in their own fields and in
+    ``finish_reasons`` but are excluded from ``completed`` and from every
+    latency and goodput figure: nobody received what they produced.
+
+    Exactly once: of two records with one request id only the first
+    counts; the later ones are reported under ``failover``."""
+    duplicates = 0
+    seen_ids: set = set()
+    deduped = []
+    for r in records:
+        rid = r.get("id")
+        if rid is not None and rid in seen_ids:
+            duplicates += 1
+            continue
+        if rid is not None:
+            seen_ids.add(rid)
+        deduped.append(r)
+    records = deduped
     finished = [r for r in records if r.get("finish") is not None]
     completed = [
         r for r in finished
-        if r.get("finish_reason") not in ("shed", "cancelled")
+        if r.get("finish_reason") not in ("shed", "cancelled", "failed")
     ]
+    failed = sum(1 for r in finished if r.get("finish_reason") == "failed")
     tokens = sum(r.get("generated", 0) for r in completed)
     if elapsed is None and completed:
         t0 = min(r["arrival"] for r in completed)
@@ -74,6 +92,7 @@ def summarize_records(
         "cancelled": sum(
             1 for r in finished if r.get("finish_reason") == "cancelled"
         ),
+        "failed": failed,
         "generated_tokens": int(tokens),
         "elapsed_s": round(elapsed, 4) if elapsed else None,
         "goodput_tok_per_s": (
@@ -109,7 +128,8 @@ def summarize_records(
                 "cancelled": sum(
                     1 for r in finished if r.get("replica") == rid
                     and r.get("finish_reason") == "cancelled"),
-                "failed": 0,
+                "failed": sum(1 for r in finished if r.get("replica") == rid
+                              and r.get("finish_reason") == "failed"),
                 "ttft_p50_s": (round(ttft50, 6) if ttft50 is not None
                                else None),
             }
@@ -149,6 +169,21 @@ def summarize_records(
                     if slot_ticks else None
                 ),
             }
+    retried_completed = sum(1 for r in completed if r.get("retries"))
+    if failover_stats or duplicates or retried_completed or failed:
+        # The record-derived failover figures, plus the controller's own
+        # counters and death ticks when a live run hands them over.
+        fo = {
+            "duplicate_records_excluded": duplicates,
+            "retried_completed": retried_completed,
+            "failed": failed,
+        }
+        if failover_stats:
+            for key in ("requeued", "retried", "duplicates_suppressed",
+                        "respawns", "replica_deaths", "deaths"):
+                if key in failover_stats:
+                    fo[key] = failover_stats[key]
+        out["failover"] = fo
     for k in ("ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s"):
         if out[k] is not None:
             out[k] = round(out[k], 6)

@@ -23,20 +23,33 @@ instead of recomputing.  All replicas' drafters share one
 ``replica=k`` on its records and spans.  The routing counters go to the
 telemetry as gauges and counter deltas every tick.
 
-The failover, autoscale and admission-policy controllers that bind to
-this router (``failover=``, ``autoscale=``, ``policy=``, the chaos plane)
-are ``ROADMAP.md`` Queue 1 item 12: the constructor refuses them.
+The controllers bind here.  ``chaos=`` (``resilience/faults.py``'s
+``ServeFaultInjector``) fires first in every tick and only sets the
+router's fault state: a crashed, stalled or slow replica is simply not
+ticked, which is how a dead replica presents.  ``failover=``
+(``serve/failover.py``) reads the missed ticks and the rolling tick logs
+after the replica sweep, fences and drains the dead and requeues their
+work; ``autoscale=`` (``serve/autoscale.py``) runs after it; ``policy=``
+(``serve/policy.py``) is handed to every replica's scheduler.  A replica
+may be an engine in this process, or a tensor-parallel group led by
+another process (``serve/tp.py``'s ``RemoteReplica``): the router reads
+and drives both through the same calls.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable
+from collections import deque
+from typing import Any, Callable
 
 import numpy as np
 
 from .draft import NgramIndex
 from .scheduler import ContinuousScheduler, Request
+
+# The rolling window of per-replica tick completions the straggler
+# detector reads (resized by the failover controller).
+_TICK_LOG_WINDOW = 16
 
 
 class ReplicaRouter:
@@ -66,14 +79,6 @@ class ReplicaRouter:
     ):
         if not engines:
             raise ValueError("need at least one engine replica")
-        for name, value in (("chaos", chaos), ("failover", failover),
-                            ("autoscale", autoscale), ("policy", policy)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ReplicaRouter({name}=...): the chaos plane and the "
-                    "failover, autoscale and admission-policy controllers "
-                    "are ROADMAP.md Queue 1 item 12, not ported yet"
-                )
         self.affinity = affinity
         self.affinity_queue_cap = affinity_queue_cap
         self.sibling_fetch = sibling_fetch
@@ -88,10 +93,13 @@ class ReplicaRouter:
             ContinuousScheduler(
                 eng, max_queue=max_queue, clock=clock,
                 request_logger=request_logger, emitter=emitter, replica=k,
-                spans=spans,
+                spans=spans, policy=policy,
             )
             for k, eng in enumerate(engines)
         ]
+        # One admission policy for the tier (its deficit state lives on
+        # each scheduler).
+        self.policy = policy
         # One shared n-gram index: replica 0's becomes everyone's
         # (engine.reset() clears it in place, so sharing survives).
         self.shared_index: NgramIndex | None = None
@@ -112,6 +120,29 @@ class ReplicaRouter:
         self.sibling_fetches = 0    # fetch events (requests helped)
         self.sibling_fetch_blocks = 0
         self._last_emitted: dict = {}
+        # The chaos and failover plane.  The router owns the fault and
+        # fence state either way, so a chaos run without failover still
+        # presents a dead replica honestly: not ticked, its work stranded.
+        self.tick_index = 0
+        self.chaos = chaos
+        self.failover = failover
+        self.request_logger = request_logger
+        n = len(engines)
+        self._faults: dict[int, dict] = {}   # k -> {"kind", "until", "period"}
+        self._fenced: set[int] = set()       # declared dead by failover
+        self._missed = [0] * n               # consecutive unanswered ticks
+        self._tick_log = [deque(maxlen=_TICK_LOG_WINDOW) for _ in range(n)]
+        if chaos is not None:
+            # Refuse an out-of-range replica now: a fault raising when it
+            # fires would have written its marker already.
+            chaos.validate(n)
+        if failover is not None:
+            failover.bind(self)
+        # Autoscale binds after failover (its actions are failover's park
+        # and unpark) and may park the spares here.
+        self.autoscale = autoscale
+        if autoscale is not None:
+            autoscale.bind(self)
 
     # ------------------------------------------------------------------ #
     # routing
@@ -126,26 +157,47 @@ class ReplicaRouter:
             return self.affinity_queue_cap
         return self.replicas[k].engine.num_slots
 
-    def route(self, request: Request) -> int:
+    def _eligible(self) -> list[int]:
+        """Replicas new work may land on: all of them without a failover
+        controller, its ``up`` set with one."""
+        if self.failover is None:
+            return list(range(len(self.replicas)))
+        return self.failover.eligible()
+
+    def _readable(self) -> set[int]:
+        """Replicas whose pools may be read (prefix lookups, sibling-fetch
+        sources): a dead replica's bytes are gone."""
+        if self.failover is None:
+            return set(range(len(self.replicas)))
+        return set(self.failover.readable())
+
+    def route(self, request: Request) -> int | None:
         """Replica index for ``request`` (side effects: the routing
-        counters and a sibling fetch; :meth:`submit` enqueues)."""
+        counters and a sibling fetch; :meth:`submit` enqueues); None when
+        no replica is eligible."""
         return self._route_decision(request)[0]
 
-    def _route_decision(self, request: Request) -> tuple[int, str]:
-        """(replica index, "affinity" | "rebalanced" | "least_loaded")."""
-        cand = range(len(self.replicas))
+    def _route_decision(self, request: Request) -> tuple[int | None, str]:
+        """(replica index, "affinity" | "rebalanced" | "least_loaded"), or
+        (None, "no_replica") when nothing is eligible."""
+        cand = self._eligible()
+        if not cand:
+            return None, "no_replica"
         decision = "least_loaded"
         hits = None
         if len(self.replicas) > 1 and (self.affinity or self.sibling_fetch):
             # The per-replica prefix depths feed affinity and the sibling
             # fetch alike: with affinity off a warm sibling's blocks still
-            # chase the least-loaded placement.
+            # chase the least-loaded placement.  Unreadable replicas score
+            # zero.
             prompt = np.asarray(request.prompt, np.int32).reshape(-1)
+            readable = self._readable()
             hits = [
                 s.engine.pool.lookup(prompt)
-                if s.engine.paged and s.engine.pool.prefix_cache_enabled
+                if k in readable and s.engine.paged
+                and s.engine.pool.prefix_cache_enabled
                 else 0
-                for s in self.replicas
+                for k, s in enumerate(self.replicas)
             ]
             best = max(cand, key=lambda k: (hits[k], -k))
             if self.affinity and hits[best] > 0:
@@ -169,32 +221,49 @@ class ReplicaRouter:
                        hits: list[int]) -> None:
         """Copy the warmer siblings' prefix blocks into ``chosen``'s host
         tier, striped deepest sibling first (a no-op without host tiers
-        on the pools)."""
+        on the pools).  Between tensor-parallel groups each rank's head
+        shard travels to its peer (``serve/tp.py``)."""
         from .kv_store import sibling_fetch_striped
 
-        dst = getattr(self.replicas[chosen].engine.pool, "blocks", None)
-        if dst is None or dst.host is None:
-            return
         warm = sorted((k for k in range(len(self.replicas))
                        if hits[k] > hits[chosen]),
                       key=lambda k: (-hits[k], k))
-        srcs = [src for k in warm
-                if (src := getattr(self.replicas[k].engine.pool, "blocks",
-                                   None)) is not None and src is not dst]
-        if not srcs:
-            return
-        fetched = sibling_fetch_striped(dst, srcs, request.prompt)
+        engines = [self.replicas[k].engine for k in [chosen, *warm]]
+        if any(hasattr(e, "group_index") for e in engines):
+            from .tp import sibling_fetch_groups
+
+            fetched = sibling_fetch_groups(engines[0], engines[1:],
+                                           request.prompt)
+        else:
+            dst = getattr(engines[0].pool, "blocks", None)
+            if dst is None or dst.host is None:
+                return
+            srcs = [src for e in engines[1:]
+                    if (src := getattr(e.pool, "blocks", None)) is not None
+                    and src is not dst]
+            if not srcs:
+                return
+            fetched = sibling_fetch_striped(dst, srcs, request.prompt)
         if fetched:
             self.sibling_fetches += 1
             self.sibling_fetch_blocks += fetched
 
     def submit(self, request: Request) -> bool:
         """Route and enqueue; False = the chosen replica's bounded queue
-        refused it (backpressure, as the scheduler's ``submit``)."""
+        refused it (backpressure, as the scheduler's ``submit``), or no
+        replica is eligible (the whole tier dead or degraded: refusing is
+        the graceful degradation)."""
         k, decision = self._route_decision(request)
+        if k is None:
+            self.rejected += 1
+            if self.emitter is not None:
+                self.emitter.counter_add("rejected_requests", 1)
+            return False
         ok = self.replicas[k].submit(request)
         if ok:
             self.routed[k] += 1
+            if self.failover is not None:
+                self.failover.track(request, k)
         else:
             self.rejected += 1
         if self.spans is not None and self.spans.enabled:
@@ -207,25 +276,170 @@ class ReplicaRouter:
             )
         return ok
 
+    def _submit_requeue(self, request: Request) -> int | None:
+        """The failover requeue's placement: the normal decision (affinity
+        and sibling fetch against the survivors), enqueued past the
+        bounded queue (this work was admitted once; a bounce would lose
+        it).  None when nothing is eligible: the controller holds it."""
+        k, _ = self._route_decision(request)
+        if k is None:
+            return None
+        self.replicas[k].submit(request, force=True)
+        self.routed[k] += 1
+        if self.spans is not None and self.spans.enabled:
+            now = self.clock()
+            self.spans.record_span(
+                "router/route", now, now, corr=request.id,
+                decision="failover", replica=k, accepted=True,
+            )
+        return k
+
     # ------------------------------------------------------------------ #
     # driving
     # ------------------------------------------------------------------ #
 
     @property
     def idle(self) -> bool:
-        return all(s.idle for s in self.replicas)
+        return all(s.idle for s in self.replicas) and (
+            self.failover is None or self.failover.pending == 0)
+
+    # ---- the chaos plane's surface (resilience/faults.py) ------------- #
+
+    def set_fault(self, k: int, kind: str, *, until_tick: int | None = None,
+                  period: int | None = None) -> None:
+        """Arm a replica fault: ``"crash"`` (never answers again),
+        ``"stall"`` (misses ticks until ``until_tick``), ``"slow"``
+        (answers once every ``period`` ticks).  The router only simulates
+        the failure; detection and recovery are the failover
+        controller's."""
+        if not 0 <= k < len(self.replicas):
+            raise ValueError(f"no replica {k}")
+        if kind not in ("crash", "stall", "slow"):
+            raise ValueError(f"unknown replica fault kind {kind!r}")
+        self._faults[k] = {"kind": kind, "until": until_tick,
+                           "period": period}
+
+    def inject_role_death(self, k: int, role: str) -> None:
+        """Kill one role pool of a disaggregated replica: the engine
+        releases the role's slots and the failover controller, when there
+        is one, requeues the stranded requests (without one they
+        strand)."""
+        eng = self.replicas[k].engine
+        if not hasattr(eng, "fail_role"):
+            raise ValueError(
+                f"replica {k} is not disaggregated — role faults need a "
+                "DisaggServingEngine"
+            )
+        if role in eng.dead_roles:
+            return  # already dead: not a second death
+        stranded = eng.fail_role(role)
+        if self.failover is not None:
+            self.failover.on_role_death(k, role, stranded, self.tick_index,
+                                        self.clock())
+
+    def drop_handoff(self) -> Any | None:
+        """Drop one parked prefill->decode handoff somewhere in the tier
+        (the lost message); returns its request id, None when nothing is
+        parked."""
+        for s in self.replicas:
+            dropper = getattr(s.engine, "drop_handoff", None)
+            if dropper is not None:
+                rid = dropper()
+                if rid is not None:
+                    return rid
+        return None
+
+    def _tickable(self, k: int) -> bool:
+        fault = self._faults.get(k)
+        if fault is None:
+            return True
+        if fault["kind"] == "crash":
+            return False
+        if fault["kind"] == "stall":
+            if self.tick_index < fault["until"]:
+                return False
+            del self._faults[k]  # the stall is over: it answers again
+            return True
+        return self.tick_index % fault["period"] == 0  # slow
 
     def tick(self) -> list:
-        """One tick of every replica (an idle one costs next to nothing);
-        returns the merged engine events."""
+        """One tick of every responsive replica (an idle one costs next to
+        nothing); returns the merged engine events.
+
+        The chaos plane fires first; a crashed, stalled or fenced replica
+        then misses its tick, the failover controller's raw signal (the
+        ``_missed`` streaks and the ``_tick_log`` the straggler detector
+        reads).  The controller evaluates after the sweep, so a death is
+        drained and requeued within the tick, then autoscale acts."""
+        self.tick_index += 1
+        if self.chaos is not None:
+            self.chaos.on_tick(self.tick_index, self)
+        ticking = []
+        for k, s in enumerate(self.replicas):
+            fenced = k in self._fenced
+            if fenced or not self._tickable(k):
+                # A silent replica still contributes its queue depth and
+                # occupancy (the samples stay rectangular); only unfenced
+                # silence feeds detection.
+                if not fenced:
+                    self._missed[k] += 1
+                    self._tick_log[k].append(0)
+                s.queue_depth_samples.append(len(s.queue))
+                s.active_slot_samples.append(s.engine.pool.num_active)
+                continue
+            self._missed[k] = 0
+            self._tick_log[k].append(1)
+            ticking.append(k)
+        by_replica = self._tick_replicas(ticking)
         events: list = []
-        for s in self.replicas:
-            events.extend(s.tick())
+        for k in ticking:
+            ev = by_replica[k]
+            if self.failover is not None:
+                self.failover.observe_events(k, ev)
+            events.extend(ev)
+        if self.failover is not None:
+            self.failover.evaluate(self.tick_index, self.clock())
+        if self.autoscale is not None:
+            # After failover's pass and before the telemetry flush, so an
+            # action's counters land in the same tick's emission.
+            self.autoscale.evaluate(self.tick_index, self.clock())
         if self.emitter is not None:
             self._emit_stats()
         if self.slo is not None:
             self.slo.evaluate(self.clock())
         return events
+
+    def _tick_replicas(self, ticking: list) -> dict:
+        """Each replica's tick's events.  A replica led by another process
+        (``serve/tp.py``'s ``RemoteReplica``) has its step posted before
+        this process's replicas step, and its reply collected after, so
+        the groups' forwards overlap; every posted reply is collected
+        before an error is raised (an uncollected one would leave the
+        pair group out of step)."""
+        posted = {}
+        for k in ticking:
+            s = self.replicas[k]
+            if hasattr(s.engine, "post_step"):
+                posted[k] = (s.begin_tick(), s.engine.post_step())
+        out: dict = {}
+        error = None
+        try:
+            for k in ticking:
+                if k not in posted:
+                    out[k] = self.replicas[k].tick()
+        except BaseException as e:  # noqa: BLE001 - raised after collecting
+            error = e
+        for k, (cancelled, finish) in posted.items():
+            try:
+                step = finish()
+            except BaseException as e:  # noqa: BLE001 - as above
+                error = error or e
+                continue
+            if error is None:
+                out[k] = self.replicas[k].finish_tick(cancelled + step)
+        if error is not None:
+            raise error
+        return out
 
     def run(self, requests: list[Request], *,
             sleep: Callable[[float], None] | None = None) -> list[dict]:
@@ -251,8 +465,11 @@ class ReplicaRouter:
 
     @property
     def completed(self) -> list[dict]:
-        """Every replica's finished records, in finish order."""
+        """Every replica's finished records and the failover controller's
+        ``"failed"`` retirements, in finish order."""
         out = [r for s in self.replicas for r in s.completed]
+        if self.failover is not None:
+            out.extend(self.failover.completed)
         out.sort(key=lambda r: (r.get("finish") is None, r.get("finish")))
         return out
 
@@ -274,6 +491,8 @@ class ReplicaRouter:
             "queue_depths": [len(s.queue) for s in self.replicas],
             "slots_active": [s.engine.pool.num_active
                              for s in self.replicas],
+            **({"failover": self.failover.stats()}
+               if self.failover is not None else {}),
         }
 
     def queue_depth_samples(self) -> list[int]:

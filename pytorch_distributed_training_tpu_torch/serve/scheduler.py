@@ -5,13 +5,16 @@ the shed, cancelled and rejected counters, the engine's gauges and
 counter deltas every tick, a flight recorder for queue saturation),
 ``spans`` (each request's ``serve/request`` chain, and the engine's
 slot-attributed tick spans), ``slo`` (evaluated once a tick) and
-``replica`` (stamped on every record, label of the histograms).  The
-admission policy of ``--serve-priority`` (weighted classes) comes with
-the serving fleet's modules; admission here is the tenant rotation.
+``replica`` (stamped on every record, label of the histograms) and
+``policy`` (``--serve-priority``'s weighted-deficit pop over the tenants,
+``serve/policy.py``, in place of the plain rotation).
 
 - FIFO queue with bounded-queue backpressure (``submit`` refuses past
-  ``max_queue``), round-robin across tenants, FIFO within one;
-- every tick: shed queued requests past their deadline, cancel in-flight
+  ``max_queue``; ``force=True``, the failover requeue, enqueues past it),
+  round-robin across tenants, FIFO within one;
+- every tick: shed queued requests past their deadline (``brownout_margin``
+  seconds early while the failover controller runs the tier under
+  capacity), cancel in-flight
   ones past it, admit while ``engine.can_admit`` (a free slot, and for the
   paged pool enough unreserved blocks net of prefix hits; a candidate too
   big for now waits at the head), step the engine once;
@@ -80,8 +83,12 @@ class ContinuousScheduler:
         replica: int | None = None,
         spans=None,
         slo=None,
+        policy=None,
     ):
         self.engine = engine
+        # The admission policy (serve/policy.py), shared tier-wide; its
+        # deficit state for this queue lives on this scheduler.
+        self.policy = policy
         self.max_queue = max_queue
         self.clock = clock
         self.request_logger = request_logger
@@ -103,6 +110,10 @@ class ContinuousScheduler:
             self.recorder = FlightRecorder(emitter)
         self._last_stats: dict = {}
         self.queue: deque[Request] = deque()
+        # Raised above zero by the failover controller while the tier runs
+        # under capacity: queued requests shed this many seconds before
+        # their deadline (brown-out).
+        self.brownout_margin = 0.0
         self._last_tenant: Any = _NO_TENANT
         # Queued tenants -> queued-request count (the one-tenant fast path).
         self._tenant_counts: dict = {}
@@ -114,15 +125,18 @@ class ContinuousScheduler:
         self.queue_depth_samples: list[int] = []
         self.active_slot_samples: list[int] = []
 
-    def submit(self, request: Request) -> bool:
+    def submit(self, request: Request, *, force: bool = False) -> bool:
         """Enqueue a request; False = refused (queue full — backpressure).
-        A request that could never be admitted raises."""
+        A request that could never be admitted raises.  ``force=True``
+        (the failover requeue, ``serve/router.py``) enqueues past the
+        bound: migrated work was admitted once already, and backpressure
+        belongs at the tier's edge, not between replicas."""
         prompt = np.asarray(request.prompt, np.int32).reshape(-1)
         try:
             self.engine.validate_request(prompt.size, request.max_new_tokens)
         except ValueError as e:
             raise ValueError(f"request {request.id}: {e}") from None
-        if len(self.queue) >= self.max_queue:
+        if len(self.queue) >= self.max_queue and not force:
             self.rejected += 1
             if self.emitter is not None:
                 self.emitter.counter_add("rejected_requests", 1)
@@ -147,6 +161,13 @@ class ContinuousScheduler:
             "finish": None,
             "finish_reason": None,
             "generated": 0,
+            # Failover provenance (serve/failover.py): the re-placements
+            # after replica deaths, and every replica that held the
+            # request, in order; the controller rewrites both on a requeue.
+            "retries": 0,
+            "replica_history": (
+                [self.replica] if self.replica is not None else []
+            ),
         }
         return True
 
@@ -156,11 +177,18 @@ class ContinuousScheduler:
 
     def tick(self) -> list:
         """Shed → cancel → admit → step → record.  Returns engine events."""
+        return self.finish_tick(self.begin_tick() + self.engine.step())
+
+    def begin_tick(self) -> list:
+        """The tick up to the engine's step: shed, cancel, admit.  Returns
+        the cancellations' events (a router steps a replica led by another
+        process between this and :meth:`finish_tick`)."""
         now = self.clock()
         if any(r.deadline is not None for r in self.queue):
+            horizon = now + self.brownout_margin
             alive: deque[Request] = deque()
             for r in self.queue:
-                if r.deadline is not None and r.deadline <= now:
+                if r.deadline is not None and r.deadline <= horizon:
                     self._shed(r, now)
                 else:
                     alive.append(r)
@@ -180,13 +208,24 @@ class ContinuousScheduler:
                 self.queue.remove(r)
             self._drop_tenant_count(r.tenant)
             self._last_tenant = r.tenant
+            if self.policy is not None:
+                # Only a successful admission spends credit: a blocked
+                # head keeps its turn.
+                self.policy.on_admit(self, r)
             self.engine.start(r.id, r.prompt, r.max_new_tokens)
-            self.records[r.id]["admitted"] = self.clock()
+            rec = self.records[r.id]
+            if rec["admitted"] is None:
+                # A failover requeue keeps the request's original stamp,
+                # so admitted never follows the restored first token.
+                rec["admitted"] = self.clock()
         self.queue_depth_samples.append(len(self.queue))
         self.active_slot_samples.append(self.engine.pool.num_active)
         if self.recorder is not None:
             self.recorder.check_queue(len(self.queue), self.max_queue)
-        events = cancel_events + self.engine.step()
+        return cancel_events
+
+    def finish_tick(self, events: list) -> list:
+        """Record a tick's engine ``events`` (the cancellations' first)."""
         if self.emitter is not None:
             self._emit_engine_stats()
         now = self.clock()
@@ -351,9 +390,12 @@ class ContinuousScheduler:
 
     def _admit_candidate(self) -> Request:
         """Next request to admit: round-robin across queued tenants
-        (resuming after the one admitted last), FIFO within a tenant."""
+        (resuming after the one admitted last), FIFO within a tenant; with
+        a policy, its weighted-deficit pop."""
         if len(self._tenant_counts) <= 1:
             return self.queue[0]
+        if self.policy is not None:
+            return self.policy.admit_candidate(self)
         order: list = []
         seen: set = set()
         for r in self.queue:

@@ -53,6 +53,9 @@ class RequestLogger(_JsonlEmitter):
         "id", "prompt_len", "max_new_tokens", "arrival", "deadline",
         "tenant", "replica", "admitted", "first_token", "finish",
         "finish_reason", "generated", "ttft", "tpot",
+        # Failover provenance (serve/failover.py): the re-placements and
+        # the replicas that held the request, in order.
+        "retries", "replica_history",
     )
 
     def __init__(self, jsonl_path: str, only_rank0: bool = True):

@@ -202,8 +202,13 @@ def test_role_gating(tm):
     with pytest.raises(ValueError, match="belongs to the shared"):
         PagedKVCachePool(tm, num_slots=1, blocks=tier.blocks,
                          host_store=HostKVStore(1024))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tier.fail_role("prefill")
+    # The role methods gate their arguments as JAX's do.
+    with pytest.raises(ValueError, match="role must be"):
+        tier.fail_role("verify")
+    with pytest.raises(ValueError, match="prefill_cap must be"):
+        tier.resplit(0, 1)
+    with pytest.raises(ValueError, match="decode_cap must be"):
+        tier.resplit(1, 2)
 
 
 def test_export_cancel_releases_blocks(tm):

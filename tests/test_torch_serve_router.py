@@ -12,7 +12,8 @@ carries replica and tenant, tenants admit round-robin and FIFO within
 one, and ``reset`` makes a reused engine's leg equal a fresh engine's
 with the shared index cleared in place.  One scripted trace runs through
 JAX's router and the port's: the same routing decisions, counters and
-greedy tokens.
+greedy tokens, also when one replica's step is posted and collected as
+a group led by another process has it.
 """
 
 import glob
@@ -150,6 +151,73 @@ def test_routed_trace_equal_jax(tm, jax_routed):
         e.pool.check_invariants()
 
 
+class _Logged:
+    """An engine whose steps go into ``log``: ``"step <k>"`` when stepped
+    in place, ``"post <k>"`` / ``"collect <k>"`` when ``posted`` (the
+    router then posts its step and collects the events later, as it does
+    ``serve/tp.py``'s ``RemoteReplica``'s)."""
+
+    def __init__(self, engine, k, log, posted=False, fail=False):
+        object.__setattr__(self, "_engine", engine)
+        object.__setattr__(self, "_k", k)
+        object.__setattr__(self, "_log", log)
+        object.__setattr__(self, "_fail", fail)
+        if posted:
+            object.__setattr__(self, "post_step", self._post_step)
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._engine, name, value)
+
+    def step(self):
+        self._log.append(f"step {self._k}")
+        if self._fail:
+            raise RuntimeError("step failed")
+        return self._engine.step()
+
+    def _post_step(self):
+        self._log.append(f"post {self._k}")
+
+        def finish():
+            self._log.append(f"collect {self._k}")
+            return self._engine.step()
+
+        return finish
+
+
+def test_posted_steps_overlap_and_keep_the_trace(tm, jax_routed):
+    """A replica whose engine has ``post_step`` (a group led by another
+    process) is posted before the replicas of this process step and
+    collected after, every tick both tick; the trace's tokens and
+    routing stay JAX's.  When a local step raises, the posted step's
+    reply is still collected before the error leaves the tick."""
+    log: list = []
+    engines = [_Logged(_mk(tm, kv_host_mb=2.0), 0, log),
+               _Logged(_mk(tm, kv_host_mb=2.0), 1, log, posted=True)]
+    tokens, st = _routed_trace(engines, ReplicaRouter, Request,
+                               VirtualClock())
+    ref_tokens, ref = jax_routed
+    assert tokens == ref_tokens
+    for key in ("routed", "affinity_hits", "rebalanced",
+                "sibling_fetches", "sibling_fetch_blocks"):
+        assert st[key] == ref[key], (key, st, ref)
+    both = [log[i:i + 3] for i in range(len(log) - 2)
+            if log[i] == "post 1" and "step 0" in log[i:i + 3]]
+    assert both and all(t == ["post 1", "step 0", "collect 1"]
+                        for t in both)
+    assert log.count("post 1") == log.count("collect 1") > 0
+
+    log.clear()
+    engines = [_Logged(_mk(tm), 0, log, fail=True),
+               _Logged(_mk(tm), 1, log, posted=True)]
+    router = ReplicaRouter(engines, clock=VirtualClock())
+    with pytest.raises(RuntimeError, match="step failed"):
+        router.tick()
+    assert log == ["post 1", "step 0", "collect 1"]
+
+
 # --------------------------------------------------------------------- #
 # routing policy
 # --------------------------------------------------------------------- #
@@ -224,9 +292,31 @@ def test_router_shares_one_ngram_index(tm):
 
 
 def test_router_refuses_item_12_controllers(tm):
-    for name in ("failover", "autoscale", "policy", "chaos"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            ReplicaRouter([_mk(tm)], **{name: object()})
+    """The controllers bind (the policy reaches every scheduler, the
+    failover controller sizes the tick logs); what JAX's router refuses
+    is refused: autoscale without failover, a fault naming a replica the
+    tier lacks."""
+    from pytorch_distributed_training_tpu_torch.resilience import (
+        ServeFaultInjector,
+    )
+    from pytorch_distributed_training_tpu_torch.serve import (
+        AutoscaleController, FailoverController, ServePolicy,
+    )
+
+    policy, failover = ServePolicy({"a": 2.0}), FailoverController()
+    auto = AutoscaleController(min_replicas=1)
+    router = ReplicaRouter([_mk(tm) for _ in range(2)], policy=policy,
+                           failover=failover, autoscale=auto,
+                           chaos=ServeFaultInjector.from_spec(
+                               "replica_crash@3:1"))
+    assert all(s.policy is policy for s in router.replicas)
+    assert failover.router is router and auto.router is router
+    assert [h.state for h in failover.health] == ["up", "parked"]
+    with pytest.raises(ValueError, match="requires a FailoverController"):
+        ReplicaRouter([_mk(tm)], autoscale=AutoscaleController())
+    with pytest.raises(ValueError, match="out of range"):
+        ReplicaRouter([_mk(tm)], chaos=ServeFaultInjector.from_spec(
+            "replica_crash@3:5"))
 
 
 # --------------------------------------------------------------------- #

@@ -16,6 +16,15 @@ row shards ``serve_tp_rules`` names (the specs equal JAX's), every rank
 takes the same prefill forwards and decode ticks, and the memory model's
 components equal JAX's at TP 1 and 2.  The CLI's ``--serve-tp`` serves
 under the world and refuses what it cannot serve.
+
+The fleet (item 11b): TP 2 x 2 replicas over the world-4 launch, rank 0's
+router driving its own group in lockstep and the other group through its
+leader (``serve/tp.py``), is held against JAX's ``ReplicaRouter`` over
+two unsharded replicas on the same scripted trace, with and without a
+replica crash under a ``FailoverController``: the same greedy tokens,
+routing decisions, sibling fetches and failover block; the fetched
+prefix blocks are each rank's shard, bit for bit its peer's; the CLI's
+``--serve-tp 2 --serve-replicas 2`` serves under the world.
 """
 
 import numpy as np
@@ -45,7 +54,8 @@ from pytorch_distributed_training_tpu_torch.parallel import (
 from pytorch_distributed_training_tpu_torch.serve import ServingEngine
 from tests.torch_dp_worker import launch_start
 from tests.torch_serve_worker import (
-    CASES, CLI, MEMORY, PROGRAMS, SMALL, SMALL4, drive,
+    CASES, CLI, FLEET_ENGINE, MEMORY, PROGRAMS, SMALL, SMALL4, drive,
+    fleet_run,
 )
 from tests.torch_shared import shared_parts
 
@@ -122,6 +132,27 @@ def _jax_memory() -> dict:
     return out
 
 
+def _jax_fleet() -> dict:
+    """``fleet_run`` through JAX's router over two unsharded replicas,
+    without and with the crash."""
+    from pytorch_distributed_training_tpu.resilience import (
+        ServeFaultInjector,
+    )
+    from pytorch_distributed_training_tpu.serve import (
+        FailoverController, ReplicaRouter, Request, VirtualClock,
+    )
+    from pytorch_distributed_training_tpu.utils.backoff import BackoffPolicy
+
+    ns = dict(VirtualClock=VirtualClock, ReplicaRouter=ReplicaRouter,
+              Request=Request, FailoverController=FailoverController,
+              ServeFaultInjector=ServeFaultInjector,
+              BackoffPolicy=BackoffPolicy)
+    m, params = _jax_params(SMALL)
+    return {label: fleet_run(ns, [JaxEngine(m, params, **FLEET_ENGINE)
+                                  for _ in range(2)], crash)
+            for label, crash in (("plain", False), ("crash", True))}
+
+
 def _ranks(tmp_path_factory) -> dict:
     """Each rank's results of the worker at world 2 and at world 4 (the
     two launches run at once)."""
@@ -159,9 +190,10 @@ def runs(request, tmp_path_factory):
     parts = shared_parts(request, tmp_path_factory, "torch_serve_tp", {
         "ranks": lambda: _ranks(tmp_path_factory),
         "single": _jax_single, "tp2": _jax_tp2, "memory": _jax_memory,
+        "fleet": _jax_fleet,
     })
     ref = {"single": parts["single"], "tp2": parts["tp2"],
-           "memory": parts["memory"]}
+           "memory": parts["memory"], "fleet": parts["fleet"]}
     return ref, parts["ranks"]
 
 
@@ -280,7 +312,7 @@ def test_tp_param_layouts(runs):
 def test_mesh_and_head_refusals(runs):
     """Heads the tensor axis does not divide are refused (the library
     and the CLI under a world of 2), as are a world that is not the
-    tensor size, TP with replicas, sizes below 1 and a malformed P:D."""
+    tensor size times the replicas, sizes below 1 and a malformed P:D."""
     from pytorch_distributed_training_tpu_torch.cli.main import main
 
     model = GPT2(GPT2Config(**SMALL))
@@ -291,7 +323,7 @@ def test_mesh_and_head_refusals(runs):
     for extra, match in (
             (["--serve-tp", "2"], "world of 2"),
             (["--serve-tp", "2", "--serve-replicas", "2"],
-             "spans processes"),
+             "world of 4"),
             (["--serve-tp", "0"], "must be >= 1"),
             (["--serve-disagg", "3"], "P:D"),
     ):
@@ -329,3 +361,70 @@ def test_memory_model_equal_jax(runs, label, tp):
     for p in PROGRAMS:
         assert {k: got[p][k] for k in ref[p]} == ref[p], (p, got[p], ref[p])
         assert got[p]["kv_cache_resident"] > 0
+
+
+# --------------------------------------------------------------------- #
+# the fleet: tensor-parallel replicas across processes
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("label", ["plain", "crash"])
+def test_fleet_tp2x2_equal_jax_router(runs, label):
+    """TP 2 x 2 over 4 gloo ranks against JAX's router over two unsharded
+    replicas: greedy tokens per id, ``routed``, ``affinity_hits``,
+    ``rebalanced``, ``sibling_fetches``, ``sibling_fetch_blocks``, each
+    record's outcome and the failover block (the death's tick and time,
+    the drained, requeued and respawned counts) equal; both groups'
+    ranks stepped alike at one head a rank, and rank 0 counted its round
+    trips to the remote group."""
+    ref = runs[0]["fleet"][label]
+    ranks = [r["fleet"] for r in runs[1][4]]
+    got = ranks[0][label]
+    for key in ("tokens", "router", "failover", "records", "ticks"):
+        assert got[key] == ref[key], (key, got[key], ref[key])
+    assert got["router"]["rebalanced"] > 0
+    assert got["router"]["sibling_fetches"] > 0
+    if label == "crash":
+        fo = got["failover"]
+        assert fo["replica_deaths"] == 1 and fo["respawns"] == 1
+        assert fo["retried"] > 0
+    assert [r["group"] for r in ranks] == [0, 0, 1, 1]
+    for a, b in ((0, 1), (2, 3)):
+        sa, sb = ranks[a][label]["stats"], ranks[b][label]["stats"]
+        assert sa["decode_ticks"] == sb["decode_ticks"]
+    assert got["stats"]["decode_ticks"] > 0
+    assert ranks[1][label]["calls"] == got["broadcasts"]
+    assert ranks[2][label]["calls"] > 0 and ranks[3][label]["calls"] > 0
+    assert all(r[label]["heads"] == [1, 1] for r in ranks)
+    assert got["remote"]["round_trips"] > 0
+
+
+def test_fleet_sibling_fetch_shard_for_shard(runs):
+    """The prefix blocks group 1 fetched from group 0 hold, rank by rank,
+    exactly the peer's head shard (and the two shards differ)."""
+    ranks = [r["fleet"]["plain"] for r in runs[1][4]]
+    assert ranks[2]["stats"]["blocks_sibling_fetched"] > 0
+    for a, b in ((0, 2), (1, 3)):
+        pa, pb = ranks[a]["prefix_bytes"], ranks[b]["prefix_bytes"]
+        assert len(pa) == len(pb) == 2
+        for x, y in zip(pa, pb):
+            assert x is not None and y is not None
+            assert all(np.array_equal(u, v) for u, v in zip(x, y))
+    assert not all(np.array_equal(u, v) for u, v in zip(
+        ranks[0]["prefix_bytes"][0], ranks[1]["prefix_bytes"][0]))
+
+
+def test_cli_fleet_tp2x2(runs):
+    """``--serve-tp 2 --serve-replicas 2`` through the CLI under the world
+    of 4: every request completes on rank 0, both replicas took work,
+    the other ranks serve or follow and report no summary."""
+    cli = [r["fleet"]["cli"] for r in runs[1][4]]
+    lead = cli[0]
+    assert lead["summary"]["completed"] == 6
+    assert sum(len(t) for t in lead["tokens"].values()) == \
+        lead["summary"]["generated_tokens"]
+    assert all(n > 0 for n in lead["router"]["routed"])
+    assert lead["remote"]["round_trips"] > 0
+    assert all(c["summary"] is None and c["calls"] > 0 for c in cli[1:])
+    assert cli[2]["stats"]["decode_ticks"] == cli[3]["stats"][
+        "decode_ticks"] > 0
