@@ -121,6 +121,17 @@ the port's main paths:
   and H2 in one torchrun (``--grad-sync-leg``): ranks bit-identical, the step-3 losses
   within ``H2_INT8_LOSS_BOUND``, flash #4/#5 counted, step and sync
   times (gloo's on one card);
+- elastic resizing (``resilience/elastic.py``), in the same torchrun,
+  the 4 ranks as 2 slices of 2: EL0 the JAX package's own episode (its
+  tiny f32 GPT-2, ``slice_lost@4:1,slice_return@9``, 12 steps) and EL1
+  GPT-2 124M at L 1024 under T1's bf16 policy (global batch 16,
+  ``slice_lost@2:1,slice_return@6``, 9 steps, flash #4/#5 counted):
+  the transitions, the peer restore bit-identical, every step's batch
+  the oracle's, the accumulation, the ledger's integer-ns categories;
+  EL1's losses within ``EL1_LOSS_BOUND`` and its final state within
+  ``M1_STATE_BOUND`` of an uninterrupted run of the same batches; the
+  host times of a step at world 4 and 2, a peer put, the restore and
+  the grow transfer;
 - sharded training (``--fsdp``, ``--tensor-parallel``, ``--zero1``,
   ``--sequence-parallel``), 4 ranks of ``torch.distributed.run`` on the
   one card over gloo: M0 each layout (fsdp 4, data 2 x fsdp 2, TP 2 and
@@ -4258,7 +4269,8 @@ H2_RUNS = (("flat", []), ("hier-int8", [
 def grad_sync_leg(out: str, seed: int) -> int:
     """One rank of the grad-sync phase's torchrun (``--grad-sync-leg OUT
     SEED``), gloo on the one card: H1's runs (``h1_runs``), then H2's
-    (``h2_runs``), in one group."""
+    (``h2_runs``), then the elastic episodes EL0 and EL1 (``el_legs``),
+    in one group."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4271,6 +4283,7 @@ def grad_sync_leg(out: str, seed: int) -> int:
     try:
         h1_runs(torch, os.path.join(out, "h1"), seed, device, group)
         h2_runs(out, seed)
+        el_legs(torch, out, seed, device, group)
     finally:
         comm_init.shutdown()
     return 0
@@ -4523,11 +4536,11 @@ def grad_sync_phase(torch, seed: int, repo: str) -> dict:
     proc = torchrun_logged(repo, 4, argv, logs)
     try:
         grad_sync_codecs(torch, seed)
-        wait_ranks(proc, argv, 600, logs, "H1 + H2")
+        wait_ranks(proc, argv, 900, logs, "H1 + H2 + EL0 + EL1")
     finally:
         torchrun_kill(proc)
-    print(f"grad sync H1 + H2 torchrun: {time.monotonic() - t0:.1f} s",
-          flush=True)
+    print(f"grad sync H1 + H2 + EL0 + EL1 torchrun: "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
     _h1_check(h1_out)
 
     runs = {}
@@ -4578,7 +4591,275 @@ def grad_sync_phase(torch, seed: int, repo: str) -> dict:
     check(fwd == want and bwd == 2 * want,
           f"H2: flash launches fwd {fwd}, dq + dkv {bwd}; expected {want} "
           f"and {2 * want}")
+    el = _el_check(GS, seed)
     shutil.rmtree(GS, ignore_errors=True)
+    return {4: fwd + el[4], 5: bwd + el[5]}
+
+
+# --- elastic resizing (--elastic-resize), in the grad-sync torchrun ----------
+
+# EL0: the JAX package's own episode (its tiny f32 GPT-2, 12 steps); EL1:
+# GPT-2 124M at L 1024 under T1's bf16 policy, global batch 16 (2 rows a
+# rank a microbatch: flash #4/#5 at the kernel table's B 2), 9 steps.
+EL_RUNS = {"EL0": ("slice_lost@4:1,slice_return@9", 12),
+           "EL1": ("slice_lost@2:1,slice_return@6", 9)}
+EL1_BATCH, EL1_SEQ, EL1_ACCUM = 16, 1024, 2
+EL1_LOSS_BOUND = 0.02
+# (transition, step, world from, world to) at 4 ranks in 2 slices.
+EL_TRANSITIONS = {
+    "EL0": [["shrink", 7, 4, 2], ["peer_restore", 7, 2, 2],
+            ["grow", 9, 2, 4]],
+    "EL1": [["shrink", 5, 4, 2], ["peer_restore", 5, 2, 2],
+            ["grow", 6, 2, 4]],
+}
+# The goodput ledger's categories in seconds, each one exact integer in
+# ns: EL0's are the JAX package's pins (tests/test_elastic.py); EL1's
+# follow from the same virtual-clock constants (resilience/elastic.py):
+# compile 2 + one step interval + two reshapes, 7 fresh and 2 rework step
+# intervals of 0.375, 11 pulls, 6 commits, one restore, one backoff, the
+# grow sync and the tail.
+EL_LEDGER = {
+    "EL0": dict(compile=3.375, step_compute=3.75, grad_sync=0.0,
+                data_wait=1.75, ckpt_save=1.75, ckpt_restore=0.25,
+                rework=0.75, supervisor_backoff=0.5, other=0.375),
+    "EL1": dict(compile=3.375, step_compute=2.625, grad_sync=0.0,
+                data_wait=1.375, ckpt_save=1.5, ckpt_restore=0.25,
+                rework=0.75, supervisor_backoff=0.5, other=0.375),
+}
+
+
+def _el1_reference(torch, cfg, policy, seed: int, device, group,
+                   rank: int) -> dict:
+    """EL1's uninterrupted run: the same 9 global batches on the same 4
+    ranks, accumulation 2.  Returns its losses, and on rank 0 host copies
+    of its last two parameter sets and final Adam slots."""
+    from pytorch_distributed_training_tpu_torch.resilience import elastic
+    from pytorch_distributed_training_tpu_torch.train import make_train_step
+
+    steps = EL_RUNS["EL1"][1]
+    state = elastic.episode_state(cfg, policy, seed, device, group)
+    step = make_train_step(kind="lm", policy=policy,
+                           num_microbatches=EL1_ACCUM, process_group=group)
+    out: dict = {"losses": []}
+    for g in range(steps):
+        rows = elastic.episode_rows(
+            g, seed=seed, global_batch=EL1_BATCH, seq_len=EL1_SEQ,
+            vocab=cfg.vocab_size, rank=rank, world=4, accum=EL1_ACCUM)
+        if rank == 0 and g == steps - 1:
+            out["prev"] = {n: p.detach().to("cpu", copy=True)
+                           for n, p in state.params.items()}
+        state, metrics = step(state, {"tokens": torch.from_numpy(rows).to(
+            device)})
+        out["losses"].append(float(metrics["loss"]))
+    if rank == 0:
+        adam = state.opt_state[0]
+        names = list(state.params)
+        out["params"] = {n: p.detach().cpu() for n, p in state.params.items()}
+        out["mu"] = dict(zip(names, (t.cpu() for t in adam.mu)))
+        out["nu"] = dict(zip(names, (t.cpu() for t in adam.nu)))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _el1_distance(torch, ref: dict, state) -> tuple:
+    """``_state_distance``'s measures on the episode's final state against
+    the uninterrupted run's: the parameters' L2 distance over the
+    reference's last update, and the worst Adam slot's relative L2
+    distance, with its name."""
+    f64 = torch.float64
+    dist = step = 0.0
+    for n, p in state.params.items():
+        x = p.detach().to(f64)
+        y = ref["params"][n].to(x.device, f64)
+        dist += float((x - y).square().sum())
+        step += float((y - ref["prev"][n].to(x.device, f64)).square().sum())
+    worst, worst_name = 0.0, None
+    adam = state.opt_state[0]
+    for slot in ("mu", "nu"):
+        for n, t in zip(state.params, getattr(adam, slot)):
+            y = ref[slot][n].to(t.device, f64)
+            if float(y.norm()) > 0:
+                rel = float((t.to(f64) - y).norm() / y.norm())
+                if rel >= worst:
+                    worst, worst_name = rel, f"opt_state/0/{slot}/{n}"
+    return (dist / step) ** 0.5 if step > 0 else float("inf"), worst, \
+        worst_name
+
+
+def el_legs(torch, out: str, seed: int, device, group) -> None:
+    """EL0 and EL1 on this rank (``grad_sync_phase``): each episode of
+    ``resilience/elastic.py`` over the 4 ranks as 2 slices of 2, on the
+    card.  EL1 first runs its uninterrupted reference, then the episode
+    with its flash launches counted (the kernels' own counts, reset just
+    before it; the plain flash versions and the plain attention path
+    wrapped by ``_count_calls``).  Every rank writes ``OUT/el.rank<r>
+    .json`` (its launches); rank 0 adds the reports, the episode's
+    losses, step, put, restore and grow times, the reference's losses and
+    the final state's distance."""
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2Config
+    from pytorch_distributed_training_tpu_torch.ops import attention as attn
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tpu_torch.resilience import elastic
+    from pytorch_distributed_training_tpu_torch.train import make_policy
+
+    rank = torch.distributed.get_rank()
+    res: dict = {}
+    faults, steps = EL_RUNS["EL0"]
+    t0 = time.monotonic()
+    res["EL0"] = {"report": elastic.run_elastic_episode(
+        faults=faults, n_steps=steps, device=device, process_group=group,
+        seed=seed)}
+    res["EL0"]["s"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    cfg = GPT2Config(max_seq_len=EL1_SEQ)
+    policy = make_policy("bf16")
+    ref = _el1_reference(torch, cfg, policy, seed, device, group, rank)
+    ref_s = time.monotonic() - t0
+    entries = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plain = {"flash_fwd_plain": 0, "_bwd_tiles": 0, "flash_bwd_plain": 0}
+    xla = {"_xla_attention": 0, "_xla_attention_remat": 0}
+    saved = (_count_calls(fa, list(plain), plain),
+             _count_calls(attn, list(xla), xla))
+    for e in entries:
+        e.launches = 0
+    faults, steps = EL_RUNS["EL1"]
+    profile: dict = {}
+    t1 = time.monotonic()
+    try:
+        report = elastic.run_elastic_episode(
+            faults=faults, n_steps=steps, device=device,
+            process_group=group, seed=seed, accum=EL1_ACCUM,
+            global_batch=EL1_BATCH, seq_len=EL1_SEQ, model_config=cfg,
+            policy=policy, profile=profile)
+    finally:
+        for module, originals in zip((fa, attn), saved):
+            for name, fn in originals.items():
+                setattr(module, name, fn)
+    episode_s = time.monotonic() - t1
+    mine = {"fwd": entries[0].launches, "dq": entries[1].launches,
+            "dkv": entries[2].launches, "plain": plain, "xla": xla,
+            "micro": sum(s["accum"] for s in profile["steps"]),
+            "rank_steps": len(profile["steps"])}
+    if rank == 0:
+        res["EL1"] = {
+            "report": report, "s": time.monotonic() - t0, "ref_s": ref_s,
+            "episode_s": episode_s, "ref_losses": ref["losses"],
+            "steps": profile["steps"], "put": profile["put"],
+            "restore": profile["restore"], "grow": profile["grow"],
+            "distance": _el1_distance(torch, ref, profile["state"]),
+        }
+        mine.update(res)
+    with open(os.path.join(out, f"el.rank{rank}.json"), "w") as f:
+        json.dump(mine, f)
+    del profile, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    collectives.barrier(group)
+
+
+def _el_report_check(label: str, report: dict, vocab: int, seq: int,
+                     rows: int, seed: int) -> None:
+    faults, steps = EL_RUNS[label]
+    kinds = [[t["transition"], t["step"], t["world_from"], t["world_to"]]
+             for t in report["transitions"]]
+    check(kinds == EL_TRANSITIONS[label],
+          f"{label} ({faults}): transitions {kinds}")
+    check(report["restore_bit_identical"] is True,
+          f"{label}: the peer restore bit-identical to the committed "
+          f"snapshot ({report['restore_bit_identical']})")
+    from pytorch_distributed_training_tpu_torch.resilience import elastic
+
+    oracle = elastic.oracle_batch_digests(steps, seed=seed, rows=rows,
+                                          seq_len=seq, vocab=vocab)
+    check(all(r["digest"] == oracle[r["step"]] for r in report["steps"])
+          and report["final_step"] == steps,
+          f"{label}: every step's batch the oracle's, final step "
+          f"{report['final_step']}")
+    check(all(r["accum"] == (4 if r["world"] == 2 else 2)
+              for r in report["steps"]),
+          f"{label}: accumulation 2 at world 4, 4 at world 2")
+    led = report["ledger"]
+    want = {k: int(v * 1_000_000_000) for k, v in EL_LEDGER[label].items()}
+    check(led["identity_ok"] and led["categories_ns"] == want
+          and sum(want.values()) == led["wall_ns"],
+          f"{label}: the ledger's integer-ns categories "
+          f"{led['categories_ns']} == {want}")
+
+
+def _el_check(out: str, seed: int) -> dict:
+    """EL0's and EL1's checks (``el_legs`` wrote them); prints each leg's
+    line and returns EL1's flash launches by row."""
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(out, f"el.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    el0, el1 = ranks[0]["EL0"], ranks[0]["EL1"]
+    _el_report_check("EL0", el0["report"], 128, 16, 16, seed)
+    rep = el0["report"]
+    print(f"elastic EL0 (the JAX package's episode: tiny f32 GPT-2, "
+          f"{EL_RUNS['EL0'][0]}, 12 steps, 4 ranks in 2 slices on one card "
+          f"over gloo): transitions {EL_TRANSITIONS['EL0']}, restore "
+          f"bit-identical, digests the oracle's, ledger exact "
+          f"({rep['ledger']['wall_ns'] / 1e9} s virtual wall); counters "
+          f"{rep['counters']}; {el0['s']:.1f} s", flush=True)
+
+    rep = el1["report"]
+    _el_report_check("EL1", rep, VOCAB, EL1_SEQ, EL1_BATCH, seed)
+    losses = [s["loss"] for s in el1["steps"]]
+    ref = el1["ref_losses"]
+    check(_finite(losses) and 10.0 <= losses[0] <= 12.0,
+          f"EL1: step-0 loss {losses[0]} near ln 50257 = 10.8, all finite")
+    diffs = [abs(s["loss"] - ref[s["step"]]) for s in el1["steps"]]
+    check(max(diffs) <= EL1_LOSS_BOUND,
+          f"EL1: each step's loss within {EL1_LOSS_BOUND} of the "
+          f"uninterrupted run's ({max(diffs):.3g})")
+    d = el1["distance"]
+    check(d[0] <= M1_STATE_BOUND and d[1] <= M1_STATE_BOUND,
+          f"EL1: final state against the uninterrupted run's: "
+          f"{_distance_text(d)} (bound {M1_STATE_BOUND})")
+    executed = sum(x["rank_steps"] for x in ranks)
+    fwd = sum(x["fwd"] for x in ranks)
+    bwd = sum(x["dq"] + x["dkv"] for x in ranks)
+    # Each rank's microbatches: 2 a step at world 4, 4 at world 2.
+    micro = sum(x["micro"] for x in ranks)
+    want = LAYERS * micro
+    check(fwd == want and bwd == 2 * want
+          and not any(v for x in ranks for c in (x["plain"], x["xla"])
+                      for v in c.values()),
+          f"EL1: flash launches fwd {fwd}, dq + dkv {bwd} over {executed} "
+          f"rank-steps ({micro} microbatches); expected {want} and "
+          f"{2 * want}, no plain attention")
+
+    def med(world):
+        xs = [s["s"] * 1e3 for s in el1["steps"][1:] if s["world"] == world]
+        return statistics.median(xs) if xs else float("nan")
+
+    put = [p for p in el1["put"] if p["wire_bytes"]]
+    degraded = [p for p in el1["put"] if not p["wire_bytes"]]
+    rest, grow = el1["restore"][0], el1["grow"][0]
+    print(f"elastic EL1 (GPT-2 124M, bf16, L 1024, 16 = 2 x 8 rows, "
+          f"{EL_RUNS['EL1'][0]}, 9 steps, 4 ranks in 2 slices on one card "
+          f"over gloo): transitions {EL_TRANSITIONS['EL1']}, restore "
+          f"bit-identical, digests the oracle's, ledger exact; losses "
+          f"{[round(x, 4) for x in losses]}, the uninterrupted run's "
+          f"{[round(x, 4) for x in ref]} (worst diff {max(diffs):.3g}); "
+          f"final state {_distance_text(d)}; flash fwd {fwd}, dq + dkv "
+          f"{bwd}", flush=True)
+    print(f"elastic EL1 times (host, rank 0): step median at world 4 "
+          f"{med(4):.1f} ms, at world 2 {med(2):.1f} ms; peer put "
+          f"{[round(p['s'], 3) for p in put]} s (row {put[0]['row_bytes']} "
+          f"B, wire {put[0]['wire_bytes']} B a commit), degraded put "
+          f"{[round(p['s'], 3) for p in degraded]} s; restore "
+          f"{rest['s']:.3f} s ({rest['gathered_bytes']} B gathered); grow "
+          f"transfer {grow['s']:.3f} s ({grow['bytes']} B); leg "
+          f"{el1['s']:.1f} s (reference {el1['ref_s']:.1f} s, episode "
+          f"{el1['episode_s']:.1f} s)", flush=True)
     return {4: fwd, 5: bwd}
 
 
@@ -5292,7 +5573,8 @@ P0_RUNS = [
 P0_LOSS_RTOL, P0_GRAD_TOL, P0_BAND = 1e-5, (2e-4, 1e-5), 5e-3
 # P1: T1's recipe (no accumulation: the pipeline owns microbatching).
 # Its flat reference is M1's flat run (``carry["m1_flat"]``, the same
-# run), and "flat_again" closes the ABBA pair for the times.
+# run).  A second flat run that closed an ABBA pair for the times was cut
+# to pay for the elastic legs (EL0, EL1).
 P1_RUNS = [
     ("gpipe", ["--pipeline-parallel", "4", "--pipeline-microbatches", "8"]),
     ("gpipe_remat", ["--pipeline-parallel", "4",
@@ -5307,7 +5589,6 @@ P1_RUNS = [
                    "int8"]),
     ("1f1b_pp2d2", ["--pipeline-parallel", "2", "--pipeline-schedule",
                     "1f1b"]),
-    ("flat_again", ["--accum-steps", "2"]),
 ]
 # Flash launches a rank over 3 steps: (fwd, dq = dkv).  GPipe runs its
 # stage's layers on the M ticks that carry a microbatch (a bubble tick
@@ -5317,7 +5598,7 @@ P1_RUNS = [
 P1_FLASH = {"gpipe": (72, 72), "gpipe_remat": (144, 72),
             "1f1b": (144, 72), "interleaved": (144, 72),
             "1f1b_int8": (144, 72), "1f1b_pp2d2": (144, 72),
-            "flat_again": (72, 72), "resume_pp4": (48, 24),
+            "resume_pp4": (48, 24),
             "resume_pp2d2": (48, 24)}
 P1_LOSS_BOUND = 0.02          # M1's
 # P3: GPipe x MoE through the CLI, gpt2_moe on T1's recipe: PP 2 x data 2
@@ -6073,14 +6354,12 @@ def _p1_ckpt(label: str) -> str:
 
 def _p1_runs() -> list:
     """P1's, P2's and P3's multi-rank runs for ``cli_runs``: each of
-    ``P1_RUNS`` but the last committing step 3 (1f1b step 2 too: P2's
-    start), then the 1f1b run's step-2 checkpoint resumed under PP 4 and
+    ``P1_RUNS`` committing step 3 (1f1b step 2 too: P2's start), then the 1f1b run's step-2 checkpoint resumed under PP 4 and
     PP 2 x data 2, then ``P3_RUNS``."""
     ckpt = _p1_ckpt("1f1b")
     runs = []
     for label, extra in P1_RUNS:
-        if label != "flat_again":
-            extra = extra + ["--checkpoint-dir", _p1_ckpt(label)]
+        extra = extra + ["--checkpoint-dir", _p1_ckpt(label)]
         if label == P1_TM_RUN:
             extra = extra + ["--metrics-dir", P1_TM]
         runs.append(dict(label=label, argv=[
@@ -6377,8 +6656,7 @@ def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
     flat = runs["flat"][0]["losses"]
     check(10.0 <= flat[0] <= 12.0, f"P1 flat: first loss {flat[0]} near "
           "ln 50257 = 10.8")
-    flat_ms = [st.median(r[0]["step_s"][1:]) * 1e3
-               for r in (runs["flat"], runs["flat_again"])]
+    flat_ms = st.median(runs["flat"][0]["step_s"][1:]) * 1e3
     flat_ref = _ref_steps(_p1_ckpt("flat"))
     held = []
     for label, ranks in runs.items():
@@ -6403,7 +6681,7 @@ def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
               f"{[round(x['peak_mem_gb'], 2) for x in ranks]} GB; step "
               f"(median of steps 2-3, slowest rank) {step_ms:.1f} ms, "
               f"{P1_TOKENS / step_ms * 1e3:.0f} tokens/s (flat "
-              f"{flat_ms[0]:.1f} / {flat_ms[1]:.1f} ms at the two ends); "
+              f"{flat_ms:.1f} ms); "
               f"flash fwd/dq/dkv {ranks[0]['fwd']}/{ranks[0]['dq']}/"
               f"{ranks[0]['dkv']} a rank{extra}", flush=True)
     del flat_ref

@@ -96,7 +96,16 @@ START:STOP]`` a ``torch.profiler`` Chrome trace of a global-step window
 or of the first epoch.  The JAX CLI's refusals of these flags are usage
 errors (exit 2) with its messages.
 
-Not ported yet: elastic resizing (``--elastic-resize``).
+Elastic resizing (``--elastic-resize SPEC``, ``resilience/elastic.py``):
+
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m pytorch_distributed_training_tpu_torch.cli.main --distributed \\
+        --use-cpu --elastic-resize slice_lost@4:1,slice_return@9
+
+runs JAX's scripted episode over the world's ranks, read as 2 slices of
+consecutive ranks: the lost slice's heartbeats stop, the survivors
+restore the peer snapshot and shrink, and the slice grows back; rank 0
+prints JAX's ``elastic:`` lines.
 """
 
 from __future__ import annotations
@@ -840,6 +849,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "once per run (markers persist across supervised "
                         "relaunches in <ckpt-dir>/.fault_state).  Chaos "
                         "testing only.")
+    p.add_argument("--elastic-resize", default=None, metavar="SPEC",
+                   help="Elastic membership chaos episode "
+                        "(resilience/elastic.py): comma-separated "
+                        "kind@step[:arg] with kinds slice_lost@N:K, "
+                        "slice_return@N, host_hang@N[:S].  Unlike --elastic, "
+                        "a lost slice does NOT kill the run: the survivors "
+                        "restore from the peer-RAM snapshot tier, shrink to "
+                        "their group, scale grad accumulation to preserve "
+                        "the global batch, and grow back when the slice "
+                        "returns.  Runs under torchrun with --distributed, "
+                        "the world read as 2 slices of consecutive ranks.")
     # --- training (the JAX CLI's flags and defaults) ---
     p.add_argument("--dataset", default="cifar10",
                    help="cifar10|shapes|synthetic-images|"
@@ -2178,6 +2198,73 @@ def _run_elastic(parser: argparse.ArgumentParser, args) -> None:
     sys.exit(128 + abs(code) if code < 0 else code)
 
 
+def _run_elastic_resize(args) -> None:
+    """One scripted elastic episode over the process group's ranks: the
+    JAX CLI's ``--elastic-resize``.  Parses the elastic fault plan, runs
+    the episode (shrink on slice loss, peer-RAM restore, grow-back; every
+    rank takes part) and prints the audited outcome from rank 0.
+    Deterministic: the same spec and seed replay the identical episode.
+    JAX's refusals (a bad plan, a world that does not form 2 slices of 2
+    or more ranks) exit with its messages."""
+    import json
+    import os
+
+    from ..comm import init as comm_init
+    from ..obs import MetricsEmitter
+    from ..resilience.elastic import ElasticConfig, run_elastic_episode
+    from ..resilience.faults import parse_elastic_faults
+    from ..utils.device import resolve_device
+
+    try:
+        faults = parse_elastic_faults(args.elastic_resize)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    # Run past the last scripted fault so detection (patience) and the
+    # grow-back both land inside the episode.
+    n_steps = max(8, max((f.step for f in faults), default=0) + 3)
+    cadence = args.snapshot_every_steps or 2
+    config = ElasticConfig(snapshot_every_steps=min(cadence, n_steps))
+    state_dir = (os.path.join(args.checkpoint_dir, ".elastic_state")
+                 if args.checkpoint_dir else None)
+    device = resolve_device("cpu" if args.use_cpu else None)
+    if args.distributed:
+        comm_init.initialize(device)
+    try:
+        rank = comm_init.process_index()
+        emitter = (MetricsEmitter(args.metrics_dir, rank=0, world=1)
+                   if rank == 0 else None)
+        try:
+            report = run_elastic_episode(
+                faults=faults, n_steps=n_steps, config=config,
+                seed=args.seed or 0, emitter=emitter, state_dir=state_dir,
+                device=device,
+            )
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        finally:
+            if emitter is not None:
+                emitter.summary()
+                emitter.close()
+    finally:
+        comm_init.shutdown()
+    if rank:
+        return
+    ledger = report["ledger"]
+    print(f"elastic: world {report['world']['initial']} -> "
+          f"{report['world']['final']} over {len(report['transitions'])} "
+          f"transitions, final step {report['final_step']}")
+    for t in report["transitions"]:
+        print(f"elastic: {t['transition']}@{t['step']} "
+              f"{t['world_from']} -> {t['world_to']}")
+    print(f"elastic: peer restore bit-identical: "
+          f"{report['restore_bit_identical']}; ledger identity_ok: "
+          f"{ledger['identity_ok']} "
+          f"(rework {ledger['seconds']['rework']:.3f}s of "
+          f"{ledger['wall_s']:.3f}s wall)")
+    print("elastic: counters " + json.dumps(report["counters"],
+                                            sort_keys=True))
+
+
 def main(argv: list[str] | None = None):
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -2186,6 +2273,8 @@ def main(argv: list[str] | None = None):
     _check_telemetry(parser, args)
     if args.elastic:
         return _run_elastic(parser, args)
+    if args.elastic_resize is not None:
+        return _run_elastic_resize(args)
     if args.ckpt_every_steps and not args.checkpoint_dir:
         parser.error("--ckpt-every-steps requires --checkpoint-dir")
     from ..models import model_kind

@@ -38,9 +38,15 @@ evaluated against the ``ReplicaRouter``'s 1-based tick counter by
 one role pool of a disaggregated replica, stops responding at tick T),
 ``replica_stall@T:K[:N]`` (misses N ticks, default 8),
 ``replica_slow@T:K:F`` (responds once in every F ticks) and
-``handoff_drop@T`` (one parked prefill->decode handoff is lost).  The
-JAX package's elastic membership kinds need their plane, which is not
-ported yet: a spec naming one is refused rather than silently ignored.
+``handoff_drop@T`` (one parked prefill->decode handoff is lost).
+
+The elastic membership faults (:data:`ELASTIC_FAULT_KINDS`,
+``--elastic-resize``, :func:`parse_elastic_faults`) are evaluated by the
+elastic resize plane (``resilience/elastic.py``) against the global
+step: ``slice_lost@N:K`` (slice K's ranks stop beating at step N),
+``slice_return@N`` (they beat again; the run grows back) and
+``host_hang@N[:S]`` (rank 0 misses S boundaries of heartbeats, default
+8).  ``--inject-faults`` refuses them, naming ``--elastic-resize``.
 
 **Once-per-run semantics.**  A crash/preemption relaunch resumes from a
 checkpoint *below* the fault step and would re-reach it — so each fault
@@ -60,12 +66,22 @@ FAULT_KINDS = ("crash", "stall", "sigterm", "nan_batch", "spike_batch",
                "ckpt_truncate")
 SERVE_FAULT_KINDS = ("replica_crash", "replica_stall", "replica_slow",
                      "handoff_drop")
-# The JAX package's elastic membership kinds, refused here until their
-# plane lands.
-_NOT_PORTED = ("slice_lost", "slice_return", "host_hang")
+# Elastic-membership faults (evaluated by the elastic resize plane,
+# resilience/elastic.py, against the GLOBAL step): they mutate the
+# heartbeat stream, and the SliceHealthMonitor has to notice from
+# staleness alone, never from an exit code.
+#
+# - ``slice_lost@N:K``   — slice K's ranks stop beating at step N.
+# - ``slice_return@N``   — the lost slice's ranks beat again at step N;
+#   the run grows back at that boundary after the shared backoff.
+# - ``host_hang@N[:S]``  — rank 0 misses S steps of heartbeats (default
+#   8) then resumes: below the monitor's patience this must flag a
+#   ``host_stall`` anomaly WITHOUT declaring the slice lost.
+ELASTIC_FAULT_KINDS = ("slice_lost", "slice_return", "host_hang")
 
 _SERVE_ROLES = ("prefill", "decode")
 _DEFAULT_STALL_TICKS = 8
+_DEFAULT_HANG_STEPS = 8
 
 # Distinct from real Python tracebacks (1) and signal deaths (negative /
 # 128+N) so the chaos harness can assert WHICH death it injected.
@@ -138,12 +154,13 @@ def parse_faults(spec: str) -> list[Fault]:
                 "at router ticks — pass it via --serve-inject-faults, not "
                 "--inject-faults"
             )
-        if sep and kind in _NOT_PORTED:
-            # A silently ignored fault would make a chaos run vacuously
-            # green — refuse loudly.
+        if sep and kind in ELASTIC_FAULT_KINDS:
+            # A silently ignored membership fault would make a chaos
+            # run vacuously green — refuse loudly with the right flag.
             raise ValueError(
-                f"fault entry {item!r}: {kind} is not ported yet (the port "
-                f"injects {', '.join(FAULT_KINDS)})"
+                f"fault entry {item!r}: {kind} is an elastic membership "
+                "fault evaluated by the elastic resize plane — pass it "
+                "via --elastic-resize, not --inject-faults"
             )
         if not sep or kind not in FAULT_KINDS:
             raise ValueError(
@@ -159,6 +176,59 @@ def parse_faults(spec: str) -> list[Fault]:
         faults.append(Fault(kind, step, arg))
     return faults
 
+
+
+def parse_elastic_faults(spec: str) -> list[Fault]:
+    """Parse the elastic membership plan ``kind@step[:arg],...`` (see
+    :data:`ELASTIC_FAULT_KINDS` for the grammar per kind).  Validation is
+    fail-fast: a plan that would fire as a no-op (fractional hang,
+    missing slice index) is refused at parse time, before any marker
+    could be written."""
+    faults = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        kind, sep, rest = item.partition("@")
+        if not sep or kind not in ELASTIC_FAULT_KINDS:
+            raise ValueError(
+                f"elastic fault entry {item!r} is not kind@step[:arg] with "
+                f"kind in {ELASTIC_FAULT_KINDS}"
+            )
+        step_s, _, arg_s = rest.partition(":")
+        try:
+            step = int(step_s)
+        except ValueError:
+            raise ValueError(
+                f"elastic fault entry {item!r}: bad step {step_s!r}"
+            ) from None
+        if step < 0:
+            raise ValueError(
+                f"elastic fault entry {item!r}: step must be >= 0"
+            )
+        arg = None
+        try:
+            if kind == "slice_lost":
+                if not arg_s:
+                    raise ValueError("slice_lost wants step:slice_index")
+                arg = float(int(arg_s))
+                if arg < 0:
+                    raise ValueError("slice index must be >= 0")
+            elif kind == "slice_return":
+                if arg_s:
+                    raise ValueError("slice_return takes no arg")
+            else:  # host_hang
+                arg = float(arg_s) if arg_s else float(_DEFAULT_HANG_STEPS)
+                # A fractional hang would truncate to a shorter stall at
+                # fire time (the monitor counts whole steps): refused.
+                if arg != int(arg) or arg < 1:
+                    raise ValueError("hang steps must be an integer >= 1")
+        except ValueError as e:
+            raise ValueError(
+                f"elastic fault entry {item!r}: {e}"
+            ) from None
+        faults.append(Fault(kind, step, arg))
+    return faults
 
 class FaultInjector:
     """Evaluates a fault plan at step boundaries and checkpoint commits.

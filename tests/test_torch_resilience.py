@@ -62,10 +62,12 @@ def test_fault_plan_parse_and_defaults():
 @pytest.mark.parametrize("kind", ["replica_crash@3:0", "slice_lost@4:1"])
 def test_unported_fault_kinds_are_refused(kind):
     """The training plan refuses the serving kinds (they run at router
-    ticks, through ``--serve-inject-faults``) and the elastic ones (not
-    ported yet)."""
+    ticks, through ``--serve-inject-faults``) and the elastic ones (the
+    membership plane's, through ``--elastic-resize``), with JAX's
+    message."""
     match = {"replica_crash@3:0": "serving fault .* --serve-inject-faults",
-             "slice_lost@4:1": "not ported yet"}[kind]
+             "slice_lost@4:1": "elastic membership fault .* "
+                               "--elastic-resize, not --inject-faults"}[kind]
     with pytest.raises(ValueError, match=match):
         parse_faults(f"crash@1,{kind}")
 
