@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's CUDA kernels from the sources in this checkout (nvcc,
+First runs the port's AST lint (``analysis/lint.py``) in process over the
+package and this script: no finding, or the run fails.  Then builds the
+port's CUDA kernels from the sources in this checkout (nvcc,
 one process per source, all at once, into build/torch_kernels/) and the
 native data library (g++, csrc/fastbatch.cpp, into build/fastbatch/), holds
 each kernel against its plain PyTorch version and times both, then drives
@@ -309,6 +311,25 @@ def ptxas_lines(report: str) -> list[str]:
             lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {spill}")
             name = None
     return lines
+
+
+def lint_phase(repo: str, card: str) -> float:
+    """The port's lint over the package and this script, on the host:
+    every rule, no finding (a finding fails the run).  Its seconds."""
+    from pytorch_distributed_training_tpu_torch.analysis.lint import (
+        DEFAULT_LINT_TARGETS, RULES, iter_python_files, lint_paths,
+    )
+
+    t0 = time.monotonic()
+    files = iter_python_files(DEFAULT_LINT_TARGETS, repo)
+    findings = lint_paths(root=repo)
+    seconds = time.monotonic() - t0
+    for f in findings:
+        print(f.format(), flush=True)
+    print(f"LINT: {len(files)} files, {len(RULES)} rules, {len(findings)} "
+          f"findings, {seconds:.2f} s ({card})", flush=True)
+    check(not findings, f"the lint reports {len(findings)} finding(s)")
+    return seconds
 
 
 def card_line() -> str:
@@ -6853,6 +6874,7 @@ def main() -> int:
     print(f"device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     bandwidth = bandwidth_of(name)
+    lint_s = lint_phase(repo, card)
 
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -6876,7 +6898,7 @@ def main() -> int:
             check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
                       for ln in spills), "no decode kernel instance spills")
 
-    seconds: dict = {"build": time.monotonic() - t0}
+    seconds: dict = {"lint": lint_s, "build": time.monotonic() - t0}
     # T1 writes its epoch-end checkpoint here: start from nothing.
     import shutil
 

@@ -1820,6 +1820,7 @@ def _train(args, overrides, device, group, rank, world, tel):
     import os
 
     from ..checkpoint import CheckpointManager
+    from ..comm.mesh import BATCH_AXES
     from ..data import DataLoader, DataLoaderConfig
     from ..data.loader import to_device
     from ..models import create_model, model_kind
@@ -1877,7 +1878,7 @@ def _train(args, overrides, device, group, rank, world, tel):
     mesh, rules, opt_rules = _sharding(args, net, world)
     # The batch splits over the batch axes only: the ranks of one tensor,
     # sequence or pipeline group take the same rows.
-    shard, n_shards = mesh.batch_index, mesh.axes_size(("data", "fsdp"))
+    shard, n_shards = mesh.batch_index, mesh.axes_size(BATCH_AXES)
     n_micro = _loader_microbatches(args)
     if args.pipeline_parallel > 1:
         net = _pipelined(args, net, mesh, policy)

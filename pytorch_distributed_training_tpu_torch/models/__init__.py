@@ -6,6 +6,9 @@ from .convert import (
     resnet_params_to_jax, train_state_from_jax, train_state_to_jax,
     vit_params_from_jax, vit_params_to_jax,
 )
+# `generate` is the JAX package's public name for the function; the module
+# is reached by a from-import of its path (`from ..models.generate import`).
+# graftcheck: disable=init-shadows-submodule — the JAX package's public name
 from .generate import eos_cut_length, filter_logits, generate, sample_logits
 from .gpt2 import (
     GPT2, Block, GPT2Config, gpt2_124m, gpt2_large, gpt2_medium, gpt2_xl,

@@ -209,8 +209,8 @@ def _visible_pairs(q_len: int, k_len: int, causal: bool) -> int:
     bottom-right aligned causal mask those with j <= i + k_len - q_len."""
     if not causal:
         return q_len * k_len
-    rows = torch.arange(q_len) + 1 + (k_len - q_len)
-    return int(rows.clamp(0, k_len).sum())
+    return sum(min(max(i + 1 + k_len - q_len, 0), k_len)
+               for i in range(q_len))
 
 
 def _count_meta(products: int, q, k, causal: bool) -> None:

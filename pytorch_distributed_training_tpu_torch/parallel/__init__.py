@@ -15,6 +15,10 @@ from .pipeline import (
     pipeline_forward, pipeline_train_1f1b, pipeline_train_interleaved,
 )
 from .pipeline_schedule import make_interleaved_schedule
+# `ring_attention` is the JAX package's public name for the function; the
+# module is reached by a from-import of its path
+# (`from ..parallel.ring_attention import`).
+# graftcheck: disable=init-shadows-submodule — the JAX package's public name
 from .ring_attention import ring_attention, ring_self_attention
 from .sharded import ShardedLayout, configure_model, shard_for_serving
 from .sharding import (

@@ -425,6 +425,24 @@ def _gather_ints(values: list[int], group) -> list[list[int]]:
     return collectives.all_gather(x, group).view(n, -1).tolist()
 
 
+def _broadcast_leaves(leaves: list, group, src: int) -> list:
+    """``leaves`` ((path, value) pairs) with every value the group's rank
+    ``src``'s: the tensors in place, the Python ints over an int64 wire.
+    ``src`` is a rank within ``group``."""
+    from ..comm import collectives
+
+    collectives.broadcast([v for _, v in leaves
+                           if isinstance(v, torch.Tensor)], group, src=src)
+    ints = [v for _, v in leaves if not isinstance(v, torch.Tensor)]
+    if not ints:
+        return leaves
+    wire = torch.tensor(ints, dtype=torch.int64, device=_wire_device(group))
+    collectives.broadcast([wire], group, src=src)
+    new = iter(wire.tolist())
+    return [(p, v if isinstance(v, torch.Tensor) else next(new))
+            for p, v in leaves]
+
+
 # ---------------------------------------------------------------------- #
 # the peer snapshot tier
 # ---------------------------------------------------------------------- #
@@ -1110,18 +1128,7 @@ def run_elastic_episode(
             emitter.anomaly("slice_return", step=g, returned_slice=lost_slice)
         t0 = time.perf_counter()
         leaves, treedef = _state_leaves(state)
-        src = active_ranks[0]
-        collectives.broadcast([v for _, v in leaves
-                               if isinstance(v, torch.Tensor)],
-                              process_group, src=src)
-        ints = [v for _, v in leaves if not isinstance(v, torch.Tensor)]
-        if ints:
-            wire = torch.tensor(ints, dtype=torch.int64,
-                                device=_wire_device(process_group))
-            torch.distributed.broadcast(wire, src=src, group=process_group)
-            new = iter(wire.tolist())
-            leaves = [(p, v if isinstance(v, torch.Tensor) else next(new))
-                      for p, v in leaves]
+        leaves = _broadcast_leaves(leaves, process_group, active_ranks[0])
         state = _load(state, _unflatten(treedef, [v for _, v in leaves]), g)
         if profile is not None:
             profile["grow"].append({"step": g, "s": time.perf_counter() - t0,

@@ -70,6 +70,7 @@ import time
 import numpy as np
 import torch.distributed as dist
 
+from ..comm.mesh import AXIS_TENSOR
 from .kv_store import striped_walk
 
 MUTATING = ("start", "cancel", "step", "export_handoff", "adopt", "reset",
@@ -86,10 +87,10 @@ def serving_groups(mesh):
     group of ``mesh`` (tensor innermost, so the group is adjacent ranks):
     the tensor group itself on a gloo world, else a gloo group over the
     same ranks (every rank creates every such group, in order)."""
-    tp = mesh.shape["tensor"]
-    leader = mesh.rank - mesh.coords["tensor"]
+    tp = mesh.shape[AXIS_TENSOR]
+    leader = mesh.rank - mesh.coords[AXIS_TENSOR]
     if dist.get_backend() == "gloo":
-        return mesh.group("tensor"), leader
+        return mesh.group(AXIS_TENSOR), leader
     mine = None
     for start in range(0, mesh.size, tp):
         g = dist.new_group(list(range(start, start + tp)), backend="gloo")
@@ -181,11 +182,11 @@ class ReplicaFabric:
     rank creates every group, in the same order."""
 
     def __init__(self, mesh):
-        self.tp = mesh.shape["tensor"]
+        self.tp = mesh.shape[AXIS_TENSOR]
         self.world = mesh.size
         self.replicas = self.world // self.tp
         self.rank = mesh.rank
-        self.tensor_index = mesh.coords["tensor"]
+        self.tensor_index = mesh.coords[AXIS_TENSOR]
         self.group_index = self.rank // self.tp
         self.control, self.leader = serving_groups(mesh)
         self.links: dict = {}

@@ -229,15 +229,18 @@ def probe(kind: str, state, batch: dict, *, policy, accum: int = 1) -> dict:
             from pytorch_distributed_training_tpu_torch.comm import (
                 collectives,
             )
+            from pytorch_distributed_training_tpu_torch.comm.mesh import (
+                AXIS_SEQUENCE, BATCH_AXES,
+            )
 
-            for axes, dim in ((("sequence",), 1), (("data", "fsdp"), 0)):
+            for axes, dim in (((AXIS_SEQUENCE,), 1), (BATCH_AXES, 0)):
                 group = layout.mesh.group(axes)
                 if group is not None:
                     logits = collectives.all_gather(logits.contiguous(),
                                                     group, gather_axis=dim)
             # The ranks' rows back in the global order (rank_rows dealt
             # each microbatch's rows over the batch group).
-            n = layout.mesh.axes_size(("data", "fsdp"))
+            n = layout.mesh.axes_size(BATCH_AXES)
             rest = logits.shape[1:]
             logits = logits.reshape(n, accum, -1, *rest).transpose(
                 0, 1).reshape(-1, *rest)
@@ -284,7 +287,7 @@ def run_steps(kind: str, model, batches: list[dict], *, accum: int,
     mesh = None
     if sharding is not None:
         from pytorch_distributed_training_tpu_torch.comm.mesh import (
-            MeshConfig, make_mesh,
+            BATCH_AXES, MeshConfig, make_mesh,
         )
         from pytorch_distributed_training_tpu_torch.parallel.sharding import (
             DDP_RULES, ZERO1_OPT_RULES, tp_rules_for,
@@ -306,7 +309,7 @@ def run_steps(kind: str, model, batches: list[dict], *, accum: int,
         state = create_train_state(
             model, optimizer(kind), policy=policy, mesh=mesh, rules=rules,
             opt_rules=opt_rules, sp_mode=sharding["mode"])
-        rank, world = mesh.batch_index, mesh.axes_size(("data", "fsdp"))
+        rank, world = mesh.batch_index, mesh.axes_size(BATCH_AXES)
     else:
         state = create_train_state(model, optimizer(kind), policy=policy,
                                    process_group=group)

@@ -8,6 +8,9 @@ hands back an explicit generator where JAX hands back its root
 ``PRNGKey``.
 """
 
+# graftcheck: disable-file=global-rng — the seeding helper: seeding the
+# process-global generators is what it is for.
+
 from __future__ import annotations
 
 import random

@@ -23,8 +23,10 @@ an int32 array, and the port's constant learning rate keeps a count of
 its own (``opt_state/1/count``) where optax's keeps an empty state.
 Beyond JAX's cases: run-twice determinism from other processes without
 an emitter, the three-way pin through ``tools/telemetry_report.py`` on
-the port's event log, and the final parameters within 1e-5 (relative
-L2) of an uninterrupted run of the same 12 global batches.
+the port's event log, the final parameters within 1e-5 (relative L2)
+of an uninterrupted run of the same 12 global batches, and the grow's
+transfer over a group that leaves out global rank 0 (its source a
+group rank, not a global one).
 
 The CLI under a 4-rank ``torchrun`` prints JAX's ``elastic:`` lines (JAX's
 CLI at ``--cpu-devices 4``), and refuses a 2-rank world with JAX's
@@ -471,6 +473,15 @@ def test_episode_shrinks_restores_and_grows_back(runs):
     assert lost0["transitions"][0]["lost_slice"] == 0
 
 
+def test_grow_transfer_maps_the_group_rank_of_its_source(runs):
+    """The grow's transfer (``elastic._broadcast_leaves``) over the group
+    of global ranks 1-3 from its rank 1: every member ends with global
+    rank 2's tensor and int (a ``src`` read as a global rank would have
+    sent rank 1's); rank 0, outside the group, keeps its own."""
+    assert runs["port_episodes"]["subgroup_grow"] == [
+        [0, 0, 0, 0], [2, 2, 2, 20], [2, 2, 2, 20], [2, 2, 2, 20]]
+
+
 def test_episode_preserves_the_global_batch_schedule(runs):
     report = _port_report(runs, "slice1")
     oracle = tres.oracle_batch_digests(12)
@@ -766,6 +777,9 @@ def test_elastic_and_analysis_import_without_jax():
         "from pytorch_distributed_training_tpu_torch.analysis import "
         "run_ledger_audit\n"
         "assert run_ledger_audit()[0] == []\n"
+        "from pytorch_distributed_training_tpu_torch.analysis import "
+        "lint_paths\n"
+        "assert lint_paths() == []\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -9,7 +9,8 @@ own slice lost) and ``host_hang@2:2`` (6 steps) — each report, the
 snapshot's leaves (path, kind, dtype, bytes) and the blob's length;
 then an uninterrupted 12-step run of the same global batches on the
 same ranks, and the relative L2 distance of its final parameters from
-the first episode's.
+the first episode's; then the grow's transfer over the group of ranks
+1-3 from its rank 1 (global rank 2), each rank's leaves after it.
 
 ``again``: the first episode once more, without an emitter (the
 run-twice determinism pin, from other processes).
@@ -57,6 +58,22 @@ def _rel_l2(torch, a: dict, b: dict) -> float:
     return (num / den) ** 0.5
 
 
+def _subgroup_grow(torch, rank: int, group) -> list:
+    """Each rank's leaves after the grow's transfer over the group of
+    global ranks 1-3, whose rank 1 (global rank 2) is the source: a
+    tensor and a Python int, both first rank-valued (rank 0 keeps its
+    own)."""
+    from pytorch_distributed_training_tpu_torch.comm import collectives
+    from pytorch_distributed_training_tpu_torch.resilience import elastic
+
+    sub = collectives.new_group([1, 2, 3])   # every rank enters new_group
+    leaves = [("w", torch.full((3,), float(rank))), ("count", 10 * rank)]
+    if rank != 0:
+        leaves = elastic._broadcast_leaves(leaves, sub, 1)
+    return elastic._gather_ints(
+        [int(v) for v in leaves[0][1].tolist()] + [leaves[1][1]], group)
+
+
 def _episodes(torch, out: str, rank: int, world: int, group) -> dict:
     from pytorch_distributed_training_tpu_torch.obs import MetricsEmitter
     from pytorch_distributed_training_tpu_torch.resilience import (
@@ -89,6 +106,7 @@ def _episodes(torch, out: str, rank: int, world: int, group) -> dict:
         "blob_len": sum(elastic._nbytes(s) for s in specs),
         "params_rel_l2": rel,
         "losses": [s["loss"] for s in profile["steps"]],
+        "subgroup_grow": _subgroup_grow(torch, rank, group),
     }
 
 
