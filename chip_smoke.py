@@ -15,7 +15,13 @@ the port's main paths:
   from the seed) over the contiguous cache with and without speculative
   decoding, and over the paged pool plainly, with speculative decoding and
   with int8 KV, checking that every request completed and that the
-  attention kernels carried every decode, verify and prefill tick (the
+  attention kernels carried every decode, verify and prefill tick; every
+  single-process engine captures its programs as CUDA graphs once, at
+  construction, and replays them (``PROGRAM_REGISTRY`` holds one record
+  a program of each engine built, and nothing more), and the greedy
+  tokens equal those of the same run with ``cuda_graphs=False`` (the
+  contiguous, speculative, paged, paged speculative, int8 and
+  shared-prefix runs; ``serve_graphs``, ``graph_check``) (the
   speculative paged run with telemetry on: ``--metrics-dir --trace --slo
   --metrics-port 0``, its 16 request span chains whole, its tick spans
   equal to its decode ticks, each TTFT its queued and prefill spans,
@@ -145,7 +151,8 @@ the port's main paths:
   weight updates (relative 1e-2); ZeRO-1 under ``hier-int8`` is held at
   those bounds to data parallelism under the same sync (the same
   quantized sums), and both to one process within Adam's 2 lr a step;
-  M1 T1's recipe through the CLI under flat, ``--fsdp 4``,
+  M1 T1's recipe at GPT-2 124M's widths cut to ``GLOO_LAYERS`` blocks
+  through the CLI under flat, ``--fsdp 4``,
   ``--zero1``, ``--tensor-parallel 2`` and Ulysses ``--sequence-parallel
   2``: losses against flat within ``M1_LOSS_BOUND``, the step-3
   checkpoint's weights and Adam slots against flat's within
@@ -168,11 +175,11 @@ the port's main paths:
   fsdp 2, x TP 2 and x ring SP 2 on the JAX package's pipeline-test
   GPT-2, f32 with TF32 off, against one process (loss, every gradient
   and 3 steps at the JAX tests' tolerances; the compressed runs within
-  JAX's band; stripe 2 bitwise stripe 1); P1 T1's recipe through the
-  CLI in the same torchrun, PP 4 with 8 microbatches under gpipe,
-  gpipe ``--remat``, 1f1b, interleaved (3 chunks) and 1f1b
-  ``--pp-compress int8``, PP 2 x data 2 1f1b, and flat again (the
-  sharded phase's M1 flat run, the same run, is the first flat): step-3
+  JAX's band; stripe 2 bitwise stripe 1); P1 T1's recipe at
+  ``GLOO_LAYERS`` blocks through the CLI in the same torchrun, PP 4 with
+  8 microbatches under gpipe, gpipe ``--remat``, 1f1b and 1f1b
+  ``--pp-compress int8``, PP 2 x data 2 under 1f1b and interleaved (2
+  chunks), against flat (the sharded phase's M1 flat run): step-3
   losses within ``P1_LOSS_BOUND`` of flat's, step-3 checkpoints within
   ``M1_STATE_BOUND`` of flat's, flash #4/#5 counted exactly, state
   bytes, peak memory and step times a rank; P2 the 1f1b run's step-2
@@ -549,30 +556,108 @@ def first_logits(torch, box: dict, key: str):
         GPT2.head = head
 
 
+@contextlib.contextmanager
+def serve_graphs(graphs: bool = True):
+    """While a serving leg runs: every ``ServingEngine`` it builds (the
+    CLI's, a disaggregated tier's two roles, a router's replicas), built
+    with ``cuda_graphs=graphs`` (``tools/serve_profile.py``'s
+    ``engines_built``).  Yields ``{"engines": [...], "base":
+    PROGRAM_REGISTRY.snapshot()}`` taken before the first of them, for
+    ``graph_check``."""
+    from pytorch_distributed_training_tpu_torch.analysis.signature import (
+        PROGRAM_REGISTRY,
+    )
+    from pytorch_distributed_training_tpu_torch.tools.serve_profile import (
+        engines_built,
+    )
+
+    base = PROGRAM_REGISTRY.snapshot()
+    with engines_built(graphs) as engines:
+        yield {"engines": engines, "base": base}
+
+
+def graph_check(label: str, run: dict) -> str:
+    """The recompile guard over a leg run under ``serve_graphs()``: every
+    engine captured its programs as CUDA graphs, ``PROGRAM_REGISTRY``
+    holds since the leg began one record a program of each engine built
+    and nothing more (none captured again across the trace, a reset, a
+    respawn or a second wave), and the graphs were replayed.  Returns
+    the note for the leg's line: engines, captures, replays, pools."""
+    import collections
+
+    from pytorch_distributed_training_tpu_torch.analysis.signature import (
+        PROGRAM_REGISTRY,
+    )
+
+    engines = run["engines"]
+    want = collections.Counter(
+        (f"serve/{name}", sig) for e in engines
+        for name, sig in e.program_signatures.items())
+    got = PROGRAM_REGISTRY.compiles_since(run["base"])
+    check(bool(engines) and all(e.cuda_graphs for e in engines),
+          f"{label}: every engine captured its programs as CUDA graphs")
+    check(got == dict(want),
+          f"{label}: one capture a program of each of {len(engines)} "
+          f"engine(s) and none again ({got} vs {dict(want)})")
+    stats = [e.program_stats() for e in engines]
+    progs = [p for st in stats for p in st["programs"].values()]
+    replays = sum(p["replays"] for p in progs)
+    check(replays > 0, f"{label}: the graphs replayed")
+    capture = [p["capture_s"] * 1e3 for p in progs]
+    pools = ["not measured" if st["graph_pool_bytes"] is None
+             else f"{st['graph_pool_bytes'] / 2**20:.0f}" for st in stats]
+    return (f"graphs: {len(engines)} engine(s), {len(progs)} programs "
+            f"captured once ({min(capture):.1f}-{max(capture):.1f} ms a "
+            f"capture), {replays} replays, pools {'/'.join(pools)} MiB")
+
+
+def warm_launches(run: dict) -> dict:
+    """The kernel launches the engines' warm-ups before their captures
+    made, by wrapper name (counted on the wrappers as any launch is)."""
+    out: dict = {}
+    for e in run["engines"]:
+        for p in e.program_stats()["programs"].values():
+            for name, n in p["warmup_launches"].items():
+                out[name] = out.get(name, 0) + n
+    return out
+
+
 def serving_phase(torch, da, seed: int, carry: dict) -> tuple[dict, dict]:
     """The main path: the CLI serving GPT-2 124M in bf16, once plainly and
-    once with speculative decoding (k = 4); the speculative run's first
-    prefill logits and tokens go to ``carry`` (the one-process reference
-    of the tensor-parallel runs, ``pipeline_phase``)."""
+    once with speculative decoding (k = 4), its engine replaying its
+    programs as CUDA graphs (``graph_check``); then each again with
+    ``cuda_graphs=False``, whose greedy tokens must be the same.  The
+    eager speculative run's first prefill logits and the tokens go to
+    ``carry`` (the one-process reference of the tensor-parallel runs,
+    ``pipeline_phase``)."""
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
 
     argv = SERVE_ARGV + ["--seed", str(seed)]
     runs, launches = {}, {"decode_attention": 0, "decode_attention_multi": 0}
     for spec in (False, True):
+        extra = ["--serve-spec", "--serve-spec-k", "4"] if spec else []
+        label = "spec" if spec else "plain"
         da.decode_attention.launches = 0
         da.decode_attention_multi.launches = 0
-        with first_logits(torch, carry, "logits/contig" if spec else "-"):
-            res = cli(argv + (["--serve-spec", "--serve-spec-k", "4"]
-                              if spec else []))
-        carry.pop("-", None)
-        if spec:
-            carry["tokens/contig"] = res["tokens"]
+        with serve_graphs() as run:
+            res = cli(argv + extra)
         n9 = da.decode_attention.launches
         n10 = da.decode_attention_multi.launches
+        note = graph_check(f"serve {label}", run)
+        warm = warm_launches(run)
+        with serve_graphs(False), first_logits(
+                torch, carry, "logits/contig" if spec else "-"):
+            eager = cli(argv + extra)
+        carry.pop("-", None)
+        check(res["tokens"] == eager["tokens"],
+              f"{label}: greedy tokens with graphs equal the eager run's")
+        if spec:
+            carry["tokens/contig"] = res["tokens"]
         launches["decode_attention"] += n9
         launches["decode_attention_multi"] += n10
         s, ticks = res["summary"], res["engine"]["decode_ticks"]
-        label = "spec" if spec else "plain"
+        w9 = warm.get("decode_attention", 0)
+        w10 = warm.get("decode_attention_multi", 0)
         check(s["completed"] == 16, f"{label}: 16 requests completed")
         toks = res["tokens"]
         check(all(0 <= t < 50257 for r in toks.values() for t in r),
@@ -580,18 +665,23 @@ def serving_phase(torch, da, seed: int, carry: dict) -> tuple[dict, dict]:
         check(sum(len(r) for r in toks.values()) == s["generated_tokens"],
               f"{label}: streamed tokens match the summary")
         if spec:
-            check(n10 > 0, "spec: decode_attention_multi launched")
-            check(n9 + n10 == LAYERS * ticks,
-                  "spec: one kernel launch per layer per decode/verify tick")
+            check(n10 > w10, "spec: decode_attention_multi launched")
+            check(n9 - w9 + n10 - w10 == LAYERS * ticks,
+                  "spec: one kernel launch per layer per decode/verify "
+                  "tick, beside the warm-ups'")
         else:
-            check(n9 == LAYERS * ticks and n10 == 0,
-                  "plain: decode_attention launched 12x per decode tick")
+            check(n9 - w9 == LAYERS * ticks and n10 == 0,
+                  "plain: decode_attention launched 12x per decode tick, "
+                  "beside the warm-up's")
+        e = eager["summary"]
         print(f"serve {label}: completed {s['completed']}/16, "
               f"{s['goodput_tok_per_s']} tok/s, ttft p50/p99 "
               f"{s['ttft_p50_s']}/{s['ttft_p99_s']} s, tpot p50/p99 "
               f"{s['tpot_p50_s']}/{s['tpot_p99_s']} s, decode ticks {ticks}, "
-              f"launches decode_attention {n9} decode_attention_multi {n10}",
-              flush=True)
+              f"launches decode_attention {n9} decode_attention_multi {n10} "
+              f"(warm-ups {w9} / {w10}); {note}; eager (cuda_graphs=False): "
+              f"the same tokens, {e['goodput_tok_per_s']} tok/s, tpot "
+              f"p50/p99 {e['tpot_p50_s']}/{e['tpot_p99_s']} s", flush=True)
         runs[label] = res
     a, b = runs["plain"]["tokens"], runs["spec"]["tokens"]
     same = sum(x == y for rid in a for x, y in zip(a[rid], b[rid]))
@@ -846,11 +936,15 @@ def paged_serving_phase(torch, da, pa, seed: int, repo: str,
                         carry: dict) -> dict:
     """The paged main path: the CLI serving GPT-2 124M in bf16 from the
     paged pool, plainly, with speculative decoding (k = 4) and with int8
-    KV.  Every decode and verify tick must run #11 or #12 and every
-    prefill tick #12, once per layer, and #9/#10 never.  The speculative
-    run serves with telemetry on (``serve_telemetry``); its first prefill
-    logits and tokens go to ``carry``.  Then the disaggregated tier
-    (``DISAGG_RUNS``, ``disagg_runs``).  Returns the launches by row."""
+    KV, each engine replaying its programs as CUDA graphs
+    (``graph_check``), each run again with ``cuda_graphs=False`` for the
+    same greedy tokens.  Every decode and verify tick must run #11 or #12
+    and every prefill tick #12, once per layer, beside the warm-ups
+    before the captures, and #9/#10 never.  The speculative run serves
+    with telemetry on (``serve_telemetry``); its eager twin's first
+    prefill logits and the tokens go to ``carry``.  Then the
+    disaggregated tier (``DISAGG_RUNS``, ``disagg_runs``).  Returns the
+    launches by row."""
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.serve import ServingEngine
 
@@ -875,22 +969,38 @@ def paged_serving_phase(torch, da, pa, seed: int, repo: str,
     try:
         for label, extra in (("paged", []),
                              ("paged spec", ["--serve-spec",
-                                             "--serve-spec-k", "4",
-                                             *telemetry]),
+                                             "--serve-spec-k", "4"]),
                              ("paged int8", ["--serve-kv-dtype", "int8"])):
             for e in entries:
                 e.launches = 0
             prefill_ticks[0] = 0
             if "spec" in label:
                 with hook_clock() as clock, serve_scrapes() as scrapes, \
-                        first_logits(torch, carry, "logits/paged"):
+                        serve_graphs() as run:
+                    res = cli(argv + extra + telemetry)
+            else:
+                with serve_graphs() as run:
                     res = cli(argv + extra)
-                carry["tokens/paged"] = res["tokens"]
+            n9, n10, n11, n12m, n12p = (e.launches for e in entries)
+            pre_ticks = prefill_ticks[0]
+            note = graph_check(f"serve {label}", run)
+            warm = warm_launches(run)
+            if "spec" in label:
                 serve_telemetry(tm, res, scrapes)
                 hook_report(clock)
-            else:
-                res = cli(argv + extra)
-            n9, n10, n11, n12m, n12p = (e.launches for e in entries)
+            with serve_graphs(False), first_logits(
+                    torch, carry,
+                    "logits/paged" if "spec" in label else "-"):
+                eager = cli(argv + extra)
+            carry.pop("-", None)
+            check(res["tokens"] == eager["tokens"],
+                  f"{label}: greedy tokens with graphs equal the eager "
+                  "run's")
+            if "spec" in label:
+                carry["tokens/paged"] = res["tokens"]
+            w11 = warm.get("paged_decode_attention", 0)
+            w12m = warm.get("paged_decode_attention_multi", 0)
+            w12p = warm.get("paged_prefill_attention", 0)
             s, st = res["summary"], res["engine"]
             ticks = st["decode_ticks"]
             check(s["completed"] == 16, f"{label}: 16 requests completed")
@@ -899,23 +1009,30 @@ def paged_serving_phase(torch, da, pa, seed: int, repo: str,
                   f"{label}: tokens inside the vocabulary")
             check(n9 == 0 and n10 == 0,
                   f"{label}: the contiguous kernels launched {n9}, {n10}")
-            check(n11 + n12m == LAYERS * ticks,
+            check(n11 - w11 + n12m - w12m == LAYERS * ticks,
                   f"{label}: one paged launch per layer per decode/verify "
-                  f"tick ({n11} + {n12m} vs {ticks} ticks)")
-            check(n12p == LAYERS * prefill_ticks[0],
+                  f"tick ({n11} + {n12m} less the warm-ups' {w11} + "
+                  f"{w12m} vs {ticks} ticks)")
+            check(n12p - w12p == LAYERS * pre_ticks,
                   f"{label}: one prefill launch per layer per prefill tick "
-                  f"({n12p} vs {prefill_ticks[0]} ticks)")
+                  f"({n12p} less the warm-up's {w12p} vs {pre_ticks} "
+                  "ticks)")
             if "spec" in label:
-                check(n12m > 0, f"{label}: the verify chunk ran #12")
+                check(n12m > w12m, f"{label}: the verify chunk ran #12")
             launches["paged_decode_attention"] += n11
             launches["_paged_multi_call"] += n12m + n12p
+            e = eager["summary"]
             print(f"serve {label}: completed {s['completed']}/16, "
                   f"{s['goodput_tok_per_s']} tok/s, ttft p50/p99 "
                   f"{s['ttft_p50_s']}/{s['ttft_p99_s']} s, tpot p50/p99 "
                   f"{s['tpot_p50_s']}/{s['tpot_p99_s']} s, decode ticks "
-                  f"{ticks}, prefill ticks {prefill_ticks[0]}, launches "
+                  f"{ticks}, prefill ticks {pre_ticks}, launches "
                   f"paged_decode_attention {n11} paged_decode_attention_multi "
-                  f"{n12m} paged_prefill_attention {n12p}", flush=True)
+                  f"{n12m} paged_prefill_attention {n12p} (warm-ups {w11} / "
+                  f"{w12m} / {w12p}); {note}; eager (cuda_graphs=False): "
+                  f"the same tokens, {e['goodput_tok_per_s']} tok/s, tpot "
+                  f"p50/p99 {e['tpot_p50_s']}/{e['tpot_p99_s']} s",
+                  flush=True)
     finally:
         ServingEngine.prefill_step = original
     for row, n in disagg_runs(torch, da, pa, seed).items():
@@ -930,9 +1047,10 @@ def disagg_runs(torch, da, pa, seed: int) -> dict:
     cache's 16-wide chunks take the plain ragged path there, as the
     interleaved engine's do), the decode role #11 + #12 (paged) or #9 +
     #10 (contiguous) once per layer per decode or verify tick and no
-    other kernel; the shared pool's audit holds after the paged run.
-    Prints each run's handoffs and their host time a tick; returns the
-    launches by row."""
+    other kernel beside the warm-ups before the captures, each role's
+    engine replaying its programs (``graph_check``); the shared pool's
+    audit holds after the paged run.  Prints each run's handoffs and
+    their host time a tick; returns the launches by row."""
     from pytorch_distributed_training_tpu_torch.cli.main import main as cli
     from pytorch_distributed_training_tpu_torch.serve import (
         DisaggServingEngine,
@@ -956,8 +1074,13 @@ def disagg_runs(torch, da, pa, seed: int) -> dict:
             for e in entries:
                 e.launches = 0
             tiers.clear()
-            res = cli(SERVE_ARGV + ["--seed", str(seed)] + extra)
+            with serve_graphs() as run:
+                res = cli(SERVE_ARGV + ["--seed", str(seed)] + extra)
             n9, n10, n11, n12m, n12p = (e.launches for e in entries)
+            note = graph_check(label, run)
+            warm = warm_launches(run)
+            w9, w10, w11, w12m, w12p = (warm.get(e.__name__, 0)
+                                        for e in entries)
             s, st = res["summary"], res["engine"]
             (tier,) = tiers
             ticks = st["decode_ticks"]
@@ -971,19 +1094,22 @@ def disagg_runs(torch, da, pa, seed: int) -> dict:
                   f"{label}: 16 handoffs ({st['handoffs']}), each role its "
                   "half alone")
             if "paged" in label:
-                check(n9 == n10 == 0 and n11 + n12m == LAYERS * ticks
-                      and n12p == LAYERS * pre_ticks,
+                check(n9 == n10 == 0
+                      and n11 - w11 + n12m - w12m == LAYERS * ticks
+                      and n12p - w12p == LAYERS * pre_ticks,
                       f"{label}: #11 + #12 {n11} + {n12m} = 12 x {ticks} "
                       f"decode ticks, #12 prefill {n12p} = 12 x "
-                      f"{pre_ticks} prefill ticks, #9/#10 {n9}/{n10}")
+                      f"{pre_ticks} prefill ticks, beside the warm-ups' "
+                      f"{w11} + {w12m}, {w12p}; #9/#10 {n9}/{n10}")
                 tier.check_invariants()
                 launches["paged_decode_attention"] += n11
                 launches["_paged_multi_call"] += n12m + n12p
             else:
                 check(n11 == n12m == n12p == 0
-                      and n9 + n10 == LAYERS * ticks,
+                      and n9 - w9 + n10 - w10 == LAYERS * ticks,
                       f"{label}: #9 + #10 {n9} + {n10} = 12 x {ticks} "
-                      f"decode ticks, paged {n11}/{n12m}/{n12p}")
+                      f"decode ticks beside the warm-ups' {w9} + {w10}, "
+                      f"paged {n11}/{n12m}/{n12p}")
                 launches["decode_attention"] += n9
                 launches["decode_attention_multi"] += n10
             print(f"serve {label} (2 prefill + 6 decode slots): completed "
@@ -994,7 +1120,7 @@ def disagg_runs(torch, da, pa, seed: int) -> dict:
                   f"{res['handoff_s'] / res['ticks'] * 1e3:.4f} ms a tick "
                   f"over {res['ticks']} ticks; decode ticks {ticks}, "
                   f"prefill ticks {pre_ticks}; launches #9 {n9} #10 {n10} "
-                  f"#11 {n11} #12 {n12m} + {n12p}", flush=True)
+                  f"#11 {n11} #12 {n12m} + {n12p}; {note}", flush=True)
             del tier
             tiers.clear()
     finally:
@@ -1197,7 +1323,9 @@ def serve_telemetry(tm: str, res: dict, scrapes: dict) -> None:
 def prefix_phase(torch, seed: int, repo: str) -> None:
     """Shared-prefix traffic at full width: 16 requests with one
     128-token prefix (8 blocks) and distinct tails, through the paged
-    engine's prefix cache; the same requests without the cache give the
+    engine's prefix cache, its programs replayed as CUDA graphs
+    (``graph_check``) and its greedy tokens equal to the same run with
+    ``cuda_graphs=False``; the same requests without the cache give the
     greedy-token agreement (information only: bf16).  Then the same
     prefix through two replicas behind the router (``router_leg``)."""
     import numpy as np
@@ -1214,13 +1342,17 @@ def prefix_phase(torch, seed: int, repo: str) -> None:
     prompts = [np.concatenate([prefix, rng.integers(0, VOCAB, (n,))])
                .astype(np.int32) for n in rng.integers(8, 64, 16)]
     runs = {}
-    for cache_on in (True, False):
+    for key, cache_on, graphs in (("cache", True, True),
+                                  ("eager", True, False),
+                                  ("no cache", False, True)):
         tokens: dict = {}
-        engine = ServingEngine(
-            model, num_slots=8, paged=True, prefix_cache=cache_on,
-            temperature=0.0, seed=seed, device="cuda",
-            stream_cb=lambda rid, tok: tokens.setdefault(rid, []).append(tok),
-        )
+        with serve_graphs(graphs) as run:
+            engine = ServingEngine(
+                model, num_slots=8, paged=True, prefix_cache=cache_on,
+                temperature=0.0, seed=seed, device="cuda",
+                stream_cb=lambda rid, tok: tokens.setdefault(
+                    rid, []).append(tok),
+            )
         sched = ContinuousScheduler(engine, clock=VirtualClock())
         for i, p in enumerate(prompts):
             check(sched.submit(Request(i, p, 32)), "prefix: request queued")
@@ -1229,19 +1361,24 @@ def prefix_phase(torch, seed: int, repo: str) -> None:
         st = engine.stats()
         check(len(sched.completed) == 16, "prefix: 16 requests completed")
         engine.pool.check_invariants()
-        runs[cache_on] = (tokens, st)
-    tokens, st = runs[True]
+        note = graph_check(f"prefix {key}", run) if graphs else ""
+        runs[key] = (tokens, st, note)
+        del engine, sched
+    tokens, st, note = runs["cache"]
+    check(tokens == runs["eager"][0], "prefix: greedy tokens with graphs "
+          "equal the eager engine's")
     check(st["prefix_hit_tokens"] > 0, "prefix: the prefix cache was hit")
     check(st["prefill_tokens_computed"] < st["prefill_tokens_offered"],
           "prefix: hits skipped prefill work")
-    plain = runs[False][0]
+    plain = runs["no cache"][0]
     same = sum(x == y for rid in tokens for x, y in zip(tokens[rid], plain[rid]))
     total = sum(len(tokens[rid]) for rid in tokens)
     print(f"prefix: prefix_hit_tokens {st['prefix_hit_tokens']}, prefill "
           f"tokens {st['prefill_tokens_computed']}/"
           f"{st['prefill_tokens_offered']}, cow copies {st['cow_copies']}; "
           f"agreement with prefix_cache=False (informational): "
-          f"{same}/{total} tokens", flush=True)
+          f"{same}/{total} tokens; {note}; eager (cuda_graphs=False): the "
+          "same tokens", flush=True)
     router_leg(torch, model, seed, prefix, rng, repo)
     del model
 
@@ -1270,9 +1407,10 @@ def router_leg(torch, model, seed: int, prefix, rng, repo: str) -> None:
     tm = os.path.join(repo, "build", "chip_smoke", "router_tm")
     shutil.rmtree(tm, ignore_errors=True)
     emitter = MetricsEmitter(tm, rank=0)
-    engines = [ServingEngine(model, num_slots=8, paged=True, kv_host_mb=64,
-                             temperature=0.0, seed=seed, device="cuda")
-               for _ in range(2)]
+    with serve_graphs() as run:
+        engines = [ServingEngine(model, num_slots=8, paged=True,
+                                 kv_host_mb=64, temperature=0.0, seed=seed,
+                                 device="cuda") for _ in range(2)]
     clock = VirtualClock()
     router = ReplicaRouter(engines, clock=clock, affinity_queue_cap=2,
                            emitter=emitter)
@@ -1320,6 +1458,7 @@ def router_leg(torch, model, seed: int, prefix, rng, repo: str) -> None:
               f"router: telemetry {name} {counters.get(name)} vs {want}")
     for e in engines:
         e.pool.check_invariants()
+    note = graph_check("router", run)
     shutil.rmtree(tm, ignore_errors=True)
     print(f"router (2 paged GPT-2 124M replicas, 8 slots and a 64 MB host "
           f"tier each, one card): routed {rt['routed']}, affinity hits "
@@ -1327,7 +1466,7 @@ def router_leg(torch, model, seed: int, prefix, rng, repo: str) -> None:
           f"fetches {rt['sibling_fetches']} ({rt['sibling_fetch_blocks']} "
           f"blocks), replica 1 restored {dst.blocks_restored} blocks, "
           f"{same} prefix blocks bitwise equal across the pools, telemetry "
-          f"= counters; {seconds:.1f} s", flush=True)
+          f"= counters; {note}; {seconds:.1f} s", flush=True)
 
 
 # The serving fleet's legs (``fleet_phase``): GPT-2 124M in bf16 from the
@@ -1673,8 +1812,10 @@ def a1_leg(torch, model, seed: int, device, repo: str) -> dict:
 
 
 def fleet_phase(torch, pa, seed: int, repo: str) -> dict:
-    """The serving fleet's controllers on the card (F1, F2, A1); returns
-    the paged kernels' launches by row (#11, #12)."""
+    """The serving fleet's controllers on the card (F1, F2, A1), every
+    engine replaying its programs as CUDA graphs (``graph_check``: none
+    captured again across crashes, respawns, revives and re-splits);
+    returns the paged kernels' launches by row (#11, #12)."""
     from pytorch_distributed_training_tpu_torch.models import create_model
 
     card = card_line()
@@ -1687,10 +1828,16 @@ def fleet_phase(torch, pa, seed: int, repo: str) -> dict:
     def counted(leg, *a):
         for e in entries:
             e.launches = 0
-        out = leg(torch, model, seed, "cuda", *a)
+        with serve_graphs() as run:
+            out = leg(torch, model, seed, "cuda", *a)
         n11, n12m, n12p = (e.launches for e in entries)
-        check(n11 > 0 and n12p > 0, f"{leg.__name__}: the paged kernels "
-              f"launched ({n11}, {n12m}, {n12p})")
+        warm = warm_launches(run)
+        check(n11 > warm.get("paged_decode_attention", 0)
+              and n12p > warm.get("paged_prefill_attention", 0),
+              f"{leg.__name__}: the paged kernels launched ({n11}, {n12m}, "
+              f"{n12p}; warm-ups {warm})")
+        print(f"fleet {leg.__name__}: "
+              f"{graph_check(leg.__name__, run)}", flush=True)
         launches["paged_decode_attention"] += n11
         launches["_paged_multi_call"] += n12m + n12p
         return out, (n11, n12m, n12p)
@@ -2055,6 +2202,12 @@ T1_RECIPE = ["--model", "gpt2", "--seq-len", "1024", "--batch-size", "16",
              "6e-4", "--weight-decay", "0.1", "--grad-clip", "1.0",
              "--lr-schedule", "warmup-cosine", "--warmup-steps", "2",
              "--total-steps", "8"]
+# The 4-rank gloo legs of GPT-2 (M1, M2, P1, P2) run T1's recipe at
+# GPT-2 124M's widths cut to GLOO_LAYERS blocks: on one card their steps
+# and checkpoints are the host's staging of every parameter, and 4 is the
+# least depth PP 4 takes (a block a stage).
+GLOO_LAYERS = 4
+GLOO_DEPTH = ["--model-overrides", f"num_layers={GLOO_LAYERS}"]
 # (label, argv, layers, microbatches, steps, remat, flash rows)
 TRAIN_RUNS = [
     ("T2", ["--model", "gpt2", "--seq-len", "512", "--batch-size", "16",
@@ -4940,8 +5093,14 @@ M1_LOSS_BOUND = 0.02
 # group's sum left out of the small leaves' gradients: 0.82 / 0.87 on
 # the tiny GPT-2); PERF.md has the figures.
 M1_STATE_BOUND = 0.25
-M1_STATE_GB = {"flat": 1.493, "fsdp4": 0.374, "zero1": 0.747, "tp2": 0.983,
-               "ulysses2": 1.493}
+# Parameters and Adam slots a rank at GLOO_LAYERS blocks (67,736,832
+# parameters, 12 bytes each whole: f32 master, mu, nu): flat and Ulysses
+# whole, FSDP 4 a quarter, ZeRO-1 the slots a quarter, TP 2 the blocks'
+# matrices and their biases halved (28,348,416 of the parameters).
+M1_STATE_GB = {"flat": 0.813, "fsdp4": 0.203, "zero1": 0.406, "tp2": 0.643,
+               "ulysses2": 0.813}
+# Flash launches a rank: GLOO_LAYERS blocks x 2 microbatches a step.
+M1_FLASH = GLOO_LAYERS * 2 * 3
 # E0: JAX's expert-parallel test model (tests/test_moe.py:127-130), f32,
 # TF32 off, 3 adamw steps of 2 microbatches against one process at M0's
 # tolerances and learning rate (at JAX's test's 1e-2 Adam turns the
@@ -5304,8 +5463,8 @@ def _m0_check(out: str, refs: dict) -> None:
 
 
 def _m1_argv(extra: list) -> list:
-    return [*T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
-            "3", *extra]
+    return [*T1_RECIPE, *GLOO_DEPTH, *TRAIN_COMMON, "--distributed",
+            "--steps-per-epoch", "3", *extra]
 
 
 def _ref_steps(ref: str) -> tuple:
@@ -5395,13 +5554,13 @@ def _m1_check(refs, e_refs, m0_out, e_out, ckpts, t0) -> tuple:
               f"M1 {label}: 3 equal losses on every rank, the first near "
               f"ln 50257 = 10.8: {[x['losses'] for x in ranks]}")
         for x in ranks:
-            check(x["fwd"] == 72 and x["dq"] == 72 and x["dkv"] == 72
+            check(x["fwd"] == x["dq"] == x["dkv"] == M1_FLASH
                   and not any(x["plain"].values())
                   and not any(x["xla"].values()),
                   f"M1 {label}: flash fwd/dq/dkv launches {x['fwd']}/"
-                  f"{x['dq']}/{x['dkv']} (72 each: 12 layers x 2 "
-                  f"microbatches x 3 steps), no plain path {x['plain']} "
-                  f"{x['xla']}")
+                  f"{x['dq']}/{x['dkv']} ({M1_FLASH} each: {GLOO_LAYERS} "
+                  f"layers x 2 microbatches x 3 steps), no plain path "
+                  f"{x['plain']} {x['xla']}")
             fwd += x["fwd"]
             bwd += x["dq"] + x["dkv"]
         gb = [x["state_bytes"] / 1e9 for x in ranks]
@@ -5410,15 +5569,16 @@ def _m1_check(refs, e_refs, m0_out, e_out, ckpts, t0) -> tuple:
               f"M1 {label}: state {gb} GB a rank within 10 % of {want}")
         runs[label] = ranks
         step_ms = [st.median(x["step_s"][1:]) * 1e3 for x in ranks]
-        print(f"sharded M1 {label} (GPT-2 124M, T1's recipe through the "
-              f"CLI, bf16, L 1024, 16 = 2 x 8 rows, 4 ranks on one card "
-              f"over gloo, 3 steps): losses "
+        print(f"sharded M1 {label} (GPT-2 124M's widths at {GLOO_LAYERS} "
+              f"layers, T1's recipe through the CLI, bf16, L 1024, 16 = 2 "
+              f"x 8 rows, 4 ranks on one card over gloo, 3 steps): losses "
               f"{[round(x, 5) for x in losses]}; parameters + slots a rank "
               f"{[round(g, 4) for g in gb]} GB (predicted {want}); peak "
               f"memory by rank {[round(x['peak_mem_gb'], 2) for x in ranks]}"
               f" GB; step (median of steps 2-3, by rank) "
-              f"{[round(x, 1) for x in step_ms]} ms; flash fwd/dq/dkv 72 "
-              f"each a rank; {ranks[0]['seconds']:.1f} s", flush=True)
+              f"{[round(x, 1) for x in step_ms]} ms; flash fwd/dq/dkv "
+              f"{M1_FLASH} each a rank; {ranks[0]['seconds']:.1f} s",
+              flush=True)
     flat = runs["flat"][0]["losses"]
     parts, held = [], []
     flat_ref = _ref_steps(ckpts["flat"])
@@ -5450,7 +5610,8 @@ def _m1_check(refs, e_refs, m0_out, e_out, ckpts, t0) -> tuple:
 def sharded_phase(torch, seed: int, repo: str, carry: dict) -> dict:
     """Sharded training, every leg 4 torchrun ranks on the one card over
     gloo (NCCL takes one rank a card).  M0: parity of each layout against
-    one process (``M0_RUNS``).  M1: T1's recipe through the CLI under
+    one process (``M0_RUNS``).  M1: T1's recipe at ``GLOO_LAYERS`` blocks
+    through the CLI under
     flat data parallelism, ``--fsdp 4``, ``--zero1``, ``--tensor-parallel
     2`` and Ulysses ``--sequence-parallel 2``, 3 steps each: losses
     against flat within ``M1_LOSS_BOUND``, the step-3 checkpoint against
@@ -5461,7 +5622,9 @@ def sharded_phase(torch, seed: int, repo: str, carry: dict) -> dict:
     checkpoint within the bounds) and under ``--fsdp 4`` (bitwise).  M1's
     runs and M2's ``--fsdp 4`` resume run one after another in one
     torchrun, M2's ``--zero1`` resume in a torchrun of 2 (``cli_runs``
-    both) while M0, E0 and M1 are checked (``_m1_check``).  E0 (``_expert_check``): the MoE GPT-2 under expert
+    both), started once the ``--fsdp 4`` run committed its step 3, beside
+    the first torchrun's last runs and the checks of M0, E0 and M1
+    (``_m1_check``).  E0 (``_expert_check``): the MoE GPT-2 under expert
     parallelism.  M0, E0, M1 and M2's ``--fsdp 4`` resume share one
     4-rank torchrun (``sharded_leg``).  M1's flat run and its checkpoint
     stay for P1 (``carry["m1_flat"]``, ``M1_FLAT_CKPT``).  Its times are
@@ -5495,15 +5658,6 @@ def sharded_phase(torch, seed: int, repo: str, carry: dict) -> dict:
         json.dump(spec, f)
     logs = os.path.join(SH, "logs")
     argv = [script, "--sharded-leg", SH, str(seed)]
-    proc = torchrun_logged(repo, 4, argv, logs)
-    try:
-        refs = _m0_references(torch, seed)
-        e_refs = _e0_references(torch, seed)
-        wait_ranks(proc, argv, 900, logs, "M0 + E0 + M1")
-    finally:
-        torchrun_kill(proc)
-    # M2's --zero1 resume at world 2 runs while M0, E0 and M1 are checked.
-    t2 = time.monotonic()
     directory = os.path.join(SH, "m2_zero1_ckpt")
     m2_spec = os.path.join(SH, "m2.json")
     with open(m2_spec, "w") as f:
@@ -5512,13 +5666,33 @@ def sharded_phase(torch, seed: int, repo: str, carry: dict) -> dict:
                                        directory, "--resume"]))], f)
     m2_logs = os.path.join(SH, "m2_logs")
     m2_argv = [script, "--cli-runs-leg", SH, m2_spec]
-    proc = torchrun_logged(repo, 2, m2_argv, m2_logs)
+    # M2's --zero1 resume at world 2 starts once M1's --fsdp 4 run has
+    # committed its last step (its step 2 is M2's start): beside the
+    # torchrun's last runs and the checks of M0, E0 and M1.
+    marker = os.path.join(ckpt, "manifest-3.json")
+    proc = torchrun_logged(repo, 4, argv, logs)
+    m2_proc = None
     try:
+        refs = _m0_references(torch, seed)
+        e_refs = _e0_references(torch, seed)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            done = pool.submit(wait_ranks, proc, argv, 900, logs,
+                               "M0 + E0 + M1")
+            while not (done.done() or os.path.exists(marker)):
+                time.sleep(0.5)
+            if os.path.exists(marker):
+                t2 = time.monotonic()
+                m2_proc = torchrun_logged(repo, 2, m2_argv, m2_logs)
+            done.result()
+        check(m2_proc is not None,
+              f"M1's --fsdp 4 run committed its step 3 ({marker})")
         runs, fwd, bwd = _m1_check(refs, e_refs, m0_out, e_out, ckpts, t0)
         del refs, e_refs
-        wait_ranks(proc, m2_argv, 300, m2_logs, "M2 zero1")
+        wait_ranks(m2_proc, m2_argv, 300, m2_logs, "M2 zero1")
     finally:
         torchrun_kill(proc)
+        if m2_proc is not None:
+            torchrun_kill(m2_proc)
     m2 = {"m2_zero1": _run_ranks(SH, "m2_zero1", 2),
           "m2_fsdp4": _run_ranks(SH, "m2_fsdp4")}
     src = runs["fsdp4"][0]["losses"][2]
@@ -5526,9 +5700,9 @@ def sharded_phase(torch, seed: int, repo: str, carry: dict) -> dict:
         check(all(x["steps"] == 3 and len(x["losses"]) == 1 for x in ranks),
               f"{label}: resumed at step 2, one step to 3")
         for x in ranks:
-            check(x["fwd"] == 24 and x["dq"] == 24 and x["dkv"] == 24,
+            check(x["fwd"] == x["dq"] == x["dkv"] == M1_FLASH // 3,
                   f"{label}: flash launches {x['fwd']}/{x['dq']}/{x['dkv']}"
-                  " (24 each)")
+                  f" ({M1_FLASH // 3} each)")
             fwd += x["fwd"]
             bwd += x["dq"] + x["dkv"]
     d_zero1 = abs(m2["m2_zero1"][0]["losses"][0] - src)
@@ -5540,7 +5714,8 @@ def sharded_phase(torch, seed: int, repo: str, carry: dict) -> dict:
           f"(bound {M1_STATE_BOUND}); under --fsdp 4 "
           f"{m2['m2_fsdp4'][0]['losses'][0]} (bitwise: loss and step-3 "
           f"checkpoint); {time.monotonic() - t2:.1f} s since the --zero1 "
-          "resume's launch (M0, E0 and M1 checked meanwhile)", flush=True)
+          "resume's launch (beside the torchrun's last runs and the checks "
+          "of M0, E0 and M1)", flush=True)
     check(d_zero1 <= M1_LOSS_BOUND,
           f"M2: --fsdp 4 step 2 resumed under --zero1 at world 2, step-3 "
           f"loss {m2['m2_zero1'][0]['losses'][0]} vs {src} ({d_zero1:.3g}, "
@@ -5602,9 +5777,9 @@ P1_RUNS = [
                      "--pipeline-microbatches", "8", "--remat"]),
     ("1f1b", ["--pipeline-parallel", "4", "--pipeline-microbatches", "8",
               "--pipeline-schedule", "1f1b", "--ckpt-every-steps", "2"]),
-    ("interleaved", ["--pipeline-parallel", "4", "--pipeline-microbatches",
-                     "8", "--pipeline-schedule", "interleaved",
-                     "--pipeline-chunks", "3"]),
+    ("interleaved_pp2d2", ["--pipeline-parallel", "2",
+                           "--pipeline-schedule", "interleaved",
+                           "--pipeline-chunks", "2"]),
     ("1f1b_int8", ["--pipeline-parallel", "4", "--pipeline-microbatches",
                    "8", "--pipeline-schedule", "1f1b", "--pp-compress",
                    "int8"]),
@@ -5615,12 +5790,15 @@ P1_RUNS = [
 # stage's layers on the M ticks that carry a microbatch (a bubble tick
 # passes its arrival on) and backpropagates them (remat: the forward
 # again); 1F1B runs each microbatch's forward twice (the tick and the
-# recompute) and its backward once.
-P1_FLASH = {"gpipe": (72, 72), "gpipe_remat": (144, 72),
-            "1f1b": (144, 72), "interleaved": (144, 72),
-            "1f1b_int8": (144, 72), "1f1b_pp2d2": (144, 72),
-            "resume_pp4": (48, 24),
-            "resume_pp2d2": (48, 24)}
+# recompute) and its backward once.  A rank holds GLOO_LAYERS / S of the
+# blocks over 32 / S microbatches of a step's 3 (M 8 at PP 4, 4 at PP 2),
+# so a run's backward count is 6 x GLOO_LAYERS; a resume takes one step.
+P1_FLASH = {label: (fwd * GLOO_LAYERS, bwd * GLOO_LAYERS)
+            for label, fwd, bwd in (
+                ("gpipe", 6, 6), ("gpipe_remat", 12, 6), ("1f1b", 12, 6),
+                ("interleaved_pp2d2", 12, 6), ("1f1b_int8", 12, 6),
+                ("1f1b_pp2d2", 12, 6), ("resume_pp4", 4, 2),
+                ("resume_pp2d2", 4, 2))}
 P1_LOSS_BOUND = 0.02          # M1's
 # P3: GPipe x MoE through the CLI, gpt2_moe on T1's recipe: PP 2 x data 2
 # (4 microbatches of 2 rows a data rank, each routing its own rows, as
@@ -6384,12 +6562,13 @@ def _p1_runs() -> list:
         if label == P1_TM_RUN:
             extra = extra + ["--metrics-dir", P1_TM]
         runs.append(dict(label=label, argv=[
-            *T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
-            "3", "--accum-steps", "1", *extra]))
+            *T1_RECIPE, *GLOO_DEPTH, *TRAIN_COMMON, "--distributed",
+            "--steps-per-epoch", "3", "--accum-steps", "1", *extra]))
     for label, stages in (("resume_pp4", "4"), ("resume_pp2d2", "2")):
         directory = os.path.join(PP_DIR, f"{label}_ckpt")
         runs.append(dict(label=label, copy=[ckpt, 2, directory], argv=[
-            *T1_RECIPE, *TRAIN_COMMON, "--distributed", "--steps-per-epoch",
+            *T1_RECIPE, *GLOO_DEPTH, *TRAIN_COMMON, "--distributed",
+            "--steps-per-epoch",
             "3", "--accum-steps", "1", "--pipeline-parallel", stages,
             "--pipeline-schedule", "1f1b", "--checkpoint-dir", directory,
             "--resume"]))
@@ -6582,8 +6761,8 @@ def _bubble(label: str) -> str:
     from pytorch_distributed_training_tpu_torch.parallel.pipeline_schedule \
         import make_interleaved_schedule
 
-    if label == "interleaved":
-        return f"{make_interleaved_schedule(4, 3, 8).bubble_fraction():.4f}"
+    if label.startswith("interleaved"):
+        return f"{make_interleaved_schedule(2, 2, 4).bubble_fraction():.4f}"
     s, m = (2, 4) if label.endswith("pp2d2") else (4, 8)
     return f"{(s - 1) / (m + s - 1):.4f}"
 
@@ -6594,24 +6773,24 @@ def _pp_bytes(label: str) -> int:
     )
 
     sched = ("gpipe" if label.startswith("gpipe") else "interleaved"
-             if label == "interleaved" else "1f1b")
+             if label.startswith("interleaved") else "1f1b")
     s, m = (2, 4) if label.endswith("pp2d2") else (4, 8)
     return pp_boundary_bytes_per_step(
         schedule=sched, num_stages=s, num_microbatches=m,
         microbatch_rows=16 // m, seq_len=1024, hidden=768, act_itemsize=2,
         mode="int8" if label.endswith("int8") else "none",
-        num_chunks=3 if label == "interleaved" else 1)
+        num_chunks=2 if label.startswith("interleaved") else 1)
 
 
 def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
     """Pipeline parallelism, every multi-rank leg 4 torchrun ranks on the
     one card over gloo (NCCL takes one rank a card), in one launch
     (``pipeline_leg``).  P0: parity of each layout (``P0_RUNS``) against
-    one process.  P1: T1's recipe through the CLI, flat, then PP 4 with 8
-    microbatches under gpipe, gpipe --remat, 1f1b, interleaved (3 chunks)
-    and 1f1b --pp-compress int8, then PP 2 x data 2 1f1b, then flat
-    again (M1's flat run, ``carry["m1_flat"]``, and this one are the
-    ABBA pair's ends for the times): each pipelined step-3
+    one process.  P1: T1's recipe at ``GLOO_LAYERS`` blocks through the
+    CLI, PP 4 with 8 microbatches under gpipe, gpipe --remat, 1f1b and
+    1f1b --pp-compress int8, then PP 2 x data 2 under 1f1b and
+    interleaved (2 chunks), against flat (M1's flat run,
+    ``carry["m1_flat"]``): each pipelined step-3
     loss within ``P1_LOSS_BOUND`` of flat's and step-3 checkpoint within
     ``M1_STATE_BOUND`` (``_state_distance``), every rank's loss the same,
     the flash launches exact; state bytes, peak memory and step times
@@ -6693,9 +6872,9 @@ def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
             extra = (f"; step-3 checkpoint vs flat's {_distance_text(dist)}"
                      f"; analytic bubble {_bubble(label)}; boundary bytes a "
                      f"step {_pp_bytes(label)}")
-        print(f"pipeline P1 {label} (GPT-2 124M, T1's recipe through the "
-              f"CLI, bf16, L 1024, 16 rows, 4 ranks on one card over gloo, "
-              f"3 steps): losses {[round(x, 5) for x in losses]} (step 3 "
+        print(f"pipeline P1 {label} (GPT-2 124M's widths at {GLOO_LAYERS} "
+              f"layers, T1's recipe through the CLI, bf16, L 1024, 16 rows, "
+              f"4 ranks on one card over gloo, 3 steps): losses {[round(x, 5) for x in losses]} (step 3 "
               f"vs flat {d3:.3g}); parameters + slots a rank "
               f"{[round(x['state_bytes'] / 1e9, 4) for x in ranks]} GB; "
               f"peak memory by rank "
@@ -6735,8 +6914,9 @@ def pipeline_phase(torch, seed: int, repo: str, carry: dict) -> dict:
     record: dict = {"losses": [], "step_s": []}
     original = _timed_steps(torch, record)
     try:
-        trainer = cli([*T1_RECIPE, *TRAIN_COMMON, "--steps-per-epoch", "3",
-                       "--checkpoint-dir", flat_dir, "--resume"])
+        trainer = cli([*T1_RECIPE, *GLOO_DEPTH, *TRAIN_COMMON,
+                       "--steps-per-epoch", "3", "--checkpoint-dir",
+                       flat_dir, "--resume"])
     finally:
         import pytorch_distributed_training_tpu_torch.train as train
 

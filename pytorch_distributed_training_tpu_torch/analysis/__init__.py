@@ -13,20 +13,22 @@ to torch code.
 - :mod:`analysis.ledger_audit` — the goodput ledger (``obs/ledger.py``)
   driven through a scripted supervised fault trace on a virtual clock:
   every category an exact integer in ns, the identity exact mid-run and
-  final, run-twice determinism, and the two-rank fleet merge.
+  final, run-twice determinism, and the two-rank fleet merge;
+- :mod:`analysis.signature` — the recompile guard: the serving engine's
+  programs (CUDA graphs on the card, captured once at construction)
+  record their abstract signatures in ``PROGRAM_REGISTRY``.
 
 Not ported, and why:
 
 - ``hlo_audit.py``, ``reshard_audit.py`` and the semantic half of
   ``shardflow.py`` audit the XLA programs JAX compiles (donation,
-  collective census, HBM peaks); the port compiles no program, so they
-  have no twin on the card.  The port's placements are held to JAX's
-  ``infer_params_sharding`` by its tests instead.  ``shardflow.py``'s
-  ``shard-axis-unknown`` rule is the lint's.
-- ``signature.py`` guards recompiles; it waits for CUDA graphs.
+  collective census, HBM peaks); the port compiles no XLA program, so
+  they have no twin on the card.  The port's placements are held to
+  JAX's ``infer_params_sharding`` by its tests instead.
+  ``shardflow.py``'s ``shard-axis-unknown`` rule is the lint's.
 """
 
-from . import findings, ledger_audit
+from . import findings, ledger_audit, signature
 from .findings import (
     FINDINGS_SCHEMA_VERSION,
     MEMORY_RECORD_KIND,
@@ -38,6 +40,7 @@ from .findings import (
     validate_memory_records,
 )
 from .ledger_audit import expected_final_categories_ns, run_ledger_audit
+from .signature import PROGRAM_REGISTRY, SignatureRegistry, abstract_signature
 
 _LINT_NAMES = ("Rule", "RULES", "iter_python_files", "lint_paths",
                "lint_source")
@@ -57,9 +60,12 @@ def __getattr__(name: str):
 __all__ = [
     "FINDINGS_SCHEMA_VERSION",
     "MEMORY_RECORD_KIND",
+    "PROGRAM_REGISTRY",
     "Finding",
     "RULES",
     "Rule",
+    "SignatureRegistry",
+    "abstract_signature",
     "expected_final_categories_ns",
     "finding_from_record",
     "finding_record",
@@ -71,6 +77,7 @@ __all__ = [
     "lint_source",
     "memory_record",
     "run_ledger_audit",
+    "signature",
     "validate_finding_records",
     "validate_memory_records",
 ]

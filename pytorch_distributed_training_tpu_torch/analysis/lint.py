@@ -31,7 +31,9 @@ Twins of JAX rules whose premise is tracing:
 
 - ``host-read`` (twin of ``tracer-leak``) — a read of a tensor's value
   back to the host in warm-step code (the package's ``train/``,
-  ``parallel/``, ``ops/`` and ``resilience/anomaly.py``): ``.item()``,
+  ``parallel/``, ``ops/`` and ``resilience/anomaly.py``) and in a
+  captured body (a function decorated ``@captured``: the serving
+  engine's program bodies, which a CUDA graph captures): ``.item()``,
   ``.tolist()``, ``.cpu()``, ``.numpy()``; ``float()``/``int()``/
   ``bool()`` of a tensor or an ``if``/``while`` test on one; a subscript
   by a 0-dim tensor.  The AST has no types, so a name counts as a tensor
@@ -46,12 +48,19 @@ Twins of JAX rules whose premise is tracing:
   ``np.random.<draw>`` and ``np.random.seed``, stdlib ``random.*`` (an
   explicit ``random.Random(seed)`` is a generator of its own, not a
   draw), ``torch.manual_seed`` (and ``torch.cuda``'s seeders).  A name
-  counts only where it is bound to that module.
+  counts only where it is bound to that module;
+- ``host-clock-in-capture`` (twin of ``host-clock-in-trace``) — a host
+  clock read (``time.perf_counter``/``monotonic``/``time`` and their
+  ``_ns`` forms) or a span call (``phase_span``, ``start_span``, ...)
+  inside a captured body: a graph runs the body once, at capture, and
+  replays its device work without the host code, so the reading would
+  time the capture and never a replay.
 
-No twin: ``tracer-leak``'s and ``host-entropy``'s premises are met by the
-two above; ``host-commit``, ``donated-reuse``, ``host-clock-in-trace``
-and ``donate-no-out-shardings`` guard traced, donated or AOT-compiled
-programs, and the port traces, donates and compiles none;
+No twin: ``tracer-leak``'s, ``host-entropy``'s and
+``host-clock-in-trace``'s premises are met by the three above;
+``host-commit``, ``donated-reuse`` and ``donate-no-out-shardings`` guard
+donated or AOT-compiled XLA programs, and the port donates and compiles
+none (its graphs write the cache in place and take no donation);
 ``select-gate`` guards against XLA re-fusing a select, and the guarded
 step's ``torch.where`` selects are its design (``resilience/anomaly.py``).
 
@@ -148,6 +157,12 @@ RULES: dict[str, Rule] = {
             "a 0-dim index), or read it once at a log point",
         ),
         Rule(
+            "host-clock-in-capture",
+            "host clock read or span call inside a captured body",
+            "time and span on the host around the replay (the engine's "
+            "tick spans): the body runs once, at capture",
+        ),
+        Rule(
             "global-rng",
             "draw from a process-global random generator",
             "pass an explicit generator (torch.Generator, "
@@ -217,6 +232,16 @@ _METRIC_METHODS = frozenset({"gauge", "counter_add", "observe"})
 _HOST_READ_DIRS = frozenset({"train", "parallel", "ops"})
 _HOST_READ_FILES = frozenset({("resilience", "anomaly.py")})
 _READ_METHODS = frozenset({"item", "tolist", "cpu", "numpy"})
+# A captured body: a function decorated with this name (``serve/engine.py
+# ::captured``), which a CUDA graph records once and replays.
+_CAPTURE_DECORATOR = "captured"
+# host-clock-in-capture: the host clocks, and the span API of obs/ (JAX's
+# names; the ambiguous ones fire only with a string span name first).
+_CLOCK_ATTRS = frozenset({"monotonic", "perf_counter", "time",
+                          "monotonic_ns", "perf_counter_ns", "time_ns"})
+_SPAN_CALLS = frozenset({"start_span", "end_span", "record_span",
+                         "phase_span", "step_annotation"})
+_SPAN_CALLS_AMBIGUOUS = frozenset({"span", "annotate"})
 # Tensor methods and torch functions whose result is not a tensor.
 _NON_TENSOR_METHODS = frozenset({
     "item", "tolist", "numpy", "numel", "nelement", "dim", "ndimension",
@@ -331,6 +356,13 @@ def _dotted(node: ast.AST) -> str:
         parts.append(node.id)
         return ".".join(reversed(parts))
     return ""
+
+
+def _is_captured(fn) -> bool:
+    """Whether ``fn`` carries the ``@captured`` decorator (any spelling:
+    ``captured``, ``<module>.captured``)."""
+    return any(_tail(d.func if isinstance(d, ast.Call) else d)
+               == _CAPTURE_DECORATOR for d in fn.decorator_list)
 
 
 def _tail(node: ast.AST) -> str:
@@ -490,9 +522,12 @@ class _RuleRunner:
                 self._check_axis_map(node)
             if isinstance(node, ast.For):
                 self._check_argv_bool(node)
-            if warm and isinstance(node, (ast.FunctionDef,
-                                          ast.AsyncFunctionDef)):
-                _HostReads(self, node).scan()
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                captured = parts is not None and _is_captured(node)
+                if warm or captured:
+                    _HostReads(self, node).scan()
+                if captured:
+                    self._check_clock_in_capture(node)
         if parts and parts[-1] == "__init__.py":
             self._check_init_shadows()
         return self.findings
@@ -657,6 +692,28 @@ class _RuleRunner:
             self.report("global-rng", node,
                         f".{tail}() without generator= draws from torch's "
                         "global generator")
+
+    def _check_clock_in_capture(self, fn) -> None:
+        """A host clock read or a span call anywhere in captured ``fn``."""
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Call):
+                continue
+            tail = _tail(node.func)
+            if tail in _SPAN_CALLS or (
+                tail in _SPAN_CALLS_AMBIGUOUS and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)
+            ):
+                self.report(
+                    "host-clock-in-capture", node,
+                    f"{_dotted(node.func) or tail}() inside captured "
+                    f"{fn.name}() would record the capture, not a replay")
+            elif self.qualified(node.func) in {
+                    f"time.{a}" for a in _CLOCK_ATTRS}:
+                self.report(
+                    "host-clock-in-capture", node,
+                    f"{_dotted(node.func)}() inside captured {fn.name}() "
+                    "reads the host clock at capture only")
 
     def _check_raw_collective(self, node: ast.Call) -> None:
         name = self.qualified(node.func)

@@ -29,6 +29,17 @@ def filter_logits(logits, *, temperature, top_k=None):
     return logits
 
 
+def draw_categorical(probs, generator=None):
+    """One draw a row from (B, V) non-negative weights, as int64 (B,):
+    ``torch.multinomial(probs, 1, generator=generator)[:, 0]``'s own
+    one-sample route, the exponential race argmax(p / E) with E ~ Exp(1)
+    from ``generator``, so the draws are its draws.  Without its validity
+    check, which reads the weights back to the host and so cannot run
+    inside a captured CUDA graph."""
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / race, dim=-1)
+
+
 def sample_logits(logits, generator=None, *, temperature=1.0, top_k=None):
     """Token ids (int64) from (B, V) logits.  ``temperature=0`` or
     ``top_k=1`` is greedy argmax; otherwise a draw from ``generator``."""
@@ -36,7 +47,7 @@ def sample_logits(logits, generator=None, *, temperature=1.0, top_k=None):
         return torch.argmax(logits, dim=-1)
     logits = filter_logits(logits, temperature=temperature, top_k=top_k)
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    return draw_categorical(probs, generator)
 
 
 def eos_cut_length(tokens, eos_token_id) -> int:

@@ -142,6 +142,13 @@ def _index_vector(index, batch: int, device) -> torch.Tensor:
             )
         index = index.to(torch.int32).reshape(-1)
     else:
+        if (torch.device(device).type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            # A host-to-device copy, which a CUDA graph cannot hold.
+            raise RuntimeError(
+                "a scalar index is copied to the card on each call; under "
+                "CUDA graph capture pass the index as a tensor on the card"
+            )
         index = torch.tensor([int(index)], dtype=torch.int32, device=device)
     if index.numel() not in (1, batch):
         raise ValueError(

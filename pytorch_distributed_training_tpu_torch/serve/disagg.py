@@ -70,7 +70,8 @@ class DisaggServingEngine:
     pool.  ``model`` (a ``models.gpt2.GPT2``) serves both roles from one
     set of weights on ``device``.  Paged, the shared block pool defaults
     to one interleaved engine's budget over all the slots, and
-    ``kv_host_mb`` puts the host-RAM tier under it."""
+    ``kv_host_mb`` puts the host-RAM tier under it.  ``cuda_graphs`` goes
+    to both role engines (``ServingEngine``)."""
 
     def __init__(
         self,
@@ -94,6 +95,7 @@ class DisaggServingEngine:
         spec_ngram: int = 4,
         kv_dtype: str = "bf16",
         device=None,
+        cuda_graphs: bool = True,
     ):
         if prefill_slots < 1 or decode_slots < 1:
             raise ValueError(
@@ -113,7 +115,7 @@ class DisaggServingEngine:
         common = dict(
             max_len=max_len, temperature=temperature, top_k=top_k,
             eos_token_id=eos_token_id, seed=seed, stream_cb=stream_cb,
-            kv_dtype=kv_dtype, device=device,
+            kv_dtype=kv_dtype, device=device, cuda_graphs=cuda_graphs,
         )
         if paged:
             cap = max_len or model.cfg.max_seq_len
@@ -191,6 +193,15 @@ class DisaggServingEngine:
     def spans_replica(self, value) -> None:
         self.prefill_engine.spans_replica = value
         self.decode_engine.spans_replica = value
+
+    @property
+    def program_signatures(self) -> dict[str, str]:
+        """Each program's abstract signature across both roles (the role
+        program sets are disjoint: prefill | decode + verify)."""
+        return {
+            **self.prefill_engine.program_signatures,
+            **self.decode_engine.program_signatures,
+        }
 
     @property
     def has_free_slot(self) -> bool:

@@ -28,13 +28,28 @@ array so shapes never change:
   drafted runs the plain decode step instead.
 
 The JAX package compiles these as three AOT programs that donate the
-cache; here they are eager methods that write the cache tensors in place,
-which is the same contract: one cache, never copied per tick.  Idle rows
-ride along at the sentinel position (their writes land in the cache's
-scratch row or block, their outputs are discarded), so admission and
-retirement are host bookkeeping only.  The paged pool's block table goes
-to the device once per tick, after the host has allocated the blocks the
-tick writes and before the forward.
+cache, once, at construction.  Here each is a program object
+(``_Program``) over static input buffers on the device: on the card the
+engine warms each up once and captures it as a CUDA graph into one memory
+pool per engine, and every tick replays it; a tensor-parallel engine
+(whose forward all-reduces over its group) and an engine built with
+``cuda_graphs=False`` run the same bodies eagerly, as every engine does on
+the CPU.  Each program records its abstract signature in
+``analysis/signature.py::PROGRAM_REGISTRY`` once, at construction
+(``program_signatures``).  Role gating is JAX's: a prefill-role engine
+builds prefill only, a decode-role engine decode and, with ``spec_k >
+0``, verify.
+
+The programs write the cache tensors in place, which is JAX's contract:
+one cache, never copied per tick, whose addresses the graphs hold, so a
+tick raises if the cache or a parameter has moved since the capture.
+Idle rows ride along at the sentinel position (their writes land in the
+cache's scratch row or block, their outputs are discarded), so admission
+and retirement are host bookkeeping only, and the warm-up before a
+capture, with every row idle, touches no live K/V.  A tick fills pinned
+host staging buffers (tokens, positions, ``last_idx`` or ``draft_len``,
+the paged block table the host has just allocated for the tick), copies
+them into the static inputs, runs the program and reads its output back.
 
 Each step runs inside ``obs.trace.phase_span`` (``serve/prefill``,
 ``serve/decode``, ``serve/verify``): a profiler range and, when the
@@ -47,20 +62,35 @@ device work.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..analysis.signature import PROGRAM_REGISTRY, abstract_signature
 from ..comm.compress import KV_DTYPES
-from ..models.generate import eos_cut_length, filter_logits, sample_logits
+from ..models.generate import (
+    draw_categorical, eos_cut_length, filter_logits, sample_logits,
+)
 from ..obs.trace import phase_span
+from ..ops.decode_attention import decode_attention, decode_attention_multi
+from ..ops.paged_attention import (
+    paged_decode_attention, paged_decode_attention_multi,
+    paged_prefill_attention,
+)
 from ..utils.device import resolve_device
 from .draft import NgramIndex, PromptLookupDrafter
 from .kv_pool import KVCachePool, PagedKVCachePool, SlotExport
 from .kv_store import HostKVStore
 
 ROLES = ("both", "prefill", "decode")
+# The kernel wrappers a serving forward calls.  A graph replay launches
+# the kernels its capture recorded without calling them, so the replay
+# adds to their counts (``.launches``) what the capture recorded.
+KERNEL_WRAPPERS = (decode_attention, decode_attention_multi,
+                   paged_decode_attention, paged_decode_attention_multi,
+                   paged_prefill_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +150,115 @@ def tp_size(model) -> int:
     return par.tp_size
 
 
+def captured(fn):
+    """Marks a program body: the code a CUDA graph records once, at
+    capture, and replays without its host code.  It changes nothing at
+    run time; the lint (``analysis/lint.py``) holds such a body to
+    ``host-read`` and ``host-clock-in-capture``."""
+    return fn
+
+
+def _pool_bytes(pool) -> int | None:
+    """Bytes the caching allocator holds for the private memory pool
+    ``pool`` (the graphs'), summed over its segments; None where the
+    allocator's snapshot does not name pools."""
+    total, named = 0, False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is None:
+            continue
+        named = True
+        if tuple(pid) == tuple(pool):
+            total += int(seg["total_size"])
+    return total if named else None
+
+
+class _Program:
+    """One of the engine's fixed-shape programs: prefill, decode or verify,
+    the twin of one of the JAX engine's AOT programs.
+
+    ``inputs``: its static input buffers on the engine's device, in
+    calling order; ``body(**inputs)`` returns its one int64 output of
+    ``out_shape``; ``donated``: the cache tensors it writes in place.
+    ``capture`` warms it up and captures it as a CUDA graph; uncaptured,
+    ``run`` calls ``body`` eagerly on the same buffers."""
+
+    def __init__(self, body, inputs: dict, out_shape: tuple, donated: list):
+        self.body = body
+        self.inputs = inputs
+        self.donated = donated
+        self.out_shape = out_shape
+        first = next(iter(inputs.values()))
+        # The host side of each input: pinned staging on the card, copied
+        # to the static input ahead of the program; the input itself on
+        # the CPU.
+        self._staging = {
+            k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            for k, v in inputs.items()
+        } if first.is_cuda else inputs
+        self._host = {k: v.numpy() for k, v in self._staging.items()}
+        self._out = None
+        self.graph = None
+        self.launches: dict = {}      # wrapper -> launches a replay makes
+        self.warmup_launches: dict = {}
+        self.capture_s: float | None = None
+        self.replays = 0
+
+    @property
+    def outputs(self) -> tuple:
+        """The output tensors (abstract until a capture made them)."""
+        if self._out is not None:
+            return (self._out,)
+        return (torch.empty(self.out_shape, dtype=torch.int64,
+                            device="meta"),)
+
+    def capture(self, pool, generator) -> None:
+        """Warm up once on a side stream (plans, workspaces, allocator),
+        then capture the body into ``pool`` with ``generator``'s state
+        registered.  Every input must hold idle rows (sentinel positions),
+        so both write only the cache's scratch row or block.  The
+        capture's wrapper calls launch nothing: their counts are restored
+        and kept as the launches of one replay.  A failure raises."""
+        dev = next(iter(self.inputs.values())).device
+        t0 = time.perf_counter()
+        before = [fn.launches for fn in KERNEL_WRAPPERS]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body(**self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm = [fn.launches for fn in KERNEL_WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, pool=pool):
+            out = self.body(**self.inputs)
+        for fn, b, w in zip(KERNEL_WRAPPERS, before, warm):
+            if w > b:
+                self.warmup_launches[fn] = w - b
+            if fn.launches > w:
+                self.launches[fn] = fn.launches - w
+            fn.launches = w
+        torch.cuda.synchronize(dev)
+        self.graph, self._out = graph, out
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, **host) -> np.ndarray:
+        """One tick: load the host arrays, run, read the output back."""
+        for k, arr in host.items():
+            self._host[k][...] = arr
+            if self._staging is not self.inputs:
+                self.inputs[k].copy_(self._staging[k], non_blocking=True)
+        if self.graph is None:
+            out = self.body(**self.inputs)
+        else:
+            self.graph.replay()
+            self.replays += 1
+            for fn, n in self.launches.items():
+                fn.launches += n
+            out = self._out
+        return out.cpu().numpy()
+
+
 class ServingEngine:
     """``model``: a ``models.gpt2.GPT2``, moved to ``device`` (CUDA unless
     ``device="cpu"``).  Sampling draws from a ``torch.Generator`` seeded
@@ -131,7 +270,12 @@ class ServingEngine:
     hash-addressed block cache.  ``num_blocks`` defaults to the contiguous
     pool's byte equivalent (``num_slots * ceil(max_len / block_size)``);
     ``kv_dtype`` "int8"/"int4" quantizes the blocks, and ``kv_host_mb``
-    adds a host-RAM tier that evicted prefix blocks spill to."""
+    adds a host-RAM tier that evicted prefix blocks spill to.
+
+    ``cuda_graphs`` (default True): on the card, capture the programs as
+    CUDA graphs at construction; False runs them eagerly (the comparison
+    path).  A tensor-parallel engine runs them eagerly either way, and so
+    does every engine on the CPU."""
 
     # After F consecutive fully-rejected drafts a slot sits out 2**F ticks
     # (F capped here) before drafting again.
@@ -160,6 +304,7 @@ class ServingEngine:
         kv_host_mb: float | None = None,
         role: str = "both",
         block_pool=None,
+        cuda_graphs: bool = True,
     ):
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -252,60 +397,152 @@ class ServingEngine:
         # Wired by the scheduler (module docstring); None records nothing.
         self.spans = None
         self.spans_replica = None
+        # Graphs hold device addresses; a tensor shard's forward
+        # all-reduces over gloo, which a capture cannot hold.
+        self.cuda_graphs = (bool(cuda_graphs) and self.device.type == "cuda"
+                            and self.tp == 1)
+        self.graph_pool_bytes: int | None = None
+        self.program_signatures: dict[str, str] = {}
+        self._programs = self._compile()
 
     # ------------------------------------------------------------------ #
     # device steps
     # ------------------------------------------------------------------ #
 
-    def _dev(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(x).to(self.device)
+    def _compile(self) -> dict:
+        """Build the role's programs over idle static inputs, capture them
+        on the card (one memory pool for the engine), and record each
+        signature once.  A failed capture raises."""
+        s, dev = self.num_slots, self.device
+        pos = self.pool.sentinel
 
-    def _forward(self, tokens: np.ndarray, positions: np.ndarray):
+        def inputs(tokens_shape, **extra):
+            out = {"tokens": torch.zeros(tokens_shape, dtype=torch.int64,
+                                         device=dev),
+                   "positions": torch.full((s,), pos, dtype=torch.int32,
+                                           device=dev), **extra}
+            if self.paged:
+                out["table"] = torch.tensor(self.pool.block_tables,
+                                            dtype=torch.int32, device=dev)
+            return out
+
+        def rows():
+            return torch.zeros((s,), dtype=torch.int64, device=dev)
+
+        donated = [t for layer in self.pool.cache for t in layer]
+        programs = {}
+        if self.role in ("both", "prefill"):
+            programs["prefill"] = _Program(
+                self._prefill,
+                inputs((s, self.prefill_chunk), last_idx=rows()), (s,),
+                donated)
+        if self.role in ("both", "decode"):
+            programs["decode"] = _Program(
+                self._decode, inputs((s,)), (s,), donated)
+            if self.spec_k > 0:
+                k1 = self.spec_k + 1
+                programs["verify"] = _Program(
+                    self._verify, inputs((s, k1), draft_len=rows()),
+                    (s, k1 + 1), donated)
+        if self.cuda_graphs:
+            pool = torch.cuda.graph_pool_handle()
+            for prog in programs.values():
+                prog.capture(pool, self._generator)
+            # The warm-ups drew from the generator: start from the seed.
+            self._generator.manual_seed(self._seed)
+            self._params = list(self.model.parameters())
+            self._bound = self._addresses(self._params)
+            self.graph_pool_bytes = _pool_bytes(pool)
+        for name, prog in programs.items():
+            sig = abstract_signature(prog)
+            self.program_signatures[name] = sig
+            PROGRAM_REGISTRY.record(f"serve/{name}", sig)
+        return programs
+
+    def _addresses(self, params) -> tuple:
+        """Where the cache and ``params`` live: what the graphs hold."""
+        return (tuple(t.data_ptr() for layer in self.pool.cache
+                      for t in layer),
+                tuple(p.data_ptr() for p in params))
+
+    def _check_bound(self, params) -> None:
+        if self._addresses(params) != self._bound:
+            raise RuntimeError(
+                "the KV cache or the model's parameters moved after the "
+                "engine captured its programs, which hold the old "
+                "addresses: build a new engine over them"
+            )
+
+    def _run(self, name: str, **host) -> np.ndarray:
+        # Each tick: the cache as the pool holds it now and the storage of
+        # the parameters captured (a reset also checks that the model
+        # still holds those parameters).
+        if self.cuda_graphs:
+            self._check_bound(self._params)
+        return self._programs[name].run(**host)
+
+    def program_stats(self) -> dict:
+        """Per program: capture seconds, replays, the kernel launches of
+        one replay and of the warm-up (by wrapper name); and the graphs'
+        pool bytes.  Empty figures when the programs run eagerly."""
+        def named(d):
+            return {fn.__name__: n for fn, n in d.items()}
+        return {
+            "cuda_graphs": self.cuda_graphs,
+            "graph_pool_bytes": self.graph_pool_bytes,
+            "programs": {
+                name: {"capture_s": p.capture_s, "replays": p.replays,
+                       "launches_per_replay": named(p.launches),
+                       "warmup_launches": named(p.warmup_launches)}
+                for name, p in self._programs.items()
+            },
+        }
+
+    @captured
+    def _forward(self, tokens: torch.Tensor, positions: torch.Tensor,
+                 table: torch.Tensor | None):
         """Final hidden states (S, width, D) for one tick; the cache is
         written in place.  The slot-mode validity mask is built once here
-        for every layer.  The paged block table is copied to the device
-        here, synchronously: the host rewrites it on the next tick."""
-        pos = self._dev(positions)
-        cols = pos[:, None].long() + torch.arange(
+        for every layer."""
+        cols = positions[:, None].long() + torch.arange(
             tokens.shape[1], device=self.device
         )
         mask = self._mask_cols[None, None, :] <= cols[:, :, None]
-        table = (
-            torch.tensor(self.pool.block_tables, device=self.device)
-            if self.paged else None
-        )
         return self.model(
-            self._dev(tokens.astype(np.int64)), cache=self.pool.cache,
-            positions=pos, attn_mask=mask, block_table=table,
-            return_hidden=True,
+            tokens, cache=self.pool.cache, positions=positions,
+            attn_mask=mask, block_table=table, return_hidden=True,
         )
 
     @torch.no_grad()
-    def _prefill(self, tokens, positions, last_idx) -> np.ndarray:
-        hidden = self._forward(tokens, positions)
+    @captured
+    def _prefill(self, tokens: torch.Tensor, positions: torch.Tensor,
+                 last_idx: torch.Tensor, table: torch.Tensor | None = None):
+        hidden = self._forward(tokens, positions, table)
         rows = torch.arange(self.num_slots, device=self.device)
-        last = self.model.head(hidden[rows, self._dev(last_idx)])
-        return sample_logits(last, self._generator, **self._sample_kw).cpu().numpy()
+        last = self.model.head(hidden[rows, last_idx])
+        return sample_logits(last, self._generator, **self._sample_kw)
 
     @torch.no_grad()
-    def _decode(self, tokens, positions) -> np.ndarray:
-        logits = self.model.head(self._forward(tokens[:, None], positions))
-        return sample_logits(
-            logits[:, 0], self._generator, **self._sample_kw
-        ).cpu().numpy()
+    @captured
+    def _decode(self, tokens: torch.Tensor, positions: torch.Tensor,
+                table: torch.Tensor | None = None):
+        logits = self.model.head(self._forward(tokens[:, None], positions,
+                                               table))
+        return sample_logits(logits[:, 0], self._generator, **self._sample_kw)
 
     @torch.no_grad()
-    def _verify(self, tokens, positions, draft_len):
+    @captured
+    def _verify(self, tokens: torch.Tensor, positions: torch.Tensor,
+                draft_len: torch.Tensor, table: torch.Tensor | None = None):
         """Score the pending token + drafts of every slot in one forward.
-        Returns (emission (S, k+1), accepted (S,)) as numpy: row s emits
-        ``emission[s, :accepted[s] + 1]``."""
+        Returns (S, k+2): the emission (S, k+1) and the accepted count in
+        the last column; row s emits ``emission[s, :accepted[s] + 1]``."""
         kw = self._sample_kw
-        logits = self.model.head(self._forward(tokens, positions))
+        logits = self.model.head(self._forward(tokens, positions, table))
         s, k1 = tokens.shape
-        tok = self._dev(tokens.astype(np.int64))
-        dlen = self._dev(draft_len.astype(np.int64))
-        draft = tok[:, 1:]
-        in_draft = torch.arange(k1 - 1, device=self.device)[None] < dlen[:, None]
+        draft = tokens[:, 1:]
+        in_draft = (torch.arange(k1 - 1, device=self.device)[None]
+                    < draft_len[:, None])
         if kw["temperature"] == 0.0 or kw["top_k"] == 1:
             # chain[s, j] = greedy next token after tokens[s, :j+1]; an
             # accepted draft token equals its chain entry, so the emission
@@ -335,20 +572,27 @@ class ServingEngine:
             rejected_tok = draft.gather(
                 1, accepted.clamp(0, k1 - 2)[:, None]
             )[:, 0]
-            was_rejection = accepted < dlen
+            was_rejection = accepted < draft_len
             residual = torch.where(
                 was_rejection[:, None]
                 & (torch.arange(vocab, device=self.device)[None]
                    == rejected_tok[:, None]),
                 torch.zeros_like(bonus_probs), bonus_probs,
             )
-            bonus = torch.multinomial(residual, 1, generator=self._generator)
+            bonus = draw_categorical(residual, self._generator)[:, None]
             draft_pad = torch.cat([draft, torch.zeros_like(draft[:, :1])], 1)
             out = torch.where(
                 torch.arange(k1, device=self.device)[None] < accepted[:, None],
                 draft_pad, bonus,
             )
-        return out.cpu().numpy(), accepted.cpu().numpy()
+        return torch.cat([out, accepted[:, None]], dim=1)
+
+    def _tick_inputs(self, **host) -> dict:
+        """A tick's host arrays, with the paged block table as the host
+        allocated it for this tick."""
+        if self.paged:
+            host["table"] = self.pool.block_tables
+        return host
 
     # ------------------------------------------------------------------ #
     # slot admission / retirement
@@ -539,7 +783,8 @@ class ServingEngine:
             if self.spans_replica is not None:
                 span_kw["replica"] = self.spans_replica
         with phase_span(self.spans, "serve/prefill", **span_kw):
-            tok = self._prefill(tokens, positions, last_idx)
+            tok = self._run("prefill", **self._tick_inputs(
+                tokens=tokens, positions=positions, last_idx=last_idx))
         self.prefill_ticks += 1
         events: list[Event] = []
         for i, sl in batch:
@@ -573,7 +818,8 @@ class ServingEngine:
             if self.spans_replica is not None:
                 span_kw["replica"] = self.spans_replica
         with phase_span(self.spans, "serve/decode", **span_kw):
-            tok = self._decode(tokens, positions)
+            tok = self._run("decode", **self._tick_inputs(
+                tokens=tokens, positions=positions))
         events: list[Event] = []
         self.decode_ticks += 1
         self.decode_slot_ticks += len(batch)
@@ -633,7 +879,9 @@ class ServingEngine:
             if self.spans_replica is not None:
                 span_kw["replica"] = self.spans_replica
         with phase_span(self.spans, "serve/verify", **span_kw) as vspan:
-            out, accepted = self._verify(tokens, positions, dlen)
+            res = self._run("verify", **self._tick_inputs(
+                tokens=tokens, positions=positions, draft_len=dlen))
+            out, accepted = res[:, :-1], res[:, -1]
             if vspan is not None:
                 vspan.attrs["accepted"] = int(accepted[
                     [i for i, _ in batch]].sum())
@@ -799,7 +1047,9 @@ class ServingEngine:
         index and the counters, and rewind the sampling generator to the
         seed: a leg run on a reused engine sees the state a fresh engine
         would.  The shared ``NgramIndex`` is cleared in place, never
-        replaced (the router shares one index across replicas)."""
+        replaced (the router shares one index across replicas).  The
+        cache stays where it is, so the captured programs replay on; with
+        graphs, it raises if the cache or the model's parameters moved."""
         self._slots = [None] * self.num_slots
         self.slot_cap = None
         self.pool.reset()
@@ -814,3 +1064,5 @@ class ServingEngine:
         self._generator.manual_seed(self._seed)
         if self.drafter is not None and self.drafter.index is not None:
             self.drafter.index.clear()
+        if self.cuda_graphs:
+            self._check_bound(list(self.model.parameters()))

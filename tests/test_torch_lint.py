@@ -182,6 +182,31 @@ FIRES = [
             k = torch.argmax(scores)
             return lrs[k + 1]
      """), [("host-read", 5), ("host-read", 9)]),
+    ("host-read", "captured-body", SERVE, _src("""
+        import torch
+
+        from .engine import captured
+
+        @captured
+        def body(positions: torch.Tensor):
+            return int(positions.max())
+     """), [("host-read", 7)]),
+    ("host-clock-in-capture", "clock-and-spans", SERVE, _src("""
+        import time
+        from time import perf_counter_ns
+
+        from ..obs.trace import phase_span
+        from . import engine
+
+        @engine.captured
+        def body(spans, x):
+            t0 = time.perf_counter()
+            with phase_span(spans, "serve/decode"):
+                y = x + 1
+            spans.span("serve/verify")
+            return y, perf_counter_ns() - t0
+     """), [("host-clock-in-capture", 9), ("host-clock-in-capture", 10),
+            ("host-clock-in-capture", 12), ("host-clock-in-capture", 13)]),
     ("global-rng", "torch-draws", f"{PKG}/models/fixture.py", _src("""
         import torch
 
@@ -300,6 +325,26 @@ NEAR = [
         def f(x: torch.Tensor):
             return x.sum().item()
      """)),
+    # Spans and clocks around the replay, not in the body; a regex
+    # match's span(1) inside it.
+    ("host-clock-in-capture", "around-the-replay", SERVE, _src("""
+        import re
+        import time
+
+        from ..obs.trace import phase_span
+        from .engine import captured
+
+        @captured
+        def body(x, name):
+            m = re.match(r"(a)", name)
+            return x + 1, m.span(1)
+
+        def tick(spans, x):
+            t0 = time.perf_counter()
+            with phase_span(spans, "serve/decode"):
+                y = body(x, "a")
+            return y, time.perf_counter() - t0
+     """)),
     ("global-rng", "explicit-generators", f"{PKG}/models/fixture.py",
      _src("""
         import random as stdlib_random
@@ -384,6 +429,31 @@ def test_every_rule_is_documented_and_has_fixtures():
     for rule_id, rule in RULES.items():
         assert rule.rule_id == rule_id and rule.description and rule.fixit
     assert {r for r, *_ in FIRES} == set(RULES) == {r for r, *_ in NEAR}
+
+
+def test_clock_rule_twins_jax_on_the_same_body():
+    """JAX's ``host-clock-in-trace`` on a jitted body and the port's
+    ``host-clock-in-capture`` on the same body captured: the same lines."""
+    body = _src("""
+        import time
+
+        from {mod} import {deco}
+
+        @{deco}
+        def step(spans, x):
+            t0 = time.monotonic()
+            spans.start_span("serve/decode")
+            return x + 1, time.perf_counter() - t0
+     """)
+    jax_src = body.format(mod="jax", deco="jit")
+    port_src = body.format(mod=".engine", deco="captured")
+    want = [(f.rule, f.line) for f in jax_lint_source(
+        jax_src, "pytorch_distributed_training_tpu/serve/fixture.py")
+        if f.rule == "host-clock-in-trace"]
+    got = [(f.rule, f.line) for f in lint_source(port_src, SERVE)]
+    assert [line for _, line in want] == [line for _, line in got] \
+        == [7, 8, 9]
+    assert {r for r, _ in got} == {"host-clock-in-capture"}
 
 
 def test_rule_filter_and_unknown_rules():
